@@ -1,0 +1,201 @@
+"""Text -> watermarked image pipeline in PyTorch.
+
+The port of `aqualora_tpu/diffusion/pipeline.py:33-224` for the serving
+path: CLIP encode, the CFG denoise loop of the U-Net under DDIM, VAE
+decode.  The watermark enters through the MapperNet diagonal:
+`fold_message(msg)` folds `mapper(msg) * 1.03` into the U-Net's LoRA sites
+once, and generation then runs the plain U-Net.
+
+Unlike the JAX pipeline, whose parameters travel separately, the weights
+live in the modules (`pipe.clip`, `pipe.unet`, `pipe.vae`, `pipe.mapper`) on
+`device`, which is "cuda" unless the caller asks for the CPU.  Public
+functions keep the JAX package's layouts: latents and images are NHWC, and
+images come back in [-1, 1].
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from aqualora_torch.core.config import PipelineConfig
+from aqualora_torch.core.convert import jax_params_to_torch
+from aqualora_torch.diffusion.samplers import SAMPLERS
+from aqualora_torch.diffusion.schedule import NoiseSchedule
+from aqualora_torch.models.clip import CLIPTextModel
+from aqualora_torch.models.lora import fold_lora_tree
+from aqualora_torch.models.unet import UNet2DConditionModel
+from aqualora_torch.models.vae import AutoencoderKL
+from aqualora_torch.models.watermark import MapperNet
+
+_NORMS = (nn.GroupNorm, nn.LayerNorm, nn.BatchNorm2d)
+
+
+@torch.no_grad()
+def init_module_weights(module: nn.Module, generator: torch.Generator) -> None:
+    """Seeded random weights, the rule of the JAX pipeline's
+    `fast_init_params`: ones for norm scales, zeros for biases, N(0, 1/fan_in)
+    for everything else, with fan_in the input width (a weight's input
+    channels; an embedding table's row count).  BatchNorm statistics start
+    at mean 0, variance 1."""
+    norm_weights = set()
+    for m in module.modules():
+        if isinstance(m, _NORMS):
+            if m.weight is not None:
+                norm_weights.add(id(m.weight))
+            if isinstance(m, nn.BatchNorm2d):
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)
+    embeddings = {id(m.weight) for m in module.modules()
+                  if isinstance(m, nn.Embedding)}
+    for name, p in module.named_parameters():
+        if id(p) in norm_weights:
+            p.fill_(1.0)
+        elif name.endswith("bias"):
+            p.zero_()
+        else:
+            fan_in = p.shape[0] if id(p) in embeddings else p.shape[1]
+            noise = torch.randn(p.shape, generator=generator,
+                                device=generator.device, dtype=torch.float32)
+            p.copy_(noise * fan_in ** -0.5)
+
+
+class StableDiffusionPipeline:
+    """CLIP + U-Net + VAE decoder + MapperNet on one device."""
+
+    def __init__(self, config: PipelineConfig, dtype=torch.float32,
+                 device: str | torch.device = "cuda"):
+        self.config = config
+        self.dtype = dtype
+        self.device = torch.device(device)
+        with self.device:
+            self.clip = CLIPTextModel(config.clip)
+            self.unet = UNet2DConditionModel(config.unet)
+            self.vae = AutoencoderKL(config.vae)
+            wm = config.watermark
+            self.mapper = MapperNet(wm.msg_bits, wm.lora_rank, wm.mapper_std)
+        for m in self.modules():
+            m.to(dtype).eval().requires_grad_(False)
+        self.schedule = NoiseSchedule.create(config.schedule, self.device)
+
+    def modules(self):
+        return (self.clip, self.unet, self.vae, self.mapper)
+
+    # -- weights -------------------------------------------------------------
+    def init_params(self, seed: int = 0) -> None:
+        """Seeded random weights on the device (see init_module_weights)."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        for m in self.modules():
+            init_module_weights(m, gen)
+
+    def load_jax_params(self, params: dict) -> None:
+        """Load a JAX pipeline's parameter tree ({"text_encoder", "unet",
+        "vae", "mapper"}, numpy leaves) strictly.  The VAE encoder's keys are
+        dropped: only the decode half is ported."""
+        for name, module in (("text_encoder", self.clip), ("unet", self.unet),
+                             ("vae", self.vae), ("mapper", self.mapper)):
+            state = jax_params_to_torch(params[name])
+            if name == "vae":
+                state = {k: v for k, v in state.items()
+                         if not k.startswith(("encoder.", "quant_conv."))}
+            module.load_state_dict(state, strict=True)
+
+    def load_state_from(self, other: "StableDiffusionPipeline") -> None:
+        """Copy another pipeline's weights (any device, same config)."""
+        for mine, theirs in zip(self.modules(), other.modules()):
+            mine.load_state_dict(theirs.state_dict())
+
+    # -- pieces ----------------------------------------------------------------
+    def _ids(self, input_ids) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(input_ids), dtype=torch.long,
+                               device=self.device)
+
+    @torch.no_grad()
+    def encode_prompt(self, input_ids) -> torch.Tensor:
+        """token ids [B, 77] -> text embeddings [B, 77, C].  A text tower
+        with LoRA applies it at float scale 1.0, as the JAX pipeline does."""
+        c = self.config.clip
+        te_scale = 1.0 if (c.lora and c.lora.enabled) else None
+        return self.clip(self._ids(input_ids), te_scale)
+
+    @torch.no_grad()
+    def _decode(self, latents_nchw: torch.Tensor) -> torch.Tensor:
+        z = latents_nchw / self.config.vae.scaling_factor
+        return self.vae.decode(z).clamp(-1.0, 1.0)
+
+    def decode_latents(self, latents: torch.Tensor) -> torch.Tensor:
+        """latents NHWC -> images NHWC in [-1, 1] (float32)."""
+        img = self._decode(latents.to(self.device).permute(0, 3, 1, 2))
+        return img.permute(0, 2, 3, 1)
+
+    @torch.no_grad()
+    def message_scale(self, msg: torch.Tensor,
+                      multiplier: float | None = None) -> torch.Tensor:
+        """msg bits [B, N] -> diagonal LoRA scale [B, rank] (x 1.03)."""
+        diag = self.mapper(torch.as_tensor(msg, device=self.device))
+        if multiplier is None:
+            multiplier = self.config.watermark.inference_scale
+        return diag * multiplier
+
+    def fold_message(self, msg: torch.Tensor,
+                     multiplier: float | None = None) -> None:
+        """Fold one message into the U-Net weights, in place (call it once
+        per set of weights).  msg: [bits] or [1, bits]."""
+        diag = self.message_scale(torch.as_tensor(msg).reshape(1, -1),
+                                  multiplier)[0]
+        fold_lora_tree(self.unet, diag,
+                       alpha_scale=self.config.unet.lora.alpha_scale)
+
+    # -- the generator -----------------------------------------------------------
+    def make_generate(self, num_steps: int = 25, sampler: str = "ddim",
+                      height: int = 512, width: int = 512):
+        """Returns generate(prompt_ids, neg_ids, guidance_scale=7.5,
+        lora_scale=None, z=None, generator=None) -> images NHWC in [-1, 1].
+
+        `z` is an optional initial latent [B, h, w, C] (NHWC, as the JAX
+        side draws it); without it one is drawn with `generator`.
+        lora_scale: None (folded or no LoRA) or a [B, rank] diagonal."""
+        if sampler not in SAMPLERS:
+            raise ValueError(f"sampler {sampler!r} is not ported; have "
+                             f"{sorted(SAMPLERS)}")
+        run_sampler = SAMPLERS[sampler]
+        cfg = self.config
+        lh, lw = height // cfg.vae.downscale, width // cfg.vae.downscale
+        v_pred = cfg.unet.prediction_type == "v_prediction"
+
+        @torch.no_grad()
+        def generate(prompt_ids, neg_ids, guidance_scale: float = 7.5,
+                     lora_scale: Optional[torch.Tensor] = None,
+                     z: Optional[torch.Tensor] = None,
+                     generator: Optional[torch.Generator] = None):
+            # CFG batch order [uncond, cond]
+            context = torch.cat([self.encode_prompt(neg_ids),
+                                 self.encode_prompt(prompt_ids)], dim=0)
+            b = len(prompt_ids)
+            scale2 = (None if lora_scale is None
+                      else torch.cat([lora_scale, lora_scale], dim=0))
+            if z is None:
+                z = torch.randn((b, lh, lw, cfg.unet.in_channels),
+                                generator=generator, device=self.device)
+            x = z.to(self.device, torch.float32).permute(0, 3, 1, 2)
+
+            def denoise(x, t):
+                x2 = torch.cat([x, x], dim=0).to(self.dtype)
+                tb = t.expand(2 * b)
+                out = self.unet(x2, tb, context, scale2)
+                if v_pred:
+                    ti = tb.long().clamp(0, cfg.schedule.num_train_timesteps
+                                         - 1)
+                    out = self.schedule.velocity_to_epsilon(out, x2.float(),
+                                                            ti)
+                eps_u, eps_c = out.chunk(2, dim=0)
+                return eps_u + guidance_scale * (eps_c - eps_u)
+
+            latents = run_sampler(self.schedule, denoise, x.contiguous(),
+                                  num_steps, generator=generator)
+            return self._decode(latents).permute(0, 2, 3, 1)
+
+        return generate

@@ -1,0 +1,126 @@
+"""The port's flash-attention forward against the JAX package.
+
+The plain version (`flash_attention_plain`, what a CPU tensor runs) is held
+against the Pallas kernel in interpret mode and against `_xla_attention`;
+the CUDA kernel itself is held against the plain version on the card by
+tests/test_torch_port_cuda.py and chip_smoke.py."""
+
+import contextlib
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from aqualora_torch.ops import flash_attention as fa
+from aqualora_torch.ops.attention import dot_product_attention
+
+
+@contextlib.contextmanager
+def _interpret_pallas():
+    from jax.experimental import pallas as pl
+    orig = pl.pallas_call
+
+    def interp_call(*args, **kw):
+        kw["interpret"] = True
+        return orig(*args, **kw)
+
+    pl.pallas_call = interp_call
+    try:
+        yield
+    finally:
+        pl.pallas_call = orig
+
+
+def _qkv(seed, b, h, tq, tk, d):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal((b, h, t, d), dtype=np.float32)
+                 for t in (tq, tk, tk))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_plain_matches_pallas_interpret(d):
+    """O and the row logsumexp of the Pallas forward (interpret mode) equal
+    the port's plain version within 2e-5 (float32)."""
+    import aqualora_tpu.ops.flash_attention as F
+
+    q, k, v = _qkv(d, 1, 2, 256, 384, d)
+    scale = d ** -0.5
+    with _interpret_pallas():
+        out, lse = F._flash_forward(jax.numpy.asarray(q), jax.numpy.asarray(k),
+                                    jax.numpy.asarray(v), scale,
+                                    need_lse=True)
+    o_t, lse_t = fa.flash_attention_plain(torch.from_numpy(q),
+                                          torch.from_numpy(k),
+                                          torch.from_numpy(v), scale)
+    np.testing.assert_allclose(o_t.numpy(), np.asarray(out), atol=2e-5)
+    np.testing.assert_allclose(lse_t.numpy(), np.asarray(lse)[..., 0],
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("d,tq,tk", [(40, 64, 77), (80, 96, 77),
+                                     (40, 50, 50), (160, 16, 77)])
+def test_plain_matches_xla_attention(d, tq, tk):
+    """The SD-1.5 head dims and the 77-token cross-attention, which the
+    Pallas kernel does not take, against `_xla_attention`."""
+    from aqualora_tpu.ops.attention import _xla_attention
+
+    q, k, v = _qkv(tq + d, 2, 3, tq, tk, d)
+    scale = d ** -0.5
+    ref = _xla_attention(jax.numpy.asarray(q), jax.numpy.asarray(k),
+                         jax.numpy.asarray(v), None, scale)
+    o_t, _ = fa.flash_attention_plain(torch.from_numpy(q), torch.from_numpy(k),
+                                      torch.from_numpy(v), scale)
+    np.testing.assert_allclose(o_t.numpy(), np.asarray(ref), atol=2e-5)
+
+
+def test_masked_dispatch_matches_xla_attention():
+    """CLIP's causal mask goes to the plain path, `_xla_attention`'s
+    counterpart, and never to the kernel."""
+    from aqualora_tpu.ops.attention import _xla_attention
+
+    q, k, v = _qkv(3, 2, 4, 77, 77, 16)
+    mask = np.tril(np.ones((77, 77), bool))[None, None]
+    ref = _xla_attention(jax.numpy.asarray(q), jax.numpy.asarray(k),
+                         jax.numpy.asarray(v), jax.numpy.asarray(mask),
+                         0.25)
+    before = fa.launches.count
+    out = dot_product_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                torch.from_numpy(v),
+                                mask=torch.from_numpy(mask), scale=0.25)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-5)
+    assert fa.launches.count == before
+
+
+def test_wrapper_on_cpu_takes_plain_path():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(4, 1, 2, 33, 77, 40))
+    before = fa.launches.count
+    o, lse = fa.flash_attention_fwd(q, k, v, 0.2)
+    o_ref, lse_ref = fa.flash_attention_plain(q, k, v, 0.2)
+    assert torch.equal(o, o_ref) and torch.equal(lse, lse_ref)
+    assert lse.shape == (1, 2, 33) and lse.dtype == torch.float32
+    assert fa.launches.count == before       # no kernel launch on the CPU
+    out = dot_product_attention(q, k, v, scale=0.2)
+    assert torch.equal(out, o_ref)
+
+
+@pytest.mark.parametrize("case", ["rank", "dtype", "mixed_dtype", "head_dim",
+                                  "contiguity", "kv_shape"])
+def test_wrapper_rejects_unsupported_input(case):
+    q = torch.randn(1, 2, 8, 16)
+    k = torch.randn(1, 2, 8, 16)
+    v = torch.randn(1, 2, 8, 16)
+    if case == "rank":
+        q, k, v = q[0], k[0], v[0]
+    elif case == "dtype":
+        q, k, v = q.half(), k.half(), v.half()
+    elif case == "mixed_dtype":
+        k = k.bfloat16()
+    elif case == "head_dim":
+        q, k, v = (torch.randn(1, 1, 4, 520) for _ in range(3))
+    elif case == "contiguity":
+        q = torch.randn(1, 8, 2, 16).transpose(1, 2)
+    elif case == "kv_shape":
+        v = torch.randn(1, 2, 9, 16)
+    with pytest.raises((ValueError, TypeError)):
+        fa.flash_attention_fwd(q, k, v, 0.25)

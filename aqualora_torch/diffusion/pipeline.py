@@ -2,7 +2,8 @@
 
 The port of `aqualora_tpu/diffusion/pipeline.py:33-224` for the serving
 path: CLIP encode, the CFG denoise loop of the U-Net under DDIM, VAE
-decode.  The watermark enters through the MapperNet diagonal:
+decode.  The PPFT trainer (`train/ppft_train.py`) drives the same modules,
+the VAE encoder included.  The watermark enters through the MapperNet diagonal:
 `fold_message(msg)` folds `mapper(msg) * 1.03` into the U-Net's LoRA sites
 once, and generation then runs the plain U-Net.
 
@@ -64,7 +65,7 @@ def init_module_weights(module: nn.Module, generator: torch.Generator) -> None:
 
 
 class StableDiffusionPipeline:
-    """CLIP + U-Net + VAE decoder + MapperNet on one device."""
+    """CLIP + U-Net + VAE + MapperNet on one device."""
 
     def __init__(self, config: PipelineConfig, dtype=torch.float32,
                  device: str | torch.device = "cuda"):
@@ -93,15 +94,11 @@ class StableDiffusionPipeline:
 
     def load_jax_params(self, params: dict) -> None:
         """Load a JAX pipeline's parameter tree ({"text_encoder", "unet",
-        "vae", "mapper"}, numpy leaves) strictly.  The VAE encoder's keys are
-        dropped: only the decode half is ported."""
+        "vae", "mapper"}, numpy leaves) strictly, the whole VAE included."""
         for name, module in (("text_encoder", self.clip), ("unet", self.unet),
                              ("vae", self.vae), ("mapper", self.mapper)):
-            state = jax_params_to_torch(params[name])
-            if name == "vae":
-                state = {k: v for k, v in state.items()
-                         if not k.startswith(("encoder.", "quant_conv."))}
-            module.load_state_dict(state, strict=True)
+            module.load_state_dict(jax_params_to_torch(params[name]),
+                                   strict=True)
 
     def load_state_from(self, other: "StableDiffusionPipeline") -> None:
         """Copy another pipeline's weights (any device, same config)."""

@@ -16,7 +16,7 @@ Traps the JAX side pinned, kept here:
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -84,13 +84,23 @@ class ResnetBlock2D(nn.Module):
 
 
 class Downsample2D(nn.Module):
-    """Stride-2 3x3 conv, padding 1."""
+    """Stride-2 3x3 conv.  `pad` is ((top, bottom), (left, right)) as in the
+    JAX module: ((1, 1), (1, 1)) in the U-Net, the asymmetric ((0, 1), (0,
+    1)) in the VAE encoder, which is a zero pad before an unpadded conv."""
 
-    def __init__(self, channels: int, out_channels: int):
+    def __init__(self, channels: int, out_channels: int,
+                 pad: Tuple[Tuple[int, int], Tuple[int, int]] = ((1, 1),
+                                                                (1, 1))):
         super().__init__()
-        self.conv = nn.Conv2d(channels, out_channels, 3, stride=2, padding=1)
+        (top, bottom), (left, right) = pad
+        symmetric = top == bottom == left == right
+        self.pad = None if symmetric else (left, right, top, bottom)
+        self.conv = nn.Conv2d(channels, out_channels, 3, stride=2,
+                              padding=top if symmetric else 0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.pad is not None:
+            x = F.pad(x, self.pad)
         return self.conv(x)
 
 

@@ -8,8 +8,11 @@ an optional `lora.{down,up}` pair.  `DiagScale` values accepted everywhere:
   float or 0-dim tensor     -> standard LoRA: base + s * up(down(h))
   [rank] or [B, rank] tensor -> diagonal modulation between down and up
 
-Every branch is multiplied by the config's `alpha_scale`.  The kohya
-dropouts are training-only and are not ported yet.
+Every branch is multiplied by the config's `alpha_scale`.  The LoRA
+weights take the activation's type at every call, as flax's `dtype=` casts
+the kernel to the compute type, so float32 trainable LoRA weights run under
+a bfloat16 U-Net (the PPFT trainer's mixed precision).  The kohya dropouts
+are training-only and are not ported yet.
 """
 
 from __future__ import annotations
@@ -31,13 +34,15 @@ def _is_diag(scale: DiagScale) -> bool:
 
 def _apply_diag(h: torch.Tensor, scale: torch.Tensor,
                 rank_dim: int) -> torch.Tensor:
-    """Multiply the rank dim of `h` by a [rank] or per-sample [B, rank]."""
-    scale = scale.to(h.dtype)
+    """Multiply the rank dim of `h` by a [rank] or per-sample [B, rank].
+    The product is taken in the promoted type (a float32 scale on a bf16
+    `h` multiplies in float32) and returned in h's, as the JAX side's
+    `h * scale` is cast by the up layer."""
     shape = [1] * h.dim()
     shape[rank_dim] = scale.shape[-1]
     if scale.dim() == 2:
         shape[0] = scale.shape[0]
-    return h * scale.reshape(shape)
+    return (h * scale.reshape(shape)).to(h.dtype)
 
 
 def _scale_delta(h: torch.Tensor, scale: DiagScale) -> torch.Tensor:
@@ -55,10 +60,11 @@ class _LoRACore(nn.Module):
         self.up = nn.Linear(rank, out_features, bias=False)
 
     def forward(self, x: torch.Tensor, scale: DiagScale) -> torch.Tensor:
-        h = self.down(x)
+        h = F.linear(x, self.down.weight.to(x.dtype))
         if _is_diag(scale):
-            return self.up(_apply_diag(h, scale, -1))
-        return _scale_delta(self.up(h), scale)
+            h = _apply_diag(h, scale, -1)
+        h = F.linear(h, self.up.weight.to(x.dtype))
+        return h if _is_diag(scale) else _scale_delta(h, scale)
 
 
 class _LoRAConvCore(nn.Module):
@@ -72,10 +78,12 @@ class _LoRAConvCore(nn.Module):
         self.up = nn.Conv2d(rank, out_channels, 1, bias=False)
 
     def forward(self, x: torch.Tensor, scale: DiagScale) -> torch.Tensor:
-        h = self.down(x)
+        d = self.down
+        h = F.conv2d(x, d.weight.to(x.dtype), None, d.stride, d.padding)
         if _is_diag(scale):
-            return self.up(_apply_diag(h, scale, 1))
-        return _scale_delta(self.up(h), scale)
+            h = _apply_diag(h, scale, 1)
+        h = F.conv2d(h, self.up.weight.to(x.dtype))
+        return h if _is_diag(scale) else _scale_delta(h, scale)
 
 
 def _enabled(lora: Optional[LoRAConfig]) -> bool:

@@ -1,6 +1,13 @@
-"""SecretDecoder and MapperNet in PyTorch.
+"""SecretEncoder, SecretDecoder and MapperNet in PyTorch.
 
-The port of `aqualora_tpu/models/watermark.py:74-119`:
+The port of `aqualora_tpu/models/watermark.py:42-119`:
+
+  SecretEncoder: message bits [B, bits] -> additive latent watermark:
+    Linear(bits -> base^2) -> SiLU -> [B, 1, base, base] repeated to the
+    latent's channels -> nearest x(resolution / base) -> zero-init 3x3 conv;
+    `forward(x, msg)` bilinearly resizes it to x's size and returns
+    (x + c, c).  At a latent of side 2 * base the PPFT trainer takes the
+    fused kernel instead (`ops/secret_inject.py`).
 
   SecretDecoder: image NCHW in [-1, 1] -> per-bit 2-way logits
     [B, bits, 2]: bilinear resize to the backbone's resolution, then
@@ -8,8 +15,6 @@ The port of `aqualora_tpu/models/watermark.py:74-119`:
   MapperNet: message bits [B, bits] -> diagonal LoRA scale [B, rank]:
     sum of the message-selected rows of `bit_embeddings` / sqrt(bits) + 1.
     `std` is baked into the weight at init, never a forward multiplier.
-
-The SecretEncoder is training-side and is not ported yet.
 """
 
 from __future__ import annotations
@@ -20,10 +25,44 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from aqualora_torch.core.config import EfficientNetConfig
 from aqualora_torch.models.efficientnet import EfficientNet
 from aqualora_torch.ops.resize import bilinear_resize
+
+
+class SecretEncoder(nn.Module):
+    """Runs in its weights' type; `secret_dense` and `conv_out` are the JAX
+    module's names."""
+
+    def __init__(self, secret_len: int, base_res: int = 32,
+                 resolution: int = 64, latent_channels: int = 4):
+        super().__init__()
+        self.base_res = base_res
+        self.resolution = resolution
+        self.latent_channels = latent_channels
+        self.secret_dense = nn.Linear(secret_len, base_res * base_res)
+        self.conv_out = nn.Conv2d(latent_channels, latent_channels, 3,
+                                  padding=1)
+        # zero-init conv: training starts from an identity injection
+        nn.init.zeros_(self.conv_out.weight)
+        nn.init.zeros_(self.conv_out.bias)
+
+    def encode(self, msg: torch.Tensor) -> torch.Tensor:
+        """msg [B, bits] -> watermark [B, C, resolution, resolution]."""
+        w = self.secret_dense.weight
+        h = F.silu(self.secret_dense(msg.to(w.dtype)))
+        b, r = h.shape[0], self.base_res
+        h = h.reshape(b, 1, r, r).expand(b, self.latent_channels, r, r)
+        factor = self.resolution // r
+        if factor > 1:
+            h = F.interpolate(h, scale_factor=float(factor), mode="nearest")
+        return self.conv_out(h)
+
+    def forward(self, x: torch.Tensor, msg: torch.Tensor):
+        c = bilinear_resize(self.encode(msg), x.shape[2], x.shape[3])
+        return x + c, c
 
 
 class SecretDecoder(nn.Module):

@@ -1,0 +1,137 @@
+"""Build the `csrc/*.cu` sources with nvcc and load them with ctypes.
+
+Every hand-written kernel of the port has a plain C interface and is built
+the same way: `nvcc -gencode arch=compute_90a,code=sm_90a -shared` into
+`aqualora_torch/_build/lib<name>_<hash>.so`, where the hash is of the
+source's content, so an edited source is rebuilt and an unchanged one is
+loaded as it is.  A kernel's wrapper builds on first use, never at import;
+`build_all` starts one nvcc per source at once.  A failed build raises;
+nothing falls back.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import Dict, Iterable
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+class LaunchCounter:
+    """Counts one kernel's launches: `count` in all, `by_shape[key]` per
+    shape.  Only the wrapper's launch site adds to it."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.count = 0
+        self.by_shape: collections.Counter = collections.Counter()
+
+    def add(self, *shape: int) -> None:
+        self.count += 1
+        self.by_shape[shape] += 1
+
+
+def nvcc() -> str:
+    """nvcc on PATH, else under the toolkit PyTorch finds (CUDA_HOME)."""
+    path = shutil.which("nvcc")
+    if path is None:
+        from torch.utils.cpp_extension import CUDA_HOME
+        if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+            path = os.path.join(CUDA_HOME, "bin", "nvcc")
+    if path is None:
+        raise RuntimeError("nvcc not found: the port's kernels are built from "
+                           "aqualora_torch/csrc with the CUDA toolkit")
+    return path
+
+
+def _library(name: str) -> Path:
+    source = CSRC / f"{name}.cu"
+    tag = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}_{tag}.so"
+
+
+def build_all(names: Iterable[str], verbose: bool = False
+              ) -> Dict[str, float]:
+    """Compile every csrc/<name>.cu not built yet, one nvcc each, all
+    started together, and load them.  Returns each build's seconds from the
+    common start to its end (0.0 for a library already built).  With
+    `verbose`, ptxas's register and spill report is printed."""
+    names = [n for n in names if n not in _loaded]
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    seconds = {name: 0.0 for name in names}
+    running = {}
+    t0 = time.perf_counter()
+    for name in names:
+        so = _library(name)
+        if so.exists():
+            continue
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        log = tempfile.TemporaryFile(mode="w+")
+        cmd = [nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+               "-Xptxas", "-v", "-o", tmp, str(CSRC / f"{name}.cu")]
+        running[name] = (subprocess.Popen(cmd, stdout=log,
+                                          stderr=subprocess.STDOUT),
+                         log, tmp, so)
+    failed = []
+    while running:
+        for name in list(running):
+            proc, log, tmp, so = running[name]
+            if proc.poll() is None:
+                continue
+            del running[name]
+            seconds[name] = time.perf_counter() - t0
+            log.seek(0)
+            out = log.read()
+            log.close()
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                failed.append(f"nvcc failed on {name}.cu "
+                              f"({proc.returncode}):\n{out}")
+                continue
+            if verbose:
+                print(out, end="")
+            os.replace(tmp, so)
+        time.sleep(0.05)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    for name in names:
+        _loaded[name] = ctypes.CDLL(str(_library(name)))
+    return seconds
+
+
+def build(name: str) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu, built first if need be."""
+    if name not in _loaded:
+        build_all([name])
+    return _loaded[name]
+
+
+def bind(lib: ctypes.CDLL, symbol: str, argtypes) -> ctypes._CFuncPtr:
+    """The C function `symbol` with its argument types; it returns the
+    cudaError_t of its launch as an int."""
+    fn = getattr(lib, symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check_launch(err: int, what: str) -> None:
+    """Raise if a launch's cudaError_t is not cudaSuccess."""
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed with cudaError {err}")

@@ -2,13 +2,18 @@
 
 `dot_product_attention(q, k, v, mask=None, scale=None)` on [B, H, T, D]:
 
-- every unmasked call goes to `flash_attention_fwd`, which runs the Hopper
-  kernel on a CUDA tensor and the plain version on a CPU tensor.  That
-  covers the U-Net's self-attention (T = 4096/1024/256/64 at 512 px), its
-  cross-attention (Tk = 77) and the VAE mid-block (d = 512);
-- masked calls (CLIP's causal mask) take `plain_attention`, the counterpart
-  of the JAX package's `_xla_attention`.  The JAX package also keeps masked
-  attention off its Pallas kernel.
+- every unmasked call goes through the autograd function `flash_attention`
+  (`FlashAttention`), which runs the Hopper kernels on a CUDA tensor and
+  the plain versions on a CPU tensor.  When no input requires grad (serving,
+  the PPFT teacher, the VAE) that is the forward kernel's single launch, as
+  before; when one does (the PPFT student), its backward is the dQ and
+  dK/dV kernels.  That covers the U-Net's self-attention (T =
+  4096/1024/256/64 at 512 px), its cross-attention (Tk = 77) and the VAE
+  mid-block (d = 512, forward only);
+- masked calls (CLIP's causal mask) stay on `plain_attention`, the
+  counterpart of the JAX package's `_xla_attention`, which torch's autograd
+  differentiates.  The JAX package also keeps masked attention off its
+  Pallas kernels.
 
 This deliberately departs from the JAX dispatcher.  Its `flash_shapes_ok`
 gate (d >= 64, T >= 1024, lengths divisible by 128) and its dispatch
@@ -27,7 +32,7 @@ from typing import Optional
 
 import torch
 
-from aqualora_torch.ops.flash_attention import flash_attention_fwd
+from aqualora_torch.ops.flash_attention import flash_attention
 
 
 def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -50,5 +55,5 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scale = q.shape[-1] ** -0.5
     if mask is not None:
         return plain_attention(q, k, v, mask, scale)
-    return flash_attention_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
-                               scale)[0]
+    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           scale)

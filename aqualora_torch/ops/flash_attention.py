@@ -1,116 +1,107 @@
-"""Flash-attention forward: the Hopper CUDA kernel, its wrapper and its plain version.
+"""Flash attention on Hopper: the CUDA kernels, their wrappers, their plain
+versions and the autograd function that joins them.
 
-`flash_attention_fwd(q, k, v, scale) -> (o, lse)` computes unmasked
-softmax(q k^T * scale) v over [B, H, T, D] tensors, plus the float32 row
-logsumexp `lse [B, H, Tq]` that a backward pass reads.  It replaces the TPU
-kernel `_fwd_kernel` (`aqualora_tpu/ops/flash_attention.py:147`, launched by
-`_flash_forward`).  The kernel itself is `aqualora_torch/csrc/flash_fwd.cu`.
+`flash_attention(q, k, v, scale)` computes unmasked softmax(q k^T * scale) v
+over [B, H, T, D] tensors and is differentiable: it is the counterpart of the
+JAX package's `custom_vjp` (`aqualora_tpu/ops/flash_attention.py:367-384`).
+
+- `flash_attention_fwd(q, k, v, scale) -> (o, lse)` runs the forward kernel
+  (`csrc/flash_fwd.cu`, replacing the TPU's `_fwd_kernel`, `:147`) and gives
+  the float32 row logsumexp `lse [B, H, Tq]` that the backward reads.
+- `flash_attention_bwd(q, k, v, o, lse, do, scale) -> (dq, dk, dv)` runs the
+  two backward kernels (`csrc/flash_bwd.cu`): `flash_attention_bwd_dq`
+  replaces `_dq_kernel` (`:239`) and `flash_attention_bwd_dkv` replaces
+  `_dkv_kernel` (`:269`), both recomputing P from `lse`.  delta = rowsum(dO
+  o O) is a torch reduction (`attention_delta`), as the JAX package computes
+  it outside Pallas (`:311`).
+
 On the H100 the self-attention shapes are bound by the tensor-core rate and
-the 77-key cross-attention by the bytes of Q and O; this first kernel keeps
-the [Tq, Tk] logits out of device memory but runs both products as float32
-FMAs on the CUDA cores, so it sits far above the compute bound (its header
-has the design, PERF.md the times).
+the 77-key cross-attention by the bytes of Q, O (and dO); these first
+kernels keep the [Tq, Tk] logits, P and dS out of device memory but run
+every product as float32 FMAs on the CUDA cores, so they sit far above the
+compute bound (the sources' headers have the design, PERF.md the times).
 
-Routing: a CPU tensor goes to `flash_attention_plain`; a CUDA tensor goes to
-the kernel, which is built with nvcc on first use into
-`aqualora_torch/_build/` and loaded with ctypes.  A failed build or launch
+Routing: a CPU tensor goes to the plain versions (`flash_attention_plain`,
+`flash_attention_dq_plain`, `flash_attention_dkv_plain`); a CUDA tensor goes
+to the kernels, which are
+built with nvcc on first use (`ops/_build.py`).  A failed build or launch
 raises; nothing falls back.
 """
 
 from __future__ import annotations
 
-import collections
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 from typing import Tuple
 
 import torch
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "flash_fwd.cu"
-BUILD_DIR = _PKG / "_build"
+from aqualora_torch.ops import _build
+
 MAX_HEAD_DIM = 512
+MAX_BWD_HEAD_DIM = 160
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_P = ctypes.c_void_p
+_I = ctypes.c_int
 
 
-class LaunchCounter:
-    """Counts kernel launches: `count` in all, `by_shape[(H, Tq, Tk, D)]`
-    per shape.  Only the wrapper's launch site adds to it."""
-
-    def __init__(self):
-        self.reset()
-
-    def reset(self) -> None:
-        self.count = 0
-        self.by_shape: collections.Counter = collections.Counter()
-
-
-launches = LaunchCounter()
-_lib = None
+# launches per kernel, by (H, Tq, Tk, D)
+launches = _build.LaunchCounter()          # forward
+dq_launches = _build.LaunchCounter()       # backward, dQ
+dkv_launches = _build.LaunchCounter()      # backward, dK/dV
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The same function in plain torch: float32 logits, softmax and
-    products; O in the type of q, lse in float32 [B, H, Tq]."""
+    """The forward in plain torch: float32 logits, softmax and products; O
+    in the type of q, lse in float32 [B, H, Tq]."""
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     lse = torch.logsumexp(logits, dim=-1)
     o = torch.matmul(torch.softmax(logits, dim=-1), v.float())
     return o.to(q.dtype), lse
 
 
-def _nvcc() -> str:
-    """nvcc on PATH, else under the toolkit PyTorch finds (CUDA_HOME)."""
-    path = shutil.which("nvcc")
-    if path is None:
-        from torch.utils.cpp_extension import CUDA_HOME
-        if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
-            path = os.path.join(CUDA_HOME, "bin", "nvcc")
-    if path is None:
-        raise RuntimeError("nvcc not found: the flash-attention kernel is "
-                           "built from csrc/flash_fwd.cu with the CUDA toolkit")
-    return path
+def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO o O), float32 [B, H, Tq]: what both backward
+    kernels read beside lse (the JAX package's XLA reduction, `:311`)."""
+    return (do.float() * o.float()).sum(-1)
 
 
-def build(verbose: bool = False) -> ctypes.CDLL:
-    """Compile csrc/flash_fwd.cu for sm_90a (once per source content) and
-    load it.  With `verbose`, ptxas's register and spill report is printed."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src).hexdigest()[:16]
-    so = BUILD_DIR / f"libflash_fwd_{tag}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-o", tmp, str(SOURCE)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        if verbose:
-            print(proc.stderr, end="")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    fn = lib.aqualora_flash_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    _lib = lib
-    return lib
+def _p_ds(q, k, v, do, lse, delta, scale):
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    p = torch.exp(torch.matmul(qf, kf.transpose(-1, -2)) * scale
+                  - lse[..., None])
+    ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta[..., None])
+    return qf, kf, dof, p, ds
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def flash_attention_dq_plain(q, k, v, do, lse, delta, scale) -> torch.Tensor:
+    """The dQ kernel's function in plain torch: P = exp(S*scale - L),
+    dS = P o (dO V^T - delta), dQ = dS K * scale; float32, dQ in q's type."""
+    _, kf, _, _, ds = _p_ds(q, k, v, do, lse, delta, scale)
+    return (torch.matmul(ds, kf) * scale).to(q.dtype)
+
+
+def flash_attention_dkv_plain(q, k, v, do, lse, delta, scale
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dK/dV kernel's function in plain torch: dK = dS^T Q * scale,
+    dV = P^T dO; float32, each in its input's type."""
+    qf, _, dof, p, ds = _p_ds(q, k, v, do, lse, delta, scale)
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, scale
+                              ) -> Tuple[torch.Tensor, ...]:
+    """The backward in plain torch, recomputing P from the saved lse:
+    delta, then the two kernels' functions."""
+    delta = attention_delta(o, do)
+    return (flash_attention_dq_plain(q, k, v, do, lse, delta, scale),
+            *flash_attention_dkv_plain(q, k, v, do, lse, delta, scale))
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           max_d: int = MAX_HEAD_DIM) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dim() != 4:
             raise ValueError(f"{name} must be [B, H, T, D], got {tuple(t.shape)}")
@@ -129,8 +120,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if k.shape != v.shape or k.shape[:2] != (b, h) or k.shape[3] != d:
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} do not fit [B, H, T, D]")
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"head dim {d} outside 1..{MAX_HEAD_DIM}")
+    if not 1 <= d <= max_d:
+        raise ValueError(f"head dim {d} outside 1..{max_d}")
     if min(b, h, tq, k.shape[2]) < 1:
         raise ValueError("empty attention input")
 
@@ -141,21 +132,115 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale)
-    lib = build()
+    fn = _build.bind(_build.build("flash_fwd"), "aqualora_flash_fwd",
+                     [_P] * 5 + [_I] * 5 + [ctypes.c_float, _I, _P])
     b, h, tq, d = q.shape
     tk = k.shape[2]
     o = torch.empty_like(q)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.aqualora_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), b, h, tq, tk, d, float(scale), _DTYPES[q.dtype],
-            stream)
-    if err != 0:
-        raise RuntimeError(f"flash_fwd launch failed with cudaError {err} "
-                           f"at q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                           f"{q.dtype}")
-    launches.count += 1
-    launches.by_shape[(h, tq, tk, d)] += 1
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 lse.data_ptr(), b, h, tq, tk, d, float(scale),
+                 _DTYPES[q.dtype], stream)
+    _build.check_launch(err, f"flash_fwd at q {tuple(q.shape)}, "
+                             f"k {tuple(k.shape)}, {q.dtype}")
+    launches.add(h, tq, tk, d)
     return o, lse
+
+
+def _check_bwd(q, k, v, do, lse, delta) -> None:
+    _check(q, k, v, MAX_BWD_HEAD_DIM)
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError(f"do {tuple(do.shape)} {do.dtype} does not match "
+                         f"q {tuple(q.shape)} {q.dtype}")
+    for name, t in (("do", do), ("lse", lse), ("delta", delta)):
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {q.device}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != q.shape[:3] or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 {tuple(q.shape[:3])}, "
+                             f"got {tuple(t.shape)} {t.dtype}")
+
+
+def _launch_bwd(symbol, counter, q, k, v, do, lse, delta, outs, scale):
+    fn = _build.bind(_build.build("flash_bwd"), symbol,
+                     [_P] * (6 + len(outs)) + [_I] * 5
+                     + [ctypes.c_float, _I, _P])
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(),
+                 *(t.data_ptr() for t in outs), b, h, tq, tk, d,
+                 float(scale), _DTYPES[q.dtype], stream)
+    _build.check_launch(err, f"{symbol} at q {tuple(q.shape)}, "
+                             f"k {tuple(k.shape)}, {q.dtype}")
+    counter.add(h, tq, tk, d)
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale) -> torch.Tensor:
+    """dQ from the forward's lse and `attention_delta`: the dQ kernel on a
+    CUDA tensor, `flash_attention_dq_plain` on a CPU tensor."""
+    _check_bwd(q, k, v, do, lse, delta)
+    if q.device.type == "cpu":
+        return flash_attention_dq_plain(q, k, v, do, lse, delta, scale)
+    dq = torch.empty_like(q)
+    _launch_bwd("aqualora_flash_bwd_dq", dq_launches, q, k, v, do, lse,
+                delta, (dq,), scale)
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dK, dV): the dK/dV kernel on a CUDA tensor,
+    `flash_attention_dkv_plain` on a CPU tensor."""
+    _check_bwd(q, k, v, do, lse, delta)
+    if q.device.type == "cpu":
+        return flash_attention_dkv_plain(q, k, v, do, lse, delta, scale)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch_bwd("aqualora_flash_bwd_dkv", dkv_launches, q, k, v, do, lse,
+                delta, (dk, dv), scale)
+    return dk, dv
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        scale: float) -> Tuple[torch.Tensor, ...]:
+    """(dq, dk, dv) of softmax(q k^T * scale) v for the output gradient
+    `do`, from the forward's `o` and `lse`.  Head dims above 160 are refused:
+    no differentiated attention of the port has one (the VAE's d = 512
+    attention runs without gradients in training)."""
+    if o.shape != q.shape or o.dtype != q.dtype or o.device != q.device:
+        raise ValueError(f"o {tuple(o.shape)} {o.dtype} does not match "
+                         f"q {tuple(q.shape)} {q.dtype}")
+    delta = attention_delta(o, do)
+    return (flash_attention_bwd_dq(q, k, v, do, lse, delta, scale),
+            *flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale))
+
+
+class FlashAttention(torch.autograd.Function):
+    """Forward kernel; backward kernels from the saved q, k, v, o, lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float):
+        o, lse = flash_attention_fwd(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale = scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        # dO arrives through the transpose of merge_heads
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                         ctx.scale)
+        return dq, dk, dv, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float) -> torch.Tensor:
+    """Differentiable softmax(q k^T * scale) v over [B, H, T, D].  With no
+    input requiring grad this is the forward kernel's single launch."""
+    return FlashAttention.apply(q, k, v, scale)

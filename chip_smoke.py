@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the port's main path on one NVIDIA GPU and hold its kernel against
+"""Drive the port's paths on one NVIDIA GPU and hold every kernel against
 its plain version.
 
 Run from the repository root on a machine with one CUDA card:
@@ -9,19 +9,37 @@ Run from the repository root on a machine with one CUDA card:
 Phases (any failure raises, so the exit code is not 0):
   0. torch and CUDA versions, the card's name and power limit (nvidia-smi).
      Without a CUDA card the script stops here with an error.
-  1. Build the flash-attention kernel from aqualora_torch/csrc.
-  2. The kernel against `flash_attention_plain` on the card at every
-     attention shape of the main path, float32 and bfloat16, O and lse
+  1. Build the three kernel sources of aqualora_torch/csrc (flash_fwd,
+     flash_bwd, secret_inject), one nvcc each, all started together.
+  2. The forward kernel against `flash_attention_plain` on the card at every
+     attention shape of the serving path, float32 and bfloat16, O and lse
      (batch cut to 2).  Then, at the serving batch in bfloat16, the kernel's
      time, the plain version's, PyTorch's scaled_dot_product_attention's
      (a yardstick only: the port never calls it) and the H100 bound.
-  3. The main path: SD-1.5 at full width with seeded random bfloat16
+  3. The serving path: SD-1.5 at full width with seeded random bfloat16
      weights and the rank-320 message LoRA, one random 48-bit message folded
      into the U-Net, 8 prompts at 512x512, DDIM-25, CFG 7.5, VAE decode and
      SecretDecoder (EfficientNet-B1) bits.  Every generate call must launch
-     the kernel exactly 801 times.
-  4. The tiny slice on the card (kernel path) against the same slice on the
-     CPU (plain path), same weights and initial latents.
+     the forward kernel exactly 801 times.
+  4. The tiny serving slice on the card (kernel path) against the same
+     slice on the CPU (plain path), same weights and initial latents.
+  5. The backward kernels (dQ, dK/dV) against their plain versions at
+     every differentiated attention shape of the training step, float32
+     and bfloat16 (batch cut to 2); then at the training batch in bfloat16
+     each kernel's time and bound, and for the pair the plain backward's
+     and SDPA's backward (fwd+bwd less fwd; a yardstick only).
+  6. The secret-injection kernel against `inject_plain` at the training
+     latent [8, 4, 64, 64], float32 and bfloat16, with its time and bound.
+  7. The tiny PPFT step on the card (kernels) against the CPU (plain), the
+     same weights and draws, float32: the loss and every trainable's
+     gradient.
+  8. The training path: one PPFT step of SD-1.5 at full width (rank-320
+     LoRA on 192 sites, 48 bits, 512^2 synthetic pixels, B8, bfloat16
+     frozen modules and float32 trainables, AdamW) through
+     `aqualora_torch.train.ppft_train`, 1 warm-up and 3 timed steps.  Every
+     step must launch 65 forward, 32 dQ, 32 dK/dV and 1 injection kernels;
+     the loss and gradient norm must be finite and positive and the LoRA up
+     weights must move.
 The line before the last names the card and its power limit; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -29,6 +47,7 @@ is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import time
@@ -54,6 +73,26 @@ SHAPES = [
     ("vae_mid", 1, 4096, 4096, 512, 8, 1),
 ]
 LAUNCHES_PER_GENERATE = sum(s[-1] for s in SHAPES)          # 801
+SOURCES = ("flash_fwd", "flash_bwd", "secret_inject")
+# the differentiated attentions of one PPFT step at 512 px: name, heads,
+# Tq, Tk, head dim, student launches per step (each also runs once in the
+# teacher, forward only).  16 transformer blocks, self + cross each.
+TRAIN_SHAPES = [
+    ("unet64_self", 8, 4096, 4096, 40, 5),
+    ("unet64_cross", 8, 4096, 77, 40, 5),
+    ("unet32_self", 8, 1024, 1024, 80, 5),
+    ("unet32_cross", 8, 1024, 77, 80, 5),
+    ("unet16_self", 8, 256, 256, 160, 5),
+    ("unet16_cross", 8, 256, 77, 160, 5),
+    ("unet8_self", 8, 64, 64, 160, 1),
+    ("unet8_cross", 8, 64, 77, 160, 1),
+]
+TRAIN_BATCH = 8
+BWD_PER_STEP = sum(s[-1] for s in TRAIN_SHAPES)              # 32
+# forward launches per step: teacher and student at every shape, plus the
+# VAE encoder's mid-block (H1, T4096, d512)
+FWD_PER_STEP = 2 * BWD_PER_STEP + 1                          # 65
+TRAIN_STEPS = 4                # 1 warm-up + 3 timed
 CHECK_BATCH = 2
 # max abs error allowed against the plain version.  float32 O: both sides
 # accumulate in float32 in different orders (~1e-6).  lse is float32 on both
@@ -61,6 +100,12 @@ CHECK_BATCH = 2
 TOL_F32 = 1e-4
 TOL_LSE = 1e-4
 TINY_IMAGE_TOL = 2e-3
+# tiny PPFT step, card against CPU (float32, TF32 off): the loss to 1e-4
+# relative; each gradient to 1e-3 of its leaf's largest value, since the
+# card sums in other orders (cuDNN's convolutions, the kernels' tiles)
+# through the whole U-Net and its backward
+TINY_LOSS_RTOL = 1e-4
+TINY_GRAD_TOL = 1e-3
 
 
 def nvidia_smi() -> str:
@@ -95,14 +140,44 @@ def tolerance_o(dtype: torch.dtype, o_ref: torch.Tensor) -> float:
 
 
 def attention_bound(b, h, tq, tk, d, elem_bytes=2):
-    """Least time on the card: operations over the bf16 peak, or the bytes of
-    q, k, v read once and o (+ float32 lse) written once over HBM."""
-    flops = 4.0 * b * h * tq * tk * d
-    nbytes = (2 * b * h * tq * d + 2 * b * h * tk * d) * elem_bytes \
-        + 4 * b * h * tq
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    """The forward's least time: QK^T and PV, or the bytes of q, k, v read
+    once and o (+ float32 lse) written once."""
+    return bound(4.0 * b * h * tq * tk * d,
+                 (2 * b * h * tq * d + 2 * b * h * tk * d) * elem_bytes
+                 + 4 * b * h * tq)
+
+
+def tolerance_grad(dtype: torch.dtype, ref: torch.Tensor) -> float:
+    """float32 gradients: both sides accumulate in float32 in other orders
+    over up to Tq or Tk terms, so 1e-4 of the largest reference gradient
+    plus 1e-5.  bfloat16 adds one bf16 ulp at that value (2^-7 of it):
+    each side rounds its float32 gradient once."""
+    m = ref.float().abs().max().item()
+    tol = 1e-4 * m + 1e-5
+    return tol if dtype == torch.float32 else tol + 2.0 ** -7 * m
+
+
+def bound(ops: float, nbytes: float) -> tuple:
+    """Least time on the card, ms: the operations at the bf16 tensor-core
+    peak or the bytes at the HBM rate, whichever is larger."""
+    t_ops = ops / PEAK_BF16_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def bwd_bounds(b, h, tq, tk, d, elem_bytes=2) -> dict:
+    """Per kernel and for the pair: operations are 2*Tq*Tk*d per product
+    and (b, h); dQ computes S, dP and dQ (3), dK/dV computes S, dP, dV and dK
+    (4), the pair's least work is S, dP, dQ, dK, dV (5).  Bytes: each input
+    read once and each output written once, lse and delta float32."""
+    bh, e = b * h, elem_bytes
+    row_q, row_k, stats = bh * tq * d * e, bh * tk * d * e, 2 * 4 * bh * tq
+    prod = 2.0 * bh * tq * tk * d
+    return {
+        "dq": bound(3 * prod, 3 * row_q + 2 * row_k + stats),     # q, dO, dq
+        "dkv": bound(4 * prod, 2 * row_q + 4 * row_k + stats),
+        "pair": bound(5 * prod, 4 * row_q + 4 * row_k + stats),   # + o
+    }
 
 
 def phase0() -> str:
@@ -122,11 +197,27 @@ def phase0() -> str:
 
 
 def phase1():
+    from aqualora_torch.ops import _build
+    seconds = _build.build_all(SOURCES, verbose=True)
+    for name in SOURCES:
+        print(f"[1] built csrc/{name}.cu in {seconds[name]:.1f} s "
+              f"(all {len(SOURCES)} nvcc started together)", flush=True)
+
+
+def counters() -> dict:
     from aqualora_torch.ops import flash_attention as fa
-    t0 = time.perf_counter()
-    fa.build(verbose=True)
-    print(f"[1] built {fa.SOURCE.name} in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    from aqualora_torch.ops import secret_inject as si
+    return {"fwd": fa.launches, "dq": fa.dq_launches,
+            "dkv": fa.dkv_launches, "inject": si.launches}
+
+
+def reset_counts() -> None:
+    for c in counters().values():
+        c.reset()
+
+
+def counts() -> dict:
+    return {k: c.count for k, c in counters().items()}
 
 
 def phase2(smi: str) -> dict:
@@ -217,14 +308,16 @@ def phase3(smi: str) -> tuple:
                         .manual_seed(seed))
 
     torch.cuda.reset_peak_memory_stats()
-    fa.launches.reset()                         # counts start here
+    reset_counts()                              # counts start here
     images = run(3)
     torch.cuda.synchronize()
     by_shape = dict(fa.launches.by_shape)
     total = fa.launches.count
-    print(f"[3] kernel launches in one generate call: {total}", flush=True)
+    print(f"[3] kernel launches in one generate call: {counts()}", flush=True)
     if total != LAUNCHES_PER_GENERATE:
         raise AssertionError(f"{total} launches, want {LAUNCHES_PER_GENERATE}")
+    if counts() != {"fwd": total, "dq": 0, "dkv": 0, "inject": 0}:
+        raise AssertionError("serving launched a training kernel")
     launches = {}
     for name, h, tq, tk, d, _, want in SHAPES:
         got = by_shape.get((h, tq, tk, d), 0)
@@ -318,6 +411,327 @@ def phase4():
         raise AssertionError("tiny slice on the card disagrees with the CPU")
 
 
+def phase5(smi: str) -> dict:
+    """The backward kernels against their plain versions at every
+    differentiated attention shape of the training step; times at B8."""
+    from aqualora_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = {}
+    for name, h, tq, tk, d, _ in TRAIN_SHAPES:
+        scale = d ** -0.5
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            q, do = (torch.randn(CHECK_BATCH, h, tq, d, device="cuda",
+                                 generator=gen).to(dtype) for _ in range(2))
+            k, v = (torch.randn(CHECK_BATCH, h, tk, d, device="cuda",
+                                generator=gen).to(dtype) for _ in range(2))
+            o, lse = fa.flash_attention_plain(q, k, v, scale)
+            delta = fa.attention_delta(o, do)
+            got = (fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale),
+                   *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                               scale))
+            want = (fa.flash_attention_dq_plain(q, k, v, do, lse, delta,
+                                                scale),
+                    *fa.flash_attention_dkv_plain(q, k, v, do, lse, delta,
+                                                  scale))
+            torch.cuda.synchronize()
+            parts = []
+            for gname, g, r in zip(("dq", "dk", "dv"), got, want):
+                err = (g.float() - r.float()).abs().max().item()
+                tol = tolerance_grad(dtype, r)
+                parts.append(f"{gname} {err:.3e} (tol {tol:.3e}, max "
+                             f"{r.float().abs().max().item():.3e})")
+                if not err <= tol:
+                    raise AssertionError(f"backward kernel disagrees with "
+                                         f"plain: {name} {dtype} {gname} "
+                                         f"{err} > {tol}")
+                errs[(dtype, gname)] = err
+            print(f"[5] {name} B{CHECK_BATCH} H{h} Tq{tq} Tk{tk} d{d} "
+                  f"{str(dtype)[6:]}: " + ", ".join(parts), flush=True)
+            del q, k, v, do, o, lse, delta, got, want
+        b = TRAIN_BATCH
+        q, do = (torch.randn(b, h, tq, d, device="cuda", generator=gen)
+                 .to(torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn(b, h, tk, d, device="cuda", generator=gen)
+                .to(torch.bfloat16) for _ in range(2))
+        o, lse = fa.flash_attention_fwd(q, k, v, scale)
+        delta = fa.attention_delta(o, do)
+        args = (q, k, v, do, lse, delta, scale)
+        t = {"dq": time_ms(lambda: fa.flash_attention_bwd_dq(*args)),
+             "dkv": time_ms(lambda: fa.flash_attention_bwd_dkv(*args)),
+             "pair": time_ms(lambda: fa.flash_attention_bwd(
+                 q, k, v, o, lse, do, scale)),
+             "dq_plain": time_ms(lambda: fa.flash_attention_dq_plain(*args),
+                                 iters=3, warmup=1),
+             "dkv_plain": time_ms(
+                 lambda: fa.flash_attention_dkv_plain(*args), iters=3,
+                 warmup=1),
+             "pair_plain": time_ms(lambda: fa.flash_attention_bwd_plain(
+                 q, k, v, o, lse, do, scale), iters=3, warmup=1)}
+        qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+        sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+            qg, kg, vg, scale=scale))
+        sdpa_both = time_ms(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(qg, kg, vg, scale=scale),
+            (qg, kg, vg), do))
+        library_ms = sdpa_both - sdpa_fwd
+        bounds = bwd_bounds(b, h, tq, tk, d)
+        print(f"[5] {name} B{b} bf16: dq kernel_ms {t['dq']:.4f} plain_ms "
+              f"{t['dq_plain']:.4f} bound_ms {bounds['dq'][0]:.4f} "
+              f"({bounds['dq'][1]}); dkv kernel_ms {t['dkv']:.4f} plain_ms "
+              f"{t['dkv_plain']:.4f} bound_ms {bounds['dkv'][0]:.4f} "
+              f"({bounds['dkv'][1]}) | {smi}", flush=True)
+        print(f"[5] {name} B{b} bf16 dQ + dK/dV pair: kernel_ms "
+              f"{t['pair']:.4f} plain_ms {t['pair_plain']:.4f} "
+              f"library_ms(sdpa bwd = fwd+bwd {sdpa_both:.4f} - fwd "
+              f"{sdpa_fwd:.4f}) {library_ms:.4f} bound_ms "
+              f"{bounds['pair'][0]:.4f} ({bounds['pair'][1]}) | {smi}",
+              flush=True)
+        for kern in ("dq", "dkv"):
+            err = errs[(torch.bfloat16, "dq")] if kern == "dq" else max(
+                errs[(torch.bfloat16, "dk")], errs[(torch.bfloat16, "dv")])
+            rows[(kern, name)] = {
+                "max_abs_err": err, "ms": t[kern],
+                "plain_ms": t[f"{kern}_plain"], "bound_ms": bounds[kern][0],
+                "bound_by": bounds[kern][1], "library_ms": None}
+        del q, k, v, do, o, lse, delta, qg, kg, vg, args
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase6(smi: str) -> dict:
+    """The injection kernel against `inject_plain` at the training latent."""
+    from aqualora_torch.ops import secret_inject as si
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    b, c, res, base, bits = TRAIN_BATCH, 4, 64, 32, 48
+
+    def rnd(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    weights = (0.2 * rnd(base * base, bits), 0.1 * rnd(base * base),
+               0.1 * rnd(c, c, 3, 3), 0.1 * rnd(c))
+    msg = torch.bernoulli(torch.full((b, bits), 0.5, device="cuda"),
+                          generator=gen)
+    row = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        latent = rnd(b, c, res, res).to(dtype)
+        out = si.fused_secret_inject(latent, msg, *weights, base_res=base)
+        ref = si.inject_plain(latent, msg, *weights, base_res=base)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        # float32: nine-term float32 sums in other orders; bf16: one ulp at
+        # the output's largest value (both sides round float32 once)
+        tol = 1e-5 if dtype == torch.float32 else \
+            2.0 ** -7 * ref.float().abs().max().item() + 1e-5
+        line = (f"[6] inject [{b}, {c}, {res}, {res}] {str(dtype)[6:]}: "
+                f"max|d| {err:.3e} (tol {tol:.3e})")
+        print(line, flush=True)
+        if not err <= tol:
+            raise AssertionError(f"inject kernel disagrees: {line}")
+        row["max_abs_err"] = err
+    ms = time_ms(lambda: si.fused_secret_inject(latent, msg, *weights,
+                                                base_res=base), iters=100)
+    plain_ms = time_ms(lambda: si.inject_plain(latent, msg, *weights,
+                                               base_res=base), iters=100)
+    n = b * c * res * res
+    # latent in, out (bf16), the padded grid (float32), k1 and bias;
+    # two operations per tap of the 3x3 stencil plus the two adds
+    bound_ms, bound_by = bound(20.0 * n, 2 * 2 * n + 4 * b * (res + 2) ** 2
+                               + 4 * (9 * c + c))
+    print(f"[6] inject B{b} bf16: kernel_ms {ms:.4f} (the whole wrapper: "
+          f"dense, SiLU, upsample, pad and the launch) plain_ms "
+          f"{plain_ms:.4f} library_ms none (no one PyTorch call computes "
+          f"it) bound_ms {bound_ms:.6f} ({bound_by}) | {smi}", flush=True)
+    row.update({"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None})
+    return row
+
+
+def phase7():
+    """Tiny PPFT step: the card (kernels) against the CPU (plain versions),
+    float32, the same weights and the same draws, at 32 px so that the
+    latent is 2 * secret_grid and the fused injection is taken."""
+    import numpy as np
+
+    from aqualora_torch.core.config import PipelineConfig
+    from aqualora_torch.diffusion.pipeline import (StableDiffusionPipeline,
+                                                   init_module_weights)
+    from aqualora_torch.models.watermark import SecretEncoder
+    from aqualora_torch.train import ppft_train as pt
+
+    cfg = PipelineConfig.tiny()
+    wm = cfg.watermark
+    gen = torch.Generator().manual_seed(11)
+    rng = np.random.default_rng(12)
+    pixels = rng.uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32)
+    ids = rng.integers(0, cfg.clip.vocab_size, (2, 77), dtype=np.int32)
+    losses, grads = {}, {}
+    for side, dev in (("cpu", "cpu"), ("card", "cuda")):
+        pipe = StableDiffusionPipeline(cfg, dtype=torch.float32, device=dev)
+        sec = SecretEncoder(wm.msg_bits, wm.secret_grid, 16,
+                            cfg.vae.latent_channels).to(dev)
+        if side == "cpu":
+            pipe.init_params(seed=11)
+            init_module_weights(sec, gen)          # non-zero conv_out too
+            cpu_pipe, cpu_sec = pipe, sec
+            draws = pt.draw(pipe, gen, pixels)
+        else:
+            pipe.load_state_from(cpu_pipe)
+            sec.load_state_dict(cpu_sec.state_dict())
+            reset_counts()
+        sec.requires_grad_(False)
+        groups = pt.trainable_groups(pipe)
+        loss, _ = pt.make_loss_fn(pipe, sec)(
+            pixels, ids, pt.Draws(*(t.to(dev) for t in (
+                draws.msg, draws.vae_noise, draws.noise, draws.t))))
+        loss.backward()
+        losses[side] = loss.item()
+        grads[side] = [p.grad.cpu() for params in groups.values()
+                       for p in params]
+    launched = counts()
+    worst = max(((g - r).abs().max() / r.abs().max()).item()
+                for g, r in zip(grads["card"], grads["cpu"]))
+    rel = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+    print(f"[7] tiny PPFT step card vs CPU: loss {losses['card']:.6e} vs "
+          f"{losses['cpu']:.6e} (rel {rel:.2e}, tol {TINY_LOSS_RTOL:g}); "
+          f"{len(grads['cpu'])} trainable gradients, worst "
+          f"max|d|/max|g| {worst:.2e} (tol {TINY_GRAD_TOL:g}); kernel "
+          f"launches {launched}", flush=True)
+    if not (rel <= TINY_LOSS_RTOL and worst <= TINY_GRAD_TOL
+            and losses["cpu"] > 0 and min(launched.values()) > 0):
+        raise AssertionError("tiny PPFT step on the card disagrees with the "
+                             "CPU or skipped a kernel")
+
+
+KERNEL_NAMES = {"flash_fwd_kernel": "flash fwd", "flash_bwd_dq_kernel": "dQ",
+                "flash_bwd_dkv_kernel": "dK/dV",
+                "secret_inject_kernel": "inject"}
+
+
+def profile_step(tr, step_s: float, smi: str) -> None:
+    """One more training step under torch.profiler: device time by kernel
+    name, the port's kernels summed, and the busy share of the median
+    unprofiled step (the profiler's own cost is on the host, so the device
+    times hold; the wall time under it does not)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from aqualora_torch.train import ppft_train as pt
+    pixels, captions = next(tr.batches)
+    ids = tr.tokenizer(captions)
+    draws = pt.draw(tr.pipe, tr.generator, pixels)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tr.train_step(pixels, ids, draws)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    if not events:
+        print("[8] device time by kernel: not measured (the profiler saw no "
+              "CUDA kernel)", flush=True)
+        return
+    ours = {label: 0.0 for label in KERNEL_NAMES.values()}
+    for e in events:
+        for key, label in KERNEL_NAMES.items():
+            if key in e.key:
+                ours[label] += e.self_device_time_total / 1e3
+    print(f"[8] profiled step: device busy {busy_ms:.1f} ms = "
+          f"{100 * busy_ms / (step_s * 1e3):.1f}% of the {step_s * 1e3:.1f} "
+          f"ms median step; the port's kernels "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in ours.items())
+          + f" ({100 * sum(ours.values()) / busy_ms:.1f}% of device time) "
+          f"| {smi}", flush=True)
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
+        print(f"[8]   {e.self_device_time_total / 1e3:9.2f} ms  x{e.count:<5d}"
+              f" {e.key[:100]}", flush=True)
+
+
+def phase8(smi: str) -> tuple:
+    """The training path at full width through the trainer's entry point."""
+    from aqualora_torch.ops import flash_attention as fa
+    from aqualora_torch.ops import secret_inject as si
+    from aqualora_torch.train import ppft_train as pt
+
+    args = pt.build_argparser().parse_args([
+        "--rank", "320", "--msg_bits", "48", "--resolution", "512",
+        "--train_batch_size", str(TRAIN_BATCH), "--mixed_precision", "bf16",
+        "--learning_rate", "1e-4", "--lr_warmup_steps", "0",
+        "--max_train_steps", str(TRAIN_STEPS), "--seed", "0"])
+    t0 = time.perf_counter()
+    tr = pt.build_trainer(args)
+    # a non-zero SecretEncoder conv stands in for the stage-1 weights the
+    # JAX trainer loads with --start_from_pretrain (not ported yet): with
+    # its zero init and the zero-init LoRA ups, student == teacher and the
+    # loss and every gradient are exactly 0
+    with torch.no_grad():
+        w = tr.sec_encoder.conv_out.weight
+        w.copy_(0.1 * torch.randn(w.shape, device="cuda",
+                                  generator=torch.Generator(device="cuda")
+                                  .manual_seed(21)))
+    ups = {n: p.detach().clone() for n, p in pt.split_lora(tr.pipe.unet)[1]
+           .items() if n.endswith("up.weight")}
+    torch.cuda.synchronize()
+    print(f"[8] SD-1.5 trainer ready in {time.perf_counter() - t0:.1f} s: "
+          f"{len(ups)} LoRA sites, rank {tr.pipe.config.unet.lora.rank}, "
+          f"{sum(p.numel() for g in tr.groups.values() for p in g)} "
+          f"float32 trainables, frozen modules in bf16", flush=True)
+    want = {"fwd": FWD_PER_STEP, "dq": BWD_PER_STEP, "dkv": BWD_PER_STEP,
+            "inject": 1}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()                              # counts start here
+    times = []
+    for step in range(TRAIN_STEPS):
+        pixels, captions = next(tr.batches)
+        ids = tr.tokenizer(captions)
+        draws = pt.draw(tr.pipe, tr.generator, pixels)
+        before = counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        metrics = tr.train_step(pixels, ids, draws)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        got = {k: v - before[k] for k, v in counts().items()}
+        loss, gnorm = (float(metrics[k]) for k in ("ppft_loss", "grad_norm"))
+        print(f"[8] step {step}: {dt:.4f} s, ppft_loss {loss:.6e}, "
+              f"grad_norm {gnorm:.6e}, launches {got}", flush=True)
+        if got != want:
+            raise AssertionError(f"launches {got} in one step, want {want}")
+        if not (math.isfinite(loss) and loss > 0 and math.isfinite(gnorm)
+                and gnorm > 0):
+            raise AssertionError("loss or gradient norm not finite positive")
+        if step:
+            times.append(dt)
+    per_shape = {}
+    for name, h, tq, tk, d, n in TRAIN_SHAPES:
+        key = (h, tq, tk, d)
+        got = (fa.launches.by_shape[key], fa.dq_launches.by_shape[key],
+               fa.dkv_launches.by_shape[key])
+        if got != (2 * n * TRAIN_STEPS, n * TRAIN_STEPS, n * TRAIN_STEPS):
+            raise AssertionError(f"{name}: launches {got}")
+        per_shape[name] = n * TRAIN_STEPS
+    if fa.launches.by_shape[(1, 4096, 4096, 512)] != TRAIN_STEPS:
+        raise AssertionError("VAE encoder mid-block launches")
+    inject_launches = si.launches.count
+    moved = sum(not torch.equal(p, ups[n]) for n, p in
+                pt.split_lora(tr.pipe.unet)[1].items() if n in ups)
+    print(f"[8] LoRA up weights moved at {moved} of {len(ups)} sites",
+          flush=True)
+    if moved != len(ups):
+        raise AssertionError("LoRA up weights did not all move")
+    med = statistics.median(times)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[8] PPFT step SD-1.5 512^2 B{TRAIN_BATCH} rank 320 bf16/f32: "
+          f"{TRAIN_BATCH / med:.4f} samples/s (median of {len(times)}: "
+          f"{', '.join(f'{x:.4f}' for x in times)} s), peak memory "
+          f"{peak_gib:.2f} GiB | {smi}", flush=True)
+    profile_step(tr, med, smi)
+    del tr
+    torch.cuda.empty_cache()
+    return per_shape, inject_launches
+
+
 def main():
     smi = phase0()
     phase1()
@@ -332,6 +746,10 @@ def main():
           f"{per_call['library_ms']:.1f} ms; bound "
           f"{per_call['bound_ms']:.1f} ms | {smi}", flush=True)
     phase4()
+    bwd_rows = phase5(smi)
+    inject_row = phase6(smi)
+    phase7()
+    train_launches, inject_launches = phase8(smi)
     kernels = []
     for name, *_ in SHAPES:
         kernels.append({
@@ -339,6 +757,18 @@ def main():
             "source": "aqualora_torch/csrc/flash_fwd.cu",
             "replaces": "aqualora_tpu/ops/flash_attention.py:147",
             "launches": launches[name], **rows[name]})
+    for kern, line in (("dq", 239), ("dkv", 269)):
+        for name, *_ in TRAIN_SHAPES:
+            kernels.append({
+                "name": f"flash_attention_bwd_{kern}/{name}", "route": "cuda",
+                "source": "aqualora_torch/csrc/flash_bwd.cu",
+                "replaces": f"aqualora_tpu/ops/flash_attention.py:{line}",
+                "launches": train_launches[name], **bwd_rows[(kern, name)]})
+    kernels.append({
+        "name": "secret_inject/train_latent", "route": "cuda",
+        "source": "aqualora_torch/csrc/secret_inject.cu",
+        "replaces": "aqualora_tpu/ops/secret_inject.py:47",
+        "launches": inject_launches, **inject_row})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

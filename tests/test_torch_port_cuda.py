@@ -27,6 +27,19 @@ def _tol_o(dtype, o_ref):
     return 2.0 ** -7 * o_ref.float().abs().max().item() + TOL_F32
 
 
+@pytest.fixture(autouse=True)
+def _full_float32():
+    """The plain versions are the references: float32 products and
+    convolutions in full float32 (cuDNN takes TF32 by default)."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = saved
+
+
 def _need_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
@@ -67,3 +80,97 @@ def test_dispatch_on_cuda_launches_kernel_only_unmasked():
     mask = torch.ones(77, 77, dtype=torch.bool, device="cuda").tril()
     dot_product_attention(q, q, q, mask=mask[None, None])
     assert fa.launches.count == before + 1
+
+
+def _tol_grad(dtype, ref):
+    """float32: both sides accumulate in float32 in other orders, over up
+    to Tq or Tk terms, so 1e-4 of the largest gradient (plus 1e-5 for
+    gradients near zero).  bfloat16 adds one bf16 ulp at the reference's
+    largest value: each side rounds its float32 gradient once."""
+    m = ref.float().abs().max().item()
+    tol = 1e-4 * m + 1e-5
+    return tol if dtype == torch.float32 else tol + 2.0 ** -7 * m
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,tq,tk,d", [
+    (2, 8, 300, 77, 40),      # ragged Tq and cross-attention Tk, d=40
+    (1, 3, 65, 64, 160),      # ragged Tq, d=160
+    (1, 2, 130, 200, 80),     # ragged both ways, d=80
+])
+def test_flash_bwd_kernels_match_plain(dtype, b, h, tq, tk, d):
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(tq + d)
+    q, k, v = (torch.randn(b, h, t, d, device="cuda", generator=gen).to(dtype)
+               for t in (tq, tk, tk))
+    do = torch.randn(b, h, tq, d, device="cuda", generator=gen).to(dtype)
+    o, lse = fa.flash_attention_plain(q, k, v, d ** -0.5)
+    counts = (fa.dq_launches.count, fa.dkv_launches.count)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, d ** -0.5)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, d ** -0.5)
+    torch.cuda.synchronize()
+    assert (fa.dq_launches.count, fa.dkv_launches.count) == (
+        counts[0] + 1, counts[1] + 1)
+    for name, g, r in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == r.shape
+        err = (g.float() - r.float()).abs().max().item()
+        assert err <= _tol_grad(dtype, r), (name, err)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_refuses_wide_heads_on_cuda():
+    _need_cuda()
+    q = torch.randn(1, 1, 16, 512, device="cuda")
+    o, lse = fa.flash_attention_fwd(q, q, q, 512 ** -0.5)
+    with pytest.raises(ValueError):
+        fa.flash_attention_bwd(q, q, q, o, lse, torch.randn_like(q), 0.05)
+
+
+@pytest.mark.cuda
+def test_gradient_through_dot_product_attention_on_cuda():
+    """Gradients reach every attention input on the card (the autograd
+    function's backward is the kernels) and equal the plain path's on the
+    CPU."""
+    _need_cuda()
+    gen = torch.Generator().manual_seed(7)
+    cpu = [torch.randn(2, 4, 100, 40, generator=gen) for _ in range(2)] + \
+        [torch.randn(2, 4, 77, 40, generator=gen) for _ in range(2)]
+    q, do = cpu[0], cpu[1]
+    k, v = cpu[2], cpu[3]
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        leaves = [t.detach().to(dev).requires_grad_(True)
+                  for t in (q, k, v)]
+        out = dot_product_attention(*leaves)
+        out.backward(do.to(dev))
+        grads[dev] = [t.grad.cpu() for t in leaves]
+    for g_cuda, g_cpu in zip(grads["cuda"], grads["cpu"]):
+        assert g_cuda.abs().max() > 0
+        assert (g_cuda - g_cpu).abs().max().item() <= _tol_grad(
+            torch.float32, g_cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_secret_inject_kernel_matches_plain(dtype):
+    """One bf16 ulp at the output's largest value for bf16 (both sides
+    compute in float32 and round once), float32 sums of 9 terms otherwise."""
+    from aqualora_torch.ops import secret_inject as si
+
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rnd = lambda *s: torch.randn(*s, device="cuda", generator=gen)
+    latent = rnd(3, 4, 64, 64).to(dtype)
+    msg = torch.bernoulli(torch.full((3, 48), 0.5, device="cuda"),
+                          generator=gen)
+    args = (latent, msg, 0.2 * rnd(1024, 48), 0.1 * rnd(1024),
+            0.1 * rnd(4, 4, 3, 3), 0.1 * rnd(4))
+    before = si.launches.count
+    out = si.fused_secret_inject(*args, base_res=32)
+    ref = si.inject_plain(*args, base_res=32)
+    torch.cuda.synchronize()
+    assert si.launches.count == before + 1 and out.dtype == dtype
+    tol = 1e-5 if dtype == torch.float32 else \
+        2.0 ** -7 * ref.float().abs().max().item() + 1e-5
+    assert (out.float() - ref.float()).abs().max().item() <= tol

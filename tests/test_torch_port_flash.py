@@ -124,3 +124,94 @@ def test_wrapper_rejects_unsupported_input(case):
         v = torch.randn(1, 2, 9, 16)
     with pytest.raises((ValueError, TypeError)):
         fa.flash_attention_fwd(q, k, v, 0.25)
+
+
+def _autograd_grads(q, k, v, g, scale, fn):
+    """dq, dk, dv of <fn(q, k, v), g> through torch autograd."""
+    q, k, v = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
+    out = fn(q, k, v, scale)
+    out.backward(torch.from_numpy(g))
+    return out.detach().numpy(), q.grad.numpy(), k.grad.numpy(), v.grad.numpy()
+
+
+def test_bwd_plain_matches_pallas_interpret():
+    """dq, dk, dv of the Pallas backward kernels (`_fa_fwd` / `_fa_bwd` in
+    interpret mode, the shapes of tests/test_ops.py) against the port's
+    `flash_attention_bwd_plain` and against autograd through
+    `FlashAttention` on the CPU, atol 1e-4 as the JAX test holds them."""
+    import aqualora_tpu.ops.flash_attention as F
+
+    q, k, v = _qkv(11, 1, 2, 256, 128, 64)
+    g = np.random.default_rng(12).standard_normal(q.shape, dtype=np.float32)
+    scale = 64 ** -0.5
+    with _interpret_pallas():
+        out, res = F._fa_fwd(*map(jax.numpy.asarray, (q, k, v)), scale)
+        ref = F._fa_bwd(scale, res, jax.numpy.asarray(g))
+    o, lse = fa.flash_attention_plain(*map(torch.from_numpy, (q, k, v)),
+                                      scale)
+    plain = fa.flash_attention_bwd_plain(*map(torch.from_numpy, (q, k, v)),
+                                         o, lse, torch.from_numpy(g), scale)
+    t_out, *auto = _autograd_grads(q, k, v, g, scale, fa.flash_attention)
+    np.testing.assert_allclose(t_out, np.asarray(out), atol=2e-5)
+    for want, p, a in zip(ref, plain, auto):
+        np.testing.assert_allclose(p.numpy(), np.asarray(want), atol=1e-4)
+        np.testing.assert_allclose(a, np.asarray(want), atol=1e-4)
+
+
+@pytest.mark.parametrize("d,tq,tk", [(40, 64, 77), (80, 96, 77),
+                                     (160, 16, 77)])
+def test_bwd_matches_xla_vjp(d, tq, tk):
+    """The SD-1.5 head dims at the 77-token cross-attention, which the
+    Pallas kernels do not take: autograd through `dot_product_attention`
+    (the `FlashAttention` function, plain backward on the CPU) against
+    `jax.vjp` of `_xla_attention`."""
+    from aqualora_tpu.ops.attention import _xla_attention
+
+    q, k, v = _qkv(tq + d + 1, 2, 3, tq, tk, d)
+    g = np.random.default_rng(d).standard_normal(q.shape, dtype=np.float32)
+    scale = d ** -0.5
+    _, vjp = jax.vjp(lambda q, k, v: _xla_attention(q, k, v, None, scale),
+                     *map(jax.numpy.asarray, (q, k, v)))
+    ref = vjp(jax.numpy.asarray(g))
+    _, *got = _autograd_grads(
+        q, k, v, g, scale,
+        lambda q, k, v, s: dot_product_attention(q, k, v, scale=s))
+    for want, a in zip(ref, got):
+        np.testing.assert_allclose(a, np.asarray(want), atol=1e-4)
+
+
+def test_bwd_wrapper_on_cpu_takes_plain_path():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(13, 1, 2, 33, 77, 40))
+    o, lse = fa.flash_attention_plain(q, k, v, 0.2)
+    do = torch.randn_like(q)
+    counts = (fa.dq_launches.count, fa.dkv_launches.count)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, 0.2)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, 0.2)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert (fa.dq_launches.count, fa.dkv_launches.count) == counts
+
+
+@pytest.mark.parametrize("case", ["head_dim", "lse_shape", "do_dtype"])
+def test_bwd_wrapper_rejects_unsupported_input(case):
+    """d > 160 is refused (no differentiated attention of the port has one;
+    the VAE's d = 512 runs without gradients), as are a mis-shaped lse and
+    a dO of another type."""
+    d = 512 if case == "head_dim" else 16
+    q, k, v = (torch.randn(1, 2, 8, d) for _ in range(3))
+    o, lse = fa.flash_attention_plain(q, k, v, 0.25)
+    do = torch.randn_like(q)
+    if case == "lse_shape":
+        lse = lse[..., :4].contiguous()
+    elif case == "do_dtype":
+        do = do.bfloat16()
+    with pytest.raises(ValueError):
+        fa.flash_attention_bwd(q, k, v, o, lse, do, 0.25)
+
+
+def test_no_grad_call_is_one_forward():
+    """Without an input that requires grad, `flash_attention` is the
+    forward alone: no graph, the plain forward's values."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(14, 1, 2, 20, 30, 40))
+    out = fa.flash_attention(q, k, v, 0.3)
+    assert out.grad_fn is None
+    assert torch.equal(out, fa.flash_attention_plain(q, k, v, 0.3)[0])

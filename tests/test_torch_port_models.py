@@ -19,9 +19,8 @@ def _np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-def _load(module, params, batch_stats=None, drop=()):
+def _load(module, params, batch_stats=None):
     state = jax_params_to_torch(_np(params), _np(batch_stats or {}))
-    state = {k: v for k, v in state.items() if not k.startswith(drop)}
     module.load_state_dict(state, strict=True)
     return module.eval()
 
@@ -230,7 +229,7 @@ def test_vae_decoder_parity():
     params = _random_vars(vae, jnp.zeros((1, 16, 16, 3)), KEY,
                           seed=19)["params"]
     z = _rand(19, 2, 8, 8, 4)
-    port = _load(TVae(TV.tiny()), params, drop=("encoder.", "quant_conv."))
+    port = _load(TVae(TV.tiny()), params)
     with torch.no_grad():
         out = port.decode(_nchw(z))
     ref = _run(vae, {"params": params}, z, method="decode")
@@ -344,8 +343,6 @@ def test_sd15_full_size_keys_and_shapes():
                 "decoder": TDec(48, TE.b1(), device="meta")}
     expected = {name: _shape_layout(shapes[name]) for name in
                 ("unet", "text_encoder", "vae", "mapper")}
-    expected["vae"] = {k: s for k, s in expected["vae"].items()
-                       if not k.startswith(("encoder.", "quant_conv."))}
     expected["decoder"] = _shape_layout(dec_shapes["params"],
                                         dec_shapes["batch_stats"])
     for name, module in port.items():
@@ -355,3 +352,102 @@ def test_sd15_full_size_keys_and_shapes():
     assert n_unet == sum(int(np.prod(s)) for s in expected["unet"].values())
     assert sum(1 for k in expected["unet"] if k.endswith("lora.down.weight")
                ) == 192     # the reference's 192 LoRA sites
+
+
+def test_vae_encoder_parity():
+    """The tiny VAE encoder (asymmetric-padded downsamplers, mid-block
+    attention, eps 1e-6), quant_conv, the clipped posterior and its
+    sampling formula against the JAX module's methods."""
+    from aqualora_torch.core.config import VAEConfig as TV
+    from aqualora_torch.models.vae import AutoencoderKL as TVae
+    from aqualora_tpu.core.config import VAEConfig as JV
+    from aqualora_tpu.models.vae import AutoencoderKL as JVae
+
+    vae = JVae(JV.tiny())
+    params = _random_vars(vae, jnp.zeros((1, 16, 16, 3)), KEY,
+                          seed=24)["params"]
+    x = np.tanh(_rand(25, 2, 16, 16, 3))
+    noise = _rand(26, 2, 8, 8, 4)
+    port = _load(TVae(TV.tiny()), params)
+    with torch.no_grad():
+        mean, logvar = port.encode_moments(_nchw(x))
+        sample = port.sample_from_moments(mean, logvar, _nchw(noise))
+        mode = port.encode(_nchw(x))
+    j_mean, j_logvar = _run_pair(vae, params, x)
+    j_sample = vae.sample_from_moments(jnp.asarray(j_mean),
+                                       jnp.asarray(j_logvar),
+                                       jnp.asarray(noise))
+    for got, want in ((mean, j_mean), (logvar, j_logvar), (mode, j_mean),
+                      (sample, j_sample)):
+        np.testing.assert_allclose(_nhwc(got), np.asarray(want), atol=1e-4)
+    assert np.abs(j_mean).max() > 0.1 and mean.shape == (2, 4, 8, 8)
+
+
+def _run_pair(vae, params, x):
+    return [np.asarray(a) for a in jax.jit(lambda p, x: vae.apply(
+        {"params": p}, x, method="encode_moments"))(params, jnp.asarray(x))]
+
+
+@pytest.mark.parametrize("resolution,latent", [(16, 16), (32, 12)])
+def test_secret_encoder_parity(resolution, latent):
+    """SecretEncoder: dense, SiLU, channel repeat, nearest upsample, the
+    3x3 conv (made non-zero here) and the bilinear resize to the latent,
+    loaded strictly from the JAX tree (`secret_dense`, `conv_out`)."""
+    from aqualora_torch.models.watermark import SecretEncoder as TEnc
+    from aqualora_tpu.models.watermark import SecretEncoder as JEnc
+
+    enc = JEnc(8, base_res=8, resolution=resolution)
+    x = _rand(27, 2, latent, latent, 4)
+    msg = (np.random.default_rng(28).random((2, 8)) > 0.5).astype(np.float32)
+    params = _random_vars(enc, jnp.asarray(x), jnp.asarray(msg),
+                          seed=29)["params"]
+    port = _load(TEnc(8, base_res=8, resolution=resolution), params)
+    with torch.no_grad():
+        out, c = port(_nchw(x), torch.from_numpy(msg))
+    j_out, j_c = enc.apply({"params": params}, jnp.asarray(x),
+                           jnp.asarray(msg))
+    np.testing.assert_allclose(_nhwc(out), np.asarray(j_out), atol=1e-5)
+    np.testing.assert_allclose(_nhwc(c), np.asarray(j_c), atol=1e-5)
+    assert np.abs(np.asarray(j_c)).max() > 1e-2
+
+
+@pytest.mark.parametrize("kind", ["dense", "conv"])
+def test_lora_float32_weights_under_bf16(kind):
+    """float32 LoRA weights under bfloat16 compute: the LoRA layers cast
+    their weights to the activation's type at every call, as flax's `dtype=`
+    does (the PPFT trainer keeps float32 trainables over a bf16 U-Net).  The
+    float32 diagonal multiplies in float32 before the up layer, as on the
+    JAX side.  Both sides round to bf16 at other places, so the limit is
+    four bf16 ulps at the reference's largest value."""
+    from aqualora_torch.models.lora import LoRAConv2d, LoRALinear
+    from aqualora_tpu.models.lora import LoRAConv, LoRADense
+
+    jl, tl = _lora()
+    diag = 1.0 + _rand(30, 2, 4)
+    if kind == "dense":
+        x = _rand(31, 2, 6, 16)
+        jmod = LoRADense(24, lora=jl, dtype=jnp.bfloat16)
+        port = LoRALinear(16, 24, lora=tl)
+        to_t = torch.from_numpy
+        back = lambda t: t.float().numpy()
+    else:
+        x = _rand(31, 2, 5, 5, 16)
+        jmod = LoRAConv(24, lora=jl, dtype=jnp.bfloat16)
+        port = LoRAConv2d(16, 24, lora=tl)
+        to_t = _nchw
+        back = lambda t: _nhwc(t.float())
+    params = _random_vars(jmod, jnp.asarray(x), jnp.asarray(diag),
+                          seed=32)["params"]
+    _load(port, params)
+    for name, p in port.named_parameters():     # bf16 base, f32 LoRA
+        if ".lora." not in f".{name}":
+            p.data = p.data.bfloat16()
+    assert port.lora.up.weight.dtype == torch.float32
+    with torch.no_grad():
+        out = port(to_t(x).bfloat16(), torch.from_numpy(diag))
+    assert out.dtype == torch.bfloat16
+    ref = np.asarray(jmod.apply({"params": params},
+                                jnp.asarray(x, jnp.bfloat16),
+                                jnp.asarray(diag))).astype(np.float32)
+    tol = 4 * 2.0 ** -8 * np.abs(ref).max()
+    np.testing.assert_allclose(back(out), ref, atol=tol)

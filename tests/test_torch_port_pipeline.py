@@ -322,8 +322,8 @@ def test_decode_latents_matches_jax(slice_outputs):
 
 
 def test_port_never_imports_jax():
-    """Every module of aqualora_torch imports, and the tiny slice runs,
-    with no jax, flax or aqualora_tpu module loaded."""
+    """Every module of aqualora_torch imports, and the tiny slice and one
+    tiny PPFT step run, with no jax, flax or aqualora_tpu module loaded."""
     code = """
 import importlib, pkgutil, sys
 import numpy as np, torch
@@ -349,6 +349,11 @@ dec = SecretDecoder(cfg.watermark.msg_bits, EfficientNetConfig.tiny(),
 init_module_weights(dec, torch.Generator().manual_seed(1))
 bits, _ = decode_bits(dec, img)
 assert img.shape == (2, 32, 32, 3) and bits.shape == (2, 8)
+from aqualora_torch.train import ppft_train
+res = ppft_train.run(ppft_train.build_argparser().parse_args(
+    ["--tiny", "--max_train_steps", "1", "--train_batch_size", "2",
+     "--device", "cpu"]))
+assert len(res["history"]) == 1
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "aqualora_tpu"))
 assert not bad, bad

@@ -4,7 +4,8 @@
 // Replaces the TPU kernels `_dq_kernel` (aqualora_tpu/ops/flash_attention.py:239)
 // and `_dkv_kernel` (:269), launched by `_flash_backward`.  The same function
 // and the same split into two kernels, so that no sum crosses blocks and the
-// result is deterministic (no atomics):
+// result is deterministic (no atomics; two calls on the same inputs give the
+// same bits):
 //
 //   P  = exp(S * scale - L),  S = Q K^T,  L the forward's row logsumexp
 //   dP = dO V^T,  delta = rowsum(dO o O) (a torch reduction in the wrapper,
@@ -15,105 +16,118 @@
 //
 // The TPU kernels carry dQ (resp. dK, dV) in VMEM scratch across a
 // sequential grid axis; here each block loops over the other sequence itself
-// and keeps its sums in float32 registers.
+// and keeps its sums in float32 registers.  The [Tq, Tk] S, P and dS never
+// reach device memory.
 //
-// What bounds it on this card.  The work is 10*B*H*Tq*Tk*D operations (five
-// products of 2*Tq*Tk*D each: S, dP and dQ in the first kernel, S, dP, dV and
-// dK again in the second, less the recomputed S and dP) against about
-// 4*(Tq+Tk)*D*2 bytes per (b, h): at the U-Net's self-attention shapes it
-// is bound by the tensor-core rate, at Tk = 77 it is close to the bytes.
-// This first version is deliberately simple, like the forward: every product
-// runs as float32 FMAs on the CUDA cores (67 TFLOP/s peak, far below the bf16
-// tensor-core bound), so it sits well above its bound at the self-attention
-// shapes.  What the design gets right is the memory side: the [Tq, Tk] P and
-// dS never reach device memory, Q, dO, K and V are read once per tile pair,
-// and each gradient is written once.  Tensor cores are later work.
+// What bounds it on this card.  The least work is 10*B*H*Tq*Tk*D operations
+// (S, dP, dQ, dK, dV; the dK/dV kernel recomputes S and dP, so the pair does
+// 14) against about 4*(Tq+Tk)*D*2 bytes per (b, h): at the U-Net's
+// self-attention shapes the tensor-core rate bounds it, at Tk = 77 the bytes.
 //
-// Design.  Both kernels use the forward's layout.  128 threads form row
-// groups of G lanes (G divides 32, so a group never spans two warps); a group
-// owns TM rows of the block's tile (query rows in the dQ kernel, key rows in
-// the dK/dV kernel).  Lane g computes the scores of columns g, g+G, ... of the
-// current tile of the other sequence and accumulates output columns g, g+G,
-// ... of the head dim; P and dS are passed across the group by shuffles for
-// the products that consume them.  The block's own rows stay in shared memory
-// for the whole loop; each tile of the other sequence is staged once.
+// Which instance takes which path.  Each type goes to one design:
+// - bfloat16 (the training path, phase 8 of chip_smoke.py): the tensor-core
+//   kernels `flash_bwd_dq_tc_kernel` and `flash_bwd_dkv_tc_kernel` below.
+// - float32 (the tiny card-vs-CPU checks): the CUDA-core kernels
+//   `flash_bwd_dq_kernel` and `flash_bwd_dkv_kernel`, float32 FMAs, so that
+//   the float32 limit (1e-4 of the largest gradient) holds; TF32 tensor cores
+//   keep about three decimal digits and would not.
+//
+// Tensor-core design (bfloat16).
+// - Products: `mma.sync.aligned.m16n8k16` bf16 x bf16 -> float32 with
+//   `ldmatrix` (`.trans` where the operand is stored k-major), not `wgmma`:
+//   it needs no shared-memory descriptors and lets a warp turn its float32
+//   score accumulator into the A operand of the next product in registers.
+//   wgmma with TMA is the larger next step.
+// - Layout of the products.  A warp owns 16 or 32 rows of the block's tile
+//   (query rows in the dQ kernel, key rows in the dK/dV kernel).  The dQ
+//   kernel computes S = Q K^T and dP = dO V^T, forms dS in registers and uses
+//   it as the A operand of dQ += dS K.  The dK/dV kernel computes S^T = K Q^T
+//   and dP^T = V dO^T with its own keys as rows, so P^T and dS^T are already
+//   the A operands of dV += P^T dO and dK += dS^T Q.  Neither P nor dS goes
+//   through shared memory or shuffles; each is rounded to bf16 once, as an
+//   operand, and every sum is float32.
+// - Staging.  The block's own rows are copied once; the streamed tiles (K, V
+//   in the dQ kernel; Q, dO, L, delta in the dK/dV kernel) go through a ring
+//   of two stages in dynamic shared memory with 16-byte `cp.async` (4-byte
+//   for L and delta), so the next tile's copy overlaps this tile's products.
+//   Rows are padded by 16 bytes (DP + 8 elements), which puts the eight rows
+//   an `ldmatrix` reads on eight different bank groups.
+// - What bounds it in practice: the shared-memory reads of the operands and
+//   the special-function unit.  At d = 40 a warp owns two m16 tiles, so each
+//   B operand it reads feeds two products, and at d <= 80 it keeps the A
+//   operands of its own rows in registers for the whole loop.  exp2 is one
+//   `ex2.approx.ftz` instruction, not exp2f's longer sequence with its
+//   subnormal handling.
+// - Filling the card.  With 64-row tiles a short own sequence leaves the
+//   card underfilled (Tk = 77 at B8 H8 gives 128 blocks for 132 SMs).  When
+//   ceil(T / 64) * B * H is below two blocks per SM the block owns 16 rows
+//   instead and its four warps split each streamed tile four ways; their
+//   partial sums are added in shared memory in a fixed warp order at the end
+//   (Tk = 77: 320 blocks).  No second launch, and the result is still
+//   deterministic.
+// - Tiles per head dim (DP = 48 for d <= 48, 80, 160; `Tc` below): own rows
+//   128 / 64 / 64 (16 when narrow), streamed tiles of 64 rows (32 for the
+//   64-row d = 160 kernels), and NC, the streamed rows a warp scores at
+//   once, chosen so that the accumulators stay in registers (ptxas: at most
+//   244 registers, no spills): at d = 160 the dK/dV kernel holds 160 float32
+//   sums of dK and dV a thread and scores 16 queries at a time.
 //
 // Ragged shapes are masked, never padded in memory: head dims that are not a
-// tile width (40, 80) load as zeros past D; keys past Tk get P = 0 in the dQ
-// kernel and are not written by the dK/dV kernel; query rows past Tq have no
-// defined L or delta, so the dK/dV kernel masks their P (and with it dS) to
-// zero rather than only skipping their stores.  Head dims above 160 are
-// refused: no differentiated attention of the port has one (the VAE's d = 512
-// attention runs without gradients in training).
+// multiple of 16 (40) are zero-filled by the copy itself (cp.async with a
+// source size of 0); keys past Tk get P = 0 in the dQ kernel and are not
+// written by the dK/dV kernel; query rows past Tq have no defined L or
+// delta, so the dK/dV kernel masks their P (and with it dS) to zero rather
+// than only skipping their stores.  A head dim that is not a multiple of 8,
+// or an input not 16-byte aligned, is staged by plain loads instead of
+// cp.async.  Head dims above 160 are refused: no differentiated attention of
+// the port has one (the VAE's d = 512 attention runs without gradients in
+// training).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include <initializer_list>
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kLog2e = 1.4426950408889634f;
+using bf16 = __nv_bfloat16;
 
-template <typename T>
-struct Elem;
-
-template <>
-struct Elem<float> {
-  static __device__ __forceinline__ float zero() { return 0.f; }
-  static __device__ __forceinline__ float to_f(float x) { return x; }
-  static __device__ __forceinline__ float from_f(float x) { return x; }
-  // float rows have an odd stride, so no vector load here
-  static __device__ __forceinline__ float2 load2(const float* p) {
-    return make_float2(p[0], p[1]);
-  }
-};
-
-template <>
-struct Elem<__nv_bfloat16> {
-  static __device__ __forceinline__ __nv_bfloat16 zero() {
-    return __float2bfloat16(0.f);
-  }
-  static __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-    return __bfloat162float(x);
-  }
-  static __device__ __forceinline__ __nv_bfloat16 from_f(float x) {
-    return __float2bfloat16(x);
-  }
-  // bf16 rows have an even stride: element pairs are 4-byte aligned
-  static __device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-  }
-};
+// ---------------------------------------------------------------------------
+// float32: CUDA-core kernels
+// ---------------------------------------------------------------------------
 
 // Tile shape per padded head dim DP: G lanes per row group, TM rows per group,
 // BN columns (rows of the other sequence) per inner tile.  Registers per
 // thread: 2*TM*DP/G accumulators in the dK/dV kernel (TM*DP/G in the dQ
-// kernel) and 2*TM*BN/G scores.  One tile per head dim of the training path
-// (40, 80, 160); any other D up to 160 takes the next larger tile.
+// kernel) and 2*TM*BN/G scores.  128 threads form row groups of G lanes (G
+// divides 32); lane g scores columns g, g+G, ... of the tile and accumulates
+// output columns g, g+G, ...; P and dS are passed across the group by
+// shuffles.
 template <int DP>
 struct Cfg;
 template <> struct Cfg<48>  { static constexpr int G = 8,  TM = 4, BN = 32; };
 template <> struct Cfg<80>  { static constexpr int G = 8,  TM = 4, BN = 32; };
 template <> struct Cfg<160> { static constexpr int G = 16, TM = 4, BN = 32; };
 
-// Shared-memory row stride in elements: an odd number of 4-byte words.
-template <typename T, int DP>
-__host__ __device__ constexpr int row_stride() {
-  return sizeof(T) == 4 ? DP + 1 : DP + 2;
-}
+// Shared-memory row stride in floats: an odd number of 4-byte words.
+template <int DP>
+__host__ __device__ constexpr int row_stride() { return DP + 1; }
 
 // Stage rows [r0, r0 + R) of a [n, D] matrix into a [R, LD] shared tile,
 // zeros past n and past D.
-template <typename T, int DP, int R>
-__device__ __forceinline__ void stage(T* dst, const T* src, int r0, int n,
-                                      int D) {
-  constexpr int LD = row_stride<T, DP>();
+template <int DP, int R>
+__device__ __forceinline__ void stage(float* dst, const float* src, int r0,
+                                      int n, int D) {
+  constexpr int LD = row_stride<DP>();
   for (int i = threadIdx.x; i < R * DP; i += kThreads) {
     const int r = i / DP, c = i % DP;
-    T x = Elem<T>::zero();
+    float x = 0.f;
     if (r0 + r < n && c < D) x = src[(size_t)(r0 + r) * D + c];
     dst[r * LD + c] = x;
   }
@@ -121,12 +135,12 @@ __device__ __forceinline__ void stage(T* dst, const T* src, int r0, int n,
 
 // Two dot products of TM own rows against NC columns of the tile, over the
 // head dim: a[i][j] = rowA_i . colA_j and b[i][j] = rowB_i . colB_j.
-template <typename T, int DP, int TM, int NC, int G>
+template <int DP, int TM, int NC, int G>
 __device__ __forceinline__ void dots(float (&a)[TM][NC], float (&b)[TM][NC],
-                                     const T* rowA, const T* rowB,
-                                     const T* colA, const T* colB, int row0,
-                                     int g) {
-  constexpr int LD = row_stride<T, DP>();
+                                     const float* rowA, const float* rowB,
+                                     const float* colA, const float* colB,
+                                     int row0, int g) {
+  constexpr int LD = row_stride<DP>();
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
@@ -136,13 +150,17 @@ __device__ __forceinline__ void dots(float (&a)[TM][NC], float (&b)[TM][NC],
     float2 ra[TM], rb[TM], ca[NC], cb[NC];
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
-      ra[i] = Elem<T>::load2(rowA + (row0 + i) * LD + c);
-      rb[i] = Elem<T>::load2(rowB + (row0 + i) * LD + c);
+      const float* pa = rowA + (row0 + i) * LD + c;
+      const float* pb = rowB + (row0 + i) * LD + c;
+      ra[i] = make_float2(pa[0], pa[1]);
+      rb[i] = make_float2(pb[0], pb[1]);
     }
 #pragma unroll
     for (int j = 0; j < NC; ++j) {
-      ca[j] = Elem<T>::load2(colA + (g + G * j) * LD + c);
-      cb[j] = Elem<T>::load2(colB + (g + G * j) * LD + c);
+      const float* pa = colA + (g + G * j) * LD + c;
+      const float* pb = colB + (g + G * j) * LD + c;
+      ca[j] = make_float2(pa[0], pa[1]);
+      cb[j] = make_float2(pb[0], pb[1]);
     }
 #pragma unroll
     for (int i = 0; i < TM; ++i)
@@ -157,12 +175,13 @@ __device__ __forceinline__ void dots(float (&a)[TM][NC], float (&b)[TM][NC],
 }
 
 // dQ: one block per (query tile, head, batch), looping over the key tiles.
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
+                    const float* __restrict__ delta, float* __restrict__ dq,
                     int H, int Tq, int Tk, int D, float scale,
                     float scale_log2) {
   using C = Cfg<DP>;
@@ -170,25 +189,25 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int BQ = (kThreads / G) * TM;
   constexpr int NK = BN / G;   // keys per lane per tile
   constexpr int ND = DP / G;   // output columns per lane
-  constexpr int LD = row_stride<T, DP>();
+  constexpr int LD = row_stride<DP>();
   static_assert(DP % 2 == 0 && BN % G == 0 && DP % G == 0, "tile shape");
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* q_s = reinterpret_cast<T*>(smem_raw);
-  T* do_s = q_s + BQ * LD;
-  T* k_s = do_s + BQ * LD;
-  T* v_s = k_s + BN * LD;
+  float* q_s = reinterpret_cast<float*>(smem_raw);
+  float* do_s = q_s + BQ * LD;
+  float* k_s = do_s + BQ * LD;
+  float* v_s = k_s + BN * LD;
 
   const int tid = threadIdx.x;
   const int g = tid % G;
   const int row0 = (tid / G) * TM;
   const int q0 = blockIdx.x * BQ;
   const size_t bh = (size_t)blockIdx.z * H + blockIdx.y;
-  const T* kb = k + bh * Tk * D;
-  const T* vb = v + bh * Tk * D;
+  const float* kb = k + bh * Tk * D;
+  const float* vb = v + bh * Tk * D;
 
-  stage<T, DP, BQ>(q_s, q + bh * Tq * D, q0, Tq, D);
-  stage<T, DP, BQ>(do_s, dout + bh * Tq * D, q0, Tq, D);
+  stage<DP, BQ>(q_s, q + bh * Tq * D, q0, Tq, D);
+  stage<DP, BQ>(do_s, dout + bh * Tq * D, q0, Tq, D);
 
   // L in log2 units and delta of the own rows; rows past Tq are never
   // written, so any finite value will do
@@ -206,12 +225,12 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * BN;
     __syncthreads();  // Q, dO staged (t == 0) / previous K tile consumed
-    stage<T, DP, BN>(k_s, kb, k0, Tk, D);
-    stage<T, DP, BN>(v_s, vb, k0, Tk, D);
+    stage<DP, BN>(k_s, kb, k0, Tk, D);
+    stage<DP, BN>(v_s, vb, k0, Tk, D);
     __syncthreads();
 
     float s[TM][NK], dp[TM][NK];
-    dots<T, DP, TM, NK, G>(s, dp, q_s, do_s, k_s, v_s, row0, g);
+    dots<DP, TM, NK, G>(s, dp, q_s, do_s, k_s, v_s, row0, g);
 
     // dS = P o (dP - delta), P = 0 for keys past Tk
 #pragma unroll
@@ -228,13 +247,13 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < NK; ++j) {
 #pragma unroll
       for (int src = 0; src < G; ++src) {
-        const T* krow = k_s + (j * G + src) * LD;
+        const float* krow = k_s + (j * G + src) * LD;
         float ds[TM];
 #pragma unroll
         for (int i = 0; i < TM; ++i) ds[i] = __shfl_sync(kFull, s[i][j], src, G);
 #pragma unroll
         for (int jd = 0; jd < ND; ++jd) {
-          const float kv = Elem<T>::to_f(krow[g + G * jd]);
+          const float kv = krow[g + G * jd];
 #pragma unroll
           for (int i = 0; i < TM; ++i) acc[i][jd] = fmaf(ds[i], kv, acc[i][jd]);
         }
@@ -246,51 +265,52 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < TM; ++i) {
     const int r = q0 + row0 + i;
     if (r < Tq) {
-      T* row = dq + (bh * Tq + r) * D;
+      float* row = dq + (bh * Tq + r) * D;
 #pragma unroll
       for (int jd = 0; jd < ND; ++jd) {
         const int c = g + G * jd;
-        if (c < D) row[c] = Elem<T>::from_f(acc[i][jd] * scale);
+        if (c < D) row[c] = acc[i][jd] * scale;
       }
     }
   }
 }
 
 // dK, dV: one block per (key tile, head, batch), looping over the query tiles.
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int H, int Tq, int Tk, int D,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int H, int Tq, int Tk, int D,
                      float scale, float scale_log2) {
   using C = Cfg<DP>;
   constexpr int G = C::G, TM = C::TM, BN = C::BN;
   constexpr int BK = (kThreads / G) * TM;
   constexpr int NQ = BN / G;   // queries per lane per tile
   constexpr int ND = DP / G;
-  constexpr int LD = row_stride<T, DP>();
+  constexpr int LD = row_stride<DP>();
   static_assert(DP % 2 == 0 && BN % G == 0 && DP % G == 0, "tile shape");
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* l_s = reinterpret_cast<float*>(smem_raw);   // BN
   float* d_s = l_s + BN;                             // BN
-  T* k_s = reinterpret_cast<T*>(d_s + BN);
-  T* v_s = k_s + BK * LD;
-  T* q_s = v_s + BK * LD;
-  T* do_s = q_s + BN * LD;
+  float* k_s = d_s + BN;
+  float* v_s = k_s + BK * LD;
+  float* q_s = v_s + BK * LD;
+  float* do_s = q_s + BN * LD;
 
   const int tid = threadIdx.x;
   const int g = tid % G;
   const int row0 = (tid / G) * TM;
   const int k0 = blockIdx.x * BK;
   const size_t bh = (size_t)blockIdx.z * H + blockIdx.y;
-  const T* qb = q + bh * Tq * D;
-  const T* dob = dout + bh * Tq * D;
+  const float* qb = q + bh * Tq * D;
+  const float* dob = dout + bh * Tq * D;
 
-  stage<T, DP, BK>(k_s, k + bh * Tk * D, k0, Tk, D);
-  stage<T, DP, BK>(v_s, v + bh * Tk * D, k0, Tk, D);
+  stage<DP, BK>(k_s, k + bh * Tk * D, k0, Tk, D);
+  stage<DP, BK>(v_s, v + bh * Tk * D, k0, Tk, D);
 
   float acc_k[TM][ND], acc_v[TM][ND];
 #pragma unroll
@@ -302,8 +322,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int t = 0; t < n_tiles; ++t) {
     const int q0 = t * BN;
     __syncthreads();  // K, V staged (t == 0) / previous Q tile consumed
-    stage<T, DP, BN>(q_s, qb, q0, Tq, D);
-    stage<T, DP, BN>(do_s, dob, q0, Tq, D);
+    stage<DP, BN>(q_s, qb, q0, Tq, D);
+    stage<DP, BN>(do_s, dob, q0, Tq, D);
     for (int r = tid; r < BN; r += kThreads) {
       const bool valid = q0 + r < Tq;
       l_s[r] = valid ? lse[bh * Tq + q0 + r] * kLog2e : 0.f;
@@ -313,7 +333,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     // s = K Q^T (rows: own keys, columns: the tile's queries), dp = V dO^T
     float s[TM][NQ], dp[TM][NQ];
-    dots<T, DP, TM, NQ, G>(s, dp, k_s, v_s, q_s, do_s, row0, g);
+    dots<DP, TM, NQ, G>(s, dp, k_s, v_s, q_s, do_s, row0, g);
 
     // P and dS; queries past Tq have no L or delta, so their P is masked
 #pragma unroll
@@ -334,8 +354,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < NQ; ++j) {
 #pragma unroll
       for (int src = 0; src < G; ++src) {
-        const T* qrow = q_s + (j * G + src) * LD;
-        const T* dorow = do_s + (j * G + src) * LD;
+        const float* qrow = q_s + (j * G + src) * LD;
+        const float* dorow = do_s + (j * G + src) * LD;
         float p[TM], ds[TM];
 #pragma unroll
         for (int i = 0; i < TM; ++i) {
@@ -344,8 +364,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
 #pragma unroll
         for (int jd = 0; jd < ND; ++jd) {
-          const float qv = Elem<T>::to_f(qrow[g + G * jd]);
-          const float ov = Elem<T>::to_f(dorow[g + G * jd]);
+          const float qv = qrow[g + G * jd];
+          const float ov = dorow[g + G * jd];
 #pragma unroll
           for (int i = 0; i < TM; ++i) {
             acc_v[i][jd] = fmaf(p[i], ov, acc_v[i][jd]);
@@ -360,21 +380,536 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < TM; ++i) {
     const int r = k0 + row0 + i;
     if (r < Tk) {
-      T* krow = dk + (bh * Tk + r) * D;
-      T* vrow = dv + (bh * Tk + r) * D;
+      float* krow = dk + (bh * Tk + r) * D;
+      float* vrow = dv + (bh * Tk + r) * D;
 #pragma unroll
       for (int jd = 0; jd < ND; ++jd) {
         const int c = g + G * jd;
         if (c < D) {
-          krow[c] = Elem<T>::from_f(acc_k[i][jd] * scale);
-          vrow[c] = Elem<T>::from_f(acc_v[i][jd]);
+          krow[c] = acc_k[i][jd] * scale;
+          vrow[c] = acc_v[i][jd];
         }
       }
     }
   }
 }
 
-template <typename T, int DP>
+// ---------------------------------------------------------------------------
+// bfloat16: tensor-core kernels
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; the bytes past `src_bytes` (all
+// 16 when it is 0) are written as zeros and not read.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Four 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix
+// l / 8 and gets, of each matrix m, reg m = (row l / 4, columns 2(l % 4),
+// 2(l % 4) + 1), or of its transpose with TRANS.
+template <bool TRANS>
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const bf16* p) {
+  if (TRANS)
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_addr(p)) : "memory");
+  else
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_addr(p)) : "memory");
+}
+
+// c (16x8, float32) += a (16x16, bf16, row-major) * b (16x8, bf16).  Lane l,
+// g = l / 4, t = l % 4: c[0..1] = row g, columns 2t, 2t+1; c[2..3] = row
+// g + 8; a[0] = row g, k 2t..2t+1; a[1] = row g+8; a[2], a[3] the same at
+// k + 8; b0 = k 2t..2t+1, column g; b1 = k + 8.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x on the special-function unit, flushing subnormal results to zero (a
+// P below 2^-126 is zero after its bf16 rounding in any case).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+// Tiles of the tensor-core kernels.  A block has 4 warps: WR along its own
+// rows and WS = 4 / WR along the streamed tile of BN rows, of which each
+// warp takes SPAN = BN / WS, NC at a time.  A warp owns MT m16 tiles (16 * MT
+// rows), so each B operand it loads from shared memory feeds MT products.
+// With AREG the warp keeps the A operands of its own rows (Q and dO, or K
+// and V) in registers for the whole loop instead of reloading them.  LDS is
+// the shared row stride in elements (16 bytes of padding), NB the head dim in
+// 8-column blocks.  `dkv` picks the dK/dV kernel's NC: it holds two
+// accumulators.
+template <int DP, int WR, bool dkv>
+struct Tc {
+  static_assert(DP % 16 == 0 && (WR == 1 || WR == 4), "tile shape");
+  static constexpr int WS = 4 / WR;
+  static constexpr int MT = (WR == 4 && DP == 48) ? 2 : 1;
+  static constexpr bool AREG = DP <= 80;
+  static constexpr int BR = 16 * MT * WR;
+  static constexpr int BN = (WR == 4 && DP == 160) ? 32 : 64;
+  static constexpr int SPAN = BN / WS;
+  static constexpr int NC_MAX = dkv ? (DP == 80 ? 32 : 16) : 32;
+  static constexpr int NC = SPAN < NC_MAX ? SPAN : NC_MAX;
+  static constexpr int LDS = DP + 8, NB = DP / 8;
+  static_assert(SPAN % NC == 0 && NC % 16 == 0, "tile shape");
+  static_assert(MT == 1 || WS == 1, "partial sums are added per m16 tile");
+  // staged bf16 rows: own (2 x BR) and the two-stage ring (2 x 2 x BN)
+  static constexpr size_t stage_bytes =
+      (size_t)(2 * BR + 4 * BN) * LDS * sizeof(bf16) +
+      (dkv ? 2 * 2 * BN * sizeof(float) : 0);
+  // float32 partial sums of one accumulator per warp, when WS > 1
+  static constexpr size_t reduce_bytes =
+      WS > 1 ? (size_t)WS * NB * 4 * 32 * sizeof(float) : 0;
+  static constexpr size_t smem_bytes =
+      stage_bytes > reduce_bytes ? stage_bytes : reduce_bytes;
+};
+
+// Copy rows [r0, r0 + R) of a [n, D] bf16 matrix into a [R, LDS] shared tile
+// in 16-byte chunks, zeros past n and past D.  `vec`: D % 8 == 0 and the
+// rows are 16-byte aligned, so each chunk is one cp.async; otherwise plain
+// loads and stores.
+template <int DP, int R>
+__device__ __forceinline__ void stage_tc(bf16* dst, const bf16* src, int r0,
+                                         int n, int D, bool vec) {
+  constexpr int LDS = DP + 8, CH = DP / 8;
+  for (int i = threadIdx.x; i < R * CH; i += kThreads) {
+    const int r = i / CH, c = (i % CH) * 8;
+    bf16* d = dst + r * LDS + c;
+    const bool row_ok = r0 + r < n;
+    const bf16* s = src + (size_t)(row_ok ? r0 + r : 0) * D + c;
+    if (vec) {
+      const bool ok = row_ok && c < D;
+      cp_async16(d, ok ? s : src, ok ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        d[e] = row_ok && c + e < D ? s[e] : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// The 16x16 A operand at (row0, col0) of a row-major [.., LDS] tile, or the
+// two 8-column B operands (k 16 rows at row0, n 16 columns at col0) of a
+// tile stored k-major (TRANS).  Matrices: 0 = rows +0, cols +0; 1 = rows +8,
+// cols +0; 2 = rows +0, cols +8; 3 = rows +8, cols +8.
+template <int LDS, bool TRANS>
+__device__ __forceinline__ void load_rm(unsigned (&r)[4], const bf16* tile,
+                                        int row0, int col0, int lane) {
+  const int m = lane >> 3;
+  ldmatrix_x4<TRANS>(r, tile + (row0 + (lane & 7) + (m & 1) * 8) * LDS +
+                            col0 + (m >> 1) * 8);
+}
+
+// The B operands of two 8-column blocks (n rows n0..n0+15 of a tile stored
+// n-major, k columns k0..k0+15): r[0], r[1] for rows n0..n0+7, r[2], r[3]
+// for n0+8..n0+15.
+template <int LDS>
+__device__ __forceinline__ void load_nk(unsigned (&r)[4], const bf16* tile,
+                                        int n0, int k0, int lane) {
+  const int m = lane >> 3;
+  ldmatrix_x4<false>(r, tile + (n0 + (lane & 7) + (m >> 1) * 8) * LDS + k0 +
+                            (m & 1) * 8);
+}
+
+// The A operands of a warp's own rows (MT m16 tiles at own_row of tiles a
+// and c) over the head dim, kept in registers when AREG; without AREG the
+// arrays are one step long and unused.
+template <int DP, int MT, bool AREG>
+struct OwnFrags {
+  static constexpr int KS = AREG ? DP / 16 : 1;
+  unsigned a[MT][KS][4], c[MT][KS][4];
+
+  __device__ __forceinline__ void load(const bf16* ta, const bf16* tc,
+                                       int own_row, int lane) {
+    if (AREG) {
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          load_rm<DP + 8, false>(a[m][ks], ta, own_row + 16 * m, 16 * ks,
+                                 lane);
+          load_rm<DP + 8, false>(c[m][ks], tc, own_row + 16 * m, 16 * ks,
+                                 lane);
+        }
+    }
+  }
+};
+
+// s += A_rows B^T and dp += C_rows D^T over the head dim, for the warp's
+// MT x 16 own rows (at own_row of tiles a and c, or in `own`) against NC
+// streamed rows (at n0 of tiles b and d).
+template <int DP, int NC, int MT, bool AREG>
+__device__ __forceinline__ void scores(float (&s)[MT][NC / 8][4],
+                                       float (&dp)[MT][NC / 8][4],
+                                       const OwnFrags<DP, MT, AREG>& own,
+                                       const bf16* a, const bf16* c,
+                                       int own_row, const bf16* b,
+                                       const bf16* d, int n0, int lane) {
+  constexpr int LDS = DP + 8;
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < NC / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[m][j][i] = dp[m][j][i] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < DP / 16; ++ks) {
+    unsigned fa[MT][4], fc[MT][4];
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      if (AREG) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          fa[m][r] = own.a[m][AREG ? ks : 0][r];
+          fc[m][r] = own.c[m][AREG ? ks : 0][r];
+        }
+      } else {
+        load_rm<LDS, false>(fa[m], a, own_row + 16 * m, 16 * ks, lane);
+        load_rm<LDS, false>(fc[m], c, own_row + 16 * m, 16 * ks, lane);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NC / 16; ++j) {
+      unsigned fb[4], fd[4];
+      load_nk<LDS>(fb, b, n0 + 16 * j, 16 * ks, lane);
+      load_nk<LDS>(fd, d, n0 + 16 * j, 16 * ks, lane);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        mma_bf16(s[m][2 * j], fa[m], fb[0], fb[1]);
+        mma_bf16(s[m][2 * j + 1], fa[m], fb[2], fb[3]);
+        mma_bf16(dp[m][2 * j], fc[m], fd[0], fd[1]);
+        mma_bf16(dp[m][2 * j + 1], fc[m], fd[2], fd[3]);
+      }
+    }
+  }
+}
+
+// acc (MT x 16 x DP) += X (MT x 16 x NC, float32 accumulator layout,
+// rounded to bf16 here) * Y (NC streamed rows at n0 of a k-major tile, x DP).
+// The accumulator of 8-column blocks 2j and 2j+1 is the A operand of k
+// step j.
+template <int DP, int NC, int MT>
+__device__ __forceinline__ void accumulate(float (&acc)[MT][DP / 8][4],
+                                           const float (&x)[MT][NC / 8][4],
+                                           const bf16* y, int n0, int lane) {
+  constexpr int LDS = DP + 8;
+#pragma unroll
+  for (int j = 0; j < NC / 16; ++j) {
+    unsigned a[MT][4];
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      a[m][0] = pack_bf16(x[m][2 * j][0], x[m][2 * j][1]);
+      a[m][1] = pack_bf16(x[m][2 * j][2], x[m][2 * j][3]);
+      a[m][2] = pack_bf16(x[m][2 * j + 1][0], x[m][2 * j + 1][1]);
+      a[m][3] = pack_bf16(x[m][2 * j + 1][2], x[m][2 * j + 1][3]);
+    }
+#pragma unroll
+    for (int nd = 0; nd < DP / 16; ++nd) {
+      unsigned b[4];
+      load_rm<LDS, true>(b, y, n0 + 16 * j, 16 * nd, lane);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        mma_bf16(acc[m][2 * nd], a[m], b[0], b[1]);
+        mma_bf16(acc[m][2 * nd + 1], a[m], b[2], b[3]);
+      }
+    }
+  }
+}
+// Write a warp's 16 x DP accumulator (rows row0.., times mult) as bf16 rows
+// of `out` [Trows, D].  With WS > 1 the WS warps hold partial sums of the
+// same rows: they are added through shared memory `red` in warp order, so
+// the result does not depend on timing.
+template <int DP, int WS>
+__device__ __forceinline__ void store_rows(const float (&acc)[DP / 8][4],
+                                           float* red, bf16* out, int row0,
+                                           int Trows, int D, float mult,
+                                           int ws, int lane) {
+  constexpr int E = DP / 8 * 4 * 32;
+  if (WS == 1) {
+#pragma unroll
+    for (int nb = 0; nb < DP / 8; ++nb)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = row0 + (lane >> 2) + (i >> 1) * 8;
+        const int c = nb * 8 + 2 * (lane & 3) + (i & 1);
+        if (r < Trows && c < D)
+          out[(size_t)r * D + c] = __float2bfloat16(acc[nb][i] * mult);
+      }
+    return;
+  }
+  __syncthreads();  // every warp is done with the shared tiles / red
+#pragma unroll
+  for (int nb = 0; nb < DP / 8; ++nb)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) red[ws * E + (nb * 4 + i) * 32 + lane] = acc[nb][i];
+  __syncthreads();
+  for (int e = threadIdx.x; e < E; e += kThreads) {
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < WS; ++w) sum += red[w * E + e];
+    const int l = e & 31, i = (e >> 5) & 3, nb = e >> 7;
+    const int r = row0 + (l >> 2) + (i >> 1) * 8;
+    const int c = nb * 8 + 2 * (l & 3) + (i & 1);
+    if (r < Trows && c < D) out[(size_t)r * D + c] = __float2bfloat16(sum * mult);
+  }
+}
+
+// dQ: one block per (query tile of BR rows, head, batch), looping over the
+// key tiles.
+template <int DP, int WR>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v,
+                       const bf16* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta, bf16* __restrict__ dq,
+                       int H, int Tq, int Tk, int D, float scale,
+                       float scale_log2, int vec) {
+  using C = Tc<DP, WR, false>;
+  constexpr int BR = C::BR, BN = C::BN, NC = C::NC, LDS = C::LDS, MT = C::MT;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
+  bf16* do_s = q_s + BR * LDS;
+  bf16* k_s = do_s + BR * LDS;          // [2][BN][LDS]
+  bf16* v_s = k_s + 2 * BN * LDS;       // [2][BN][LDS]
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int ws = warp % C::WS, own = (warp / C::WS) * 16 * MT;
+  const int q0 = blockIdx.x * BR;
+  const size_t bh = (size_t)blockIdx.z * H + blockIdx.y;
+  const bf16* kb = k + bh * Tk * D;
+  const bf16* vb = v + bh * Tk * D;
+
+  stage_tc<DP, BR>(q_s, q + bh * Tq * D, q0, Tq, D, vec);
+  stage_tc<DP, BR>(do_s, dout + bh * Tq * D, q0, Tq, D, vec);
+  stage_tc<DP, BN>(k_s, kb, 0, Tk, D, vec);
+  stage_tc<DP, BN>(v_s, vb, 0, Tk, D, vec);
+  cp_async_commit();
+
+  // L (log2 units) and delta of rows g and g + 8 of each m16 tile; rows past
+  // Tq are never written, so any finite value will do
+  float lrow[MT][2], drow[MT][2];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = q0 + own + 16 * m + (lane >> 2) + 8 * h;
+      lrow[m][h] = r < Tq ? lse[bh * Tq + r] * kLog2e : 0.f;
+      drow[m][h] = r < Tq ? delta[bh * Tq + r] : 0.f;
+    }
+  float acc[MT][DP / 8][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[m][j][i] = 0.f;
+  OwnFrags<DP, MT, C::AREG> frags;
+
+  const int n_tiles = (Tk + BN - 1) / BN;
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) {
+      const int nxt = (t + 1) & 1;
+      stage_tc<DP, BN>(k_s + nxt * BN * LDS, kb, (t + 1) * BN, Tk, D, vec);
+      stage_tc<DP, BN>(v_s + nxt * BN * LDS, vb, (t + 1) * BN, Tk, D, vec);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (t == 0) frags.load(q_s, do_s, own, lane);
+    const bf16* kt = k_s + (t & 1) * BN * LDS;
+    const bf16* vt = v_s + (t & 1) * BN * LDS;
+#pragma unroll 1
+    for (int n0 = ws * C::SPAN; n0 < (ws + 1) * C::SPAN; n0 += NC) {
+      float s[MT][NC / 8][4], dp[MT][NC / 8][4];
+      scores<DP, NC, MT, C::AREG>(s, dp, frags, q_s, do_s, own, kt, vt, n0,
+                                  lane);
+      // dS = P o (dP - delta), P = 0 for keys past Tk
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int j = 0; j < NC / 8; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int key = t * BN + n0 + 8 * j + 2 * (lane & 3) + (i & 1);
+            const float p = key < Tk
+                ? exp2_ftz(s[m][j][i] * scale_log2 - lrow[m][i >> 1]) : 0.f;
+            s[m][j][i] = p * (dp[m][j][i] - drow[m][i >> 1]);
+          }
+      accumulate<DP, NC, MT>(acc, s, kt, n0, lane);   // dQ += dS K
+    }
+    __syncthreads();  // the stage is refilled at t + 2
+  }
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+    store_rows<DP, C::WS>(acc[m], reinterpret_cast<float*>(smem_raw),
+                          dq + bh * Tq * D, q0 + own + 16 * m, Tq, D, scale,
+                          ws, lane);
+}
+
+// dK, dV: one block per (key tile of BR rows, head, batch), looping over the
+// query tiles.
+template <int DP, int WR>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v,
+                        const bf16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        bf16* __restrict__ dk, bf16* __restrict__ dv, int H,
+                        int Tq, int Tk, int D, float scale, float scale_log2,
+                        int vec) {
+  using C = Tc<DP, WR, true>;
+  constexpr int BR = C::BR, BN = C::BN, NC = C::NC, LDS = C::LDS, MT = C::MT;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);
+  bf16* v_s = k_s + BR * LDS;
+  bf16* q_s = v_s + BR * LDS;           // [2][BN][LDS]
+  bf16* do_s = q_s + 2 * BN * LDS;      // [2][BN][LDS]
+  float* l_s = reinterpret_cast<float*>(do_s + 2 * BN * LDS);   // [2][BN]
+  float* d_s = l_s + 2 * BN;                                    // [2][BN]
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int ws = warp % C::WS, own = (warp / C::WS) * 16 * MT;
+  const int k0 = blockIdx.x * BR;
+  const size_t bh = (size_t)blockIdx.z * H + blockIdx.y;
+  const bf16* qb = q + bh * Tq * D;
+  const bf16* dob = dout + bh * Tq * D;
+  const float* lb = lse + bh * Tq;
+  const float* db = delta + bh * Tq;
+
+  // queries [q0, q0 + BN) into ring stage st: Q, dO, L and delta (zeros
+  // past Tq)
+  auto stage_q = [&](int st, int q0) {
+    stage_tc<DP, BN>(q_s + st * BN * LDS, qb, q0, Tq, D, vec);
+    stage_tc<DP, BN>(do_s + st * BN * LDS, dob, q0, Tq, D, vec);
+    for (int r = threadIdx.x; r < BN; r += kThreads) {
+      const bool ok = q0 + r < Tq;
+      cp_async4(l_s + st * BN + r, ok ? lb + q0 + r : lb, ok ? 4 : 0);
+      cp_async4(d_s + st * BN + r, ok ? db + q0 + r : db, ok ? 4 : 0);
+    }
+    cp_async_commit();
+  };
+
+  stage_tc<DP, BR>(k_s, k + bh * Tk * D, k0, Tk, D, vec);
+  stage_tc<DP, BR>(v_s, v + bh * Tk * D, k0, Tk, D, vec);
+  stage_q(0, 0);
+
+  float acc_k[MT][DP / 8][4], acc_v[MT][DP / 8][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc_k[m][j][i] = acc_v[m][j][i] = 0.f;
+  OwnFrags<DP, MT, C::AREG> frags;
+
+  const int n_tiles = (Tq + BN - 1) / BN;
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) {
+      stage_q((t + 1) & 1, (t + 1) * BN);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (t == 0) frags.load(k_s, v_s, own, lane);
+    const int st = t & 1;
+    const bf16* qt = q_s + st * BN * LDS;
+    const bf16* dot = do_s + st * BN * LDS;
+#pragma unroll 1
+    for (int n0 = ws * C::SPAN; n0 < (ws + 1) * C::SPAN; n0 += NC) {
+      // S^T = K Q^T and dP^T = V dO^T: own keys as rows, queries as columns
+      float s[MT][NC / 8][4], dp[MT][NC / 8][4];
+      scores<DP, NC, MT, C::AREG>(s, dp, frags, k_s, v_s, own, qt, dot, n0,
+                                  lane);
+      // P^T and dS^T; queries past Tq have no L or delta: P = 0
+#pragma unroll
+      for (int j = 0; j < NC / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = n0 + 8 * j + 2 * (lane & 3) + e;
+          const bool ok = t * BN + c < Tq;
+          const float lc = l_s[st * BN + c] * kLog2e, dc = d_s[st * BN + c];
+#pragma unroll
+          for (int m = 0; m < MT; ++m)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int i = 2 * h + e;
+              const float p =
+                  ok ? exp2_ftz(s[m][j][i] * scale_log2 - lc) : 0.f;
+              s[m][j][i] = p;
+              dp[m][j][i] = p * (dp[m][j][i] - dc);
+            }
+        }
+      accumulate<DP, NC, MT>(acc_v, s, dot, n0, lane);   // dV += P^T dO
+      accumulate<DP, NC, MT>(acc_k, dp, qt, n0, lane);   // dK += dS^T Q
+    }
+    __syncthreads();  // the stage is refilled at t + 2
+  }
+  float* red = reinterpret_cast<float*>(smem_raw);
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    store_rows<DP, C::WS>(acc_k[m], red, dk + bh * Tk * D, k0 + own + 16 * m,
+                          Tk, D, scale, ws, lane);
+    store_rows<DP, C::WS>(acc_v[m], red, dv + bh * Tk * D, k0 + own + 16 * m,
+                          Tk, D, 1.f, ws, lane);
+  }
+}
+// ---------------------------------------------------------------------------
+// launches
+// ---------------------------------------------------------------------------
+
+template <typename K>
+cudaError_t set_smem(K kernel, size_t smem) {
+  // set on every launch: the limit is per device and the call is cheap
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+template <int DP>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dq, int B, int H, int Tq, int Tk, int D,
@@ -382,22 +917,19 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   using C = Cfg<DP>;
   constexpr int BQ = (kThreads / C::G) * C::TM;
   const size_t smem =
-      (size_t)(2 * BQ + 2 * C::BN) * row_stride<T, DP>() * sizeof(T);
-  // set on every launch: the limit is per device and the call is cheap
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      (size_t)(2 * BQ + 2 * C::BN) * row_stride<DP>() * sizeof(float);
+  cudaError_t err = set_smem(flash_bwd_dq_kernel<DP>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Tq + BQ - 1) / BQ, H, B);
-  flash_bwd_dq_kernel<T, DP><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+  flash_bwd_dq_kernel<DP><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), H, Tq, Tk, D, scale, scale * kLog2e);
+      static_cast<float*>(dq), H, Tq, Tk, D, scale, scale * kLog2e);
   return cudaGetLastError();
 }
 
-template <typename T, int DP>
+template <int DP>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dk, void* dv, int B, int H, int Tq, int Tk,
@@ -405,18 +937,66 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   using C = Cfg<DP>;
   constexpr int BK = (kThreads / C::G) * C::TM;
   const size_t smem = 2 * C::BN * sizeof(float) +
-      (size_t)(2 * BK + 2 * C::BN) * row_stride<T, DP>() * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, DP>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      (size_t)(2 * BK + 2 * C::BN) * row_stride<DP>() * sizeof(float);
+  cudaError_t err = set_smem(flash_bwd_dkv_kernel<DP>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Tk + BK - 1) / BK, H, B);
-  flash_bwd_dkv_kernel<T, DP><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+  flash_bwd_dkv_kernel<DP><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), H, Tq, Tk, D, scale,
+      static_cast<float*>(dk), static_cast<float*>(dv), H, Tq, Tk, D, scale,
       scale * kLog2e);
+  return cudaGetLastError();
+}
+
+// 16-row own tiles when 64-row tiles would give fewer than two blocks per SM.
+bool narrow_tiles(int B, int H, int rows) {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return (long)((rows + 63) / 64) * B * H < 2L * sms;
+}
+
+bool aligned16(std::initializer_list<const void*> ps) {
+  for (const void* p : ps)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
+  return true;
+}
+
+template <int DP, int WR>
+cudaError_t launch_dq_tc(const void* q, const void* k, const void* v,
+                         const void* dout, const void* lse, const void* delta,
+                         void* dq, int B, int H, int Tq, int Tk, int D,
+                         float scale, int vec, cudaStream_t stream) {
+  using C = Tc<DP, WR, false>;
+  cudaError_t err = set_smem(flash_bwd_dq_tc_kernel<DP, WR>, C::smem_bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Tq + C::BR - 1) / C::BR, H, B);
+  flash_bwd_dq_tc_kernel<DP, WR><<<grid, kThreads, C::smem_bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dq), H, Tq, Tk, D, scale, scale * kLog2e, vec);
+  return cudaGetLastError();
+}
+
+template <int DP, int WR>
+cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v,
+                          const void* dout, const void* lse,
+                          const void* delta, void* dk, void* dv, int B, int H,
+                          int Tq, int Tk, int D, float scale, int vec,
+                          cudaStream_t stream) {
+  using C = Tc<DP, WR, true>;
+  cudaError_t err = set_smem(flash_bwd_dkv_tc_kernel<DP, WR>, C::smem_bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Tk + C::BR - 1) / C::BR, H, B);
+  flash_bwd_dkv_tc_kernel<DP, WR><<<grid, kThreads, C::smem_bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, Tq, Tk, D, scale,
+      scale * kLog2e, vec);
   return cudaGetLastError();
 }
 
@@ -438,15 +1018,22 @@ extern "C" int aqualora_flash_bwd_dq(const void* q, const void* k,
                                      void* stream) {
   if (bad_shape(B, H, Tq, Tk, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DQ(T, DP) launch_dq<T, DP>(q, k, v, dout, lse, delta, dq, B, H, Tq, \
-                                   Tk, D, scale, s)
-  if (dtype == 0)
-    return (int)(D <= 48 ? DQ(float, 48) : D <= 80 ? DQ(float, 80)
-                                                   : DQ(float, 160));
-  if (dtype == 1)
-    return (int)(D <= 48 ? DQ(__nv_bfloat16, 48)
-                 : D <= 80 ? DQ(__nv_bfloat16, 80) : DQ(__nv_bfloat16, 160));
+  if (dtype == 0) {
+#define DQ(DP) launch_dq<DP>(q, k, v, dout, lse, delta, dq, B, H, Tq, Tk, D, \
+                             scale, s)
+    return (int)(D <= 48 ? DQ(48) : D <= 80 ? DQ(80) : DQ(160));
 #undef DQ
+  }
+  if (dtype == 1) {
+    const int vec = D % 8 == 0 && aligned16({q, k, v, dout, dq});
+    const bool narrow = narrow_tiles(B, H, Tq);
+#define DQ(DP) (narrow ? launch_dq_tc<DP, 1>(q, k, v, dout, lse, delta, dq, B, \
+                                             H, Tq, Tk, D, scale, vec, s)     \
+                       : launch_dq_tc<DP, 4>(q, k, v, dout, lse, delta, dq, B, \
+                                             H, Tq, Tk, D, scale, vec, s))
+    return (int)(D <= 48 ? DQ(48) : D <= 80 ? DQ(80) : DQ(160));
+#undef DQ
+  }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -458,14 +1045,23 @@ extern "C" int aqualora_flash_bwd_dkv(const void* q, const void* k,
                                       int dtype, void* stream) {
   if (bad_shape(B, H, Tq, Tk, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DKV(T, DP) launch_dkv<T, DP>(q, k, v, dout, lse, delta, dk, dv, B, H, \
-                                     Tq, Tk, D, scale, s)
-  if (dtype == 0)
-    return (int)(D <= 48 ? DKV(float, 48) : D <= 80 ? DKV(float, 80)
-                                                    : DKV(float, 160));
-  if (dtype == 1)
-    return (int)(D <= 48 ? DKV(__nv_bfloat16, 48)
-                 : D <= 80 ? DKV(__nv_bfloat16, 80) : DKV(__nv_bfloat16, 160));
+  if (dtype == 0) {
+#define DKV(DP) launch_dkv<DP>(q, k, v, dout, lse, delta, dk, dv, B, H, Tq, \
+                               Tk, D, scale, s)
+    return (int)(D <= 48 ? DKV(48) : D <= 80 ? DKV(80) : DKV(160));
 #undef DKV
+  }
+  if (dtype == 1) {
+    const int vec = D % 8 == 0 && aligned16({q, k, v, dout, dk, dv});
+    const bool narrow = narrow_tiles(B, H, Tk);
+#define DKV(DP) (narrow ? launch_dkv_tc<DP, 1>(q, k, v, dout, lse, delta, dk, \
+                                               dv, B, H, Tq, Tk, D, scale,    \
+                                               vec, s)                        \
+                        : launch_dkv_tc<DP, 4>(q, k, v, dout, lse, delta, dk, \
+                                               dv, B, H, Tq, Tk, D, scale,    \
+                                               vec, s))
+    return (int)(D <= 48 ? DKV(48) : D <= 80 ? DKV(80) : DKV(160));
+#undef DKV
+  }
   return (int)cudaErrorInvalidValue;
 }

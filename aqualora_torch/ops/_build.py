@@ -58,7 +58,8 @@ def nvcc() -> str:
     return path
 
 
-def _library(name: str) -> Path:
+def library_path(name: str) -> Path:
+    """Where csrc/<name>.cu is built: named by its source's content hash."""
     source = CSRC / f"{name}.cu"
     tag = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{tag}.so"
@@ -76,7 +77,7 @@ def build_all(names: Iterable[str], verbose: bool = False
     running = {}
     t0 = time.perf_counter()
     for name in names:
-        so = _library(name)
+        so = library_path(name)
         if so.exists():
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
@@ -111,7 +112,7 @@ def build_all(names: Iterable[str], verbose: bool = False
     if failed:
         raise RuntimeError("\n".join(failed))
     for name in names:
-        _loaded[name] = ctypes.CDLL(str(_library(name)))
+        _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return seconds
 
 

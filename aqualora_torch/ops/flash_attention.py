@@ -16,10 +16,11 @@ JAX package's `custom_vjp` (`aqualora_tpu/ops/flash_attention.py:367-384`).
   it outside Pallas (`:311`).
 
 On the H100 the self-attention shapes are bound by the tensor-core rate and
-the 77-key cross-attention by the bytes of Q, O (and dO); these first
-kernels keep the [Tq, Tk] logits, P and dS out of device memory but run
-every product as float32 FMAs on the CUDA cores, so they sit far above the
-compute bound (the sources' headers have the design, PERF.md the times).
+the 77-key cross-attention by the bytes of Q, O (and dO).  The kernels keep
+the [Tq, Tk] logits, P and dS out of device memory.  The bf16 backward runs
+its products on tensor cores (mma.sync, fed by cp.async); the forward and
+the float32 backward run float32 FMAs on the CUDA cores (the sources'
+headers have the design, PERF.md the times).
 
 Routing: a CPU tensor goes to the plain versions (`flash_attention_plain`,
 `flash_attention_dq_plain`, `flash_attention_dkv_plain`); a CUDA tensor goes

@@ -10,7 +10,10 @@ Phases (any failure raises, so the exit code is not 0):
   0. torch and CUDA versions, the card's name and power limit (nvidia-smi).
      Without a CUDA card the script stops here with an error.
   1. Build the three kernel sources of aqualora_torch/csrc (flash_fwd,
-     flash_bwd, secret_inject), one nvcc each, all started together.
+     flash_bwd, secret_inject), one nvcc each, all started together, and
+     count the tensor-core instructions (HMMA, HGMMA) of every backward
+     kernel in the built library with cuobjdump: each bfloat16 dQ and dK/dV
+     instance must have some.
   2. The forward kernel against `flash_attention_plain` on the card at every
      attention shape of the serving path, float32 and bfloat16, O and lse
      (batch cut to 2).  Then, at the serving batch in bfloat16, the kernel's
@@ -26,8 +29,9 @@ Phases (any failure raises, so the exit code is not 0):
   5. The backward kernels (dQ, dK/dV) against their plain versions at
      every differentiated attention shape of the training step, float32
      and bfloat16 (batch cut to 2); then at the training batch in bfloat16
-     each kernel's time and bound, and for the pair the plain backward's
-     and SDPA's backward (fwd+bwd less fwd; a yardstick only).
+     each kernel's time and bound, and the pair's (flash_attention_bwd,
+     delta included) beside the plain backward's.  At 64^2 self two
+     bfloat16 calls must give the same bits.
   6. The secret-injection kernel against `inject_plain` at the training
      latent [8, 4, 64, 64], float32 and bfloat16, with its time and bound.
   7. The tiny PPFT step on the card (kernels) against the CPU (plain), the
@@ -39,7 +43,12 @@ Phases (any failure raises, so the exit code is not 0):
      `aqualora_torch.train.ppft_train`, 1 warm-up and 3 timed steps.  Every
      step must launch 65 forward, 32 dQ, 32 dK/dV and 1 injection kernels;
      the loss and gradient norm must be finite and positive and the LoRA up
-     weights must move.
+     weights must move.  Then one more step under torch.profiler.
+  9. SDPA's backward at each training shape, B8 bf16, as device time under
+     torch.profiler (a yardstick for the pair; the port never calls it),
+     beside the pair's own device time (delta, dQ and dK/dV kernels): at
+     the small shapes phase 5's times are the host's launch cost.  Last,
+     so that the profiler touches no timed phase.
 The line before the last names the card and its power limit; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -48,9 +57,11 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import time
+from pathlib import Path
 
 import torch
 import torch.nn.functional as F
@@ -129,6 +140,23 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 10) -> float:
+    """Device time of one call of `fn`: the CUDA kernels' time under
+    torch.profiler over `iters` calls, so host gaps between its launches do
+    not count.  NaN if the profiler saw no kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / iters if us > 0 else float("nan")
+
+
 def tolerance_o(dtype: torch.dtype, o_ref: torch.Tensor) -> float:
     """bfloat16 O is rounded on both sides from float32 values that differ
     by the float32 limit, so an element may differ by one bf16 ulp at its own
@@ -196,12 +224,40 @@ def phase0() -> str:
     return smi
 
 
+def tensor_core_counts(name: str) -> dict:
+    """{kernel symbol: (HMMA, HGMMA)} of the built csrc/<name>.cu, from
+    cuobjdump -sass of the toolkit that built it."""
+    from aqualora_torch.ops import _build
+    tool = Path(_build.nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(_build.library_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = [0, 0]
+        elif fn is not None:
+            counts[fn][1] += "HGMMA" in line
+            counts[fn][0] += "HMMA" in line and "HGMMA" not in line
+    return {f: tuple(c) for f, c in counts.items()}
+
+
 def phase1():
     from aqualora_torch.ops import _build
     seconds = _build.build_all(SOURCES, verbose=True)
     for name in SOURCES:
         print(f"[1] built csrc/{name}.cu in {seconds[name]:.1f} s "
               f"(all {len(SOURCES)} nvcc started together)", flush=True)
+    counts = tensor_core_counts("flash_bwd")
+    for fn, (hmma, hgmma) in sorted(counts.items()):
+        print(f"[1] flash_bwd SASS {fn}: HMMA {hmma} HGMMA {hgmma}",
+              flush=True)
+    # the bf16 instances: 3 head-dim tiles x 2 row tilings x (dQ, dK/dV)
+    tc = {fn: c for fn, c in counts.items() if "_tc_kernel" in fn}
+    if len(tc) != 12 or not all(sum(c) > 0 for c in tc.values()):
+        raise AssertionError(f"bf16 backward instances without tensor-core "
+                             f"instructions: {tc}")
 
 
 def counters() -> dict:
@@ -468,13 +524,16 @@ def phase5(smi: str) -> dict:
                  warmup=1),
              "pair_plain": time_ms(lambda: fa.flash_attention_bwd_plain(
                  q, k, v, o, lse, do, scale), iters=3, warmup=1)}
-        qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
-        sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(
-            qg, kg, vg, scale=scale))
-        sdpa_both = time_ms(lambda: torch.autograd.grad(
-            F.scaled_dot_product_attention(qg, kg, vg, scale=scale),
-            (qg, kg, vg), do))
-        library_ms = sdpa_both - sdpa_fwd
+        if name == "unet64_self":
+            first = fa.flash_attention_bwd(q, k, v, o, lse, do, scale)
+            again = fa.flash_attention_bwd(q, k, v, o, lse, do, scale)
+            same = all(torch.equal(a, b) for a, b in zip(first, again))
+            print(f"[5] {name} B{b} bf16: two backward calls bit-identical "
+                  f"{same}", flush=True)
+            if not same:
+                raise AssertionError("the backward kernels are not "
+                                     "deterministic")
+            del first, again
         bounds = bwd_bounds(b, h, tq, tk, d)
         print(f"[5] {name} B{b} bf16: dq kernel_ms {t['dq']:.4f} plain_ms "
               f"{t['dq_plain']:.4f} bound_ms {bounds['dq'][0]:.4f} "
@@ -482,9 +541,7 @@ def phase5(smi: str) -> dict:
               f"{t['dkv_plain']:.4f} bound_ms {bounds['dkv'][0]:.4f} "
               f"({bounds['dkv'][1]}) | {smi}", flush=True)
         print(f"[5] {name} B{b} bf16 dQ + dK/dV pair: kernel_ms "
-              f"{t['pair']:.4f} plain_ms {t['pair_plain']:.4f} "
-              f"library_ms(sdpa bwd = fwd+bwd {sdpa_both:.4f} - fwd "
-              f"{sdpa_fwd:.4f}) {library_ms:.4f} bound_ms "
+              f"{t['pair']:.4f} plain_ms {t['pair_plain']:.4f} bound_ms "
               f"{bounds['pair'][0]:.4f} ({bounds['pair'][1]}) | {smi}",
               flush=True)
         for kern in ("dq", "dkv"):
@@ -494,7 +551,8 @@ def phase5(smi: str) -> dict:
                 "max_abs_err": err, "ms": t[kern],
                 "plain_ms": t[f"{kern}_plain"], "bound_ms": bounds[kern][0],
                 "bound_by": bounds[kern][1], "library_ms": None}
-        del q, k, v, do, o, lse, delta, qg, kg, vg, args
+        rows[("pair", name)] = t["pair"]
+        del q, k, v, do, o, lse, delta, args
         torch.cuda.empty_cache()
     return rows
 
@@ -603,9 +661,10 @@ def phase7():
                              "CPU or skipped a kernel")
 
 
-KERNEL_NAMES = {"flash_fwd_kernel": "flash fwd", "flash_bwd_dq_kernel": "dQ",
-                "flash_bwd_dkv_kernel": "dK/dV",
-                "secret_inject_kernel": "inject"}
+# substrings of the kernels' symbols: flash_bwd_dq matches the float32
+# flash_bwd_dq_kernel and the bf16 flash_bwd_dq_tc_kernel, and not dK/dV's
+KERNEL_NAMES = {"flash_fwd_kernel": "flash fwd", "flash_bwd_dq": "dQ",
+                "flash_bwd_dkv": "dK/dV", "secret_inject_kernel": "inject"}
 
 
 def profile_step(tr, step_s: float, smi: str) -> None:
@@ -732,6 +791,31 @@ def phase8(smi: str) -> tuple:
     return per_shape, inject_launches
 
 
+def phase9(smi: str, bwd_rows: dict) -> None:
+    """SDPA's backward and the pair at each training shape, device time."""
+    from aqualora_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    for name, h, tq, tk, d, _ in TRAIN_SHAPES:
+        b, scale = TRAIN_BATCH, d ** -0.5
+        q, do = (torch.randn(b, h, tq, d, device="cuda", generator=gen)
+                 .to(torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn(b, h, tk, d, device="cuda", generator=gen)
+                .to(torch.bfloat16) for _ in range(2))
+        o, lse = fa.flash_attention_fwd(q, k, v, scale)
+        pair_dev = device_ms(lambda: fa.flash_attention_bwd(
+            q, k, v, o, lse, do, scale))
+        q, k, v = (x.requires_grad_(True) for x in (q, k, v))
+        out = F.scaled_dot_product_attention(q, k, v, scale=scale)
+        library_ms = device_ms(lambda: torch.autograd.grad(
+            out, (q, k, v), do, retain_graph=True))
+        print(f"[9] {name} B{b} bf16: library_ms(sdpa bwd, device time) "
+              f"{library_ms:.4f}; the pair's device time {pair_dev:.4f} "
+              f"= {pair_dev / library_ms:.2f}x (phase 5's kernel_ms "
+              f"{bwd_rows[('pair', name)]:.4f}) | {smi}", flush=True)
+        del q, k, v, do, o, lse, out
+        torch.cuda.empty_cache()
+
+
 def main():
     smi = phase0()
     phase1()
@@ -750,6 +834,7 @@ def main():
     inject_row = phase6(smi)
     phase7()
     train_launches, inject_launches = phase8(smi)
+    phase9(smi, bwd_rows)
     kernels = []
     for name, *_ in SHAPES:
         kernels.append({

@@ -96,8 +96,17 @@ def _tol_grad(dtype, ref):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,h,tq,tk,d", [
     (2, 8, 300, 77, 40),      # ragged Tq and cross-attention Tk, d=40
+    (2, 8, 300, 77, 80),      # Tk = 77 at d=80
+    (2, 8, 300, 77, 160),     # Tk = 77 at d=160
     (1, 3, 65, 64, 160),      # ragged Tq, d=160
     (1, 2, 130, 200, 80),     # ragged both ways, d=80
+    (2, 2, 1, 77, 40),        # one query
+    (1, 2, 33, 9, 80),        # fewer keys than one 16-row step
+    (1, 4, 100, 130, 40),     # Tq not a multiple of 16 or 64
+    (1, 2, 70, 50, 20),       # d not a multiple of 8: staged by plain loads
+    (4, 8, 1024, 1000, 80),   # 64-row tiles at d=80, ragged Tk
+    (2, 8, 1100, 1100, 160),  # 64-row tiles at d=160, ragged both ways
+    (1, 8, 4096, 4096, 40),   # the 64^2 self-attention at B1
 ])
 def test_flash_bwd_kernels_match_plain(dtype, b, h, tq, tk, d):
     _need_cuda()
@@ -116,6 +125,28 @@ def test_flash_bwd_kernels_match_plain(dtype, b, h, tq, tk, d):
         assert g.dtype == dtype and g.shape == r.shape
         err = (g.float() - r.float()).abs().max().item()
         assert err <= _tol_grad(dtype, r), (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,tq,tk,d", [
+    (1, 8, 4096, 4096, 40),   # 64-row tiles, one warp per row block
+    (2, 8, 300, 77, 160),     # 16-row tiles, partial sums added by warps
+])
+def test_flash_bwd_is_deterministic(b, h, tq, tk, d):
+    """No sum crosses blocks and the warps' partial sums are added in a
+    fixed order, so two bf16 calls give the same bits."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    q, do = (torch.randn(b, h, tq, d, device="cuda", generator=gen)
+             .bfloat16() for _ in range(2))
+    k, v = (torch.randn(b, h, tk, d, device="cuda", generator=gen)
+            .bfloat16() for _ in range(2))
+    o, lse = fa.flash_attention_fwd(q, k, v, d ** -0.5)
+    first = fa.flash_attention_bwd(q, k, v, o, lse, do, d ** -0.5)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, d ** -0.5)
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, again):
+        assert torch.equal(a, b_)
 
 
 @pytest.mark.cuda

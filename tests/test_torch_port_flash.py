@@ -215,3 +215,40 @@ def test_no_grad_call_is_one_forward():
     out = fa.flash_attention(q, k, v, 0.3)
     assert out.grad_fn is None
     assert torch.equal(out, fa.flash_attention_plain(q, k, v, 0.3)[0])
+
+
+def _bf16_kernel_arithmetic(q, k, v, do, lse, delta, scale):
+    """What the bf16 backward kernels compute: bf16 inputs, S and dP summed
+    in float32, P and dS rounded to bf16 as the operands of the dQ, dK and
+    dV products, float32 sums, each gradient rounded to bf16 once."""
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    p = torch.exp(qf @ kf.transpose(-1, -2) * scale - lse[..., None])
+    ds = p * (dof @ vf.transpose(-1, -2) - delta[..., None])
+    p16, ds16 = p.bfloat16().float(), ds.bfloat16().float()
+    return ((ds16 @ kf * scale).bfloat16(),
+            (ds16.transpose(-1, -2) @ qf * scale).bfloat16(),
+            (p16.transpose(-1, -2) @ dof).bfloat16())
+
+
+@pytest.mark.parametrize("tk", [256, 77])
+@pytest.mark.parametrize("d", [40, 80, 160])
+def test_bf16_operand_rounding_fits_grad_tolerance(d, tk):
+    """Rounding P and dS to bf16 (the one rounding the tensor-core kernels
+    add) keeps dq, dk, dv within the card's bf16 gradient limit of
+    `flash_attention_bwd_plain`, which test_bwd_plain_matches_pallas_interpret
+    ties to the Pallas backward: 1e-4 of the largest gradient + 1e-5, plus one
+    bf16 ulp (2^-7) at that gradient."""
+    q, k, v = (torch.from_numpy(a).bfloat16()
+               for a in _qkv(d + tk, 1, 2, 256, tk, d))
+    do = torch.from_numpy(np.random.default_rng(d).standard_normal(
+        q.shape, dtype=np.float32)).bfloat16()
+    scale = d ** -0.5
+    o, lse = fa.flash_attention_plain(q, k, v, scale)
+    delta = fa.attention_delta(o, do)
+    got = _bf16_kernel_arithmetic(q, k, v, do, lse, delta, scale)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, scale)
+    for name, g, r in zip(("dq", "dk", "dv"), got, want):
+        m = r.float().abs().max().item()
+        tol = 1e-4 * m + 1e-5 + 2.0 ** -7 * m
+        err = (g.float() - r.float()).abs().max().item()
+        assert err <= tol, (name, err, tol)

@@ -17,10 +17,11 @@ JAX package's `custom_vjp` (`aqualora_tpu/ops/flash_attention.py:367-384`).
 
 On the H100 the self-attention shapes are bound by the tensor-core rate and
 the 77-key cross-attention by the bytes of Q, O (and dO).  The kernels keep
-the [Tq, Tk] logits, P and dS out of device memory.  The bf16 backward runs
-its products on tensor cores (mma.sync, fed by cp.async); the forward and
-the float32 backward run float32 FMAs on the CUDA cores (the sources'
-headers have the design, PERF.md the times).
+the [Tq, Tk] logits, P and dS out of device memory.  In bf16 the forward
+and the backward run their products on tensor cores (mma.sync, fed by
+cp.async; P rounded to bf16 only as a register operand); in float32 they
+run float32 FMAs on the CUDA cores, so that the float32 limits hold (the
+sources' headers have the design, PERF.md the times).
 
 Routing: a CPU tensor goes to the plain versions (`flash_attention_plain`,
 `flash_attention_dq_plain`, `flash_attention_dkv_plain`); a CUDA tensor goes
@@ -129,8 +130,12 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """softmax(q k^T * scale) v and the row logsumexp, on [B, H, T, D]."""
+    """softmax(q k^T * scale) v and the row logsumexp, on [B, H, T, D].
+    `scale` must be positive: the bf16 kernel takes the row max of the
+    unscaled scores."""
     _check(q, k, v)
+    if not scale > 0:
+        raise ValueError(f"scale must be positive, got {scale}")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale)
     fn = _build.bind(_build.build("flash_fwd"), "aqualora_flash_fwd",

@@ -4,26 +4,32 @@ its plain version.
 
 Run from the repository root on a machine with one CUDA card:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # every phase
+    python3 chip_smoke.py --phases 0,2    # some phases (no kernels line)
 
 Phases (any failure raises, so the exit code is not 0):
   0. torch and CUDA versions, the card's name and power limit (nvidia-smi).
      Without a CUDA card the script stops here with an error.
   1. Build the three kernel sources of aqualora_torch/csrc (flash_fwd,
      flash_bwd, secret_inject), one nvcc each, all started together, and
-     count the tensor-core instructions (HMMA, HGMMA) of every backward
-     kernel in the built library with cuobjdump: each bfloat16 dQ and dK/dV
-     instance must have some.
+     count the tensor-core instructions (HMMA, HGMMA) of every attention
+     kernel in the built libraries with cuobjdump: each bfloat16 forward,
+     dQ and dK/dV instance (`*_tc_kernel`) must have some, each float32
+     instance none.
   2. The forward kernel against `flash_attention_plain` on the card at every
      attention shape of the serving path, float32 and bfloat16, O and lse
-     (batch cut to 2).  Then, at the serving batch in bfloat16, the kernel's
-     time, the plain version's, PyTorch's scaled_dot_product_attention's
-     (a yardstick only: the port never calls it) and the H100 bound.
+     (batch cut to 2).  Then, at the serving batch in bfloat16, two kernel
+     calls must give the same bits, and the kernel's time, the plain
+     version's, PyTorch's scaled_dot_product_attention's (a yardstick only:
+     the port never calls it) and the H100 bound.
   3. The serving path: SD-1.5 at full width with seeded random bfloat16
      weights and the rank-320 message LoRA, one random 48-bit message folded
      into the U-Net, 8 prompts at 512x512, DDIM-25, CFG 7.5, VAE decode and
      SecretDecoder (EfficientNet-B1) bits.  Every generate call must launch
-     the forward kernel exactly 801 times.
+     the forward kernel exactly 801 times.  Then the first call once more,
+     same seed, with this script swapping `flash_attention_fwd` for
+     `flash_attention_plain`: its images must agree with the kernel's
+     within PLAIN_SWAP_MAX_TOL and PLAIN_SWAP_MEAN_TOL.
   4. The tiny serving slice on the card (kernel path) against the same
      slice on the CPU (plain path), same weights and initial latents.
   5. The backward kernels (dQ, dK/dV) against their plain versions at
@@ -47,14 +53,20 @@ Phases (any failure raises, so the exit code is not 0):
   9. SDPA's backward at each training shape, B8 bf16, as device time under
      torch.profiler (a yardstick for the pair; the port never calls it),
      beside the pair's own device time (delta, dQ and dK/dV kernels): at
-     the small shapes phase 5's times are the host's launch cost.  Last,
-     so that the profiler touches no timed phase.
-The line before the last names the card and its power limit; the last line
-is {"ok": true, "device": {...}}.
+     the small shapes phase 5's times are the host's launch cost.
+ 10. The forward kernel and SDPA's forward at each serving shape and batch,
+     bf16, as device time under torch.profiler.
+ 11. One more generate call of phase 3 under torch.profiler: the device's
+     busy share of the median call, its largest kernels and the forward
+     kernel's share.
+Phases 9-11 come last, so that the profiler touches no timed phase.  The
+line before the last names the card and its power limit; the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import re
@@ -117,6 +129,13 @@ TINY_IMAGE_TOL = 2e-3
 # through the whole U-Net and its backward
 TINY_LOSS_RTOL = 1e-4
 TINY_GRAD_TOL = 1e-3
+# phase 3, the kernel's generate call against the same call with the plain
+# forward, images in [-1, 1]: the 25 denoising steps amplify single bf16
+# ulps of O, so the CUDA-core float32 forward of PR 3 already gave max |d|
+# 0.8096 and mean |d| 0.0382 (and other bits) on an NVIDIA H100 80GB HBM3.
+# The limits are twice those readings.
+PLAIN_SWAP_MAX_TOL = 1.62
+PLAIN_SWAP_MEAN_TOL = 0.076
 
 
 def nvidia_smi() -> str:
@@ -249,15 +268,21 @@ def phase1():
     for name in SOURCES:
         print(f"[1] built csrc/{name}.cu in {seconds[name]:.1f} s "
               f"(all {len(SOURCES)} nvcc started together)", flush=True)
-    counts = tensor_core_counts("flash_bwd")
-    for fn, (hmma, hgmma) in sorted(counts.items()):
-        print(f"[1] flash_bwd SASS {fn}: HMMA {hmma} HGMMA {hgmma}",
-              flush=True)
-    # the bf16 instances: 3 head-dim tiles x 2 row tilings x (dQ, dK/dV)
-    tc = {fn: c for fn, c in counts.items() if "_tc_kernel" in fn}
-    if len(tc) != 12 or not all(sum(c) > 0 for c in tc.values()):
-        raise AssertionError(f"bf16 backward instances without tensor-core "
-                             f"instructions: {tc}")
+    # bf16 instances: forward 3 head-dim tiles x 2 row tilings + d = 512;
+    # backward 3 x 2 x (dQ, dK/dV).  float32: forward 4, backward 3 x 2.
+    for name, n_tc, n_f32 in (("flash_fwd", 7, 4), ("flash_bwd", 12, 6)):
+        counts = tensor_core_counts(name)
+        for fn, (hmma, hgmma) in sorted(counts.items()):
+            print(f"[1] {name} SASS {fn}: HMMA {hmma} HGMMA {hgmma}",
+                  flush=True)
+        tc = {fn: c for fn, c in counts.items() if "_tc_kernel" in fn}
+        f32 = {fn: c for fn, c in counts.items() if fn not in tc}
+        if len(tc) != n_tc or not all(sum(c) > 0 for c in tc.values()):
+            raise AssertionError(f"{name}: bf16 instances without "
+                                 f"tensor-core instructions: {tc}")
+        if len(f32) != n_f32 or any(sum(c) for c in f32.values()):
+            raise AssertionError(f"{name}: float32 instances with "
+                                 f"tensor-core instructions: {f32}")
 
 
 def counters() -> dict:
@@ -305,13 +330,19 @@ def phase2(smi: str) -> dict:
         q, k, v = (torch.randn(serve_b, h, t, d, device="cuda",
                                generator=gen).to(torch.bfloat16)
                    for t in (tq, tk, tk))
+        first, again = (fa.flash_attention_fwd(q, k, v, scale)
+                        for _ in range(2))
+        if not all(torch.equal(a, b) for a, b in zip(first, again)):
+            raise AssertionError(f"{name}: two forward calls differ")
+        del first, again
         kernel_ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, scale))
         plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, scale),
                            iters=3, warmup=1)
         library_ms = time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, scale=scale))
         bound_ms, bound_by = attention_bound(serve_b, h, tq, tk, d)
-        print(f"[2] {name} B{serve_b} bf16: kernel_ms {kernel_ms:.4f} "
+        print(f"[2] {name} B{serve_b} bf16 (two calls bit-identical): "
+              f"kernel_ms {kernel_ms:.4f} "
               f"plain_ms {plain_ms:.4f} library_ms(sdpa) {library_ms:.4f} "
               f"bound_ms {bound_ms:.4f} ({bound_by}) | {smi}", flush=True)
         rows[name] = {"max_abs_err": errs[torch.bfloat16], "ms": kernel_ms,
@@ -322,17 +353,20 @@ def phase2(smi: str) -> dict:
     return rows
 
 
-def phase3(smi: str) -> tuple:
+N_IMG, STEPS, RES = 8, 25, 512
+
+
+def serving_setup(tag: str):
+    """SD-1.5 at full width with seeded random bf16 weights, the rank-320
+    LoRA with one folded message, the SecretDecoder, 8 prompts; returns
+    (run, decoder, msg_bits), run(seed) being one generate call."""
     from aqualora_torch.core.config import EfficientNetConfig, PipelineConfig
     from aqualora_torch.core.tokenizer import FallbackTokenizer
     from aqualora_torch.diffusion.pipeline import (StableDiffusionPipeline,
                                                    init_module_weights)
-    from aqualora_torch.eval.utils_eval import decode_bits
     from aqualora_torch.models.watermark import SecretDecoder
-    from aqualora_torch.ops import flash_attention as fa
 
     cfg = PipelineConfig.sd15(lora_rank=320)
-    n_img, steps, res = 8, 25, 512
     t0 = time.perf_counter()
     pipe = StableDiffusionPipeline(cfg, dtype=torch.bfloat16, device="cuda")
     pipe.init_params(seed=0)
@@ -351,17 +385,27 @@ def phase3(smi: str) -> tuple:
                "a portrait of an old fisherman",
                "a field of sunflowers under storm clouds",
                "a cat reading a newspaper"]
-    ids, neg = tok(prompts), tok([""] * n_img)
-    generate = pipe.make_generate(num_steps=steps, sampler="ddim",
-                                  height=res, width=res)
+    ids, neg = tok(prompts), tok([""] * N_IMG)
+    generate = pipe.make_generate(num_steps=STEPS, sampler="ddim",
+                                  height=RES, width=RES)
     torch.cuda.synchronize()
-    print(f"[3] SD-1.5 bf16 weights ready in {time.perf_counter() - t0:.1f} s "
-          f"(rank-320 LoRA folded)", flush=True)
+    print(f"[{tag}] SD-1.5 bf16 weights ready in "
+          f"{time.perf_counter() - t0:.1f} s (rank-320 LoRA folded)",
+          flush=True)
 
     def run(seed):
         return generate(ids, neg, guidance_scale=7.5,
                         generator=torch.Generator(device="cuda")
                         .manual_seed(seed))
+
+    return run, decoder, cfg.watermark.msg_bits
+
+
+def phase3(smi: str) -> tuple:
+    from aqualora_torch.eval.utils_eval import decode_bits
+    from aqualora_torch.ops import flash_attention as fa
+
+    run, decoder, msg_bits = serving_setup("3")
 
     torch.cuda.reset_peak_memory_stats()
     reset_counts()                              # counts start here
@@ -380,14 +424,14 @@ def phase3(smi: str) -> tuple:
         if got != want:
             raise AssertionError(f"{name}: {got} launches, want {want}")
         launches[name] = got
-    if tuple(images.shape) != (n_img, res, res, 3):
+    if tuple(images.shape) != (N_IMG, RES, RES, 3):
         raise AssertionError(f"images {tuple(images.shape)}")
     if not torch.isfinite(images).all():
         raise AssertionError("non-finite image values")
     if images.min() < -1 or images.max() > 1:
         raise AssertionError("images outside [-1, 1]")
     bits, margins = decode_bits(decoder, images)
-    if tuple(bits.shape) != (n_img, cfg.watermark.msg_bits):
+    if tuple(bits.shape) != (N_IMG, msg_bits):
         raise AssertionError(f"bits {tuple(bits.shape)}")
     if not torch.isfinite(margins).all():
         raise AssertionError("non-finite decoder margins")
@@ -410,10 +454,31 @@ def phase3(smi: str) -> tuple:
     med = statistics.median(times)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"[3] generate 8 x 512^2 DDIM-25 CFG 7.5 bf16: "
-          f"{n_img / med:.4f} imgs/s (median of 3: "
+          f"{N_IMG / med:.4f} imgs/s (median of 3: "
           f"{', '.join(f'{t:.4f}' for t in times)} s), peak memory "
           f"{peak_gib:.2f} GiB | {smi}", flush=True)
-    del pipe, decoder, images
+
+    # the first call again with the plain forward in the kernel's place
+    kernel_fwd, before = fa.flash_attention_fwd, fa.launches.count
+    fa.flash_attention_fwd = fa.flash_attention_plain
+    try:
+        plain_images = run(3)
+    finally:
+        fa.flash_attention_fwd = kernel_fwd
+    diff = (images.float() - plain_images.float()).abs()
+    same_bits = torch.equal(bits, decode_bits(decoder, plain_images)[0])
+    print(f"[3] the same call with the plain forward "
+          f"({fa.launches.count - before} kernel launches): max|d image| "
+          f"{diff.max().item():.4e} (tol {PLAIN_SWAP_MAX_TOL:g}), mean "
+          f"{diff.mean().item():.4e} (tol {PLAIN_SWAP_MEAN_TOL:g}), images "
+          f"bit-identical {torch.equal(images, plain_images)}, bits equal "
+          f"{same_bits}", flush=True)
+    if not (diff.max().item() <= PLAIN_SWAP_MAX_TOL
+            and diff.mean().item() <= PLAIN_SWAP_MEAN_TOL
+            and fa.launches.count == before):
+        raise AssertionError("the kernel's images disagree with the plain "
+                             "forward's")
+    del run, decoder, images, plain_images, diff
     torch.cuda.empty_cache()
     return launches, med
 
@@ -662,8 +727,9 @@ def phase7():
 
 
 # substrings of the kernels' symbols: flash_bwd_dq matches the float32
-# flash_bwd_dq_kernel and the bf16 flash_bwd_dq_tc_kernel, and not dK/dV's
-KERNEL_NAMES = {"flash_fwd_kernel": "flash fwd", "flash_bwd_dq": "dQ",
+# flash_bwd_dq_kernel and the bf16 flash_bwd_dq_tc_kernel, and not dK/dV's;
+# flash_fwd every forward instance
+KERNEL_NAMES = {"flash_fwd": "flash fwd", "flash_bwd_dq": "dQ",
                 "flash_bwd_dkv": "dK/dV", "secret_inject_kernel": "inject"}
 
 
@@ -808,33 +874,79 @@ def phase9(smi: str, bwd_rows: dict) -> None:
         out = F.scaled_dot_product_attention(q, k, v, scale=scale)
         library_ms = device_ms(lambda: torch.autograd.grad(
             out, (q, k, v), do, retain_graph=True))
+        host = (f" (phase 5's kernel_ms {bwd_rows[('pair', name)]:.4f})"
+                if ("pair", name) in bwd_rows else "")
         print(f"[9] {name} B{b} bf16: library_ms(sdpa bwd, device time) "
               f"{library_ms:.4f}; the pair's device time {pair_dev:.4f} "
-              f"= {pair_dev / library_ms:.2f}x (phase 5's kernel_ms "
-              f"{bwd_rows[('pair', name)]:.4f}) | {smi}", flush=True)
+              f"= {pair_dev / library_ms:.2f}x{host} | {smi}", flush=True)
         del q, k, v, do, o, lse, out
         torch.cuda.empty_cache()
 
 
-def main():
-    smi = phase0()
-    phase1()
-    rows = phase2(smi)
-    launches, med_s = phase3(smi)
-    per_call = {key: sum(rows[n][key] * launches[n] for n in launches)
-                for key in ("ms", "library_ms", "bound_ms")}
-    print(f"[3] flash kernel time per generate call (phase-2 kernel_ms x "
-          f"launches): {per_call['ms']:.1f} ms = "
-          f"{100 * per_call['ms'] / (med_s * 1e3):.1f}% of the "
-          f"{med_s * 1e3:.1f} ms call; sdpa at the same launches "
-          f"{per_call['library_ms']:.1f} ms; bound "
-          f"{per_call['bound_ms']:.1f} ms | {smi}", flush=True)
-    phase4()
-    bwd_rows = phase5(smi)
-    inject_row = phase6(smi)
-    phase7()
-    train_launches, inject_launches = phase8(smi)
-    phase9(smi, bwd_rows)
+def phase10(smi: str, rows: dict) -> None:
+    """The forward kernel and SDPA's forward at each serving shape and
+    batch, device time (phase 2's kernel_ms is host-timed, which at the
+    small shapes is the wrapper's launch cost)."""
+    from aqualora_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    for name, h, tq, tk, d, b, _ in SHAPES:
+        scale = d ** -0.5
+        q, k, v = (torch.randn(b, h, t, d, device="cuda", generator=gen)
+                   .to(torch.bfloat16) for t in (tq, tk, tk))
+        kernel_dev = device_ms(lambda: fa.flash_attention_fwd(q, k, v, scale))
+        library_dev = device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, scale=scale))
+        bound_ms, bound_by = attention_bound(b, h, tq, tk, d)
+        host = (f" (phase 2's kernel_ms {rows[name]['ms']:.4f})"
+                if name in rows else "")
+        print(f"[10] {name} B{b} bf16: forward device time {kernel_dev:.4f} "
+              f"ms, sdpa forward {library_dev:.4f} = "
+              f"{kernel_dev / library_dev:.2f}x, bound {bound_ms:.4f} "
+              f"({bound_by}){host} | {smi}", flush=True)
+        if name in rows:
+            rows[name].update(device_ms=kernel_dev,
+                              library_device_ms=library_dev)
+        del q, k, v
+        torch.cuda.empty_cache()
+
+
+def phase11(smi: str, call_s: float) -> None:
+    """One generate call of phase 3 (after a warm-up call) under
+    torch.profiler: device time by kernel, the forward kernel's share and
+    the busy share of phase 3's median unprofiled call."""
+    from torch.profiler import ProfilerActivity, profile
+    run, _, _ = serving_setup("11")
+    run(3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run(3)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    if not events:
+        print("[11] device time by kernel: not measured (the profiler saw "
+              "no CUDA kernel)", flush=True)
+        return
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    fwd_ms = sum(e.self_device_time_total for e in events
+                 if "flash_fwd" in e.key) / 1e3
+    call_ms = call_s * 1e3 if call_s else float("nan")
+    print(f"[11] profiled generate call: device busy {busy_ms:.1f} ms = "
+          f"{100 * busy_ms / call_ms:.1f}% of the {call_ms:.1f} ms median "
+          f"call; the forward kernel {fwd_ms:.1f} ms "
+          f"({100 * fwd_ms / busy_ms:.1f}% of device time) | {smi}",
+          flush=True)
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:20]:
+        print(f"[11]   {e.self_device_time_total / 1e3:9.2f} ms  "
+              f"x{e.count:<5d} {e.key[:100]}", flush=True)
+    del run
+    torch.cuda.empty_cache()
+
+
+def kernels_line(rows, launches, bwd_rows, train_launches, inject_row,
+                 inject_launches) -> dict:
     kernels = []
     for name, *_ in SHAPES:
         kernels.append({
@@ -854,7 +966,57 @@ def main():
         "source": "aqualora_torch/csrc/secret_inject.cu",
         "replaces": "aqualora_tpu/ops/secret_inject.py:47",
         "launches": inject_launches, **inject_row})
-    print(json.dumps({"kernels": kernels}))
+    return {"kernels": kernels}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated phase numbers (default: all; "
+                         "phase 0 always runs, and the kernels line needs "
+                         "all of them)")
+    args = ap.parse_args(argv)
+    every = set(range(12))
+    run_ = every if args.phases is None else \
+        {0} | {int(x) for x in args.phases.split(",")}
+    smi = phase0()
+    rows, launches, med_s = {}, {}, 0.0
+    bwd_rows, inject_row, train_launches, inject_launches = {}, {}, {}, 0
+    if 1 in run_:
+        phase1()
+    if 2 in run_:
+        rows = phase2(smi)
+    if 3 in run_:
+        launches, med_s = phase3(smi)
+    if rows and launches:
+        per_call = {key: sum(rows[n][key] * launches[n] for n in launches)
+                    for key in ("ms", "library_ms", "bound_ms")}
+        print(f"[3] flash kernel time per generate call (phase-2 kernel_ms x "
+              f"launches): {per_call['ms']:.1f} ms = "
+              f"{100 * per_call['ms'] / (med_s * 1e3):.1f}% of the "
+              f"{med_s * 1e3:.1f} ms call; sdpa at the same launches "
+              f"{per_call['library_ms']:.1f} ms; bound "
+              f"{per_call['bound_ms']:.1f} ms | {smi}", flush=True)
+    if 4 in run_:
+        phase4()
+    if 5 in run_:
+        bwd_rows = phase5(smi)
+    if 6 in run_:
+        inject_row = phase6(smi)
+    if 7 in run_:
+        phase7()
+    if 8 in run_:
+        train_launches, inject_launches = phase8(smi)
+    if 9 in run_:
+        phase9(smi, bwd_rows)
+    if 10 in run_:
+        phase10(smi, rows)
+    if 11 in run_:
+        phase11(smi, med_s)
+    if run_ == every:
+        print(json.dumps(kernels_line(rows, launches, bwd_rows,
+                                      train_launches, inject_row,
+                                      inject_launches)))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -53,6 +53,12 @@ def _need_cuda():
     (2, 3, 65, 64, 160),
     (1, 1, 200, 333, 512),    # VAE head dim, ragged lengths
     (1, 2, 7, 1, 3),          # one key, tiny head dim
+    (8, 8, 1000, 1000, 40),   # 128-row tiles, Tq not a multiple of 128
+    (8, 8, 1000, 77, 40),     # 128-row tiles at Tk = 77
+    (4, 8, 1000, 777, 80),    # 64-row tiles at d=80, ragged both ways
+    (16, 8, 250, 250, 160),   # 64-row tiles at d=160, ragged both ways
+    (2, 4, 100, 90, 36),      # d not a multiple of 8: staged by plain loads
+    (1, 1, 4096, 4096, 512),  # the VAE mid-block at B1
 ])
 def test_flash_kernel_matches_plain(dtype, b, h, tq, tk, d):
     _need_cuda()
@@ -68,6 +74,27 @@ def test_flash_kernel_matches_plain(dtype, b, h, tq, tk, d):
     err = (o.float() - o_ref.float()).abs().max().item()
     assert err <= _tol_o(dtype, o_ref)
     assert (lse - lse_ref).abs().max().item() <= TOL_LSE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,tq,tk,d", [
+    (2, 8, 4096, 4096, 40),   # the 64^2 self-attention, 128-row tiles
+    (2, 8, 4096, 77, 40),     # its cross-attention
+    (2, 8, 300, 77, 160),     # 16-row tiles, the warps' sums merged
+    (1, 1, 1000, 1000, 512),  # the d = 512 kernel
+])
+def test_flash_fwd_is_deterministic(b, h, tq, tk, d):
+    """No atomics, and the warps' partial results are merged in a fixed
+    order, so two bf16 calls give the same bits."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(tk + d)
+    q, k, v = (torch.randn(b, h, t, d, device="cuda", generator=gen)
+               .bfloat16() for t in (tq, tk, tk))
+    first = fa.flash_attention_fwd(q, k, v, d ** -0.5)
+    again = fa.flash_attention_fwd(q, k, v, d ** -0.5)
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, again):
+        assert torch.equal(a, b_)
 
 
 @pytest.mark.cuda

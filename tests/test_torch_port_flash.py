@@ -105,7 +105,7 @@ def test_wrapper_on_cpu_takes_plain_path():
 
 
 @pytest.mark.parametrize("case", ["rank", "dtype", "mixed_dtype", "head_dim",
-                                  "contiguity", "kv_shape"])
+                                  "contiguity", "kv_shape", "scale"])
 def test_wrapper_rejects_unsupported_input(case):
     q = torch.randn(1, 2, 8, 16)
     k = torch.randn(1, 2, 8, 16)
@@ -123,7 +123,7 @@ def test_wrapper_rejects_unsupported_input(case):
     elif case == "kv_shape":
         v = torch.randn(1, 2, 9, 16)
     with pytest.raises((ValueError, TypeError)):
-        fa.flash_attention_fwd(q, k, v, 0.25)
+        fa.flash_attention_fwd(q, k, v, -0.25 if case == "scale" else 0.25)
 
 
 def _autograd_grads(q, k, v, g, scale, fn):
@@ -252,3 +252,46 @@ def test_bf16_operand_rounding_fits_grad_tolerance(d, tk):
         tol = 1e-4 * m + 1e-5 + 2.0 ** -7 * m
         err = (g.float() - r.float()).abs().max().item()
         assert err <= tol, (name, err, tol)
+
+
+def _bf16_fwd_kernel_arithmetic(q, k, v, scale, key_tile):
+    """What the bf16 forward kernels compute, tile by tile over `key_tile`
+    keys: bf16 inputs, S summed in float32, the running max and sum in
+    float32 (log2 units), P rounded to bf16 as the operand of O += P V (the
+    sum l is taken from the unrounded P), O rounded to bf16 once."""
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    scale_log2 = scale * 1.4426950408889634
+    m = torch.full(q.shape[:3], float("-inf"))
+    l = torch.zeros(q.shape[:3])
+    acc = torch.zeros(qf.shape)
+    for k0 in range(0, k.shape[2], key_tile):
+        s = qf @ kf[:, :, k0:k0 + key_tile].transpose(-1, -2) * scale_log2
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + (
+            p.bfloat16().float() @ vf[:, :, k0:k0 + key_tile])
+        m = m_new
+    return (acc / l[..., None]).bfloat16(), m * np.log(2.0) + torch.log(l)
+
+
+@pytest.mark.parametrize("tk", [77, 256])
+@pytest.mark.parametrize("d", [40, 80, 160, 512])
+def test_fwd_bf16_operand_rounding_fits_o_tolerance(d, tk):
+    """Rounding P to bf16 (the one rounding the tensor-core forward adds)
+    keeps O within the card's bf16 O limit of `flash_attention_plain`,
+    which test_plain_matches_pallas_interpret ties to the Pallas kernel: one
+    bf16 ulp at the largest |O| (2^-7 of it) + 1e-4; lse within 1e-4.  Key
+    tiles as in csrc/flash_fwd.cu's wide query tiles: 64 keys at d = 40,
+    32 at d >= 80."""
+    q, k, v = (torch.from_numpy(a).bfloat16()
+               for a in _qkv(d + tk + 1, 1, 2, 256, tk, d))
+    scale = d ** -0.5
+    o, lse = _bf16_fwd_kernel_arithmetic(q, k, v, scale,
+                                         64 if d <= 40 else 32)
+    o_ref, lse_ref = fa.flash_attention_plain(q, k, v, scale)
+    tol = 2.0 ** -7 * o_ref.float().abs().max().item() + 1e-4
+    err = (o.float() - o_ref.float()).abs().max().item()
+    assert err <= tol, (err, tol)
+    assert (lse - lse_ref).abs().max().item() <= 1e-4

@@ -62,6 +62,7 @@
 //   owns 16 rows instead and its four warps split each key tile four ways,
 //   each with its own (m, l, O); they are merged through shared memory in a
 //   fixed warp order at the end.  Still one launch, still deterministic.
+//   `aqualora_flash_fwd_tc_rows` says which tiling a shape gets.
 //
 // Tensor-core design (bfloat16, d = 512).  A 16 x 512 float32 accumulator
 // would take 256 registers a thread, so a block of four warps owns 32 query
@@ -89,13 +90,15 @@
 #include <atomic>
 #include <initializer_list>
 
+#include "tensor_core.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
+using namespace aqualora_tc;
+
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-using bf16 = __nv_bfloat16;
 
 // ---------------------------------------------------------------------------
 // float32: CUDA-core kernel
@@ -275,120 +278,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // bfloat16: tensor-core kernels
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; the bytes past `src_bytes` (all
-// 16 when it is 0) are written as zeros and not read.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Four 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix
-// l / 8 and gets, of each matrix m, reg m = (row l / 4, columns 2(l % 4),
-// 2(l % 4) + 1), or of its transpose with TRANS.
-template <bool TRANS>
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const bf16* p) {
-  if (TRANS)
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(smem_addr(p)) : "memory");
-  else
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(smem_addr(p)) : "memory");
-}
-
-// c (16x8, float32) += a (16x16, bf16, row-major) * b (16x8, bf16).  Lane l,
-// g = l / 4, t = l % 4: c[0..1] = row g, columns 2t, 2t+1; c[2..3] = row
-// g + 8; a[0] = row g, k 2t..2t+1; a[1] = row g+8; a[2], a[3] the same at
-// k + 8; b0 = k 2t..2t+1, column g; b1 = k + 8.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 2^x on the special-function unit, flushing subnormal results to zero (a
-// P below 2^-126 is zero after its bf16 rounding in any case); 2^-inf = 0.
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&v);
-}
-
-// Shared row stride in elements for a head-dim tile of DP (a multiple of
-// 8): an odd number of 16-byte units, which puts the eight rows an
-// `ldmatrix` reads on eight different bank groups.
-template <int DP>
-__host__ __device__ constexpr int lds() { return DP % 16 ? DP + 16 : DP + 8; }
-
-// Copy rows [r0, r0 + R) of a [n, D] bf16 matrix into a [R, lds<DP>()]
-// shared tile in 16-byte chunks, zeros past n and past D.  `vec`: D % 8 ==
-// 0 and the rows are 16-byte aligned, so each chunk is one cp.async;
-// otherwise plain loads and stores.
-template <int DP, int R>
-__device__ __forceinline__ void stage_tc(bf16* dst, const bf16* src, int r0,
-                                         int n, int D, bool vec) {
-  constexpr int LDS = lds<DP>(), CH = DP / 8;
-  for (int i = threadIdx.x; i < R * CH; i += kThreads) {
-    const int r = i / CH, c = (i % CH) * 8;
-    bf16* d = dst + r * LDS + c;
-    const bool row_ok = r0 + r < n;
-    const bf16* s = src + (size_t)(row_ok ? r0 + r : 0) * D + c;
-    if (vec) {
-      const bool ok = row_ok && c < D;
-      cp_async16(d, ok ? s : src, ok ? 16 : 0);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        d[e] = row_ok && c + e < D ? s[e] : __float2bfloat16(0.f);
-    }
-  }
-}
-
-// The 16x16 A operand at (row0, col0) of a row-major [.., LDS] tile, or the
-// two 8-column B operands (k 16 rows at row0, n 16 columns at col0) of a
-// tile stored k-major (TRANS).  Matrices: 0 = rows +0, cols +0; 1 = rows +8,
-// cols +0; 2 = rows +0, cols +8; 3 = rows +8, cols +8.
-template <int LDS, bool TRANS>
-__device__ __forceinline__ void load_rm(unsigned (&r)[4], const bf16* tile,
-                                        int row0, int col0, int lane) {
-  const int m = lane >> 3;
-  ldmatrix_x4<TRANS>(r, tile + (row0 + (lane & 7) + (m & 1) * 8) * LDS +
-                            col0 + (m >> 1) * 8);
-}
-
-// The B operands of two 8-column blocks (n rows n0..n0+15 of a tile stored
-// n-major, k columns k0..k0+15): r[0], r[1] for rows n0..n0+7, r[2], r[3]
-// for n0+8..n0+15.
-template <int LDS>
-__device__ __forceinline__ void load_nk(unsigned (&r)[4], const bf16* tile,
-                                        int n0, int k0, int lane) {
-  const int m = lane >> 3;
-  ldmatrix_x4<false>(r, tile + (n0 + (lane & 7) + (m >> 1) * 8) * LDS + k0 +
-                            (m & 1) * 8);
-}
+// cp.async staging (stage_tc), ldmatrix loads (load_rm, load_nk) and the
+// m16n8k16 product (mma_bf16) come from tensor_core.cuh.
 
 // Two 8x8 b16 matrices at (row0, col0) and (row0 + 8, col0) of a [.., LDS]
 // tile (lanes 0-15 give the addresses): the A operand of an m16n8k8 product
@@ -694,7 +585,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const int n_tiles = (Tk + BN - 1) / BN;
   for (int t = 0; t < n_tiles; ++t) {
-    cp_async_wait_all();
+    cp_async_wait<0>();
     __syncthreads();  // tile t is in; every warp is done with tile t - 1
     if (t + 1 < n_tiles) stage_kv(t + 1);
     if (t == 0) qf.load(q_s, own, lane);
@@ -847,7 +738,7 @@ flash_fwd_d512_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const int n_tiles = (Tk + BN - 1) / BN;
   for (int t = 0; t < n_tiles; ++t) {
-    cp_async_wait_all();
+    cp_async_wait<0>();
     __syncthreads();  // tile t is in; every warp is done with tile t - 1
     if (t + 1 < n_tiles) {
       const int nxt = (t + 1) & 1;
@@ -1057,16 +948,26 @@ cudaError_t launch_tc_rows(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// 16-row query tiles when the wide ones would give fewer than two blocks
-// per SM.
+// Wide query tiles unless they would give fewer than two blocks per SM;
+// then 16-row tiles whose warps split the keys.
+template <int DP>
+bool wide_tiles(int B, int H, int Tq) {
+  constexpr int BR = Tc<DP, 4>::BR;
+  return (long)((Tq + BR - 1) / BR) * B * H >= 2L * sm_count();
+}
+
 template <int DP>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
                       void* lse, int B, int H, int Tq, int Tk, int D,
                       float scale, int vec, cudaStream_t s) {
-  constexpr int BR = Tc<DP, 4>::BR;
-  if ((long)((Tq + BR - 1) / BR) * B * H < 2L * sm_count())
-    return launch_tc_rows<DP, 1>(q, k, v, o, lse, B, H, Tq, Tk, D, scale, vec, s);
-  return launch_tc_rows<DP, 4>(q, k, v, o, lse, B, H, Tq, Tk, D, scale, vec, s);
+  if (wide_tiles<DP>(B, H, Tq))
+    return launch_tc_rows<DP, 4>(q, k, v, o, lse, B, H, Tq, Tk, D, scale, vec, s);
+  return launch_tc_rows<DP, 1>(q, k, v, o, lse, B, H, Tq, Tk, D, scale, vec, s);
+}
+
+template <int DP>
+int tc_rows(int B, int H, int Tq) {
+  return wide_tiles<DP>(B, H, Tq) ? Tc<DP, 4>::BR : Tc<DP, 1>::BR;
 }
 
 cudaError_t launch_d512(const void* q, const void* k, const void* v, void* o,
@@ -1113,4 +1014,14 @@ extern "C" int aqualora_flash_fwd(const void* q, const void* k, const void* v,
 #undef TC
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// The query rows per block of the bfloat16 instance that aqualora_flash_fwd
+// launches on the current device at this shape: 128 (d <= 80) or 64 (d =
+// 160) for wide tiles, 16 for tiles whose warps split the keys, 32 for d >
+// 160.  0 for a shape the forward refuses.
+extern "C" int aqualora_flash_fwd_tc_rows(int B, int H, int Tq, int D) {
+  if (B < 1 || H < 1 || Tq < 1 || D < 1 || D > 512) return 0;
+  return D <= 40 ? tc_rows<40>(B, H, Tq) : D <= 80 ? tc_rows<80>(B, H, Tq)
+       : D <= 160 ? tc_rows<160>(B, H, Tq) : D512::BR;
 }

@@ -3,8 +3,9 @@
 Every hand-written kernel of the port has a plain C interface and is built
 the same way: `nvcc -gencode arch=compute_90a,code=sm_90a -shared` into
 `aqualora_torch/_build/lib<name>_<hash>.so`, where the hash is of the
-source's content, so an edited source is rebuilt and an unchanged one is
-loaded as it is.  A kernel's wrapper builds on first use, never at import;
+source's content and of the csrc headers it includes (`#include "x.cuh"`),
+so an edited source or header is rebuilt and an unchanged one is loaded as
+it is.  A kernel's wrapper builds on first use, never at import;
 `build_all` starts one nvcc per source at once.  A failed build raises;
 nothing falls back.
 """
@@ -15,12 +16,13 @@ import collections
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -58,11 +60,30 @@ def nvcc() -> str:
     return path
 
 
+_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def source_files(name: str) -> List[Path]:
+    """csrc/<name>.cu and every csrc header it includes with quotes, directly
+    or through another header, each once."""
+    files, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in files:
+            continue
+        files.append(path)
+        todo += [CSRC / inc for inc in
+                 _LOCAL_INCLUDE.findall(path.read_text())]
+    return files
+
+
 def library_path(name: str) -> Path:
-    """Where csrc/<name>.cu is built: named by its source's content hash."""
-    source = CSRC / f"{name}.cu"
-    tag = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{tag}.so"
+    """Where csrc/<name>.cu is built: named by the content hash of the
+    source and of the csrc headers it includes."""
+    digest = hashlib.sha256()
+    for path in source_files(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
 def build_all(names: Iterable[str], verbose: bool = False

@@ -14,6 +14,9 @@ JAX package's `custom_vjp` (`aqualora_tpu/ops/flash_attention.py:367-384`).
   `_dkv_kernel` (`:269`), both recomputing P from `lse`.  delta = rowsum(dO
   o O) is a torch reduction (`attention_delta`), as the JAX package computes
   it outside Pallas (`:311`).
+- `fwd_tile_rows(q)` says which tiling the bf16 forward picks for a CUDA
+  query (it depends on the batch and the card's SM count), so that checks
+  can name the instance they reach.
 
 On the H100 the self-attention shapes are bound by the tensor-core rate and
 the 77-key cross-attention by the bytes of Q, O (and dO).  The kernels keep
@@ -153,6 +156,22 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"k {tuple(k.shape)}, {q.dtype}")
     launches.add(h, tq, tk, d)
     return o, lse
+
+
+def fwd_tile_rows(q: torch.Tensor) -> int:
+    """The query rows per block of the bf16 forward kernel that
+    `flash_attention_fwd` launches for this CUDA query on its card: 128 or
+    64 for wide tiles, 16 where the warps split the keys, 32 at d > 160.
+    Which tiling a shape gets depends on the card's SM count; the kernel
+    decides, this reads its decision."""
+    if q.device.type != "cuda" or q.dtype != torch.bfloat16 or q.dim() != 4:
+        raise ValueError(f"want a bf16 [B, H, T, D] CUDA query, got "
+                         f"{q.dtype} {tuple(q.shape)} on {q.device}")
+    fn = _build.bind(_build.build("flash_fwd"), "aqualora_flash_fwd_tc_rows",
+                     [_I] * 4)
+    b, h, tq, d = q.shape
+    with torch.cuda.device(q.device):
+        return fn(b, h, tq, d)
 
 
 def _check_bwd(q, k, v, do, lse, delta) -> None:

@@ -45,26 +45,33 @@ def _need_cuda():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
 
 
+# rows: the query rows per block of the bf16 instance the case must reach
+# (fwd_tile_rows).  The wide tiles are taken when they give at least two
+# blocks per SM; every case has at most 64 or at least 512 wide blocks, so
+# the choice is the same on any card with 33 to 256 SMs (the H100 has 132).
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,h,tq,tk,d", [
-    (2, 8, 300, 77, 40),      # ragged Tq, cross-attention Tk, d=40
-    (1, 8, 1024, 1024, 80),
-    (2, 3, 65, 64, 160),
-    (1, 1, 200, 333, 512),    # VAE head dim, ragged lengths
-    (1, 2, 7, 1, 3),          # one key, tiny head dim
-    (8, 8, 1000, 1000, 40),   # 128-row tiles, Tq not a multiple of 128
-    (8, 8, 1000, 77, 40),     # 128-row tiles at Tk = 77
-    (4, 8, 1000, 777, 80),    # 64-row tiles at d=80, ragged both ways
-    (16, 8, 250, 250, 160),   # 64-row tiles at d=160, ragged both ways
-    (2, 4, 100, 90, 36),      # d not a multiple of 8: staged by plain loads
-    (1, 1, 4096, 4096, 512),  # the VAE mid-block at B1
+@pytest.mark.parametrize("b,h,tq,tk,d,rows", [
+    (2, 8, 300, 77, 40, 16),      # ragged Tq, cross-attention Tk, d=40
+    (1, 8, 1024, 1024, 80, 16),   # 32^2 self, 16-row tiles
+    (2, 3, 65, 64, 160, 16),
+    (1, 1, 200, 333, 512, 32),    # VAE head dim, ragged lengths
+    (1, 2, 7, 1, 3, 16),          # one key, tiny head dim
+    (8, 8, 1000, 1000, 40, 128),  # 128-row tiles, Tq not a multiple of 128
+    (8, 8, 1000, 77, 40, 128),    # 128-row tiles at Tk = 77
+    (8, 8, 1000, 777, 80, 128),   # 128-row tiles at d=80, ragged both ways
+    (16, 8, 250, 250, 160, 64),   # 64-row tiles at d=160, ragged both ways
+    (16, 8, 1024, 77, 80, 128),   # the serving batch's 32^2 cross-attention
+    (2, 4, 100, 90, 36, 16),      # d not a multiple of 8: staged by plain loads
+    (1, 1, 4096, 4096, 512, 32),  # the VAE mid-block at B1
 ])
-def test_flash_kernel_matches_plain(dtype, b, h, tq, tk, d):
+def test_flash_kernel_matches_plain(dtype, b, h, tq, tk, d, rows):
     _need_cuda()
     gen = torch.Generator(device="cuda").manual_seed(tq * d)
     q, k, v = (torch.randn(b, h, t, d, device="cuda", generator=gen).to(dtype)
                for t in (tq, tk, tk))
+    if dtype == torch.bfloat16:
+        assert fa.fwd_tile_rows(q) == rows
     before = fa.launches.count
     o, lse = fa.flash_attention_fwd(q, k, v, d ** -0.5)
     o_ref, lse_ref = fa.flash_attention_plain(q, k, v, d ** -0.5)
@@ -80,6 +87,7 @@ def test_flash_kernel_matches_plain(dtype, b, h, tq, tk, d):
 @pytest.mark.parametrize("b,h,tq,tk,d", [
     (2, 8, 4096, 4096, 40),   # the 64^2 self-attention, 128-row tiles
     (2, 8, 4096, 77, 40),     # its cross-attention
+    (16, 8, 1024, 1024, 80),  # the 32^2 self-attention at the serving batch
     (2, 8, 300, 77, 160),     # 16-row tiles, the warps' sums merged
     (1, 1, 1000, 1000, 512),  # the d = 512 kernel
 ])

@@ -104,6 +104,13 @@ def test_wrapper_on_cpu_takes_plain_path():
     assert torch.equal(out, o_ref)
 
 
+def test_fwd_tile_rows_refuses_a_cpu_query():
+    """The tiling is the CUDA kernel's decision: a CPU tensor has none."""
+    q = torch.zeros(1, 2, 33, 40, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        fa.fwd_tile_rows(q)
+
+
 @pytest.mark.parametrize("case", ["rank", "dtype", "mixed_dtype", "head_dim",
                                   "contiguity", "kv_shape", "scale"])
 def test_wrapper_rejects_unsupported_input(case):

@@ -18,7 +18,11 @@ BatchNorm statistics (`batch_stats`, EfficientNet) become `running_mean` /
 `running_var`, with the `num_batches_tracked` counter torch's BatchNorm
 carries.  An EfficientNet tree (one with a `stem`) is renamed into
 torchvision's layout (`features.N.M.block.K`), which the port's EfficientNet
-follows so that the reference's `msgdecoder.pt` loads as it is.
+follows so that the reference's `msgdecoder.pt` loads as it is.  An LPIPS
+tree (one with `vgg/conv0`) is renamed into the lpips package's layout: the
+VGG16 convolutions `vgg/convI` become `net.sliceS.N` (N torchvision's
+feature index) and each lin weight [C, 1] becomes `linI.model.1.weight`
+[1, C, 1, 1].
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import numpy as np
 import torch
 
 from aqualora_torch.models.efficientnet import B0_STAGES
+from aqualora_torch.models.lpips import vgg16_conv_indices
 
 Path = Tuple[str, ...]
 
@@ -121,6 +126,29 @@ def _cba(sub: str) -> str:
     return {"conv": "0", "bn": "1"}[sub]
 
 
+def _lpips_layout(out: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Every LPIPS tree in `out` (keys and arrays) -> the lpips layout."""
+    stems = [k[: -len("vgg.conv0.weight")] for k in out
+             if k.endswith("vgg.conv0.weight")]
+    if not stems:
+        return out
+    slices = [(si + 1, idx) for si, stage in enumerate(vgg16_conv_indices())
+              for idx in stage]
+    moved: Dict[str, np.ndarray] = {}
+    for k, a in out.items():
+        pre = next((p for p in stems if k.startswith(p)), None)
+        m = None if pre is None else re.fullmatch(
+            r"vgg\.conv(\d+)\.(weight|bias)|lin(\d+)", k[len(pre):])
+        if m is None:
+            moved[k] = a
+        elif m[1] is not None:
+            si, idx = slices[int(m[1])]
+            moved[f"{pre}net.slice{si}.{idx}.{m[2]}"] = a
+        else:
+            moved[f"{pre}lin{m[3]}.model.1.weight"] = a.T[:, :, None, None]
+    return moved
+
+
 def torch_layout(params: Mapping, batch_stats: Optional[Mapping] = None
                  ) -> Dict[str, np.ndarray]:
     """Torch keys and numpy arrays in torch layout (transposed views, no
@@ -134,7 +162,7 @@ def torch_layout(params: Mapping, batch_stats: Optional[Mapping] = None
         out[torch_key(path[:-1] + ("num_batches_tracked",))] = np.zeros(
             (), np.int64)
     renames = _efficientnet_renames(list(out))
-    return {renames.get(k, k): a for k, a in out.items()}
+    return _lpips_layout({renames.get(k, k): a for k, a in out.items()})
 
 
 def jax_params_to_torch(params: Mapping,

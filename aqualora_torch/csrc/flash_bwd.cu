@@ -79,9 +79,17 @@
 // delta, so the dK/dV kernel masks their P (and with it dS) to zero rather
 // than only skipping their stores.  A head dim that is not a multiple of 8,
 // or an input not 16-byte aligned, is staged by plain loads instead of
-// cp.async.  Head dims above 160 are refused: no differentiated attention of
-// the port has one (the VAE's d = 512 attention runs without gradients in
-// training).
+// cp.async.
+//
+// Head dims 161..512 (the VAE mid-block's single-head d = 512 attention,
+// differentiated in stage 1 through the watermarked decode) have kernels of
+// their own.  bfloat16: `flash_bwd_dq_d512_tc_kernel` and
+// `flash_bwd_dkv_d512_tc_kernel` (`bwd_d512_tc` below), each warp a
+// 128-column quarter of the head dim, the partial S and dP added in shared
+// memory in warp order, P and dS through shared memory once a tile.
+// float32: the CUDA-core kernels above at DP = 512, a row spread over a
+// warp (16 columns a lane), as the forward's float32 d = 512 instance.
+// Head dims above 512 are refused.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -116,6 +124,9 @@ struct Cfg;
 template <> struct Cfg<48>  { static constexpr int G = 8,  TM = 4, BN = 32; };
 template <> struct Cfg<80>  { static constexpr int G = 8,  TM = 4, BN = 32; };
 template <> struct Cfg<160> { static constexpr int G = 16, TM = 4, BN = 32; };
+// d = 512: a row spread over the warp, 16 columns a lane; 16 own rows and 32
+// streamed rows in shared memory take 197 KB (one block per SM)
+template <> struct Cfg<512> { static constexpr int G = 32, TM = 4, BN = 32; };
 
 // Shared-memory row stride in floats: an odd number of 4-byte words.
 template <int DP>
@@ -793,6 +804,253 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                           Tk, D, 1.f, ws, lane);
   }
 }
+
+// The d = 512 kernels (bfloat16).  A 16 x 512 float32 accumulator would take
+// 256 registers a thread, so, as in flash_fwd.cu's d = 512 kernel, each of
+// the four warps owns a 128-column quarter of the head dim: a quarter of
+// the block's own rows (A, C) and of the streamed tiles (B, D) for the
+// partial scores, and a quarter of each accumulator.  A block owns 16 rows
+// (two accumulators of 16 x 128 take 128 registers in the dK/dV kernel)
+// and streams tiles of 32 rows through a two-stage cp.async ring; 186 KB of
+// shared memory, one block per SM.  At the stage-1 shape (5, 1, 4096, 4096,
+// 512) the tensor-core rate bounds the pair (about 0.43 ms); with four
+// warps an SM and two barriers a tile these kernels run far from it (their
+// times are in PERF.md).
+struct B512 {
+  static constexpr int DP = 512, LDS = lds<DP>(), BR = 16, BN = 32;
+  static constexpr int QCOLS = DP / 4, NB = QCOLS / 8, LDR = BN + 1,
+                       LDP = BN + 8;
+  // own rows (2 x BR) and the ring of the two streamed tiles (2 x 2 x BN)
+  static constexpr size_t stage_bytes =
+      (size_t)(2 * BR + 4 * BN) * LDS * sizeof(bf16);
+  // the four warps' partial S and dP, float32, rows padded to 33
+  static constexpr size_t red_bytes = (size_t)2 * 4 * BR * LDR * sizeof(float);
+  // P and dS of the tile, bf16, rows padded to 40 for ldmatrix
+  static constexpr size_t p_bytes = (size_t)2 * BR * LDP * sizeof(bf16);
+  static constexpr size_t smem_bytes = stage_bytes + red_bytes + p_bytes;
+  static_assert(stage_bytes % 16 == 0 && red_bytes % 16 == 0,
+                "16-byte aligned parts");
+};
+
+// One (b, h) of either d = 512 kernel.  Own rows [r0, r0 + 16) of A and C
+// ([Town, D]); streamed rows of B and D ([Tst, D]); lse and delta are the
+// [Tq] rows of this (b, h).
+//   dQ    (DKV false): A = Q, C = dO, B = K, D = V; S = Q K^T, dP = dO V^T,
+//         out0 = dQ = dS K * scale.
+//   dK/dV (DKV true):  A = K, C = V, B = Q, D = dO; S^T = K Q^T,
+//         dP^T = V dO^T, out0 = dK = dS^T Q * scale, out1 = dV = P^T dO.
+// Per streamed tile: every warp computes its partial S and dP over its
+// quarter of the head dim (m16n8k16, ldmatrix), writes them to shared
+// memory, and after a barrier each thread adds the four partials of four
+// elements in warp order, forms P = 2^(S * scale * log2 e - L) and dS = P o
+// (dP - delta) and writes both as bf16; after a second barrier every warp
+// reads them as the A operands of its quarter of the accumulators.  The
+// streamed rows past Tst get P = 0: keys past Tk in the dQ kernel, and
+// queries past Tq (which have no defined L or delta) in the dK/dV kernel.
+template <bool DKV>
+__device__ __forceinline__ void bwd_d512_tc(
+    const bf16* __restrict__ a, const bf16* __restrict__ c,
+    const bf16* __restrict__ b, const bf16* __restrict__ d,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    bf16* __restrict__ out0, bf16* __restrict__ out1, int Town, int Tst,
+    int D, float scale, float scale_log2, int vec) {
+  using W = B512;
+  constexpr int DP = W::DP, LDS = W::LDS, BR = W::BR, BN = W::BN;
+  constexpr int LDR = W::LDR, LDP = W::LDP, NB = W::NB;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* a_s = reinterpret_cast<bf16*>(smem_raw);
+  bf16* c_s = a_s + BR * LDS;
+  bf16* b_s = c_s + BR * LDS;                      // [2][BN][LDS]
+  bf16* d_s = b_s + 2 * BN * LDS;                  // [2][BN][LDS]
+  float* red = reinterpret_cast<float*>(smem_raw + W::stage_bytes);
+  bf16* p_s = reinterpret_cast<bf16*>(smem_raw + W::stage_bytes +
+                                      W::red_bytes);   // P, then dS
+  bf16* ds_s = p_s + BR * LDP;
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c0 = warp * W::QCOLS;
+  const int r0 = blockIdx.x * BR;
+  // a thread's share of the elementwise step: row er, columns ec..ec+3
+  const int er = threadIdx.x >> 3, ec = (threadIdx.x & 7) * 4;
+
+  stage_tc<DP, BR>(a_s, a, r0, Town, D, vec);
+  stage_tc<DP, BR>(c_s, c, r0, Town, D, vec);
+  stage_tc<DP, BN>(b_s, b, 0, Tst, D, vec);
+  stage_tc<DP, BN>(d_s, d, 0, Tst, D, vec);
+  cp_async_commit();
+
+  // dQ: L (log2 units) and delta of the own row er; rows past Tq are never
+  // written, so any finite value will do
+  float l_own = 0.f, d_own = 0.f;
+  if (!DKV && r0 + er < Town) {
+    l_own = lse[r0 + er] * kLog2e;
+    d_own = delta[r0 + er];
+  }
+
+  constexpr int NB1 = DKV ? NB : 1;
+  float acc0[NB][4], acc1[NB1][4];
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc0[j][i] = 0.f;
+#pragma unroll
+  for (int j = 0; j < NB1; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc1[j][i] = 0.f;
+
+  const int n_tiles = (Tst + BN - 1) / BN;
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile t is in; every warp is done with tile t - 1
+    if (t + 1 < n_tiles) {
+      const int nxt = (t + 1) & 1;
+      stage_tc<DP, BN>(b_s + nxt * BN * LDS, b, (t + 1) * BN, Tst, D, vec);
+      stage_tc<DP, BN>(d_s + nxt * BN * LDS, d, (t + 1) * BN, Tst, D, vec);
+      cp_async_commit();
+    }
+    const int nv = Tst - t * BN;   // valid streamed rows (may exceed BN)
+    const bf16* bt = b_s + (t & 1) * BN * LDS;
+    const bf16* dt = d_s + (t & 1) * BN * LDS;
+
+    // partial S and dP over this warp's quarter of the head dim
+    float s[BN / 8][4], dp[BN / 8][4];
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[j][i] = dp[j][i] = 0.f;
+#pragma unroll 2
+    for (int ks = 0; ks < W::QCOLS / 16; ++ks) {
+      const int col = c0 + 16 * ks;
+      unsigned fa[4], fc[4];
+      load_rm<LDS, false>(fa, a_s, 0, col, lane);
+      load_rm<LDS, false>(fc, c_s, 0, col, lane);
+#pragma unroll
+      for (int j = 0; j < BN / 16; ++j) {
+        if (16 * j < nv) {
+          unsigned fb[4], fd[4];
+          load_nk<LDS>(fb, bt, 16 * j, col, lane);
+          load_nk<LDS>(fd, dt, 16 * j, col, lane);
+          mma_bf16(s[2 * j], fa, fb[0], fb[1]);
+          mma_bf16(s[2 * j + 1], fa, fb[2], fb[3]);
+          mma_bf16(dp[2 * j], fc, fd[0], fd[1]);
+          mma_bf16(dp[2 * j + 1], fc, fd[2], fd[3]);
+        }
+      }
+    }
+    float* rs = red + warp * BR * LDR;              // S partials [4][BR][LDR]
+    float* rd = red + (4 + warp) * BR * LDR;        // dP partials
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int e = ((lane >> 2) + 8 * (i >> 1)) * LDR + 8 * j +
+                      2 * (lane & 3) + (i & 1);
+        rs[e] = s[j][i];
+        rd[e] = dp[j][i];
+      }
+    __syncthreads();
+
+    // P and dS of row er, columns ec..ec+3, the partials added in warp order
+    float pv[4], dv[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = ec + e;
+      const float* x = red + er * LDR + col;
+      const float* y = x + 4 * BR * LDR;
+      const float sv = ((x[0] + x[BR * LDR]) + x[2 * BR * LDR]) + x[3 * BR * LDR];
+      const float dpv = ((y[0] + y[BR * LDR]) + y[2 * BR * LDR]) + y[3 * BR * LDR];
+      float p = 0.f, dl = 0.f;
+      if (col < nv) {
+        const int n = t * BN + col;
+        const float l = DKV ? lse[n] * kLog2e : l_own;
+        dl = DKV ? delta[n] : d_own;
+        p = exp2_ftz(sv * scale_log2 - l);
+      }
+      pv[e] = p;
+      dv[e] = p * (dpv - dl);
+    }
+    *reinterpret_cast<uint2*>(p_s + er * LDP + ec) =
+        make_uint2(pack_bf16(pv[0], pv[1]), pack_bf16(pv[2], pv[3]));
+    *reinterpret_cast<uint2*>(ds_s + er * LDP + ec) =
+        make_uint2(pack_bf16(dv[0], dv[1]), pack_bf16(dv[2], dv[3]));
+    __syncthreads();
+
+    // acc0 += dS B, acc1 += P D over this warp's quarter of the columns
+#pragma unroll
+    for (int j = 0; j < BN / 16; ++j) {
+      if (16 * j < nv) {
+        unsigned fds[4], fp[4];
+        load_rm<LDP, false>(fds, ds_s, 0, 16 * j, lane);
+        if (DKV) load_rm<LDP, false>(fp, p_s, 0, 16 * j, lane);
+#pragma unroll
+        for (int nd = 0; nd < W::QCOLS / 16; ++nd) {
+          unsigned fb[4];
+          load_rm<LDS, true>(fb, bt, 16 * j, c0 + 16 * nd, lane);
+          mma_bf16(acc0[2 * nd], fds, fb[0], fb[1]);
+          mma_bf16(acc0[2 * nd + 1], fds, fb[2], fb[3]);
+          if (DKV) {
+            unsigned fd[4];
+            load_rm<LDS, true>(fd, dt, 16 * j, c0 + 16 * nd, lane);
+            mma_bf16(acc1[2 * nd % NB1], fp, fd[0], fd[1]);
+            mma_bf16(acc1[(2 * nd + 1) % NB1], fp, fd[2], fd[3]);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + (lane >> 2) + 8 * h;
+    if (r >= Town) continue;
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      const int col = c0 + nb * 8 + 2 * (lane & 3);
+      store_pair(out0 + (size_t)r * D, col, D, acc0[nb][2 * h] * scale,
+                 acc0[nb][2 * h + 1] * scale, vec);
+      if (DKV)
+        store_pair(out1 + (size_t)r * D, col, D, acc1[nb % NB1][2 * h],
+                   acc1[nb % NB1][2 * h + 1], vec);
+    }
+  }
+}
+
+// dQ at d = 512: one block per (16 query rows, head, batch).
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_d512_tc_kernel(const bf16* __restrict__ q,
+                            const bf16* __restrict__ k,
+                            const bf16* __restrict__ v,
+                            const bf16* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            bf16* __restrict__ dq, int H, int Tq, int Tk,
+                            int D, float scale, float scale_log2, int vec) {
+  const size_t bh = (size_t)blockIdx.z * H + blockIdx.y;
+  bwd_d512_tc<false>(q + bh * Tq * D, dout + bh * Tq * D, k + bh * Tk * D,
+                     v + bh * Tk * D, lse + bh * Tq, delta + bh * Tq,
+                     dq + bh * Tq * D, nullptr, Tq, Tk, D, scale, scale_log2,
+                     vec);
+}
+
+// dK, dV at d = 512: one block per (16 key rows, head, batch).
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_d512_tc_kernel(const bf16* __restrict__ q,
+                             const bf16* __restrict__ k,
+                             const bf16* __restrict__ v,
+                             const bf16* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             bf16* __restrict__ dk, bf16* __restrict__ dv,
+                             int H, int Tq, int Tk, int D, float scale,
+                             float scale_log2, int vec) {
+  const size_t bh = (size_t)blockIdx.z * H + blockIdx.y;
+  bwd_d512_tc<true>(k + bh * Tk * D, v + bh * Tk * D, q + bh * Tq * D,
+                    dout + bh * Tq * D, lse + bh * Tq, delta + bh * Tq,
+                    dk + bh * Tk * D, dv + bh * Tk * D, Tk, Tq, D, scale,
+                    scale_log2, vec);
+}
+
 // ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
@@ -896,8 +1154,39 @@ cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// The d = 512 kernels; `dkv` picks dK/dV.
+cudaError_t launch_d512(bool dkv, const void* q, const void* k, const void* v,
+                        const void* dout, const void* lse, const void* delta,
+                        void* out0, void* out1, int B, int H, int Tq, int Tk,
+                        int D, float scale, int vec, cudaStream_t stream) {
+  const size_t smem = B512::smem_bytes;
+  const float sl = scale * kLog2e;
+  const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k),
+             *vb = static_cast<const bf16*>(v),
+             *ob = static_cast<const bf16*>(dout);
+  const float *lb = static_cast<const float*>(lse),
+              *db = static_cast<const float*>(delta);
+  cudaError_t err;
+  if (dkv) {
+    err = set_smem(flash_bwd_dkv_d512_tc_kernel, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((Tk + B512::BR - 1) / B512::BR, H, B);
+    flash_bwd_dkv_d512_tc_kernel<<<grid, kThreads, smem, stream>>>(
+        qb, kb, vb, ob, lb, db, static_cast<bf16*>(out0),
+        static_cast<bf16*>(out1), H, Tq, Tk, D, scale, sl, vec);
+  } else {
+    err = set_smem(flash_bwd_dq_d512_tc_kernel, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((Tq + B512::BR - 1) / B512::BR, H, B);
+    flash_bwd_dq_d512_tc_kernel<<<grid, kThreads, smem, stream>>>(
+        qb, kb, vb, ob, lb, db, static_cast<bf16*>(out0), H, Tq, Tk, D, scale,
+        sl, vec);
+  }
+  return cudaGetLastError();
+}
+
 bool bad_shape(int B, int H, int Tq, int Tk, int D) {
-  return B < 1 || H < 1 || Tq < 1 || Tk < 1 || D < 1 || D > 160 ||
+  return B < 1 || H < 1 || Tq < 1 || Tk < 1 || D < 1 || D > 512 ||
          H > 65535 || B > 65535;
 }
 
@@ -917,11 +1206,15 @@ extern "C" int aqualora_flash_bwd_dq(const void* q, const void* k,
   if (dtype == 0) {
 #define DQ(DP) launch_dq<DP>(q, k, v, dout, lse, delta, dq, B, H, Tq, Tk, D, \
                              scale, s)
-    return (int)(D <= 48 ? DQ(48) : D <= 80 ? DQ(80) : DQ(160));
+    return (int)(D <= 48 ? DQ(48) : D <= 80 ? DQ(80)
+                 : D <= 160 ? DQ(160) : DQ(512));
 #undef DQ
   }
   if (dtype == 1) {
     const int vec = D % 8 == 0 && aligned16({q, k, v, dout, dq});
+    if (D > 160)
+      return (int)launch_d512(false, q, k, v, dout, lse, delta, dq, nullptr,
+                              B, H, Tq, Tk, D, scale, vec, s);
     const bool narrow = narrow_tiles(B, H, Tq);
 #define DQ(DP) (narrow ? launch_dq_tc<DP, 1>(q, k, v, dout, lse, delta, dq, B, \
                                              H, Tq, Tk, D, scale, vec, s)     \
@@ -944,11 +1237,15 @@ extern "C" int aqualora_flash_bwd_dkv(const void* q, const void* k,
   if (dtype == 0) {
 #define DKV(DP) launch_dkv<DP>(q, k, v, dout, lse, delta, dk, dv, B, H, Tq, \
                                Tk, D, scale, s)
-    return (int)(D <= 48 ? DKV(48) : D <= 80 ? DKV(80) : DKV(160));
+    return (int)(D <= 48 ? DKV(48) : D <= 80 ? DKV(80)
+                 : D <= 160 ? DKV(160) : DKV(512));
 #undef DKV
   }
   if (dtype == 1) {
     const int vec = D % 8 == 0 && aligned16({q, k, v, dout, dk, dv});
+    if (D > 160)
+      return (int)launch_d512(true, q, k, v, dout, lse, delta, dk, dv, B, H,
+                              Tq, Tk, D, scale, vec, s);
     const bool narrow = narrow_tiles(B, H, Tk);
 #define DKV(DP) (narrow ? launch_dkv_tc<DP, 1>(q, k, v, dout, lse, delta, dk, \
                                                dv, B, H, Tq, Tk, D, scale,    \

@@ -310,20 +310,6 @@ __device__ __forceinline__ void mma_bf16_k8(float (&c)[4],
       : "r"(a[0]), "r"(a[1]), "r"(b));
 }
 
-// Store a value pair at columns c, c + 1 of a bf16 row (c even): one 4-byte
-// store when `vec` (D % 8 == 0 and 16-byte aligned rows), else one or two
-// 2-byte stores below D.
-__device__ __forceinline__ void store_pair(bf16* row, int c, int D, float x,
-                                           float y, bool vec) {
-  if (vec) {
-    if (c < D)
-      *reinterpret_cast<__nv_bfloat162*>(row + c) = __floats2bfloat162_rn(x, y);
-  } else {
-    if (c < D) row[c] = __float2bfloat16(x);
-    if (c + 1 < D) row[c + 1] = __float2bfloat16(y);
-  }
-}
-
 // Tiles of the d <= 160 kernel.  A block has 4 warps: WR along its query
 // rows and WS = 4 / WR along the key tile of BN keys, of which each warp
 // takes SPAN.  A warp owns MT m16 tiles (16 * MT rows), so that each K and V

@@ -1,6 +1,7 @@
 // Tensor-core helpers shared by the bfloat16 attention kernels
 // (flash_fwd.cu, flash_bwd.cu): 16-byte cp.async staging into padded shared
-// tiles, ldmatrix operand loads and the mma.sync.m16n8k16 bf16 product.
+// tiles, ldmatrix operand loads, the mma.sync.m16n8k16 bf16 product and
+// paired bf16 stores.
 //
 // ops/_build.py names a built library by the hash of its source and of the
 // csrc headers it includes, so an edit here rebuilds both kernels.
@@ -106,6 +107,20 @@ __device__ __forceinline__ void stage_tc(bf16* dst, const bf16* src, int r0,
       for (int e = 0; e < 8; ++e)
         d[e] = row_ok && c + e < D ? s[e] : __float2bfloat16(0.f);
     }
+  }
+}
+
+// Store a value pair at columns c, c + 1 of a bf16 row (c even): one 4-byte
+// store when `vec` (D % 8 == 0 and 16-byte aligned rows), else one or two
+// 2-byte stores below D.
+__device__ __forceinline__ void store_pair(bf16* row, int c, int D, float x,
+                                           float y, bool vec) {
+  if (vec) {
+    if (c < D)
+      *reinterpret_cast<__nv_bfloat162*>(row + c) = __floats2bfloat162_rn(x, y);
+  } else {
+    if (c < D) row[c] = __float2bfloat16(x);
+    if (c + 1 < D) row[c + 1] = __float2bfloat16(y);
   }
 }
 

@@ -1,19 +1,31 @@
-"""EfficientNet (B1 by default), the SecretDecoder backbone, in eval mode.
+"""EfficientNet (B1 by default), the SecretDecoder backbone.
 
-The port of `aqualora_tpu/models/efficientnet.py` (MBConv + squeeze-excite),
-laid out as torchvision's `efficientnet_b1` (`features.N`, `.block.N`,
-`classifier.1`), the layout of the reference's `msgdecoder.pt`, so such a
-checkpoint loads with `load_state_dict` as it is.  Stochastic depth and the
-classifier dropout act only in training, which is not ported yet.
+The port of `aqualora_tpu/models/efficientnet.py:54-145` (MBConv +
+squeeze-excite), laid out as torchvision's `efficientnet_b1` (`features.N`,
+`.block.N`, `classifier.1`), the layout of the reference's `msgdecoder.pt`,
+so such a checkpoint loads with `load_state_dict` as it is.
+
+In eval mode BatchNorm uses its running statistics.  In train mode (the
+module's `training` flag) it follows flax's `BatchNorm(momentum=0.9)`:
+it normalises with the batch's mean and biased variance and updates the
+running statistics with the same biased variance, `r = 0.9 r + 0.1 batch`
+(`torch.nn.BatchNorm2d` would update `running_var` with the unbiased one).
+Train mode also applies stochastic depth (a residual block's branch times
+keep / (1 - p), keep a per-sample Bernoulli(1 - p), p rising linearly to
+0.2 over the blocks) and the head's dropout (`dropout_rate`).  Their keep
+masks are an argument (`draw_masks`), so that a training step can draw
+them from its own generator.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from aqualora_torch.core.config import EfficientNetConfig
 
@@ -41,12 +53,36 @@ def round_repeats(r: int, depth_mult: float) -> int:
     return int(math.ceil(r * depth_mult))
 
 
+STOCHASTIC_DEPTH_PROB = 0.2
+BN_MOMENTUM = 0.9          # flax's convention: r = 0.9 r + 0.1 batch
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """torch's BatchNorm2d with flax's training update: the running
+    variance takes the biased batch variance (see the module docstring)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                         self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
+                                       unbiased=False)
+            for run, batch in ((self.running_mean, mean),
+                               (self.running_var, var)):
+                run.copy_(BN_MOMENTUM * run.float()
+                          + (1 - BN_MOMENTUM) * batch)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
 def conv_bn_act(cin: int, cout: int, kernel: int = 3, stride: int = 1,
                 groups: int = 1, act: bool = True) -> nn.Sequential:
     """torchvision's Conv2dNormActivation: `.0` conv, `.1` BatchNorm."""
     layers = [nn.Conv2d(cin, cout, kernel, stride, (kernel - 1) // 2,
                         groups=groups, bias=False),
-              nn.BatchNorm2d(cout, eps=1e-5)]
+              BatchNorm2d(cout, eps=1e-5)]
     if act:
         layers.append(nn.SiLU())
     return nn.Sequential(*layers)
@@ -66,7 +102,7 @@ class SqueezeExcitation(nn.Module):
 
 class MBConv(nn.Module):
     def __init__(self, cin: int, cout: int, expand_ratio: int, kernel: int,
-                 stride: int):
+                 stride: int, sd_prob: float = 0.0):
         super().__init__()
         expanded = cin * expand_ratio
         layers = []
@@ -78,10 +114,27 @@ class MBConv(nn.Module):
                    conv_bn_act(expanded, cout, 1, act=False)]
         self.block = nn.Sequential(*layers)
         self.use_res = stride == 1 and cin == cout
+        self.sd_prob = sd_prob
+        # whether train mode drops the residual branch per sample
+        self.stochastic = self.use_res and sd_prob > 0
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """keep: the stochastic-depth mask [B] (bool), applied when given."""
         h = self.block(x)
+        if keep is not None:
+            h = h * keep.to(h.dtype)[:, None, None, None] / (1.0 - self.sd_prob)
         return h + x if self.use_res else h
+
+
+@dataclasses.dataclass
+class Masks:
+    """One training call's keep masks: one [B] bool tensor per stochastic
+    block (`MBConv.stochastic`, in order) and the head dropout's [B, head]
+    bool tensor (None when dropout_rate is 0)."""
+
+    depth: List[torch.Tensor]
+    dropout: Optional[torch.Tensor]
 
 
 class EfficientNet(nn.Module):
@@ -92,20 +145,64 @@ class EfficientNet(nn.Module):
         stem = round_channels(32, cfg.width_mult)
         features = [conv_bn_act(3, stem, 3, 2)]
         cin = stem
+        total = sum(round_repeats(r, cfg.depth_mult)
+                    for _, _, r, _, _ in B0_STAGES)
+        idx = 0
         for er, ch, reps, stride, kernel in B0_STAGES:
             cout = round_channels(ch, cfg.width_mult)
             blocks = []
             for bi in range(round_repeats(reps, cfg.depth_mult)):
                 blocks.append(MBConv(cin, cout, er, kernel,
-                                     stride if bi == 0 else 1))
+                                     stride if bi == 0 else 1,
+                                     STOCHASTIC_DEPTH_PROB * idx / total))
                 cin = cout
+                idx += 1
             features.append(nn.Sequential(*blocks))
-        head = round_channels(1280, cfg.width_mult)
-        features.append(conv_bn_act(cin, head, 1))
+        self.head_channels = round_channels(1280, cfg.width_mult)
+        features.append(conv_bn_act(cin, self.head_channels, 1))
         self.features = nn.Sequential(*features)
-        self.classifier = nn.Sequential(nn.Dropout(cfg.dropout_rate),
-                                        nn.Linear(head, cfg.num_classes))
+        self.dropout_rate = cfg.dropout_rate
+        # index 0 is torchvision's dropout; train mode applies it from the
+        # masks instead
+        self.classifier = nn.Sequential(
+            nn.Identity(), nn.Linear(self.head_channels, cfg.num_classes))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.features(x).mean(dim=(2, 3))
-        return self.classifier(x)
+    def stochastic_blocks(self) -> List[MBConv]:
+        return [b for stage in self.features[1:-1] for b in stage
+                if b.stochastic]
+
+    def draw_masks(self, batch: int, generator: Optional[torch.Generator],
+                   device=None) -> Masks:
+        """Keep masks for a training call: Bernoulli(1 - p) per sample and
+        stochastic block, Bernoulli(1 - dropout_rate) per head feature.
+        `generator` None draws from torch's default generator on
+        `device`."""
+        if generator is not None:
+            device = generator.device
+
+        def keep(p, shape):
+            return torch.rand(shape, generator=generator, device=device) >= p
+
+        depth = [keep(b.sd_prob, (batch,)) for b in self.stochastic_blocks()]
+        dropout = (keep(self.dropout_rate, (batch, self.head_channels))
+                   if self.dropout_rate > 0 else None)
+        return Masks(depth, dropout)
+
+    def forward(self, x: torch.Tensor,
+                masks: Optional[Masks] = None) -> torch.Tensor:
+        """images NCHW -> logits.  In train mode `masks` gives the
+        stochastic-depth and dropout masks (drawn from torch's default
+        generator when None)."""
+        if self.training and masks is None:
+            masks = self.draw_masks(x.shape[0], None, x.device)
+        depth = iter(masks.depth) if self.training else iter(())
+        x = self.features[0](x)
+        for stage in self.features[1:-1]:
+            for block in stage:
+                x = block(x, next(depth) if self.training and block.stochastic
+                          else None)
+        x = self.features[-1](x).mean(dim=(2, 3))
+        if self.training and masks.dropout is not None:
+            x = torch.where(masks.dropout, x / (1.0 - self.dropout_rate),
+                            torch.zeros((), dtype=x.dtype, device=x.device))
+        return self.classifier[1](x)

@@ -11,7 +11,11 @@ The port of `aqualora_tpu/models/watermark.py:42-119`:
 
   SecretDecoder: image NCHW in [-1, 1] -> per-bit 2-way logits
     [B, bits, 2]: bilinear resize to the backbone's resolution, then
-    EfficientNet-B1 with a Linear(-> bits * 2) head.
+    EfficientNet-B1 with a Linear(-> bits * 2) head.  `forward(x, train)`
+    is flax's `train` argument: with train=True BatchNorm takes the batch's
+    statistics and updates its running ones (flax's rule, see
+    `models/efficientnet.py`), and stochastic depth and dropout apply the
+    given masks.
   MapperNet: message bits [B, bits] -> diagonal LoRA scale [B, rank]:
     sum of the message-selected rows of `bit_embeddings` / sqrt(bits) + 1.
     `std` is baked into the weight at init, never a forward multiplier.
@@ -28,7 +32,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from aqualora_torch.core.config import EfficientNetConfig
-from aqualora_torch.models.efficientnet import EfficientNet
+from aqualora_torch.models.efficientnet import EfficientNet, Masks
 from aqualora_torch.ops.resize import bilinear_resize
 
 
@@ -82,9 +86,14 @@ class SecretDecoder(nn.Module):
                 cfg, num_classes=output_size * 2))
         self.to(dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                masks: Optional[Masks] = None) -> torch.Tensor:
+        """Sets the module's mode to `train` first (flax's argument);
+        `masks` from `self.model.draw_masks` (torch's default generator
+        when None in train mode)."""
+        self.train(train)
         x = bilinear_resize(x, self.resolution, self.resolution)
-        return self.model(x).reshape(-1, self.output_size, 2)
+        return self.model(x, masks).reshape(-1, self.output_size, 2)
 
 
 class MapperNet(nn.Module):

@@ -43,7 +43,7 @@ import torch
 from aqualora_torch.ops import _build
 
 MAX_HEAD_DIM = 512
-MAX_BWD_HEAD_DIM = 160
+MAX_BWD_HEAD_DIM = 512
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -234,9 +234,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                         scale: float) -> Tuple[torch.Tensor, ...]:
     """(dq, dk, dv) of softmax(q k^T * scale) v for the output gradient
-    `do`, from the forward's `o` and `lse`.  Head dims above 160 are refused:
-    no differentiated attention of the port has one (the VAE's d = 512
-    attention runs without gradients in training)."""
+    `do`, from the forward's `o` and `lse`, at head dims up to 512 (the
+    VAE mid-block's d = 512, differentiated in stage 1, has kernels of its
+    own)."""
     if o.shape != q.shape or o.dtype != q.dtype or o.device != q.device:
         raise ValueError(f"o {tuple(o.shape)} {o.dtype} does not match "
                          f"q {tuple(q.shape)} {q.dtype}")

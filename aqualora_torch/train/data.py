@@ -3,13 +3,15 @@
 A copy of `aqualora_tpu/train/data.py:SyntheticDataset` (numpy only) for
 one process: seeded uniform images in [-1, 1], NHWC float32, with captions,
 in the same order for the same seed, so the two trainers see the same
-pixels.  The process sharding, the image-folder and HF datasets (PIL decode,
-the native loader) are not ported yet.
+pixels.  `make_dataset` is the trainers' factory; it refuses a path.  The
+process sharding, the image-folder and HF datasets (PIL decode, the native
+loader) are not ported yet.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 
@@ -39,3 +41,15 @@ class SyntheticDataset:
                         for x in rng.integers(0, 1000, batch_size)]
                 yield imgs, caps
             epoch += 1
+
+
+def make_dataset(path: Optional[str], resolution: int) -> SyntheticDataset:
+    """The synthetic dataset at `resolution`.  A path is refused: the
+    image-folder dataset is not ported, and a run must never train on
+    noise in its place (the JAX factory refuses a path that is not a
+    directory for the same reason)."""
+    if path:
+        raise NotImplementedError(
+            f"dataset path {path!r}: the image-folder and HF datasets are "
+            f"not ported yet; run without --dataset for synthetic images")
+    return SyntheticDataset(resolution)

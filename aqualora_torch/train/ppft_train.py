@@ -51,7 +51,7 @@ import argparse
 import dataclasses
 import math
 import time
-from typing import Any, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Tuple
 
 import torch
 import torch.nn as nn
@@ -106,18 +106,30 @@ def trainable_groups(pipe: StableDiffusionPipeline) -> Dict[str, List]:
     return groups
 
 
+def adamw(groups: Dict[str, List], lr: float,
+          factor: Callable[[int], float],
+          betas: Tuple[float, float] = (0.9, 0.999), eps: float = 1e-8,
+          weight_decay: float = 1e-2):
+    """`optax.adamw` over named parameter groups with the learning rate
+    lr * factor(update count), as (optimizer, scheduler): step the
+    scheduler after the optimizer (see the module docstring for why this
+    is optax's algebra)."""
+    optimizer = torch.optim.AdamW(
+        [{"params": params, "name": name} for name, params in groups.items()],
+        lr=lr, betas=betas, eps=eps, weight_decay=weight_decay)
+    scheduler = torch.optim.lr_scheduler.LambdaLR(optimizer, factor)
+    return optimizer, scheduler
+
+
 def make_optimizer(groups: Dict[str, List], lr: float, warmup: int,
                    total: int, lr_end: float = 0.0,
                    betas: Tuple[float, float] = (0.9, 0.999),
                    eps: float = 1e-8, weight_decay: float = 1e-2):
-    """AdamW over the LoRA and mapper groups, and its schedule (see the
-    module docstring for the optax semantics)."""
-    optimizer = torch.optim.AdamW(
-        [{"params": params, "name": name} for name, params in groups.items()],
-        lr=lr, betas=betas, eps=eps, weight_decay=weight_decay)
-    factor = cosine_with_warmup_lr_end(1.0, warmup, total, lr_end)
-    scheduler = torch.optim.lr_scheduler.LambdaLR(optimizer, factor)
-    return optimizer, scheduler
+    """AdamW over the LoRA and mapper groups with the reference's cosine
+    schedule."""
+    return adamw(groups, lr,
+                 cosine_with_warmup_lr_end(1.0, warmup, total, lr_end),
+                 betas, eps, weight_decay)
 
 
 def _global_norm(params) -> torch.Tensor:

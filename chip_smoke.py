@@ -64,9 +64,33 @@ Phases (any failure raises, so the exit code is not 0):
      under torch.profiler: the device's busy share of the median call, its
      largest kernels and the forward kernel's share (`--phases 11` runs
      phase 3 too).
-Phases 9-11 come last, so that the profiler touches no timed phase.  The
-line before the last names the card and its power limit; the last line is
-{"ok": true, "device": {...}}.
+ 12. Stage 1's attention, the VAE mid-block at d = 512 differentiated
+     through the watermarked decode: the d = 512 backward kernels (dQ,
+     dK/dV) against their plain versions at the stage-1 batch (5, 1, 4096,
+     4096, 512) and at a ragged (2, 1, 1000, 1000, 512), float32 and
+     bfloat16, two bfloat16 calls bit-identical; at B5 the forward's
+     instances against their plain version too; then at B5 each kernel's
+     time, the plain version's and the bound.  After phase 11, the pair's
+     and SDPA's backward (a yardstick; the port never calls it) as device
+     time under torch.profiler, with the SDPA backend torch picked.
+ 13. The tiny stage-1 step on the card (kernels) against the CPU (plain),
+     the same weights and draws, float32: the loss and every trainable's
+     gradient, once for each of the six stage-1 distortions.
+ 14. The stage-1 path: the full-width step through
+     `aqualora_torch.train.latent_wm_pretrain` (SD-1.5 VAE, 48-bit
+     SecretEncoder, EfficientNet-B1 SecretDecoder in train mode,
+     LPIPS-VGG16, 512^2 synthetic pixels, B5), loss weights (5, 1, 1.5)
+     and the late distortion probabilities, 1 warm-up and 3 timed steps in
+     float32, then the same in bf16.  Every step must launch the d = 512
+     forward 3 times and the dQ and dK/dV kernels once each; the loss must
+     be finite and positive, every encoder and decoder parameter and the
+     BatchNorm statistics must move.  After phase 12's profile, one step of
+     each under torch.profiler: the busy share and the d = 512 pair's
+     share of device time.
+The timed phases run first (0-7, 12, 13, 14, 8) and the profiled ones after
+them (9, 10, 11, then the profiles of 12 and 14), so that the profiler
+touches no timed phase.  The line before the last names the card and its
+power limit; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -83,8 +107,10 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
-# H100 SXM data sheet: dense bf16 tensor-core rate and HBM3 bandwidth
+# H100 SXM data sheet: dense bf16 tensor-core rate, the float32 rate of the
+# CUDA cores (the float32 kernels' units) and HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
 # name, heads, Tq, Tk, head dim, serving batch (the CFG batch of 2 x 8
@@ -144,6 +170,19 @@ TINY_GRAD_TOL = 1e-3
 # launch; this one shows how far a whole call drifts.
 PLAIN_SWAP_MAX_TOL = 1.62
 PLAIN_SWAP_MEAN_TOL = 0.076
+# stage 1: the VAE mid-block's single-head attention (T 4096 at 512 px, d
+# 512), differentiated through the watermarked decode.  name, batch, heads,
+# Tq, Tk, head dim; the first is the stage-1 batch (the CLI default).
+S1_SHAPES = [("vae_mid_b5", 5, 1, 4096, 4096, 512),
+             ("vae_mid_ragged", 2, 1, 1000, 1000, 512)]
+S1_BATCH = 5
+S1_RES = 512
+S1_STEPS = 4                   # 1 warm-up + 3 timed, per type
+# launches of one stage-1 step: the forward in the encode, the clean decode
+# and the watermarked decode; the backward in the watermarked decode
+S1_PER_STEP = {"fwd": 3, "dq": 1, "dkv": 1, "inject": 0}
+S1_KEY = (1, 4096, 4096, 512)
+DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 def nvidia_smi() -> str:
@@ -194,12 +233,12 @@ def tolerance_o(dtype: torch.dtype, o_ref: torch.Tensor) -> float:
     return 2.0 ** -7 * o_ref.float().abs().max().item() + TOL_F32
 
 
-def attention_bound(b, h, tq, tk, d, elem_bytes=2):
+def attention_bound(b, h, tq, tk, d, elem_bytes=2, peak=PEAK_BF16_FLOPS):
     """The forward's least time: QK^T and PV, or the bytes of q, k, v read
     once and o (+ float32 lse) written once."""
     return bound(4.0 * b * h * tq * tk * d,
                  (2 * b * h * tq * d + 2 * b * h * tk * d) * elem_bytes
-                 + 4 * b * h * tq)
+                 + 4 * b * h * tq, peak)
 
 
 def tolerance_grad(dtype: torch.dtype, ref: torch.Tensor) -> float:
@@ -212,15 +251,16 @@ def tolerance_grad(dtype: torch.dtype, ref: torch.Tensor) -> float:
     return tol if dtype == torch.float32 else tol + 2.0 ** -7 * m
 
 
-def bound(ops: float, nbytes: float) -> tuple:
-    """Least time on the card, ms: the operations at the bf16 tensor-core
-    peak or the bytes at the HBM rate, whichever is larger."""
-    t_ops = ops / PEAK_BF16_FLOPS * 1e3
+def bound(ops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS) -> tuple:
+    """Least time on the card, ms: the operations at `peak` (the bf16
+    tensor-core rate unless said otherwise) or the bytes at the HBM rate,
+    whichever is larger."""
+    t_ops = ops / peak * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def bwd_bounds(b, h, tq, tk, d, elem_bytes=2) -> dict:
+def bwd_bounds(b, h, tq, tk, d, elem_bytes=2, peak=PEAK_BF16_FLOPS) -> dict:
     """Per kernel and for the pair: operations are 2*Tq*Tk*d per product
     and (b, h); dQ computes S, dP and dQ (3), dK/dV computes S, dP, dV and dK
     (4), the pair's least work is S, dP, dQ, dK, dV (5).  Bytes: each input
@@ -229,9 +269,9 @@ def bwd_bounds(b, h, tq, tk, d, elem_bytes=2) -> dict:
     row_q, row_k, stats = bh * tq * d * e, bh * tk * d * e, 2 * 4 * bh * tq
     prod = 2.0 * bh * tq * tk * d
     return {
-        "dq": bound(3 * prod, 3 * row_q + 2 * row_k + stats),     # q, dO, dq
-        "dkv": bound(4 * prod, 2 * row_q + 4 * row_k + stats),
-        "pair": bound(5 * prod, 4 * row_q + 4 * row_k + stats),   # + o
+        "dq": bound(3 * prod, 3 * row_q + 2 * row_k + stats, peak),
+        "dkv": bound(4 * prod, 2 * row_q + 4 * row_k + stats, peak),
+        "pair": bound(5 * prod, 4 * row_q + 4 * row_k + stats, peak),  # + o
     }
 
 
@@ -277,8 +317,9 @@ def phase1():
         print(f"[1] built csrc/{name}.cu in {seconds[name]:.1f} s "
               f"(all {len(SOURCES)} nvcc started together)", flush=True)
     # bf16 instances: forward 3 head-dim tiles x 2 row tilings + d = 512;
-    # backward 3 x 2 x (dQ, dK/dV).  float32: forward 4, backward 3 x 2.
-    for name, n_tc, n_f32 in (("flash_fwd", 7, 4), ("flash_bwd", 12, 6)):
+    # backward 3 x 2 x (dQ, dK/dV) + d = 512 x (dQ, dK/dV).  float32:
+    # forward 4, backward 4 x 2.
+    for name, n_tc, n_f32 in (("flash_fwd", 7, 4), ("flash_bwd", 14, 8)):
         counts = tensor_core_counts(name)
         for fn, (hmma, hgmma) in sorted(counts.items()):
             print(f"[1] {name} SASS {fn}: HMMA {hmma} HGMMA {hgmma}",
@@ -969,8 +1010,327 @@ def phase11(smi: str, run, call_s: float) -> None:
               f"x{e.count:<5d} {e.key[:100]}", flush=True)
 
 
+def phase12(smi: str) -> dict:
+    """The d = 512 backward (and forward) against the plain versions at the
+    stage-1 shapes; times at B5."""
+    from aqualora_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    rows = {}
+    for name, b, h, tq, tk, d in S1_SHAPES:
+        scale = d ** -0.5
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = DTYPE_NAMES[dtype]
+            peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else \
+                PEAK_F32_FLOPS
+            q, do = (torch.randn(b, h, tq, d, device="cuda", generator=gen)
+                     .to(dtype) for _ in range(2))
+            k, v = (torch.randn(b, h, tk, d, device="cuda", generator=gen)
+                    .to(dtype) for _ in range(2))
+            o, lse = fa.flash_attention_plain(q, k, v, scale)
+            delta = fa.attention_delta(o, do)
+            args = (q, k, v, do, lse, delta, scale)
+            got = (fa.flash_attention_bwd_dq(*args),
+                   *fa.flash_attention_bwd_dkv(*args))
+            want = (fa.flash_attention_dq_plain(*args),
+                    *fa.flash_attention_dkv_plain(*args))
+            torch.cuda.synchronize()
+            errs, parts = {}, []
+            for gname, g, r in zip(("dq", "dk", "dv"), got, want):
+                err = (g.float() - r.float()).abs().max().item()
+                tol = tolerance_grad(dtype, r)
+                parts.append(f"{gname} {err:.3e} (tol {tol:.3e}, {err / tol:.2f}"
+                             f" of it, max {r.float().abs().max().item():.3e})")
+                if not err <= tol:
+                    raise AssertionError(f"d = 512 backward disagrees with "
+                                         f"plain: {name} {tag} {gname} "
+                                         f"{err} > {tol}")
+                errs[gname] = err
+            same = ""
+            if dtype == torch.bfloat16:
+                again = (fa.flash_attention_bwd_dq(*args),
+                         *fa.flash_attention_bwd_dkv(*args))
+                if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                    raise AssertionError(f"{name}: two d = 512 backward calls "
+                                         f"differ")
+                same = " (two calls bit-identical)"
+                del again
+            print(f"[12] {name} B{b} H{h} Tq{tq} Tk{tk} d{d} {tag}{same}: "
+                  + ", ".join(parts), flush=True)
+            del got, want
+            if b != S1_BATCH:
+                del q, k, v, do, o, lse, delta, args
+                continue
+            # the forward's instance of this type at the stage-1 batch
+            fwd_out = fa.flash_attention_fwd(q, k, v, scale)
+            fwd_err = check_fwd(f"[12] {name} forward", q, k, v, scale,
+                                out=fwd_out)
+            del fwd_out
+            t = {"fwd": time_ms(lambda: fa.flash_attention_fwd(q, k, v, scale),
+                                iters=5, warmup=1),
+                 "fwd_plain": time_ms(lambda: fa.flash_attention_plain(
+                     q, k, v, scale), iters=3, warmup=1),
+                 "fwd_library": time_ms(lambda: F.scaled_dot_product_attention(
+                     q, k, v, scale=scale), iters=5, warmup=1),
+                 "dq": time_ms(lambda: fa.flash_attention_bwd_dq(*args),
+                               iters=5, warmup=1),
+                 "dkv": time_ms(lambda: fa.flash_attention_bwd_dkv(*args),
+                                iters=5, warmup=1),
+                 "dq_plain": time_ms(lambda: fa.flash_attention_dq_plain(
+                     *args), iters=3, warmup=1),
+                 "dkv_plain": time_ms(lambda: fa.flash_attention_dkv_plain(
+                     *args), iters=3, warmup=1)}
+            eb = 2 if dtype == torch.bfloat16 else 4
+            bounds = bwd_bounds(b, h, tq, tk, d, eb, peak)
+            fb, fby = attention_bound(b, h, tq, tk, d, eb, peak)
+            print(f"[12] {name} B{b} {tag}: forward kernel_ms {t['fwd']:.4f} "
+                  f"plain_ms {t['fwd_plain']:.4f} library_ms(sdpa) "
+                  f"{t['fwd_library']:.4f} bound_ms {fb:.4f} ({fby}); dq "
+                  f"kernel_ms {t['dq']:.4f} plain_ms {t['dq_plain']:.4f} "
+                  f"bound_ms {bounds['dq'][0]:.4f} ({bounds['dq'][1]}); dkv "
+                  f"kernel_ms {t['dkv']:.4f} plain_ms {t['dkv_plain']:.4f} "
+                  f"bound_ms {bounds['dkv'][0]:.4f} ({bounds['dkv'][1]}); "
+                  f"pair bound_ms {bounds['pair'][0]:.4f} | {smi}",
+                  flush=True)
+            rows[("fwd", tag)] = {
+                "max_abs_err": fwd_err, "ms": t["fwd"],
+                "plain_ms": t["fwd_plain"], "bound_ms": fb, "bound_by": fby,
+                "library_ms": t["fwd_library"]}
+            for kern, err in (("dq", errs["dq"]),
+                              ("dkv", max(errs["dk"], errs["dv"]))):
+                rows[(kern, tag)] = {
+                    "max_abs_err": err, "ms": t[kern],
+                    "plain_ms": t[f"{kern}_plain"],
+                    "bound_ms": bounds[kern][0], "bound_by": bounds[kern][1],
+                    "library_ms": None}
+            del q, k, v, do, o, lse, delta, args
+            torch.cuda.empty_cache()
+    return rows
+
+
+def phase12_profile(smi: str) -> None:
+    """The d = 512 pair and SDPA's backward at the stage-1 batch as device
+    time, and the SDPA backend torch picked (its backward node)."""
+    from aqualora_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    name, b, h, tq, tk, d = S1_SHAPES[0]
+    scale = d ** -0.5
+    for dtype in (torch.float32, torch.bfloat16):
+        q, do = (torch.randn(b, h, tq, d, device="cuda", generator=gen)
+                 .to(dtype) for _ in range(2))
+        k, v = (torch.randn(b, h, tk, d, device="cuda", generator=gen)
+                .to(dtype) for _ in range(2))
+        o, lse = fa.flash_attention_fwd(q, k, v, scale)
+        pair_dev = device_ms(lambda: fa.flash_attention_bwd(
+            q, k, v, o, lse, do, scale), iters=3)
+        q, k, v = (x.requires_grad_(True) for x in (q, k, v))
+        out = F.scaled_dot_product_attention(q, k, v, scale=scale)
+        backend = type(out.grad_fn).__name__
+        library_ms = device_ms(lambda: torch.autograd.grad(
+            out, (q, k, v), do, retain_graph=True), iters=3)
+        print(f"[12] {name} B{b} {DTYPE_NAMES[dtype]}: the d = 512 pair's "
+              f"device time {pair_dev:.4f} ms; library_ms(sdpa bwd, device "
+              f"time, {backend}) {library_ms:.4f} = "
+              f"{pair_dev / library_ms:.2f}x | {smi}", flush=True)
+        del q, k, v, do, o, lse, out
+        torch.cuda.empty_cache()
+
+
+def phase13():
+    """The tiny stage-1 step: the card (kernels) against the CPU (plain),
+    float32, the same weights and draws, for each stage-1 distortion."""
+    from aqualora_torch.core.config import (EfficientNetConfig, VAEConfig,
+                                            WatermarkConfig)
+    from aqualora_torch.train import latent_wm_pretrain as s1
+
+    pixels = torch.rand(2, 64, 64, 3, generator=torch.Generator()
+                        .manual_seed(13)) * 2 - 1
+    models = {dev: s1.build_models(VAEConfig.tiny(), WatermarkConfig.tiny(),
+                                   EfficientNetConfig.tiny(), dev)
+              for dev in ("cpu", "cuda")}
+    s1.init_models(models["cpu"], 13)
+    with torch.no_grad():      # a non-zero encoder conv: every term lives
+        w = models["cpu"].sec_encoder.conv_out.weight
+        w.copy_(0.1 * torch.randn(w.shape, generator=torch.Generator()
+                                  .manual_seed(14)))
+    for part in ("vae", "lpips", "sec_encoder", "sec_decoder"):
+        getattr(models["cuda"], part).load_state_dict(
+            getattr(models["cpu"], part).state_dict())
+    gen = torch.Generator().manual_seed(15)
+    names = models["cpu"].noiser.names
+    for index, layer in enumerate(names):
+        probs = [float(i == index) for i in range(len(names))]
+        draws = s1.draw(models["cpu"], gen, (2, 3, 64, 64), probs)
+        out = {}
+        for dev, m in models.items():
+            for part in ("sec_encoder", "sec_decoder"):
+                getattr(m, part).zero_grad(set_to_none=True)
+            reset_counts()
+            loss, _ = s1.make_loss_fn(m)(pixels.to(dev).permute(0, 3, 1, 2),
+                                         draws.to(dev), s1.Control())
+            loss.backward()
+            out[dev] = (loss.item(), counts(), {
+                f"{part}.{n}": p.grad.cpu() for part in
+                ("sec_encoder", "sec_decoder") for n, p in
+                getattr(m, part).named_parameters()})
+        (l_card, launched, g_card), (l_cpu, _, g_cpu) = out["cuda"], out["cpu"]
+        rel = abs(l_card - l_cpu) / abs(l_cpu)
+        parts = {}
+        for key, g in g_cpu.items():
+            part = key.split(".")[0]
+            parts[part] = max(parts.get(part, 0.0), g.abs().max().item())
+        # 1e-3 of each leaf's largest gradient (phase 7's limit) plus 1e-5
+        # of its module's: leaves with an exact gradient of 0 (the decoder's
+        # project BatchNorm biases) read float32 noise on both sides
+        worst = max((g_card[key] - g).abs().max().item()
+                    / (TINY_GRAD_TOL * g.abs().max().item()
+                       + 1e-5 * parts[key.split(".")[0]])
+                    for key, g in g_cpu.items())
+        print(f"[13] tiny stage-1 step, {layer}: loss {l_card:.6e} vs "
+              f"{l_cpu:.6e} (rel {rel:.2e}, tol {TINY_LOSS_RTOL:g}); "
+              f"{len(g_cpu)} gradients, worst {worst:.2f} of the limit; "
+              f"kernel launches {launched}", flush=True)
+        want = {"fwd": 3, "dq": 1, "dkv": 1, "inject": 0}
+        if not (rel <= TINY_LOSS_RTOL and worst <= 1.0 and l_cpu > 0
+                and launched == want):
+            raise AssertionError(f"tiny stage-1 step ({layer}) on the card "
+                                 f"disagrees with the CPU or skipped a kernel")
+
+
+def phase14(smi: str) -> tuple:
+    """The stage-1 path at full width through the trainer's entry points,
+    float32 then bf16; returns the launches per type and the trainers with
+    their median step, for the profiled step after phase 12's profile."""
+    from aqualora_torch.ops import flash_attention as fa
+    from aqualora_torch.train import latent_wm_pretrain as s1
+
+    launches, kept = {}, {}
+    for mp, dtype in (("no", torch.float32), ("bf16", torch.bfloat16)):
+        tag = DTYPE_NAMES[dtype]
+        args = s1.build_argparser().parse_args([
+            "--batch_size", str(S1_BATCH), "--mixed_precision", mp,
+            "--seed", "0"])
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        tr = s1.build_trainer(args)
+        models = tr.models
+        # a non-zero encoder conv (it starts at zero): every loss term and
+        # every encoder gradient live from the first step
+        with torch.no_grad():
+            w = models.sec_encoder.conv_out.weight
+            w.copy_(0.1 * torch.randn(w.shape, device="cuda", generator=torch
+                                      .Generator(device="cuda").manual_seed(
+                                          14)))
+        trainable = {f"{part}.{n}": p.detach().clone() for part in
+                     ("sec_encoder", "sec_decoder") for n, p in
+                     getattr(models, part).named_parameters()}
+        stats = {n: b.clone() for n, b in
+                 models.sec_decoder.named_buffers() if "running" in n}
+        ctl = s1.Control()
+        batches = tr.dataset.batches(S1_BATCH, seed=0)
+        torch.cuda.synchronize()
+        print(f"[14] stage-1 trainer ({tag}) ready in "
+              f"{time.perf_counter() - t0:.1f} s: {len(trainable)} trainable "
+              f"tensors, {sum(p.numel() for p in trainable.values())} "
+              f"parameters; frozen VAE and LPIPS in {tag}", flush=True)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()                          # counts start here
+        times = []
+        for step in range(S1_STEPS):
+            pixels, _ = next(batches)
+            draws = s1.draw(models, tr.generator, (S1_BATCH, 3, S1_RES,
+                                                   S1_RES), ctl.distort_probs)
+            before = counts()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            metrics = tr.train_step(pixels, draws, ctl)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t1
+            got = {k: v - before[k] for k, v in counts().items()}
+            m = {k: float(v) for k, v in metrics.items()}
+            print(f"[14] {tag} step {step}: {dt:.4f} s, "
+                  + ", ".join(f"{k} {v:.6e}" for k, v in m.items())
+                  + f", distortion {models.noiser.names[draws.noise.index]}, "
+                  f"launches {got}", flush=True)
+            if got != S1_PER_STEP:
+                raise AssertionError(f"launches {got} in one step, want "
+                                     f"{S1_PER_STEP}")
+            if not (math.isfinite(m["loss"]) and m["loss"] > 0):
+                raise AssertionError("stage-1 loss not finite positive")
+            if step:
+                times.append(dt)
+        n_steps = S1_STEPS
+        by_shape = (fa.launches.by_shape[S1_KEY], fa.dq_launches.by_shape[
+            S1_KEY], fa.dkv_launches.by_shape[S1_KEY])
+        if by_shape != (3 * n_steps, n_steps, n_steps):
+            raise AssertionError(f"d = 512 launches {by_shape}")
+        launches[tag] = {"fwd": by_shape[0], "dq": by_shape[1],
+                         "dkv": by_shape[2]}
+        moved = sum(not torch.equal(p.detach(), trainable[f"{part}.{n}"])
+                    for part in ("sec_encoder", "sec_decoder") for n, p in
+                    getattr(models, part).named_parameters())
+        stats_moved = sum(not torch.equal(b, stats[n]) for n, b in
+                          models.sec_decoder.named_buffers() if n in stats)
+        print(f"[14] {tag}: {moved} of {len(trainable)} trainable tensors "
+              f"moved, {stats_moved} of {len(stats)} BatchNorm statistics "
+              f"moved", flush=True)
+        if moved != len(trainable) or stats_moved != len(stats):
+            raise AssertionError("a trainable or a BatchNorm statistic did "
+                                 "not move")
+        med = statistics.median(times)
+        peak_gib = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        print(f"[14] stage-1 step SD-1.5 VAE, EfficientNet-B1, LPIPS-VGG16, "
+              f"{S1_RES}^2 B{S1_BATCH} {tag}: {S1_BATCH / med:.4f} samples/s "
+              f"(median of {len(times)}: {', '.join(f'{x:.4f}' for x in times)}"
+              f" s), peak memory {peak_gib:.2f} GiB | {smi}", flush=True)
+        kept[tag] = (tr, med)
+    return launches, kept
+
+
+def phase14_profile(smi: str, kept: dict) -> None:
+    """One stage-1 step of each type under torch.profiler: the busy share
+    of the median unprofiled step and the d = 512 kernels' shares."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from aqualora_torch.train import latent_wm_pretrain as s1
+    for tag, (tr, med) in kept.items():
+        ctl = s1.Control()
+        pixels, _ = next(tr.dataset.batches(S1_BATCH, seed=1))
+        draws = s1.draw(tr.models, tr.generator, (S1_BATCH, 3, S1_RES,
+                                                  S1_RES), ctl.distort_probs)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            tr.train_step(pixels, draws, ctl)
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+        if not events:
+            print(f"[14] {tag} device time by kernel: not measured (the "
+                  f"profiler saw no CUDA kernel)", flush=True)
+            continue
+        busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+        ours = {label: 0.0 for label in KERNEL_NAMES.values()}
+        for e in events:
+            for key, label in KERNEL_NAMES.items():
+                if key in e.key:
+                    ours[label] += e.self_device_time_total / 1e3
+        pair = ours["dQ"] + ours["dK/dV"]
+        print(f"[14] profiled {tag} stage-1 step: device busy {busy_ms:.1f} "
+              f"ms = {100 * busy_ms / (med * 1e3):.1f}% of the "
+              f"{med * 1e3:.1f} ms median step; the d = 512 pair "
+              f"{pair:.1f} ms ({100 * pair / busy_ms:.1f}% of device time: "
+              f"dQ {ours['dQ']:.1f}, dK/dV {ours['dK/dV']:.1f}), the forward "
+              f"{ours['flash fwd']:.1f} ms "
+              f"({100 * ours['flash fwd'] / busy_ms:.1f}%) | {smi}",
+              flush=True)
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
+            print(f"[14]   {e.self_device_time_total / 1e3:9.2f} ms  "
+                  f"x{e.count:<5d} {e.key[:100]}", flush=True)
+
+
 def kernels_line(rows, launches, bwd_rows, train_launches, inject_row,
-                 inject_launches) -> dict:
+                 inject_launches, s1_rows, s1_launches) -> dict:
     kernels = []
     for name, *_ in SHAPES:
         kernels.append({
@@ -990,6 +1350,17 @@ def kernels_line(rows, launches, bwd_rows, train_launches, inject_row,
         "source": "aqualora_torch/csrc/secret_inject.cu",
         "replaces": "aqualora_tpu/ops/secret_inject.py:47",
         "launches": inject_launches, **inject_row})
+    # stage 1: the d = 512 instances of each type at the stage-1 batch
+    for kern, src, line in (("fwd", "flash_fwd", 147), ("dq", "flash_bwd", 239),
+                            ("dkv", "flash_bwd", 269)):
+        for tag in ("f32", "bf16"):
+            name = ("flash_attention_fwd" if kern == "fwd"
+                    else f"flash_attention_bwd_{kern}")
+            kernels.append({
+                "name": f"{name}/stage1_vae_mid_d512_{tag}", "route": "cuda",
+                "source": f"aqualora_torch/csrc/{src}.cu",
+                "replaces": f"aqualora_tpu/ops/flash_attention.py:{line}",
+                "launches": s1_launches[tag][kern], **s1_rows[(kern, tag)]})
     return {"kernels": kernels}
 
 
@@ -1000,7 +1371,7 @@ def main(argv=None):
                          "phase 0 always runs, and the kernels line needs "
                          "all of them)")
     args = ap.parse_args(argv)
-    every = set(range(12))
+    every = set(range(15))
     run_ = every if args.phases is None else \
         {0} | {int(x) for x in args.phases.split(",")}
     if 11 in run_:
@@ -1031,6 +1402,13 @@ def main(argv=None):
         inject_row = phase6(smi)
     if 7 in run_:
         phase7()
+    s1_rows, s1_launches, s1_kept = {}, {}, {}
+    if 12 in run_:
+        s1_rows = phase12(smi)
+    if 13 in run_:
+        phase13()
+    if 14 in run_:
+        s1_launches, s1_kept = phase14(smi)
     if 8 in run_:
         train_launches, inject_launches = phase8(smi)
     if 9 in run_:
@@ -1039,10 +1417,14 @@ def main(argv=None):
         phase10(smi, rows)
     if 11 in run_:
         phase11(smi, serve, med_s)
+    if 12 in run_:
+        phase12_profile(smi)
+    if 14 in run_:
+        phase14_profile(smi, s1_kept)
     if run_ == every:
         print(json.dumps(kernels_line(rows, launches, bwd_rows,
                                       train_launches, inject_row,
-                                      inject_launches)))
+                                      inject_launches, s1_rows, s1_launches)))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -142,6 +142,9 @@ def _tol_grad(dtype, ref):
     (4, 8, 1024, 1000, 80),   # 64-row tiles at d=80, ragged Tk
     (2, 8, 1100, 1100, 160),  # 64-row tiles at d=160, ragged both ways
     (1, 8, 4096, 4096, 40),   # the 64^2 self-attention at B1
+    (5, 1, 4096, 4096, 512),  # the VAE mid-block at the stage-1 batch
+    (2, 1, 1000, 1000, 512),  # d = 512, ragged Tq and Tk
+    (1, 2, 77, 50, 300),      # d = 512 kernels at a narrower head dim
 ])
 def test_flash_bwd_kernels_match_plain(dtype, b, h, tq, tk, d):
     _need_cuda()
@@ -166,6 +169,8 @@ def test_flash_bwd_kernels_match_plain(dtype, b, h, tq, tk, d):
 @pytest.mark.parametrize("b,h,tq,tk,d", [
     (1, 8, 4096, 4096, 40),   # 64-row tiles, one warp per row block
     (2, 8, 300, 77, 160),     # 16-row tiles, partial sums added by warps
+    (5, 1, 4096, 4096, 512),  # d = 512: partial scores added by warps
+    (2, 1, 1000, 1000, 512),  # d = 512, ragged
 ])
 def test_flash_bwd_is_deterministic(b, h, tq, tk, d):
     """No sum crosses blocks and the warps' partial sums are added in a
@@ -186,9 +191,10 @@ def test_flash_bwd_is_deterministic(b, h, tq, tk, d):
 
 @pytest.mark.cuda
 def test_flash_bwd_refuses_wide_heads_on_cuda():
+    """Head dims above 512 are refused (d = 512 has kernels of its own)."""
     _need_cuda()
-    q = torch.randn(1, 1, 16, 512, device="cuda")
-    o, lse = fa.flash_attention_fwd(q, q, q, 512 ** -0.5)
+    q = torch.randn(1, 1, 16, 513, device="cuda")
+    o, lse = fa.flash_attention_plain(q, q, q, 513 ** -0.5)
     with pytest.raises(ValueError):
         fa.flash_attention_bwd(q, q, q, o, lse, torch.randn_like(q), 0.05)
 
@@ -240,3 +246,62 @@ def test_secret_inject_kernel_matches_plain(dtype):
     tol = 1e-5 if dtype == torch.float32 else \
         2.0 ** -7 * ref.float().abs().max().item() + 1e-5
     assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_stage1_tiny_step_card_matches_cpu():
+    """The tiny stage-1 loss and every trainable's gradient on the card
+    (kernels) against the CPU (plain versions), the same weights and
+    draws, float32, for each of the six stage-1 distortions: the loss to
+    1e-4 relative, each gradient to 1e-3 of its leaf's largest value plus
+    1e-5 of the module's (the card sums in other orders through the VAE,
+    LPIPS and the decoder; leaves with an exact gradient of 0, the
+    decoder's project BatchNorm biases, read float32 noise)."""
+    from aqualora_torch.core.config import (EfficientNetConfig, VAEConfig,
+                                            WatermarkConfig)
+    from aqualora_torch.train import latent_wm_pretrain as tt
+
+    _need_cuda()
+    pixels = torch.rand(2, 64, 64, 3, generator=torch.Generator()
+                        .manual_seed(4)).numpy() * 2 - 1
+    models = {}
+    for dev in ("cpu", "cuda"):
+        models[dev] = tt.build_models(VAEConfig.tiny(), WatermarkConfig.tiny(),
+                                      EfficientNetConfig.tiny(), dev)
+    tt.init_models(models["cpu"], 5)
+    with torch.no_grad():     # a non-zero encoder conv: every gradient lives
+        w = models["cpu"].sec_encoder.conv_out.weight
+        w.copy_(0.1 * torch.randn(w.shape, generator=torch.Generator()
+                                  .manual_seed(6)))
+    for part in ("vae", "lpips", "sec_encoder", "sec_decoder"):
+        getattr(models["cuda"], part).load_state_dict(
+            getattr(models["cpu"], part).state_dict())
+    gen = torch.Generator().manual_seed(7)
+    for index in range(6):
+        probs = [float(i == index) for i in range(6)]
+        draws = tt.draw(models["cpu"], gen, (2, 3, 64, 64), probs)
+        out = {}
+        for dev, m in models.items():
+            m.sec_encoder.zero_grad(set_to_none=True)
+            m.sec_decoder.zero_grad(set_to_none=True)
+            x = torch.from_numpy(pixels).to(dev).permute(0, 3, 1, 2)
+            before = (fa.launches.count, fa.dq_launches.count,
+                      fa.dkv_launches.count)
+            loss, _ = tt.make_loss_fn(m)(x, draws.to(dev), tt.Control())
+            loss.backward()
+            after = (fa.launches.count, fa.dq_launches.count,
+                     fa.dkv_launches.count)
+            if dev == "cuda":
+                assert [a - b for a, b in zip(after, before)] == [3, 1, 1]
+            out[dev] = (loss.item(), {
+                part: {n: p.grad.cpu() for n, p in
+                       getattr(m, part).named_parameters()}
+                for part in ("sec_encoder", "sec_decoder")})
+        (l_gpu, g_gpu), (l_cpu, g_cpu) = out["cuda"], out["cpu"]
+        assert l_cpu > 0 and abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu)
+        for part, grads in g_cpu.items():
+            part_max = max(g.abs().max().item() for g in grads.values())
+            for name, g in grads.items():
+                tol = 1e-3 * g.abs().max().item() + 1e-5 * part_max
+                err = (g_gpu[part][name] - g).abs().max().item()
+                assert err <= tol, (index, part, name, err, tol)

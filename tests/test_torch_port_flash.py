@@ -200,10 +200,10 @@ def test_bwd_wrapper_on_cpu_takes_plain_path():
 
 @pytest.mark.parametrize("case", ["head_dim", "lse_shape", "do_dtype"])
 def test_bwd_wrapper_rejects_unsupported_input(case):
-    """d > 160 is refused (no differentiated attention of the port has one;
-    the VAE's d = 512 runs without gradients), as are a mis-shaped lse and
-    a dO of another type."""
-    d = 512 if case == "head_dim" else 16
+    """d > 512 is refused (the VAE mid-block's d = 512, differentiated in
+    stage 1, is the largest head dim of the port), as are a mis-shaped lse
+    and a dO of another type."""
+    d = 513 if case == "head_dim" else 16
     q, k, v = (torch.randn(1, 2, 8, d) for _ in range(3))
     o, lse = fa.flash_attention_plain(q, k, v, 0.25)
     do = torch.randn_like(q)
@@ -238,7 +238,7 @@ def _bf16_kernel_arithmetic(q, k, v, do, lse, delta, scale):
 
 
 @pytest.mark.parametrize("tk", [256, 77])
-@pytest.mark.parametrize("d", [40, 80, 160])
+@pytest.mark.parametrize("d", [40, 80, 160, 512])
 def test_bf16_operand_rounding_fits_grad_tolerance(d, tk):
     """Rounding P and dS to bf16 (the one rounding the tensor-core kernels
     add) keeps dq, dk, dv within the card's bf16 gradient limit of

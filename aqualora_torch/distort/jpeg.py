@@ -77,4 +77,5 @@ def jpeg_compress(x: torch.Tensor, yuv_keep=(25, 9, 9)) -> torch.Tensor:
     # inverse: Mi^T C Mi
     out = torch.einsum("bcHiWj,ik,jl->bcHkWl", coef, mi, mi)
     out = out.reshape(b, 3, nh * 8, nw * 8)[:, :, :h, :w]
-    return torch.einsum("bdhw,cd->bchw", out, yuv2rgb)
+    # the einsum leaves the channels last; the port's modules take NCHW
+    return torch.einsum("bdhw,cd->bchw", out, yuv2rgb).contiguous()

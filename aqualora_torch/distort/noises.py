@@ -163,7 +163,8 @@ def color_jitter(x: torch.Tensor, brightness: torch.Tensor,
         "bdhw,cd->bchw", yiq,
         torch.from_numpy(_YIQ_INV).to(x01.device, yiq.dtype)), 0, 1)
     out = x01 * 2.0 - 1.0 if input_range == "pm1" else x01
-    return out.to(x.dtype)
+    # the einsum leaves the channels last; the port's modules take NCHW
+    return out.to(x.dtype).contiguous()
 
 
 _SHARP_KERNEL = np.array([[1, 1, 1], [1, 5, 1], [1, 1, 1]],

@@ -5,16 +5,17 @@ squeeze-excite), laid out as torchvision's `efficientnet_b1` (`features.N`,
 `.block.N`, `classifier.1`), the layout of the reference's `msgdecoder.pt`,
 so such a checkpoint loads with `load_state_dict` as it is.
 
-In eval mode BatchNorm uses its running statistics.  In train mode (the
-module's `training` flag) it follows flax's `BatchNorm(momentum=0.9)`:
-it normalises with the batch's mean and biased variance and updates the
-running statistics with the same biased variance, `r = 0.9 r + 0.1 batch`
-(`torch.nn.BatchNorm2d` would update `running_var` with the unbiased one).
-Train mode also applies stochastic depth (a residual block's branch times
-keep / (1 - p), keep a per-sample Bernoulli(1 - p), p rising linearly to
-0.2 over the blocks) and the head's dropout (`dropout_rate`).  Their keep
-masks are an argument (`draw_masks`), so that a training step can draw
-them from its own generator.
+The mode is the call's `train` argument, as in flax, not the module's
+`training` flag, which nothing here reads.  In eval mode (the default)
+BatchNorm uses its running statistics.  In train mode it follows flax's
+`BatchNorm(momentum=0.9)`: it normalises with the batch's mean and biased
+variance and updates the running statistics with the same biased variance,
+`r = 0.9 r + 0.1 batch` (`torch.nn.BatchNorm2d` would update
+`running_var` with the unbiased one).  Train mode also applies stochastic
+depth (a residual block's branch times keep / (1 - p), keep a per-sample
+Bernoulli(1 - p), p rising linearly to 0.2 over the blocks) and the head's
+dropout (`dropout_rate`).  A train-mode call takes their keep masks as an
+argument, drawn by `draw_masks` from the caller's generator.
 """
 
 from __future__ import annotations
@@ -58,12 +59,14 @@ BN_MOMENTUM = 0.9          # flax's convention: r = 0.9 r + 0.1 batch
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """torch's BatchNorm2d with flax's training update: the running
-    variance takes the biased batch variance (see the module docstring)."""
+    """torch's BatchNorm2d in the call's mode, with flax's training update:
+    the running variance takes the biased batch variance (see the module
+    docstring)."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training:
-            return super().forward(x)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if not train:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                          self.eps)
         with torch.no_grad():
@@ -77,15 +80,22 @@ class BatchNorm2d(nn.BatchNorm2d):
         return y
 
 
-def conv_bn_act(cin: int, cout: int, kernel: int = 3, stride: int = 1,
-                groups: int = 1, act: bool = True) -> nn.Sequential:
-    """torchvision's Conv2dNormActivation: `.0` conv, `.1` BatchNorm."""
-    layers = [nn.Conv2d(cin, cout, kernel, stride, (kernel - 1) // 2,
-                        groups=groups, bias=False),
-              BatchNorm2d(cout, eps=1e-5)]
-    if act:
-        layers.append(nn.SiLU())
-    return nn.Sequential(*layers)
+class ConvBNAct(nn.Sequential):
+    """torchvision's Conv2dNormActivation: `.0` conv, `.1` BatchNorm,
+    `.2` SiLU when `act`."""
+
+    def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
+                 groups: int = 1, act: bool = True):
+        layers = [nn.Conv2d(cin, cout, kernel, stride, (kernel - 1) // 2,
+                            groups=groups, bias=False),
+                  BatchNorm2d(cout, eps=1e-5)]
+        if act:
+            layers.append(nn.SiLU())
+        super().__init__(*layers)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x = self[1](self[0](x), train)
+        return self[2](x) if len(self) > 2 else x
 
 
 class SqueezeExcitation(nn.Module):
@@ -107,21 +117,23 @@ class MBConv(nn.Module):
         expanded = cin * expand_ratio
         layers = []
         if expand_ratio != 1:
-            layers.append(conv_bn_act(cin, expanded, 1))
-        layers += [conv_bn_act(expanded, expanded, kernel, stride,
-                               groups=expanded),
+            layers.append(ConvBNAct(cin, expanded, 1))
+        layers += [ConvBNAct(expanded, expanded, kernel, stride,
+                             groups=expanded),
                    SqueezeExcitation(expanded, max(1, cin // 4)),
-                   conv_bn_act(expanded, cout, 1, act=False)]
+                   ConvBNAct(expanded, cout, 1, act=False)]
         self.block = nn.Sequential(*layers)
         self.use_res = stride == 1 and cin == cout
         self.sd_prob = sd_prob
         # whether train mode drops the residual branch per sample
         self.stochastic = self.use_res and sd_prob > 0
 
-    def forward(self, x: torch.Tensor,
+    def forward(self, x: torch.Tensor, train: bool = False,
                 keep: Optional[torch.Tensor] = None) -> torch.Tensor:
         """keep: the stochastic-depth mask [B] (bool), applied when given."""
-        h = self.block(x)
+        h = x
+        for layer in self.block:
+            h = layer(h, train) if isinstance(layer, ConvBNAct) else layer(h)
         if keep is not None:
             h = h * keep.to(h.dtype)[:, None, None, None] / (1.0 - self.sd_prob)
         return h + x if self.use_res else h
@@ -143,7 +155,7 @@ class EfficientNet(nn.Module):
     def __init__(self, cfg: EfficientNetConfig):
         super().__init__()
         stem = round_channels(32, cfg.width_mult)
-        features = [conv_bn_act(3, stem, 3, 2)]
+        features = [ConvBNAct(3, stem, 3, 2)]
         cin = stem
         total = sum(round_repeats(r, cfg.depth_mult)
                     for _, _, r, _, _ in B0_STAGES)
@@ -159,7 +171,7 @@ class EfficientNet(nn.Module):
                 idx += 1
             features.append(nn.Sequential(*blocks))
         self.head_channels = round_channels(1280, cfg.width_mult)
-        features.append(conv_bn_act(cin, self.head_channels, 1))
+        features.append(ConvBNAct(cin, self.head_channels, 1))
         self.features = nn.Sequential(*features)
         self.dropout_rate = cfg.dropout_rate
         # index 0 is torchvision's dropout; train mode applies it from the
@@ -171,38 +183,35 @@ class EfficientNet(nn.Module):
         return [b for stage in self.features[1:-1] for b in stage
                 if b.stochastic]
 
-    def draw_masks(self, batch: int, generator: Optional[torch.Generator],
-                   device=None) -> Masks:
-        """Keep masks for a training call: Bernoulli(1 - p) per sample and
-        stochastic block, Bernoulli(1 - dropout_rate) per head feature.
-        `generator` None draws from torch's default generator on
-        `device`."""
-        if generator is not None:
-            device = generator.device
+    def draw_masks(self, batch: int, generator: torch.Generator) -> Masks:
+        """Keep masks for a training call, drawn from `generator` on its
+        device: Bernoulli(1 - p) per sample and stochastic block,
+        Bernoulli(1 - dropout_rate) per head feature."""
 
         def keep(p, shape):
-            return torch.rand(shape, generator=generator, device=device) >= p
+            return torch.rand(shape, generator=generator,
+                              device=generator.device) >= p
 
         depth = [keep(b.sd_prob, (batch,)) for b in self.stochastic_blocks()]
         dropout = (keep(self.dropout_rate, (batch, self.head_channels))
                    if self.dropout_rate > 0 else None)
         return Masks(depth, dropout)
 
-    def forward(self, x: torch.Tensor,
+    def forward(self, x: torch.Tensor, train: bool = False,
                 masks: Optional[Masks] = None) -> torch.Tensor:
-        """images NCHW -> logits.  In train mode `masks` gives the
-        stochastic-depth and dropout masks (drawn from torch's default
-        generator when None)."""
-        if self.training and masks is None:
-            masks = self.draw_masks(x.shape[0], None, x.device)
-        depth = iter(masks.depth) if self.training else iter(())
-        x = self.features[0](x)
+        """images NCHW -> logits.  A train-mode call needs the `masks` of
+        stochastic depth and dropout (`draw_masks`)."""
+        if train and masks is None:
+            raise ValueError("a train-mode call takes its keep masks "
+                             "(EfficientNet.draw_masks)")
+        depth = iter(masks.depth) if train else iter(())
+        x = self.features[0](x, train)
         for stage in self.features[1:-1]:
             for block in stage:
-                x = block(x, next(depth) if self.training and block.stochastic
-                          else None)
-        x = self.features[-1](x).mean(dim=(2, 3))
-        if self.training and masks.dropout is not None:
+                x = block(x, train,
+                          next(depth) if train and block.stochastic else None)
+        x = self.features[-1](x, train).mean(dim=(2, 3))
+        if train and masks.dropout is not None:
             x = torch.where(masks.dropout, x / (1.0 - self.dropout_rate),
                             torch.zeros((), dtype=x.dtype, device=x.device))
         return self.classifier[1](x)

@@ -15,7 +15,7 @@ The port of `aqualora_tpu/models/watermark.py:42-119`:
     is flax's `train` argument: with train=True BatchNorm takes the batch's
     statistics and updates its running ones (flax's rule, see
     `models/efficientnet.py`), and stochastic depth and dropout apply the
-    given masks.
+    given masks; the module's `training` flag plays no part.
   MapperNet: message bits [B, bits] -> diagonal LoRA scale [B, rank]:
     sum of the message-selected rows of `bit_embeddings` / sqrt(bits) + 1.
     `std` is baked into the weight at init, never a forward multiplier.
@@ -88,12 +88,10 @@ class SecretDecoder(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 masks: Optional[Masks] = None) -> torch.Tensor:
-        """Sets the module's mode to `train` first (flax's argument);
-        `masks` from `self.model.draw_masks` (torch's default generator
-        when None in train mode)."""
-        self.train(train)
+        """`train` is flax's argument; a train-mode call takes the keep
+        masks drawn by `self.model.draw_masks`."""
         x = bilinear_resize(x, self.resolution, self.resolution)
-        return self.model(x, masks).reshape(-1, self.output_size, 2)
+        return self.model(x, train, masks).reshape(-1, self.output_size, 2)
 
 
 class MapperNet(nn.Module):

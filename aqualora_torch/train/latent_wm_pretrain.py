@@ -32,9 +32,11 @@ hand it the JAX trainer's.  The curriculum is the JAX trainer's (`run`):
   (`ppft_train.adamw`) and StepLR: lr * 0.8^(epoch // 2), epoch = update
   count // steps per epoch.
 
-With `--mixed_precision bf16` the frozen VAE and LPIPS are stored in
-bfloat16 and the SecretEncoder and SecretDecoder stay float32 (the JAX
-trainer computes those two in bf16 as well).  At the end the trained
+With `--mixed_precision bf16` all four modules compute in bfloat16, as
+the JAX trainer's `dtype`: the frozen VAE and LPIPS are stored in bfloat16,
+and the SecretEncoder and SecretDecoder keep float32 parameters (and
+gradients, and AdamW state) and compute under `torch.autocast`, as flax's
+`dtype=bfloat16` on float32 parameters does.  At the end the trained
 encoder and decoder (with its BatchNorm statistics) are written as torch
 state dicts to `<output_dir>/pretrained_latentwm.pt`.
 
@@ -91,14 +93,22 @@ class Stage1Models:
     sec_decoder: SecretDecoder
     lpips: LPIPS
     noiser: Noiser
+    dtype: torch.dtype = torch.float32     # the compute type
+
+    def autocast(self):
+        """The context in which the SecretEncoder and SecretDecoder compute
+        in `dtype` on their float32 parameters."""
+        return torch.autocast(self.vae.quant_conv.weight.device.type,
+                              self.dtype, enabled=self.dtype != torch.float32)
 
 
 def build_models(vae_cfg: VAEConfig, wm_cfg: WatermarkConfig,
                  backbone: Optional[EfficientNetConfig] = None,
                  device: str | torch.device = "cuda",
                  dtype: torch.dtype = torch.float32) -> Stage1Models:
-    """The four modules on `device`: the frozen VAE and LPIPS in `dtype`,
-    the SecretEncoder and SecretDecoder in float32.  The encoder's grid is
+    """The four modules on `device`, computing in `dtype`: the frozen VAE
+    and LPIPS stored in it, the SecretEncoder and SecretDecoder with float32
+    parameters (see `Stage1Models.autocast`).  The encoder's grid is
     upsampled to 512 // downscale, as in the JAX trainer, then resized to
     the latent's size."""
     with torch.device(device):
@@ -109,7 +119,7 @@ def build_models(vae_cfg: VAEConfig, wm_cfg: WatermarkConfig,
     dec = SecretDecoder(wm_cfg.msg_bits, backbone, device=device)
     for m in (vae, lpips):
         m.to(dtype).eval().requires_grad_(False)
-    return Stage1Models(vae, enc, dec, lpips, Noiser())
+    return Stage1Models(vae, enc, dec, lpips, Noiser(), dtype)
 
 
 @torch.no_grad()
@@ -207,7 +217,8 @@ def make_loss_fn(models: Stage1Models):
         with torch.no_grad():
             latents = vae.sample_from_moments(*vae.encode_moments(images),
                                               draws.vae_noise)
-        _, wm = models.sec_encoder(latents.float(), draws.msg)
+        with models.autocast():
+            _, wm = models.sec_encoder(latents, draws.msg)
         wm = maybe_cornerfy(wm, draws.corner, draws.corner_hs,
                             draws.corner_ws)
         wm_latents = latents + wm * ctl.wm_scale
@@ -217,8 +228,9 @@ def make_loss_fn(models: Stage1Models):
         lp = models.lpips(clean, wm_img).float().mean()
         pr = prvl_loss(clean, wm_img)
         noised = models.noiser(wm_img, draws.noise)
-        logits = models.sec_decoder(noised.float(), train=True,
-                                    masks=draws.masks)
+        with models.autocast():
+            logits = models.sec_decoder(noised, train=True,
+                                        masks=draws.masks)
         msgloss = message_bce(logits, draws.msg)
         w = ctl.loss_weights
         loss = w[0] * lp + w[1] * msgloss + w[2] * pr
@@ -274,9 +286,11 @@ def make_eval_step(models: Stage1Models):
     def eval_step(pixels, vae_noise, msg) -> torch.Tensor:
         x = torch.as_tensor(pixels, device=dev).permute(0, 3, 1, 2)
         latents = vae.sample_from_moments(*vae.encode_moments(x), vae_noise)
-        wm_latents, _ = models.sec_encoder(latents.float(), msg)
-        logits = models.sec_decoder(vae.decode(wm_latents).float(),
-                                    train=False)
+        with models.autocast():
+            _, wm = models.sec_encoder(latents, msg)
+        wm_img = vae.decode(latents + wm)
+        with models.autocast():
+            logits = models.sec_decoder(wm_img)
         return bit_accuracy(logits, msg)
 
     return eval_step
@@ -446,7 +460,7 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="not ported yet: refused")
     p.add_argument("--mixed_precision", type=str, default="no",
                    choices=["no", "bf16"],
-                   help="bf16: the frozen VAE and LPIPS in bfloat16")
+                   help="bf16: every module computes in bfloat16")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (the kernels) or cpu (their plain versions)")
     return p

@@ -1286,9 +1286,28 @@ def phase14(smi: str) -> tuple:
     return launches, kept
 
 
+def kernel_union_ms(prof) -> float:
+    """Device time covered by at least one CUDA event of the profile: the
+    union of their intervals (events on several streams can overlap, so
+    their summed time can exceed the wall time)."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in
+                   prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    total, end = 0.0, -math.inf
+    for start, stop in spans:
+        if stop > end:
+            total += stop - max(start, end)
+            end = stop
+    return total / 1e3
+
+
 def phase14_profile(smi: str, kept: dict) -> None:
     """One stage-1 step of each type under torch.profiler: the busy share
-    of the median unprofiled step and the d = 512 kernels' shares."""
+    (`kernel_union_ms`) of that step's own wall time, synchronised around
+    it, and the d = 512 kernels' shares of the summed kernel time.  A
+    step's work depends on its draws (the distortion), so the same pixels
+    and draws are first timed without the profiler, beside phase 14's
+    median step."""
     from torch.profiler import ProfilerActivity, profile
 
     from aqualora_torch.train import latent_wm_pretrain as s1
@@ -1298,10 +1317,16 @@ def phase14_profile(smi: str, kept: dict) -> None:
         draws = s1.draw(tr.models, tr.generator, (S1_BATCH, 3, S1_RES,
                                                   S1_RES), ctl.distort_probs)
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.train_step(pixels, draws, ctl)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
             tr.train_step(pixels, draws, ctl)
             torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
         events = [e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA
                   and e.self_device_time_total > 0]
@@ -1316,9 +1341,14 @@ def phase14_profile(smi: str, kept: dict) -> None:
                 if key in e.key:
                     ours[label] += e.self_device_time_total / 1e3
         pair = ours["dQ"] + ours["dK/dV"]
-        print(f"[14] profiled {tag} stage-1 step: device busy {busy_ms:.1f} "
-              f"ms = {100 * busy_ms / (med * 1e3):.1f}% of the "
-              f"{med * 1e3:.1f} ms median step; the d = 512 pair "
+        name = tr.models.noiser.names[draws.noise.index]
+        union_ms = kernel_union_ms(prof)
+        print(f"[14] profiled {tag} stage-1 step ({name}): device busy "
+              f"{union_ms:.1f} ms = {100 * union_ms / wall_ms:.1f}% of its "
+              f"own {wall_ms:.1f} ms wall time (the same draws unprofiled "
+              f"{plain_s * 1e3:.1f} ms, phase 14's median step "
+              f"{med * 1e3:.1f} ms); kernel time summed {busy_ms:.1f} ms; "
+              f"the d = 512 pair "
               f"{pair:.1f} ms ({100 * pair / busy_ms:.1f}% of device time: "
               f"dQ {ours['dQ']:.1f}, dK/dV {ours['dK/dV']:.1f}), the forward "
               f"{ours['flash fwd']:.1f} ms "

@@ -413,7 +413,114 @@ def test_efficientnet_train_mode_matches_flax():
     assert n > 20
     np.testing.assert_allclose(tdec(_nchw(x)).detach().numpy(),
                                np.asarray(eval_logits), rtol=1e-4, atol=1e-5)
-    assert not tdec.training
+    # the mode is the call's: an eval call leaves the statistics and the
+    # module's flag as they were, and a train call without masks is refused
+    assert all(torch.equal(v, sd[k]) for k, v in tdec.state_dict().items())
+    assert tdec.training
+    with pytest.raises(ValueError, match="keep masks"):
+        tdec(_nchw(x), train=True)
+
+
+def test_bf16_encoder_and_decoder_match_flax_bf16():
+    """Under bf16 the SecretEncoder and SecretDecoder compute in bfloat16
+    on float32 parameters (`Stage1Models.autocast`), as flax's
+    `dtype=bfloat16` does.  On bf16 inputs, the encoder's watermark and
+    the train-mode decoder's logits and updated statistics each lie
+    within three times the reference's own bf16 rounding: the gap between
+    flax's bf16 and float32 results.  (That bound would also pass float32
+    compute; test_stage1_bf16_step_computes_in_bf16 checks the types.)"""
+    import aqualora_torch.core.config as tcfg
+    from aqualora_torch.models.efficientnet import Masks
+    from aqualora_torch.train import latent_wm_pretrain as tt
+    from aqualora_tpu.models.watermark import SecretDecoder as JaxDecoder
+    from aqualora_tpu.models.watermark import SecretEncoder as JaxEncoder
+
+    bf = jnp.bfloat16
+    models = tt.build_models(tcfg.VAEConfig.tiny(),
+                             tcfg.WatermarkConfig.tiny(), dataclasses.replace(
+                                 tcfg.EfficientNetConfig.tiny(),
+                                 dropout_rate=0.0), "cpu", torch.bfloat16)
+
+    def gap(a, b):
+        return np.abs(np.asarray(a, np.float32) - np.asarray(b, np.float32)
+                      ).max()
+
+    lat = jnp.asarray(_images(1, (2, 32, 32, 4))).astype(bf)
+    msg = (np.random.default_rng(2).random((2, 8)) > 0.5).astype(np.float32)
+    jenc = {dt: JaxEncoder(8, 8, 256, 4, dtype=dt) for dt in (bf, jnp.float32)}
+    eparams = _fill(jax.eval_shape(lambda: jenc[bf].init(
+        KEY, lat, jnp.zeros((1, 8))))["params"], 3)
+    want = {dt: jax.jit(m.apply)({"params": eparams}, lat, jnp.asarray(msg))[1]
+            for dt, m in jenc.items()}
+    models.sec_encoder.load_state_dict(jax_params_to_torch(_np(eparams)),
+                                       strict=True)
+    with models.autocast():
+        _, c = models.sec_encoder(_nchw(lat.astype(jnp.float32)).to(
+            torch.bfloat16), _t(msg))
+    assert c.dtype == torch.bfloat16
+    assert gap(_nhwc(c.float()), want[bf]) <= 3 * gap(want[bf],
+                                                      want[jnp.float32])
+
+    x = jnp.asarray(_images(9, (3, 48, 48, 3))).astype(bf)
+    jdec = {dt: JaxDecoder(8, _tiny_backbone(), dtype=dt)
+            for dt in (bf, jnp.float32)}
+    shapes = jax.eval_shape(lambda: jdec[bf].init(KEY, jnp.zeros((1, 64, 64,
+                                                                  3))))
+    params, stats = _fill(shapes["params"], 4), _stats(shapes["batch_stats"],
+                                                      5)
+    ref = {dt: jax.jit(lambda p, s, x, m=m: m.apply(
+        {"params": p, "batch_stats": s}, x, True, mutable=["batch_stats"]))(
+            params, stats, x) for dt, m in jdec.items()}
+    dec = models.sec_decoder
+    dec.load_state_dict(jax_params_to_torch(_np(params), _np(stats)),
+                        strict=True)
+    with models.autocast():
+        logits = dec(_nchw(x.astype(jnp.float32)).to(torch.bfloat16),
+                     train=True, masks=Masks([], None))
+    assert logits.dtype == torch.bfloat16
+    assert gap(logits.float().detach().numpy(), ref[bf][0]) <= 3 * gap(
+        ref[bf][0], ref[jnp.float32][0])
+    running = {dt: {k: v.numpy() for k, v in jax_params_to_torch(
+        _np(params), _np(r[1]["batch_stats"])).items()
+        if k.endswith(("running_mean", "running_var"))}
+        for dt, r in ref.items()}
+    sd = dec.state_dict()
+    worst = max(gap(sd[k], v) for k, v in running[bf].items())
+    own = max(gap(v, running[jnp.float32][k]) for k, v in running[bf].items())
+    assert worst <= 3 * own
+
+
+def test_stage1_bf16_step_computes_in_bf16():
+    """The tiny stage-1 step under bf16 on the CPU: every convolution and
+    linear layer of the SecretEncoder and SecretDecoder computes in
+    bfloat16, while their parameters, gradients and BatchNorm statistics
+    stay float32; the loss is finite (at 32 px, B2)."""
+    import aqualora_torch.core.config as tcfg
+    from aqualora_torch.train import latent_wm_pretrain as tt
+
+    models = tt.build_models(tcfg.VAEConfig.tiny(),
+                             tcfg.WatermarkConfig.tiny(),
+                             tcfg.EfficientNetConfig.tiny(), "cpu",
+                             torch.bfloat16)
+    tt.init_models(models, 0)
+    seen = []
+    for part in (models.sec_encoder, models.sec_decoder):
+        for m in part.modules():
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)):
+                m.register_forward_hook(
+                    lambda m, i, o: seen.append(o.dtype))
+    gen = torch.Generator().manual_seed(0)
+    draws = tt.draw(models, gen, (2, 3, 32, 32), tt.LATE_PROBS)
+    loss, _ = tt.make_loss_fn(models)(torch.rand(2, 3, 32, 32) * 2 - 1,
+                                      draws, tt.Control())
+    loss.backward()
+    assert torch.isfinite(loss)
+    assert len(seen) > 20 and set(seen) == {torch.bfloat16}
+    for part in (models.sec_encoder, models.sec_decoder):
+        for p in part.parameters():
+            assert p.dtype == p.grad.dtype == torch.float32
+    assert all(b.dtype == torch.float32 for n, b in
+               models.sec_decoder.named_buffers() if "running" in n)
 
 
 def test_decoder_masks_keep_rate_and_scale():
@@ -435,11 +542,11 @@ def test_decoder_masks_keep_rate_and_scale():
     assert masks.dropout.shape == (20000, net.head_channels)
     assert abs(masks.dropout.float().mean().item() - 0.8) < 0.005
 
-    block = blocks[-1].eval()
+    block = blocks[-1]
     x = torch.randn(2, block.block[0][0].in_channels, 6, 6)
     with torch.no_grad():
         branch = block.block(x)
-        out = block(x, torch.tensor([True, False]))
+        out = block(x, keep=torch.tensor([True, False]))
     torch.testing.assert_close(out[0], branch[0] / (1 - block.sd_prob) + x[0])
     torch.testing.assert_close(out[1], x[1])
 

@@ -24,13 +24,17 @@
 // 14) against about 4*(Tq+Tk)*D*2 bytes per (b, h): at the U-Net's
 // self-attention shapes the tensor-core rate bounds it, at Tk = 77 the bytes.
 //
-// Which instance takes which path.  Each type goes to one design:
-// - bfloat16 (the training path, phase 8 of chip_smoke.py): the tensor-core
-//   kernels `flash_bwd_dq_tc_kernel` and `flash_bwd_dkv_tc_kernel` below.
-// - float32 (the tiny card-vs-CPU checks): the CUDA-core kernels
-//   `flash_bwd_dq_kernel` and `flash_bwd_dkv_kernel`, float32 FMAs, so that
-//   the float32 limit (1e-4 of the largest gradient) holds; TF32 tensor cores
-//   keep about three decimal digits and would not.
+// Which instance takes which path:
+// - bfloat16 (the PPFT training path, phase 8 of chip_smoke.py): the
+//   tensor-core kernels `flash_bwd_dq_tc_kernel` and
+//   `flash_bwd_dkv_tc_kernel` below, and at d > 160 the d = 512 ones.
+// - float32 at d > 160 (stage 1's default path, the VAE mid-block at d =
+//   512): the d = 512 tensor-core kernels, their products in TF32 with the
+//   3xTF32 split (each operand x = hi + lo, three products a_lo b_hi + a_hi
+//   b_lo + a_hi b_hi), which keeps the float32 limit (1e-4 of the largest
+//   gradient) where one TF32 product (about three decimal digits) would not.
+// - float32 at d <= 160 (the tiny card-vs-CPU checks): the CUDA-core
+//   kernels `flash_bwd_dq_kernel` and `flash_bwd_dkv_kernel`, float32 FMAs.
 //
 // Tensor-core design (bfloat16).
 // - Products: `mma.sync.aligned.m16n8k16` bf16 x bf16 -> float32 with
@@ -83,13 +87,13 @@
 //
 // Head dims 161..512 (the VAE mid-block's single-head d = 512 attention,
 // differentiated in stage 1 through the watermarked decode) have kernels of
-// their own.  bfloat16: `flash_bwd_dq_d512_tc_kernel` and
-// `flash_bwd_dkv_d512_tc_kernel` (`bwd_d512_tc` below), each warp a
+// their own, one body for both types: `flash_bwd_dq_d512_tc_kernel<T>` and
+// `flash_bwd_dkv_d512_tc_kernel<T>` (`bwd_d512_tc` below), each warp a
 // 128-column quarter of the head dim, the partial S and dP added in shared
-// memory in warp order, P and dS through shared memory once a tile.
-// float32: the CUDA-core kernels above at DP = 512, a row spread over a
-// warp (16 columns a lane), as the forward's float32 d = 512 instance.
-// Head dims above 512 are refused.
+// memory in warp order, P and dS through shared memory once a tile (bf16
+// m16n8k16 products; float32 m16n8k8 TF32 products, 3xTF32).  A float32
+// head dim that is not a multiple of 4 (bf16: 8), or an input not 16-byte
+// aligned, is staged by plain loads.  Head dims above 512 are refused.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -109,7 +113,7 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr float kLog2e = 1.4426950408889634f;
 
 // ---------------------------------------------------------------------------
-// float32: CUDA-core kernels
+// float32, d <= 160: CUDA-core kernels
 // ---------------------------------------------------------------------------
 
 // Tile shape per padded head dim DP: G lanes per row group, TM rows per group,
@@ -124,9 +128,6 @@ struct Cfg;
 template <> struct Cfg<48>  { static constexpr int G = 8,  TM = 4, BN = 32; };
 template <> struct Cfg<80>  { static constexpr int G = 8,  TM = 4, BN = 32; };
 template <> struct Cfg<160> { static constexpr int G = 16, TM = 4, BN = 32; };
-// d = 512: a row spread over the warp, 16 columns a lane; 16 own rows and 32
-// streamed rows in shared memory take 197 KB (one block per SM)
-template <> struct Cfg<512> { static constexpr int G = 32, TM = 4, BN = 32; };
 
 // Shared-memory row stride in floats: an odd number of 4-byte words.
 template <int DP>
@@ -408,11 +409,12 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: tensor-core kernels
+// tensor-core kernels: bfloat16, and float32 at d = 512
 // ---------------------------------------------------------------------------
 
-// cp.async staging (stage_tc), ldmatrix loads (load_rm, load_nk) and the
-// m16n8k16 product (mma_bf16) come from tensor_core.cuh.
+// cp.async staging (stage_tc), ldmatrix loads (load_rm, load_nk,
+// load_a_tf32, load_nk_tf32) and the products (mma_bf16, mma_3xtf32) come
+// from tensor_core.cuh.
 
 // 4 bytes global -> shared, asynchronously (lse and delta rows).
 __device__ __forceinline__ void cp_async4(void* dst, const void* src,
@@ -805,31 +807,52 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// The d = 512 kernels (bfloat16).  A 16 x 512 float32 accumulator would take
-// 256 registers a thread, so, as in flash_fwd.cu's d = 512 kernel, each of
-// the four warps owns a 128-column quarter of the head dim: a quarter of
-// the block's own rows (A, C) and of the streamed tiles (B, D) for the
-// partial scores, and a quarter of each accumulator.  A block owns 16 rows
-// (two accumulators of 16 x 128 take 128 registers in the dK/dV kernel)
-// and streams tiles of 32 rows through a two-stage cp.async ring; 186 KB of
-// shared memory, one block per SM.  At the stage-1 shape (5, 1, 4096, 4096,
-// 512) the tensor-core rate bounds the pair (about 0.43 ms); with four
-// warps an SM and two barriers a tile these kernels run far from it (their
-// times are in PERF.md).
+// The d = 512 kernels, one body for both types (`bwd_d512_tc<T, DKV>`).  A
+// 16 x 512 float32 accumulator would take 256 registers a thread, so, as in
+// flash_fwd.cu's d = 512 kernel, each of the four warps owns a 128-column
+// quarter of the head dim: a quarter of the block's own rows (A, C) and of
+// the streamed tiles (B, D) for the partial scores, and a quarter of each
+// accumulator.  A block owns 16 rows (two accumulators of 16 x 128 take 128
+// registers in the dK/dV kernel) and streams tiles of BN rows through a
+// two-stage cp.async ring; one block per SM.  At the stage-1 shape (5, 1,
+// 4096, 4096, 512) the tensor-core rate bounds the pair; with four warps an
+// SM and two barriers a tile these kernels run far from it (their times are
+// in PERF.md).
+//
+// Shared memory per block, by type:
+//   bfloat16: own A, C 2 x 16 x 520 x 2 B (33 KB), ring 2 x 2 x 32 x 520 x 2
+//     B (133 KB), partial S and dP 2 x 4 x 16 x 33 x 4 B (17 KB), P and dS
+//     bf16 2 x 16 x 40 x 2 B: 186 KB.
+//   float32: every tile doubles, so the ring streams 16 rows (BN = 16; 32
+//     rows in one stage would also fit but lose the copy's overlap).  Own
+//     A, C 2 x 16 x 516 x 4 B (66 KB), ring 2 x 2 x 16 x 516 x 4 B (132 KB),
+//     partial S and dP 2 x 4 x 16 x 17 x 4 B (8.7 KB), P and dS float32 2 x
+//     16 x 20 x 4 B (2.6 KB): 209 KB of the 227 KB a block may take.  The
+//     row stride of 516 floats is an odd number of 16-byte units: the
+//     ldmatrix reads of the n-major operands are free of bank conflicts, and
+//     the plain reads of the k-major ones (below) conflict two ways (a
+//     stride of 520 would do the reverse).
+template <typename T>
 struct B512 {
-  static constexpr int DP = 512, LDS = lds<DP>(), BR = 16, BN = 32;
+  static constexpr bool F32 = sizeof(T) == 4;
+  static constexpr int DP = 512, LDS = lds<DP, T>(), BR = 16,
+                       BN = F32 ? 16 : 32;
   static constexpr int QCOLS = DP / 4, NB = QCOLS / 8, LDR = BN + 1,
-                       LDP = BN + 8;
+                       LDP = BN + 16 / (int)sizeof(T);
+  // elements of the elementwise step a thread takes (BR x BN over 128)
+  static constexpr int EPT = BR * BN / kThreads;
   // own rows (2 x BR) and the ring of the two streamed tiles (2 x 2 x BN)
   static constexpr size_t stage_bytes =
-      (size_t)(2 * BR + 4 * BN) * LDS * sizeof(bf16);
-  // the four warps' partial S and dP, float32, rows padded to 33
+      (size_t)(2 * BR + 4 * BN) * LDS * sizeof(T);
+  // the four warps' partial S and dP, float32, rows padded to BN + 1
   static constexpr size_t red_bytes = (size_t)2 * 4 * BR * LDR * sizeof(float);
-  // P and dS of the tile, bf16, rows padded to 40 for ldmatrix
-  static constexpr size_t p_bytes = (size_t)2 * BR * LDP * sizeof(bf16);
+  // P and dS of the tile in the element type, rows padded by 16 bytes for
+  // ldmatrix
+  static constexpr size_t p_bytes = (size_t)2 * BR * LDP * sizeof(T);
   static constexpr size_t smem_bytes = stage_bytes + red_bytes + p_bytes;
   static_assert(stage_bytes % 16 == 0 && red_bytes % 16 == 0,
                 "16-byte aligned parts");
+  static_assert(smem_bytes <= 232448, "one block per SM");
 };
 
 // One (b, h) of either d = 512 kernel.  Own rows [r0, r0 + 16) of A and C
@@ -840,39 +863,49 @@ struct B512 {
 //   dK/dV (DKV true):  A = K, C = V, B = Q, D = dO; S^T = K Q^T,
 //         dP^T = V dO^T, out0 = dK = dS^T Q * scale, out1 = dV = P^T dO.
 // Per streamed tile: every warp computes its partial S and dP over its
-// quarter of the head dim (m16n8k16, ldmatrix), writes them to shared
-// memory, and after a barrier each thread adds the four partials of four
-// elements in warp order, forms P = 2^(S * scale * log2 e - L) and dS = P o
-// (dP - delta) and writes both as bf16; after a second barrier every warp
-// reads them as the A operands of its quarter of the accumulators.  The
-// streamed rows past Tst get P = 0: keys past Tk in the dQ kernel, and
-// queries past Tq (which have no defined L or delta) in the dK/dV kernel.
-template <bool DKV>
+// quarter of the head dim, writes them to shared memory, and after a
+// barrier each thread adds the four partials of its elements in warp order,
+// forms P = 2^(S * scale * log2 e - L) and dS = P o (dP - delta) and writes
+// both in the element type; after a second barrier every warp reads them as
+// the A operands of its quarter of the accumulators.  The streamed rows past
+// Tst get P = 0: keys past Tk in the dQ kernel, and queries past Tq (which
+// have no defined L or delta) in the dK/dV kernel.
+//
+// Products.  bfloat16: m16n8k16 with ldmatrix (`.trans` for the k-major B
+// and D of acc0 += dS B, acc1 += P D); P and dS are rounded to bf16 once.
+// float32: m16n8k8 TF32 with the 3xTF32 split (mma_3xtf32), so that every
+// product keeps about float32 precision; P and dS stay float32 and are split
+// where they are loaded.  The n-major operands come by ldmatrix (a float is
+// two b16 halves, which is the TF32 fragment layout), the k-major B and D of
+// acc0 and acc1 by plain shared loads, b0 = tile[k t][n g] and b1 =
+// tile[k t + 4][n g]; each A fragment is split once a k step and reused
+// across the n blocks.
+template <typename T, bool DKV>
 __device__ __forceinline__ void bwd_d512_tc(
-    const bf16* __restrict__ a, const bf16* __restrict__ c,
-    const bf16* __restrict__ b, const bf16* __restrict__ d,
+    const T* __restrict__ a, const T* __restrict__ c,
+    const T* __restrict__ b, const T* __restrict__ d,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    bf16* __restrict__ out0, bf16* __restrict__ out1, int Town, int Tst,
-    int D, float scale, float scale_log2, int vec) {
-  using W = B512;
+    T* __restrict__ out0, T* __restrict__ out1, int Town, int Tst, int D,
+    float scale, float scale_log2, int vec) {
+  using W = B512<T>;
   constexpr int DP = W::DP, LDS = W::LDS, BR = W::BR, BN = W::BN;
-  constexpr int LDR = W::LDR, LDP = W::LDP, NB = W::NB;
+  constexpr int LDR = W::LDR, LDP = W::LDP, NB = W::NB, EPT = W::EPT;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* a_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* c_s = a_s + BR * LDS;
-  bf16* b_s = c_s + BR * LDS;                      // [2][BN][LDS]
-  bf16* d_s = b_s + 2 * BN * LDS;                  // [2][BN][LDS]
+  T* a_s = reinterpret_cast<T*>(smem_raw);
+  T* c_s = a_s + BR * LDS;
+  T* b_s = c_s + BR * LDS;                         // [2][BN][LDS]
+  T* d_s = b_s + 2 * BN * LDS;                     // [2][BN][LDS]
   float* red = reinterpret_cast<float*>(smem_raw + W::stage_bytes);
-  bf16* p_s = reinterpret_cast<bf16*>(smem_raw + W::stage_bytes +
-                                      W::red_bytes);   // P, then dS
-  bf16* ds_s = p_s + BR * LDP;
+  T* p_s = reinterpret_cast<T*>(smem_raw + W::stage_bytes +
+                                W::red_bytes);     // P, then dS
+  T* ds_s = p_s + BR * LDP;
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int c0 = warp * W::QCOLS;
   const int r0 = blockIdx.x * BR;
-  // a thread's share of the elementwise step: row er, columns ec..ec+3
-  const int er = threadIdx.x >> 3, ec = (threadIdx.x & 7) * 4;
+  // a thread's share of the elementwise step: row er, columns ec..ec+EPT-1
+  const int er = threadIdx.x / (BN / EPT), ec = threadIdx.x % (BN / EPT) * EPT;
 
   stage_tc<DP, BR>(a_s, a, r0, Town, D, vec);
   stage_tc<DP, BR>(c_s, c, r0, Town, D, vec);
@@ -910,8 +943,8 @@ __device__ __forceinline__ void bwd_d512_tc(
       cp_async_commit();
     }
     const int nv = Tst - t * BN;   // valid streamed rows (may exceed BN)
-    const bf16* bt = b_s + (t & 1) * BN * LDS;
-    const bf16* dt = d_s + (t & 1) * BN * LDS;
+    const T* bt = b_s + (t & 1) * BN * LDS;
+    const T* dt = d_s + (t & 1) * BN * LDS;
 
     // partial S and dP over this warp's quarter of the head dim
     float s[BN / 8][4], dp[BN / 8][4];
@@ -919,22 +952,48 @@ __device__ __forceinline__ void bwd_d512_tc(
     for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
       for (int i = 0; i < 4; ++i) s[j][i] = dp[j][i] = 0.f;
+    if constexpr (!W::F32) {
 #pragma unroll 2
-    for (int ks = 0; ks < W::QCOLS / 16; ++ks) {
-      const int col = c0 + 16 * ks;
-      unsigned fa[4], fc[4];
-      load_rm<LDS, false>(fa, a_s, 0, col, lane);
-      load_rm<LDS, false>(fc, c_s, 0, col, lane);
+      for (int ks = 0; ks < W::QCOLS / 16; ++ks) {
+        const int col = c0 + 16 * ks;
+        unsigned fa[4], fc[4];
+        load_rm<LDS, false>(fa, a_s, 0, col, lane);
+        load_rm<LDS, false>(fc, c_s, 0, col, lane);
 #pragma unroll
-      for (int j = 0; j < BN / 16; ++j) {
-        if (16 * j < nv) {
-          unsigned fb[4], fd[4];
-          load_nk<LDS>(fb, bt, 16 * j, col, lane);
-          load_nk<LDS>(fd, dt, 16 * j, col, lane);
-          mma_bf16(s[2 * j], fa, fb[0], fb[1]);
-          mma_bf16(s[2 * j + 1], fa, fb[2], fb[3]);
-          mma_bf16(dp[2 * j], fc, fd[0], fd[1]);
-          mma_bf16(dp[2 * j + 1], fc, fd[2], fd[3]);
+        for (int j = 0; j < BN / 16; ++j) {
+          if (16 * j < nv) {
+            unsigned fb[4], fd[4];
+            load_nk<LDS>(fb, bt, 16 * j, col, lane);
+            load_nk<LDS>(fd, dt, 16 * j, col, lane);
+            mma_bf16(s[2 * j], fa, fb[0], fb[1]);
+            mma_bf16(s[2 * j + 1], fa, fb[2], fb[3]);
+            mma_bf16(dp[2 * j], fc, fd[0], fd[1]);
+            mma_bf16(dp[2 * j + 1], fc, fd[2], fd[3]);
+          }
+        }
+      }
+    } else {
+#pragma unroll 2
+      for (int ks = 0; ks < W::QCOLS / 8; ++ks) {
+        const int col = c0 + 8 * ks;
+        unsigned f[4], ah[4], al[4], ch[4], cl[4];
+        load_a_tf32<LDS>(f, a_s, 0, col, lane);
+        split_tf32(f, ah, al);
+        load_a_tf32<LDS>(f, c_s, 0, col, lane);
+        split_tf32(f, ch, cl);
+#pragma unroll
+        for (int j = 0; j < BN / 16; ++j) {
+          if (16 * j < nv) {
+            unsigned bh[4], bl[4];
+            load_nk_tf32<LDS>(f, bt, 16 * j, col, lane);
+            split_tf32(f, bh, bl);
+            mma_3xtf32(s[2 * j], ah, al, bh[0], bh[1], bl[0], bl[1]);
+            mma_3xtf32(s[2 * j + 1], ah, al, bh[2], bh[3], bl[2], bl[3]);
+            load_nk_tf32<LDS>(f, dt, 16 * j, col, lane);
+            split_tf32(f, bh, bl);
+            mma_3xtf32(dp[2 * j], ch, cl, bh[0], bh[1], bl[0], bl[1]);
+            mma_3xtf32(dp[2 * j + 1], ch, cl, bh[2], bh[3], bl[2], bl[3]);
+          }
         }
       }
     }
@@ -951,10 +1010,10 @@ __device__ __forceinline__ void bwd_d512_tc(
       }
     __syncthreads();
 
-    // P and dS of row er, columns ec..ec+3, the partials added in warp order
-    float pv[4], dv[4];
+    // P and dS of row er, columns ec.., the partials added in warp order
+    float pv[EPT], dv[EPT];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
+    for (int e = 0; e < EPT; ++e) {
       const int col = ec + e;
       const float* x = red + er * LDR + col;
       const float* y = x + 4 * BR * LDR;
@@ -970,30 +1029,68 @@ __device__ __forceinline__ void bwd_d512_tc(
       pv[e] = p;
       dv[e] = p * (dpv - dl);
     }
-    *reinterpret_cast<uint2*>(p_s + er * LDP + ec) =
-        make_uint2(pack_bf16(pv[0], pv[1]), pack_bf16(pv[2], pv[3]));
-    *reinterpret_cast<uint2*>(ds_s + er * LDP + ec) =
-        make_uint2(pack_bf16(dv[0], dv[1]), pack_bf16(dv[2], dv[3]));
+    if constexpr (W::F32) {
+      *reinterpret_cast<float2*>(p_s + er * LDP + ec) =
+          make_float2(pv[0], pv[1]);
+      *reinterpret_cast<float2*>(ds_s + er * LDP + ec) =
+          make_float2(dv[0], dv[1]);
+    } else {
+      *reinterpret_cast<uint2*>(p_s + er * LDP + ec) =
+          make_uint2(pack_bf16(pv[0], pv[1]), pack_bf16(pv[2], pv[3]));
+      *reinterpret_cast<uint2*>(ds_s + er * LDP + ec) =
+          make_uint2(pack_bf16(dv[0], dv[1]), pack_bf16(dv[2], dv[3]));
+    }
     __syncthreads();
 
     // acc0 += dS B, acc1 += P D over this warp's quarter of the columns
+    if constexpr (!W::F32) {
 #pragma unroll
-    for (int j = 0; j < BN / 16; ++j) {
-      if (16 * j < nv) {
-        unsigned fds[4], fp[4];
-        load_rm<LDP, false>(fds, ds_s, 0, 16 * j, lane);
-        if (DKV) load_rm<LDP, false>(fp, p_s, 0, 16 * j, lane);
+      for (int j = 0; j < BN / 16; ++j) {
+        if (16 * j < nv) {
+          unsigned fds[4], fp[4];
+          load_rm<LDP, false>(fds, ds_s, 0, 16 * j, lane);
+          if (DKV) load_rm<LDP, false>(fp, p_s, 0, 16 * j, lane);
 #pragma unroll
-        for (int nd = 0; nd < W::QCOLS / 16; ++nd) {
-          unsigned fb[4];
-          load_rm<LDS, true>(fb, bt, 16 * j, c0 + 16 * nd, lane);
-          mma_bf16(acc0[2 * nd], fds, fb[0], fb[1]);
-          mma_bf16(acc0[2 * nd + 1], fds, fb[2], fb[3]);
+          for (int nd = 0; nd < W::QCOLS / 16; ++nd) {
+            unsigned fb[4];
+            load_rm<LDS, true>(fb, bt, 16 * j, c0 + 16 * nd, lane);
+            mma_bf16(acc0[2 * nd], fds, fb[0], fb[1]);
+            mma_bf16(acc0[2 * nd + 1], fds, fb[2], fb[3]);
+            if (DKV) {
+              unsigned fd[4];
+              load_rm<LDS, true>(fd, dt, 16 * j, c0 + 16 * nd, lane);
+              mma_bf16(acc1[2 * nd % NB1], fp, fd[0], fd[1]);
+              mma_bf16(acc1[(2 * nd + 1) % NB1], fp, fd[2], fd[3]);
+            }
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < BN / 8; ++kk) {
+        if (8 * kk < nv) {
+          unsigned f[4], sh[4], sl[4], ph[4], pl[4];
+          load_a_tf32<LDP>(f, ds_s, 0, 8 * kk, lane);
+          split_tf32(f, sh, sl);
           if (DKV) {
-            unsigned fd[4];
-            load_rm<LDS, true>(fd, dt, 16 * j, c0 + 16 * nd, lane);
-            mma_bf16(acc1[2 * nd % NB1], fp, fd[0], fd[1]);
-            mma_bf16(acc1[(2 * nd + 1) % NB1], fp, fd[2], fd[3]);
+            load_a_tf32<LDP>(f, p_s, 0, 8 * kk, lane);
+            split_tf32(f, ph, pl);
+          }
+          // k rows 8 kk + t and + 4, head column c0 + 8 nd + g
+          const int off = (8 * kk + (lane & 3)) * LDS + c0 + (lane >> 2);
+          const unsigned* bu = reinterpret_cast<const unsigned*>(bt) + off;
+          const unsigned* du = reinterpret_cast<const unsigned*>(dt) + off;
+#pragma unroll
+          for (int nd = 0; nd < NB; ++nd) {
+            unsigned h0, l0, h1, l1;
+            split_tf32(bu[8 * nd], h0, l0);
+            split_tf32(bu[8 * nd + 4 * LDS], h1, l1);
+            mma_3xtf32(acc0[nd], sh, sl, h0, h1, l0, l1);
+            if (DKV) {
+              split_tf32(du[8 * nd], h0, l0);
+              split_tf32(du[8 * nd + 4 * LDS], h1, l1);
+              mma_3xtf32(acc1[nd % NB1], ph, pl, h0, h1, l0, l1);
+            }
           }
         }
       }
@@ -1017,38 +1114,38 @@ __device__ __forceinline__ void bwd_d512_tc(
 }
 
 // dQ at d = 512: one block per (16 query rows, head, batch).
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_d512_tc_kernel(const bf16* __restrict__ q,
-                            const bf16* __restrict__ k,
-                            const bf16* __restrict__ v,
-                            const bf16* __restrict__ dout,
+flash_bwd_dq_d512_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v,
+                            const T* __restrict__ dout,
                             const float* __restrict__ lse,
                             const float* __restrict__ delta,
-                            bf16* __restrict__ dq, int H, int Tq, int Tk,
-                            int D, float scale, float scale_log2, int vec) {
+                            T* __restrict__ dq, int H, int Tq, int Tk, int D,
+                            float scale, float scale_log2, int vec) {
   const size_t bh = (size_t)blockIdx.z * H + blockIdx.y;
-  bwd_d512_tc<false>(q + bh * Tq * D, dout + bh * Tq * D, k + bh * Tk * D,
-                     v + bh * Tk * D, lse + bh * Tq, delta + bh * Tq,
-                     dq + bh * Tq * D, nullptr, Tq, Tk, D, scale, scale_log2,
-                     vec);
+  bwd_d512_tc<T, false>(q + bh * Tq * D, dout + bh * Tq * D, k + bh * Tk * D,
+                        v + bh * Tk * D, lse + bh * Tq, delta + bh * Tq,
+                        dq + bh * Tq * D, nullptr, Tq, Tk, D, scale,
+                        scale_log2, vec);
 }
 
 // dK, dV at d = 512: one block per (16 key rows, head, batch).
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_d512_tc_kernel(const bf16* __restrict__ q,
-                             const bf16* __restrict__ k,
-                             const bf16* __restrict__ v,
-                             const bf16* __restrict__ dout,
+flash_bwd_dkv_d512_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                             const T* __restrict__ v,
+                             const T* __restrict__ dout,
                              const float* __restrict__ lse,
                              const float* __restrict__ delta,
-                             bf16* __restrict__ dk, bf16* __restrict__ dv,
-                             int H, int Tq, int Tk, int D, float scale,
+                             T* __restrict__ dk, T* __restrict__ dv, int H,
+                             int Tq, int Tk, int D, float scale,
                              float scale_log2, int vec) {
   const size_t bh = (size_t)blockIdx.z * H + blockIdx.y;
-  bwd_d512_tc<true>(k + bh * Tk * D, v + bh * Tk * D, q + bh * Tq * D,
-                    dout + bh * Tq * D, lse + bh * Tq, delta + bh * Tq,
-                    dk + bh * Tk * D, dv + bh * Tk * D, Tk, Tq, D, scale,
-                    scale_log2, vec);
+  bwd_d512_tc<T, true>(k + bh * Tk * D, v + bh * Tk * D, q + bh * Tq * D,
+                       dout + bh * Tq * D, lse + bh * Tq, delta + bh * Tq,
+                       dk + bh * Tk * D, dv + bh * Tk * D, Tk, Tq, D, scale,
+                       scale_log2, vec);
 }
 
 // ---------------------------------------------------------------------------
@@ -1154,32 +1251,32 @@ cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// The d = 512 kernels; `dkv` picks dK/dV.
+// The d = 512 kernels of element type T; `dkv` picks dK/dV.
+template <typename T>
 cudaError_t launch_d512(bool dkv, const void* q, const void* k, const void* v,
                         const void* dout, const void* lse, const void* delta,
                         void* out0, void* out1, int B, int H, int Tq, int Tk,
                         int D, float scale, int vec, cudaStream_t stream) {
-  const size_t smem = B512::smem_bytes;
+  const size_t smem = B512<T>::smem_bytes;
   const float sl = scale * kLog2e;
-  const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k),
-             *vb = static_cast<const bf16*>(v),
-             *ob = static_cast<const bf16*>(dout);
+  const T *qt = static_cast<const T*>(q), *kt = static_cast<const T*>(k),
+          *vt = static_cast<const T*>(v), *ot = static_cast<const T*>(dout);
   const float *lb = static_cast<const float*>(lse),
               *db = static_cast<const float*>(delta);
   cudaError_t err;
   if (dkv) {
-    err = set_smem(flash_bwd_dkv_d512_tc_kernel, smem);
+    err = set_smem(flash_bwd_dkv_d512_tc_kernel<T>, smem);
     if (err != cudaSuccess) return err;
-    const dim3 grid((Tk + B512::BR - 1) / B512::BR, H, B);
-    flash_bwd_dkv_d512_tc_kernel<<<grid, kThreads, smem, stream>>>(
-        qb, kb, vb, ob, lb, db, static_cast<bf16*>(out0),
-        static_cast<bf16*>(out1), H, Tq, Tk, D, scale, sl, vec);
+    const dim3 grid((Tk + B512<T>::BR - 1) / B512<T>::BR, H, B);
+    flash_bwd_dkv_d512_tc_kernel<T><<<grid, kThreads, smem, stream>>>(
+        qt, kt, vt, ot, lb, db, static_cast<T*>(out0), static_cast<T*>(out1),
+        H, Tq, Tk, D, scale, sl, vec);
   } else {
-    err = set_smem(flash_bwd_dq_d512_tc_kernel, smem);
+    err = set_smem(flash_bwd_dq_d512_tc_kernel<T>, smem);
     if (err != cudaSuccess) return err;
-    const dim3 grid((Tq + B512::BR - 1) / B512::BR, H, B);
-    flash_bwd_dq_d512_tc_kernel<<<grid, kThreads, smem, stream>>>(
-        qb, kb, vb, ob, lb, db, static_cast<bf16*>(out0), H, Tq, Tk, D, scale,
+    const dim3 grid((Tq + B512<T>::BR - 1) / B512<T>::BR, H, B);
+    flash_bwd_dq_d512_tc_kernel<T><<<grid, kThreads, smem, stream>>>(
+        qt, kt, vt, ot, lb, db, static_cast<T*>(out0), H, Tq, Tk, D, scale,
         sl, vec);
   }
   return cudaGetLastError();
@@ -1204,17 +1301,20 @@ extern "C" int aqualora_flash_bwd_dq(const void* q, const void* k,
   if (bad_shape(B, H, Tq, Tk, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
+    if (D > 160)
+      return (int)launch_d512<float>(
+          false, q, k, v, dout, lse, delta, dq, nullptr, B, H, Tq, Tk, D,
+          scale, D % 4 == 0 && aligned16({q, k, v, dout, dq}), s);
 #define DQ(DP) launch_dq<DP>(q, k, v, dout, lse, delta, dq, B, H, Tq, Tk, D, \
                              scale, s)
-    return (int)(D <= 48 ? DQ(48) : D <= 80 ? DQ(80)
-                 : D <= 160 ? DQ(160) : DQ(512));
+    return (int)(D <= 48 ? DQ(48) : D <= 80 ? DQ(80) : DQ(160));
 #undef DQ
   }
   if (dtype == 1) {
     const int vec = D % 8 == 0 && aligned16({q, k, v, dout, dq});
     if (D > 160)
-      return (int)launch_d512(false, q, k, v, dout, lse, delta, dq, nullptr,
-                              B, H, Tq, Tk, D, scale, vec, s);
+      return (int)launch_d512<bf16>(false, q, k, v, dout, lse, delta, dq,
+                                    nullptr, B, H, Tq, Tk, D, scale, vec, s);
     const bool narrow = narrow_tiles(B, H, Tq);
 #define DQ(DP) (narrow ? launch_dq_tc<DP, 1>(q, k, v, dout, lse, delta, dq, B, \
                                              H, Tq, Tk, D, scale, vec, s)     \
@@ -1235,17 +1335,20 @@ extern "C" int aqualora_flash_bwd_dkv(const void* q, const void* k,
   if (bad_shape(B, H, Tq, Tk, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
+    if (D > 160)
+      return (int)launch_d512<float>(
+          true, q, k, v, dout, lse, delta, dk, dv, B, H, Tq, Tk, D, scale,
+          D % 4 == 0 && aligned16({q, k, v, dout, dk, dv}), s);
 #define DKV(DP) launch_dkv<DP>(q, k, v, dout, lse, delta, dk, dv, B, H, Tq, \
                                Tk, D, scale, s)
-    return (int)(D <= 48 ? DKV(48) : D <= 80 ? DKV(80)
-                 : D <= 160 ? DKV(160) : DKV(512));
+    return (int)(D <= 48 ? DKV(48) : D <= 80 ? DKV(80) : DKV(160));
 #undef DKV
   }
   if (dtype == 1) {
     const int vec = D % 8 == 0 && aligned16({q, k, v, dout, dk, dv});
     if (D > 160)
-      return (int)launch_d512(true, q, k, v, dout, lse, delta, dk, dv, B, H,
-                              Tq, Tk, D, scale, vec, s);
+      return (int)launch_d512<bf16>(true, q, k, v, dout, lse, delta, dk, dv,
+                                    B, H, Tq, Tk, D, scale, vec, s);
     const bool narrow = narrow_tiles(B, H, Tk);
 #define DKV(DP) (narrow ? launch_dkv_tc<DP, 1>(q, k, v, dout, lse, delta, dk, \
                                                dv, B, H, Tq, Tk, D, scale,    \

@@ -22,9 +22,11 @@ On the H100 the self-attention shapes are bound by the tensor-core rate and
 the 77-key cross-attention by the bytes of Q, O (and dO).  The kernels keep
 the [Tq, Tk] logits, P and dS out of device memory.  In bf16 the forward
 and the backward run their products on tensor cores (mma.sync, fed by
-cp.async; P rounded to bf16 only as a register operand); in float32 they
-run float32 FMAs on the CUDA cores, so that the float32 limits hold (the
-sources' headers have the design, PERF.md the times).
+cp.async; P rounded to bf16 only as a register operand).  In float32 the
+d = 512 backward (stage 1's VAE mid-block) runs TF32 tensor-core products
+split three ways (3xTF32), and the other float32 instances run float32
+FMAs on the CUDA cores; both keep the float32 limits (the sources' headers
+have the design, PERF.md the times).
 
 Routing: a CPU tensor goes to the plain versions (`flash_attention_plain`,
 `flash_attention_dq_plain`, `flash_attention_dkv_plain`); a CUDA tensor goes

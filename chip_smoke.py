@@ -14,8 +14,9 @@ Phases (any failure raises, so the exit code is not 0):
      flash_bwd, secret_inject), one nvcc each, all started together, and
      count the tensor-core instructions (HMMA, HGMMA) of every attention
      kernel in the built libraries with cuobjdump: each bfloat16 forward,
-     dQ and dK/dV instance (`*_tc_kernel`) must have some, each float32
-     instance none.
+     dQ and dK/dV instance (`*_tc_kernel`) and the float32 d = 512 dQ and
+     dK/dV instances (`*_d512_tc_kernel<float>`, 3xTF32) must have some,
+     each other float32 instance (the CUDA-core kernels) none.
   2. The forward kernel against `flash_attention_plain` on the card at every
      attention shape of the serving path, O and lse: float32 and bfloat16
      at batch 2, then bfloat16 at the serving batch, where the tiling the
@@ -68,11 +69,13 @@ Phases (any failure raises, so the exit code is not 0):
      through the watermarked decode: the d = 512 backward kernels (dQ,
      dK/dV) against their plain versions at the stage-1 batch (5, 1, 4096,
      4096, 512) and at a ragged (2, 1, 1000, 1000, 512), float32 and
-     bfloat16, two bfloat16 calls bit-identical; at B5 the forward's
+     bfloat16, two calls of either type bit-identical; at B5 the forward's
      instances against their plain version too; then at B5 each kernel's
-     time, the plain version's and the bound.  After phase 11, the pair's
-     and SDPA's backward (a yardstick; the port never calls it) as device
-     time under torch.profiler, with the SDPA backend torch picked.
+     time, the plain version's and the bound (float32: at the 3xTF32
+     rate, beside the bound at the CUDA cores' float32 rate).  After phase
+     11, the pair's and SDPA's backward (a yardstick; the port never calls
+     it) as device time under torch.profiler, with the SDPA backend torch
+     picked.
  13. The tiny stage-1 step on the card (kernels) against the CPU (plain),
      the same weights and draws, float32: the loss and every trainable's
      gradient, once for each of the six stage-1 distortions.
@@ -108,9 +111,12 @@ import torch
 import torch.nn.functional as F
 
 # H100 SXM data sheet: dense bf16 tensor-core rate, the float32 rate of the
-# CUDA cores (the float32 kernels' units) and HBM3 bandwidth
+# CUDA cores (the float32 kernels' units at d <= 160), the dense TF32
+# tensor-core rate and HBM3 bandwidth.  The float32 d = 512 backward does
+# each product as three TF32 products (3xTF32): PEAK_TF32_FLOPS / 3.
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 494.7e12
 PEAK_BYTES_PER_S = 3.35e12
 
 # name, heads, Tq, Tk, head dim, serving batch (the CFG batch of 2 x 8
@@ -317,20 +323,30 @@ def phase1():
         print(f"[1] built csrc/{name}.cu in {seconds[name]:.1f} s "
               f"(all {len(SOURCES)} nvcc started together)", flush=True)
     # bf16 instances: forward 3 head-dim tiles x 2 row tilings + d = 512;
-    # backward 3 x 2 x (dQ, dK/dV) + d = 512 x (dQ, dK/dV).  float32:
-    # forward 4, backward 4 x 2.
-    for name, n_tc, n_f32 in (("flash_fwd", 7, 4), ("flash_bwd", 14, 8)):
+    # backward 3 x 2 x (dQ, dK/dV) + d = 512 x (dQ, dK/dV).  float32 on the
+    # tensor cores (3xTF32): backward d = 512 x (dQ, dK/dV).  float32 on the
+    # CUDA cores: forward 4, backward 3 (d <= 160) x (dQ, dK/dV).
+    for name, n_tc, n_tf32, n_f32 in (("flash_fwd", 7, 0, 4),
+                                      ("flash_bwd", 14, 2, 6)):
         counts = tensor_core_counts(name)
         for fn, (hmma, hgmma) in sorted(counts.items()):
             print(f"[1] {name} SASS {fn}: HMMA {hmma} HGMMA {hgmma}",
                   flush=True)
-        tc = {fn: c for fn, c in counts.items() if "_tc_kernel" in fn}
-        f32 = {fn: c for fn, c in counts.items() if fn not in tc}
+        # the float32 instances of the d = 512 template, mangled or not
+        tf32 = {fn: c for fn, c in counts.items()
+                if re.search(r"d512_tc_kernel(IfE|<float>)", fn)}
+        tc = {fn: c for fn, c in counts.items()
+              if "_tc_kernel" in fn and fn not in tf32}
+        f32 = {fn: c for fn, c in counts.items()
+               if fn not in tc and fn not in tf32}
         if len(tc) != n_tc or not all(sum(c) > 0 for c in tc.values()):
             raise AssertionError(f"{name}: bf16 instances without "
                                  f"tensor-core instructions: {tc}")
+        if len(tf32) != n_tf32 or not all(sum(c) > 0 for c in tf32.values()):
+            raise AssertionError(f"{name}: float32 d = 512 instances without "
+                                 f"tensor-core instructions: {tf32}")
         if len(f32) != n_f32 or any(sum(c) for c in f32.values()):
-            raise AssertionError(f"{name}: float32 instances with "
+            raise AssertionError(f"{name}: CUDA-core float32 instances with "
                                  f"tensor-core instructions: {f32}")
 
 
@@ -1020,8 +1036,9 @@ def phase12(smi: str) -> dict:
         scale = d ** -0.5
         for dtype in (torch.float32, torch.bfloat16):
             tag = DTYPE_NAMES[dtype]
+            # the backward's peak: float32 runs 3xTF32 on the tensor cores
             peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else \
-                PEAK_F32_FLOPS
+                PEAK_TF32_FLOPS / 3
             q, do = (torch.randn(b, h, tq, d, device="cuda", generator=gen)
                      .to(dtype) for _ in range(2))
             k, v = (torch.randn(b, h, tk, d, device="cuda", generator=gen)
@@ -1045,16 +1062,14 @@ def phase12(smi: str) -> dict:
                                          f"plain: {name} {tag} {gname} "
                                          f"{err} > {tol}")
                 errs[gname] = err
-            same = ""
-            if dtype == torch.bfloat16:
-                again = (fa.flash_attention_bwd_dq(*args),
-                         *fa.flash_attention_bwd_dkv(*args))
-                if not all(torch.equal(x, y) for x, y in zip(got, again)):
-                    raise AssertionError(f"{name}: two d = 512 backward calls "
-                                         f"differ")
-                same = " (two calls bit-identical)"
-                del again
-            print(f"[12] {name} B{b} H{h} Tq{tq} Tk{tk} d{d} {tag}{same}: "
+            again = (fa.flash_attention_bwd_dq(*args),
+                     *fa.flash_attention_bwd_dkv(*args))
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                raise AssertionError(f"{name} {tag}: two d = 512 backward "
+                                     f"calls differ")
+            del again
+            print(f"[12] {name} B{b} H{h} Tq{tq} Tk{tk} d{d} {tag} (two calls "
+                  f"bit-identical): "
                   + ", ".join(parts), flush=True)
             del got, want
             if b != S1_BATCH:
@@ -1081,7 +1096,16 @@ def phase12(smi: str) -> dict:
                      *args), iters=3, warmup=1)}
             eb = 2 if dtype == torch.bfloat16 else 4
             bounds = bwd_bounds(b, h, tq, tk, d, eb, peak)
-            fb, fby = attention_bound(b, h, tq, tk, d, eb, peak)
+            # the float32 forward still runs on the CUDA cores
+            fb, fby = attention_bound(
+                b, h, tq, tk, d, eb,
+                PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS)
+            cuda_core = ""
+            if dtype == torch.float32:
+                cc = bwd_bounds(b, h, tq, tk, d, eb, PEAK_F32_FLOPS)
+                cuda_core = (f" (at the CUDA cores' float32 rate: dq "
+                             f"{cc['dq'][0]:.4f}, dkv {cc['dkv'][0]:.4f}, "
+                             f"pair {cc['pair'][0]:.4f})")
             print(f"[12] {name} B{b} {tag}: forward kernel_ms {t['fwd']:.4f} "
                   f"plain_ms {t['fwd_plain']:.4f} library_ms(sdpa) "
                   f"{t['fwd_library']:.4f} bound_ms {fb:.4f} ({fby}); dq "
@@ -1089,7 +1113,7 @@ def phase12(smi: str) -> dict:
                   f"bound_ms {bounds['dq'][0]:.4f} ({bounds['dq'][1]}); dkv "
                   f"kernel_ms {t['dkv']:.4f} plain_ms {t['dkv_plain']:.4f} "
                   f"bound_ms {bounds['dkv'][0]:.4f} ({bounds['dkv'][1]}); "
-                  f"pair bound_ms {bounds['pair'][0]:.4f} | {smi}",
+                  f"pair bound_ms {bounds['pair'][0]:.4f}{cuda_core} | {smi}",
                   flush=True)
             rows[("fwd", tag)] = {
                 "max_abs_err": fwd_err, "ms": t["fwd"],

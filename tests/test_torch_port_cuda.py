@@ -166,21 +166,24 @@ def test_flash_bwd_kernels_match_plain(dtype, b, h, tq, tk, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,h,tq,tk,d", [
-    (1, 8, 4096, 4096, 40),   # 64-row tiles, one warp per row block
-    (2, 8, 300, 77, 160),     # 16-row tiles, partial sums added by warps
-    (5, 1, 4096, 4096, 512),  # d = 512: partial scores added by warps
-    (2, 1, 1000, 1000, 512),  # d = 512, ragged
+@pytest.mark.parametrize("b,h,tq,tk,d,dtype", [
+    (1, 8, 4096, 4096, 40, torch.bfloat16),   # 64-row tiles, a warp per rows
+    (2, 8, 300, 77, 160, torch.bfloat16),     # 16-row tiles, warps' partials
+    (5, 1, 4096, 4096, 512, torch.bfloat16),  # d = 512: partial scores
+    (2, 1, 1000, 1000, 512, torch.bfloat16),  # d = 512, ragged
+    (5, 1, 4096, 4096, 512, torch.float32),   # d = 512 float32 (3xTF32)
+    (2, 1, 1000, 1000, 512, torch.float32),   # d = 512 float32, ragged
 ])
-def test_flash_bwd_is_deterministic(b, h, tq, tk, d):
+def test_flash_bwd_is_deterministic(b, h, tq, tk, d, dtype):
     """No sum crosses blocks and the warps' partial sums are added in a
-    fixed order, so two bf16 calls give the same bits."""
+    fixed order, so two calls give the same bits: bf16, and float32 on the
+    d = 512 tensor-core kernels."""
     _need_cuda()
     gen = torch.Generator(device="cuda").manual_seed(d)
     q, do = (torch.randn(b, h, tq, d, device="cuda", generator=gen)
-             .bfloat16() for _ in range(2))
+             .to(dtype) for _ in range(2))
     k, v = (torch.randn(b, h, tk, d, device="cuda", generator=gen)
-            .bfloat16() for _ in range(2))
+            .to(dtype) for _ in range(2))
     o, lse = fa.flash_attention_fwd(q, k, v, d ** -0.5)
     first = fa.flash_attention_bwd(q, k, v, o, lse, do, d ** -0.5)
     again = fa.flash_attention_bwd(q, k, v, o, lse, do, d ** -0.5)

@@ -302,3 +302,122 @@ def test_fwd_bf16_operand_rounding_fits_o_tolerance(d, tk):
     err = (o.float() - o_ref.float()).abs().max().item()
     assert err <= tol, (err, tol)
     assert (lse - lse_ref).abs().max().item() <= 1e-4
+
+
+def _tf32(x):
+    """x rounded to TF32 as `cvt.rna.tf32.f32` does: to nearest, ties away
+    from zero, 10 mantissa bits.  A float32 is sign and magnitude, so adding
+    half a TF32 ulp to its bits and clearing the 13 low ones rounds the
+    magnitude."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_mma(acc, a, b, split):
+    """acc + a @ b as the float32 d = 512 kernels' tensor-core products do
+    it: with `split`, 3xTF32 (x = hi + lo, hi = tf32(x), lo = tf32(x - hi)),
+    the small terms first: a_lo b_hi, a_hi b_lo, a_hi b_hi, each added to the
+    float32 sum; without, one TF32 product."""
+    ah, bh = _tf32(a), _tf32(b)
+    if split:
+        al, bl = _tf32(a - ah), _tf32(b - bh)
+        acc = acc + al @ bh
+        acc = acc + ah @ bl
+    return acc + ah @ bh
+
+
+def _f32_d512_kernel_arithmetic(q, k, v, do, lse, delta, scale, split):
+    """What csrc/flash_bwd.cu's float32 d = 512 kernels compute: S and dP
+    as four partials over 128-column quarters of the head dim (one a warp),
+    added in warp order; P = 2^(S scale log2e - L log2e) and dS = P o (dP -
+    delta) in float32; then dQ += dS K, dK += dS^T Q and dV += P^T dO over
+    streamed tiles of 16 rows.  Every product is `_tf32_mma`."""
+    log2e = 1.4426950408889634
+    sl = scale * log2e
+
+    def scores(a, b):
+        parts = [_tf32_mma(0.0, a[..., c:c + 128],
+                           b[..., c:c + 128].transpose(-1, -2), split)
+                 for c in range(0, a.shape[-1], 128)]
+        return ((parts[0] + parts[1]) + parts[2]) + parts[3]
+
+    def accumulate(x, y):
+        acc = torch.zeros(x.shape[:-1] + y.shape[-1:])
+        for t0 in range(0, y.shape[-2], 16):
+            acc = _tf32_mma(acc, x[..., t0:t0 + 16], y[..., t0:t0 + 16, :],
+                            split)
+        return acc
+
+    l2, dl = lse * log2e, delta
+    # dQ kernel: own rows are queries, keys stream
+    p = torch.exp2(scores(q, k) * sl - l2[..., None])
+    ds = p * (scores(do, v) - dl[..., None])
+    dq = accumulate(ds, k) * scale
+    # dK/dV kernel: own rows are keys, queries stream (S^T, dP^T)
+    pt = torch.exp2(scores(k, q) * sl - l2[..., None, :])
+    dst = pt * (scores(v, do) - dl[..., None, :])
+    return dq, accumulate(dst, q) * scale, accumulate(pt, do)
+
+
+_D512_SHAPES = [(256, 256), (200, 200), (256, 200), (200, 256)]
+
+
+@pytest.fixture(scope="module")
+def d512_cases():
+    """Seeded float32 inputs at d = 512, H = 1 and the JAX package's dq, dk,
+    dv for each (Tq, Tk) of _D512_SHAPES: the Pallas backward in interpret
+    mode where it takes the shape (Tq, Tk multiples of 128), else `jax.vjp`
+    of `_xla_attention` (the Pallas kernels refuse a ragged length)."""
+    import aqualora_tpu.ops.flash_attention as F
+    from aqualora_tpu.ops.attention import _xla_attention
+
+    d, scale, cases = 512, 512 ** -0.5, {}
+    for tq, tk in _D512_SHAPES:
+        q, k, v = _qkv(tq + tk, 1, 1, tq, tk, d)
+        g = np.random.default_rng(tq * tk).standard_normal(
+            q.shape, dtype=np.float32)
+        jq, jk, jv, jg = map(jax.numpy.asarray, (q, k, v, g))
+        if tq % 128 == 0 and tk % 128 == 0:
+            with _interpret_pallas():
+                _, res = F._fa_fwd(jq, jk, jv, scale)
+                ref = F._fa_bwd(scale, res, jg)
+        else:
+            _, vjp = jax.vjp(
+                lambda q, k, v: _xla_attention(q, k, v, None, scale),
+                jq, jk, jv)
+            ref = vjp(jg)
+        cases[(tq, tk)] = ((q, k, v, g), [np.asarray(r) for r in ref])
+    return cases
+
+
+def _d512_errors(case, split):
+    """Each gradient's max |error| of the emulated kernel arithmetic against
+    the JAX reference, over its limit 1e-4 max|g| + 1e-5."""
+    (q, k, v, g), ref = case
+    q, k, v, do = map(torch.from_numpy, (q, k, v, g))
+    scale = 512 ** -0.5
+    o, lse = fa.flash_attention_plain(q, k, v, scale)
+    delta = fa.attention_delta(o, do)
+    got = _f32_d512_kernel_arithmetic(q, k, v, do, lse, delta, scale, split)
+    ratios = {}
+    for name, x, r in zip(("dq", "dk", "dv"), got, ref):
+        tol = 1e-4 * np.abs(r).max() + 1e-5
+        ratios[name] = np.abs(x.numpy() - r).max() / tol
+    return ratios
+
+
+@pytest.mark.parametrize("tq,tk", _D512_SHAPES)
+def test_fp32_d512_3xtf32_arithmetic_fits_grad_tolerance(d512_cases, tq, tk):
+    """The float32 d = 512 kernels' arithmetic (3xTF32 products, partial
+    scores added in warp order, 16-row streamed tiles, ragged lengths) keeps
+    dq, dk, dv within the card's float32 limit of the JAX backward:
+    1e-4 of the largest gradient + 1e-5."""
+    ratios = _d512_errors(d512_cases[(tq, tk)], split=True)
+    assert max(ratios.values()) <= 1.0, ratios
+
+
+def test_fp32_d512_one_pass_tf32_misses_grad_tolerance(d512_cases):
+    """Why the split: the same arithmetic with one TF32 product (10 mantissa
+    bits an operand) misses that limit."""
+    ratios = _d512_errors(d512_cases[(256, 256)], split=False)
+    assert max(ratios.values()) > 1.0, ratios

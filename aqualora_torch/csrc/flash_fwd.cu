@@ -16,14 +16,18 @@
 // bytes of Q and O.  The [Tq, Tk] logits never reach device memory, K and V
 // are read once per query tile, Q and O once.
 //
-// Which instance takes which path.  Each type goes to one design, as in
-// flash_bwd.cu:
-// - bfloat16 (serving and training): the tensor-core kernels
-//   `flash_fwd_tc_kernel` (head dims up to 160) and `flash_fwd_d512_tc_kernel`
-//   (the VAE mid-block's d = 512).
-// - float32 (the tiny card-vs-CPU checks): `flash_fwd_kernel`, float32 FMAs
-//   on the CUDA cores, so that the float32 limit (1e-4) holds; TF32 tensor
-//   cores keep about three decimal digits and would not.
+// Which instance takes which path.  Each type goes to one design per head
+// dim, as in flash_bwd.cu:
+// - bfloat16 (serving, PPFT, stage 1 under --mixed_precision bf16): the
+//   tensor-core kernels `flash_fwd_tc_kernel` (head dims up to 160) and
+//   `flash_fwd_d512_tc_kernel<bf16>` (the VAE mid-block's d = 512).
+// - float32 at d = 512 (stage 1's default type, the VAE encode and both
+//   decodes at full width): `flash_fwd_d512_tc_kernel<float>`, TF32
+//   tensor-core products split three ways (3xTF32), which keep the float32
+//   limit (1e-4) where one TF32 product would not.
+// - float32 at d <= 160 (no full-width path runs it; the card-vs-CPU checks
+//   of the tiny configurations do): `flash_fwd_kernel`, float32 FMAs on the
+//   CUDA cores.
 //
 // Tensor-core design (bfloat16, d <= 160).
 // - Products: `mma.sync.aligned.m16n8k16` bf16 x bf16 -> float32 with
@@ -64,22 +68,26 @@
 //   fixed warp order at the end.  Still one launch, still deterministic.
 //   `aqualora_flash_fwd_tc_rows` says which tiling a shape gets.
 //
-// Tensor-core design (bfloat16, d = 512).  A 16 x 512 float32 accumulator
+// Tensor-core design (d = 512, both types).  A 16 x 512 float32 accumulator
 // would take 256 registers a thread, so a block of four warps owns 32 query
 // rows and each warp a 128-column quarter of O (128 registers).  For each
-// tile of 32 keys every warp computes a partial S over its quarter of the
-// head dim; the four partials are added in shared memory in warp order, four
-// threads a row take the online softmax and write P as bf16 to shared
-// memory once, and every warp then reads P as its A operand for its quarter
-// of O += P V.  Q and a two-stage ring of 32-key K and V tiles take 186 KB.
+// key tile every warp computes a partial S over its quarter of the head
+// dim; the four partials are added in shared memory in warp order, four
+// threads a row take the online softmax and write P to shared memory once,
+// and every warp then reads P as its A operand for its quarter of O += P V.
+// bfloat16 streams 32-key tiles (186 KB of shared memory) and rounds P to
+// bf16; float32 streams 16-key tiles (209 KB), keeps P in float32 and runs
+// every product as three TF32 products (D512 and the kernel have the
+// details).  Three barriers a tile: the ring, the partial S, P.
 //
 // Ragged shapes are masked in the kernel, never padded in memory: a head dim
 // below its tile's width is zero-filled by the copy itself (cp.async with a
 // source size of 0) and only columns below D are stored; keys past Tk get
 // -inf scores and zero V rows, and 16-key steps wholly past Tk are skipped
 // (Tk = 77 computes 80 keys); query rows past Tq compute on zeros and are
-// not written.  A head dim that is not a multiple of 8, or an input not
-// 16-byte aligned, is staged by plain loads instead of cp.async.
+// not written.  A head dim that is not a multiple of the 16-byte chunk (8
+// bf16, 4 floats), or an input not 16-byte aligned, is staged by plain loads
+// instead of cp.async.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -112,7 +120,6 @@ struct Cfg;
 template <> struct Cfg<48>  { static constexpr int G = 8,  TM = 8, BK = 32; };
 template <> struct Cfg<80>  { static constexpr int G = 8,  TM = 8, BK = 32; };
 template <> struct Cfg<160> { static constexpr int G = 16, TM = 8, BK = 32; };
-template <> struct Cfg<512> { static constexpr int G = 32, TM = 4, BK = 32; };
 
 // Shared-memory row stride in floats: an odd number of 4-byte words, so the
 // rows the lanes of a group read at once start in different banks.
@@ -275,7 +282,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: tensor-core kernels
+// tensor-core kernels: bfloat16, and float32 at d = 512
 // ---------------------------------------------------------------------------
 
 // cp.async staging (stage_tc), ldmatrix loads (load_rm, load_nk) and the
@@ -663,38 +670,74 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// The d = 512 kernel's tiles: 32 query rows, key tiles of 32, each warp a
-// 128-column quarter of O.  Shared memory: Q, the two-stage K and V ring,
-// the four warps' partial S (float32, rows padded to 33), P (bf16, rows
-// padded to 40 for ldmatrix), and per row alpha and the final sum.
+// The d = 512 kernel's tiles, one body for both types.  32 query rows, each
+// warp a 128-column quarter of O.  Shared memory: Q, the two-stage K and V
+// ring, the four warps' partial S (float32, rows padded to BN + 1), P in the
+// element type (rows padded by 16 bytes for ldmatrix), and per row alpha and
+// the final sum.
+//   bfloat16: 32-key tiles; Q 32 x 520 x 2 B (33 KB), ring 2 x 2 x 32 x 520
+//     x 2 B (133 KB), partial S 4 x 32 x 33 x 4 B (17 KB), P 32 x 40 x 2 B:
+//     186 KB.
+//   float32: every tile doubles, so keys stream in tiles of 16 (32-key tiles
+//     would need 264 KB for the ring alone).  Q 32 x 516 x 4 B (66 KB), ring
+//     2 x 2 x 16 x 516 x 4 B (132 KB), partial S 4 x 32 x 17 x 4 B (8.7 KB),
+//     P 32 x 20 x 4 B (2.6 KB): 209 KB of the 227 KB a block may take, one
+//     block per SM.  The row stride of 516 floats is an odd number of
+//     16-byte units: the ldmatrix reads of Q, K and P are free of bank
+//     conflicts, the plain reads of V conflict two ways (flash_bwd.cu's
+//     B512 has the same layout).
+template <typename T>
 struct D512 {
-  static constexpr int DP = 512, LDS = lds<DP>(), BR = 32, BN = 32;
-  static constexpr int QCOLS = DP / 4, LDR = BN + 1, LDP = BN + 8;
+  static constexpr bool F32 = sizeof(T) == 4;
+  static constexpr int DP = 512, LDS = lds<DP, T>(), BR = 32,
+                       BN = F32 ? 16 : 32;
+  static constexpr int QCOLS = DP / 4, NB = QCOLS / 8, LDR = BN + 1,
+                       LDP = BN + 16 / (int)sizeof(T);
+  // the softmax's elements a thread takes (BR x BN over 128): a row's four
+  // threads are one quad of lanes
+  static constexpr int EPT = BR * BN / kThreads;
   static constexpr size_t stage_bytes =
-      (size_t)(BR + 4 * BN) * LDS * sizeof(bf16);
+      (size_t)(BR + 4 * BN) * LDS * sizeof(T);
   static constexpr size_t red_bytes = (size_t)4 * BR * LDR * sizeof(float);
-  static constexpr size_t p_bytes = (size_t)BR * LDP * sizeof(bf16);
+  static constexpr size_t p_bytes = (size_t)BR * LDP * sizeof(T);
   static constexpr size_t smem_bytes =
       stage_bytes + red_bytes + p_bytes + 2 * BR * sizeof(float);
   static_assert(stage_bytes % 16 == 0 && red_bytes % 16 == 0 &&
                 p_bytes % 16 == 0, "16-byte aligned parts");
+  static_assert(BN / EPT == 4, "a row's softmax is one quad");
+  static_assert(smem_bytes <= 232448, "one block per SM");
 };
 
+// One block per (32 query rows, head, batch).  Per key tile every warp
+// computes a partial S over its quarter of the head dim; the four partials
+// are added in shared memory in warp order, four threads a row take the
+// online softmax and write P once, and every warp then reads P as its A
+// operand for its quarter of O = alpha O + P V.
+//
+// Products.  bfloat16: m16n8k16 with ldmatrix (`.trans` for V); P is rounded
+// to bf16 once.  float32: m16n8k8 TF32 with the 3xTF32 split (mma_3xtf32), so
+// that every product keeps about float32 precision, as the d = 512 backward
+// does.  Q, K and P come by ldmatrix (a float is two b16 halves, which is the
+// TF32 fragment layout); V, the k-major B of P V, by plain shared loads, b0
+// = V[key t][column g] and b1 = V[key t + 4][column g].  Each A fragment is
+// split once a k step and reused across the n blocks; P stays float32, and l
+// is summed from the same P.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_d512_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, bf16* __restrict__ o,
+flash_fwd_d512_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, T* __restrict__ o,
                          float* __restrict__ lse, int H, int Tq, int Tk, int D,
                          float scale_log2, int vec) {
-  using W = D512;
+  using W = D512<T>;
   constexpr int DP = W::DP, LDS = W::LDS, BR = W::BR, BN = W::BN;
-  constexpr int LDR = W::LDR, LDP = W::LDP, NB = W::QCOLS / 8;
+  constexpr int LDR = W::LDR, LDP = W::LDP, NB = W::NB, EPT = W::EPT;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* k_s = q_s + BR * LDS;                         // [2][BN][LDS]
-  bf16* v_s = k_s + 2 * BN * LDS;                     // [2][BN][LDS]
+  T* q_s = reinterpret_cast<T*>(smem_raw);
+  T* k_s = q_s + BR * LDS;                            // [2][BN][LDS]
+  T* v_s = k_s + 2 * BN * LDS;                        // [2][BN][LDS]
   float* red = reinterpret_cast<float*>(smem_raw + W::stage_bytes);  // [4][BR][LDR]
-  bf16* p_s = reinterpret_cast<bf16*>(smem_raw + W::stage_bytes + W::red_bytes);
+  T* p_s = reinterpret_cast<T*>(smem_raw + W::stage_bytes + W::red_bytes);
   float* a_s = reinterpret_cast<float*>(smem_raw + W::stage_bytes +
                                         W::red_bytes + W::p_bytes);   // [BR]
   float* l_s = a_s + BR;                                              // [BR]
@@ -703,10 +746,10 @@ flash_fwd_d512_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int c0 = warp * W::QCOLS;
   const int q0 = blockIdx.x * BR;
   const size_t bh = (size_t)blockIdx.z * H + blockIdx.y;
-  const bf16* kb = k + bh * Tk * D;
-  const bf16* vb = v + bh * Tk * D;
-  // the softmax's share of a thread: row sr, columns sc..sc+7 of the tile
-  const int sr = threadIdx.x >> 2, sc = (threadIdx.x & 3) * 8;
+  const T* kb = k + bh * Tk * D;
+  const T* vb = v + bh * Tk * D;
+  // the softmax's share of a thread: row sr, columns sc..sc+EPT-1 of the tile
+  const int sr = threadIdx.x >> 2, sc = (threadIdx.x & 3) * EPT;
 
   stage_tc<DP, BR>(q_s, q + bh * Tq * D, q0, Tq, D, vec);
   stage_tc<DP, BN>(k_s, kb, 0, Tk, D, vec);
@@ -733,8 +776,8 @@ flash_fwd_d512_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       cp_async_commit();
     }
     const int kv = Tk - t * BN;   // valid keys of the tile (may exceed BN)
-    const bf16* kt = k_s + (t & 1) * BN * LDS;
-    const bf16* vt = v_s + (t & 1) * BN * LDS;
+    const T* kt = k_s + (t & 1) * BN * LDS;
+    const T* vt = v_s + (t & 1) * BN * LDS;
 
     // partial S over this warp's quarter of the head dim
     float s[2][BN / 8][4];
@@ -744,21 +787,47 @@ flash_fwd_d512_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
         for (int i = 0; i < 4; ++i) s[m][j][i] = 0.f;
+    if constexpr (!W::F32) {
 #pragma unroll 2
-    for (int ks = 0; ks < W::QCOLS / 16; ++ks) {
-      const int col = c0 + 16 * ks;
-      unsigned fa[2][4];
-      load_rm<LDS, false>(fa[0], q_s, 0, col, lane);
-      load_rm<LDS, false>(fa[1], q_s, 16, col, lane);
+      for (int ks = 0; ks < W::QCOLS / 16; ++ks) {
+        const int col = c0 + 16 * ks;
+        unsigned fa[2][4];
+        load_rm<LDS, false>(fa[0], q_s, 0, col, lane);
+        load_rm<LDS, false>(fa[1], q_s, 16, col, lane);
 #pragma unroll
-      for (int j = 0; j < BN / 16; ++j) {
-        if (16 * j < kv) {
-          unsigned fb[4];
-          load_nk<LDS>(fb, kt, 16 * j, col, lane);
+        for (int j = 0; j < BN / 16; ++j) {
+          if (16 * j < kv) {
+            unsigned fb[4];
+            load_nk<LDS>(fb, kt, 16 * j, col, lane);
 #pragma unroll
-          for (int m = 0; m < 2; ++m) {
-            mma_bf16(s[m][2 * j], fa[m], fb[0], fb[1]);
-            mma_bf16(s[m][2 * j + 1], fa[m], fb[2], fb[3]);
+            for (int m = 0; m < 2; ++m) {
+              mma_bf16(s[m][2 * j], fa[m], fb[0], fb[1]);
+              mma_bf16(s[m][2 * j + 1], fa[m], fb[2], fb[3]);
+            }
+          }
+        }
+      }
+    } else {
+#pragma unroll 2
+      for (int ks = 0; ks < W::QCOLS / 8; ++ks) {
+        const int col = c0 + 8 * ks;
+        unsigned f[4], ah[2][4], al[2][4];
+        load_a_tf32<LDS>(f, q_s, 0, col, lane);
+        split_tf32(f, ah[0], al[0]);
+        load_a_tf32<LDS>(f, q_s, 16, col, lane);
+        split_tf32(f, ah[1], al[1]);
+#pragma unroll
+        for (int j = 0; j < BN / 16; ++j) {
+          if (16 * j < kv) {
+            unsigned bh[4], bl[4];
+            load_nk_tf32<LDS>(f, kt, 16 * j, col, lane);
+            split_tf32(f, bh, bl);
+#pragma unroll
+            for (int m = 0; m < 2; ++m) {
+              mma_3xtf32(s[m][2 * j], ah[m], al[m], bh[0], bh[1], bl[0], bl[1]);
+              mma_3xtf32(s[m][2 * j + 1], ah[m], al[m], bh[2], bh[3], bl[2],
+                         bl[3]);
+            }
           }
         }
       }
@@ -774,11 +843,11 @@ flash_fwd_d512_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
              2 * (lane & 3) + (i & 1)] = s[m][j][i];
     __syncthreads();
 
-    // online softmax of row sr over columns sc..sc+7, the partials added in
-    // warp order; the row's four threads are one quad of lanes
-    float x[8], mx = -INFINITY;
+    // online softmax of row sr over columns sc..sc+EPT-1, the partials added
+    // in warp order; the row's four threads are one quad of lanes
+    float x[EPT], mx = -INFINITY;
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {
+    for (int c = 0; c < EPT; ++c) {
       const float* e = red + sr * LDR + sc + c;
       const float sum = ((e[0] + e[BR * LDR]) + e[2 * BR * LDR]) + e[3 * BR * LDR];
       x[c] = sc + c < kv ? sum * scale_log2 : -INFINITY;
@@ -791,14 +860,19 @@ flash_fwd_d512_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     m_run = m_new;
     float ls = 0.f;
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {
+    for (int c = 0; c < EPT; ++c) {
       x[c] = exp2_ftz(x[c] - m_new);
       ls += x[c];
     }
     l_run = l_run * alpha + ls;
-    *reinterpret_cast<uint4*>(p_s + sr * LDP + sc) =
-        make_uint4(pack_bf16(x[0], x[1]), pack_bf16(x[2], x[3]),
-                   pack_bf16(x[4], x[5]), pack_bf16(x[6], x[7]));
+    if constexpr (W::F32) {
+      *reinterpret_cast<float4*>(p_s + sr * LDP + sc) =
+          make_float4(x[0], x[1], x[2], x[3]);
+    } else {
+      *reinterpret_cast<uint4*>(p_s + sr * LDP + sc) =
+          make_uint4(pack_bf16(x[0], x[1]), pack_bf16(x[2], x[3]),
+                     pack_bf16(x[4], x[5]), pack_bf16(x[6], x[7]));
+    }
     if ((threadIdx.x & 3) == 0) a_s[sr] = alpha;
     __syncthreads();
 
@@ -814,20 +888,45 @@ flash_fwd_d512_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           acc[m][nb][2 * h + 1] *= a;
         }
       }
+    if constexpr (!W::F32) {
 #pragma unroll
-    for (int j = 0; j < BN / 16; ++j) {
-      if (16 * j < kv) {
-        unsigned pa[2][4];
-        load_rm<LDP, false>(pa[0], p_s, 0, 16 * j, lane);
-        load_rm<LDP, false>(pa[1], p_s, 16, 16 * j, lane);
+      for (int j = 0; j < BN / 16; ++j) {
+        if (16 * j < kv) {
+          unsigned pa[2][4];
+          load_rm<LDP, false>(pa[0], p_s, 0, 16 * j, lane);
+          load_rm<LDP, false>(pa[1], p_s, 16, 16 * j, lane);
 #pragma unroll
-        for (int nd = 0; nd < W::QCOLS / 16; ++nd) {
-          unsigned b[4];
-          load_rm<LDS, true>(b, vt, 16 * j, c0 + 16 * nd, lane);
+          for (int nd = 0; nd < W::QCOLS / 16; ++nd) {
+            unsigned b[4];
+            load_rm<LDS, true>(b, vt, 16 * j, c0 + 16 * nd, lane);
 #pragma unroll
-          for (int m = 0; m < 2; ++m) {
-            mma_bf16(acc[m][2 * nd], pa[m], b[0], b[1]);
-            mma_bf16(acc[m][2 * nd + 1], pa[m], b[2], b[3]);
+            for (int m = 0; m < 2; ++m) {
+              mma_bf16(acc[m][2 * nd], pa[m], b[0], b[1]);
+              mma_bf16(acc[m][2 * nd + 1], pa[m], b[2], b[3]);
+            }
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < BN / 8; ++kk) {
+        if (8 * kk < kv) {
+          unsigned f[4], ph[2][4], pl[2][4];
+          load_a_tf32<LDP>(f, p_s, 0, 8 * kk, lane);
+          split_tf32(f, ph[0], pl[0]);
+          load_a_tf32<LDP>(f, p_s, 16, 8 * kk, lane);
+          split_tf32(f, ph[1], pl[1]);
+          // keys 8 kk + t and + 4, head column c0 + 8 nd + g
+          const unsigned* vu = reinterpret_cast<const unsigned*>(vt) +
+                               (8 * kk + (lane & 3)) * LDS + c0 + (lane >> 2);
+#pragma unroll
+          for (int nd = 0; nd < NB; ++nd) {
+            unsigned h0, l0, h1, l1;
+            split_tf32(vu[8 * nd], h0, l0);
+            split_tf32(vu[8 * nd + 4 * LDS], h1, l1);
+#pragma unroll
+            for (int m = 0; m < 2; ++m)
+              mma_3xtf32(acc[m][nd], ph[m], pl[m], h0, h1, l0, l1);
           }
         }
       }
@@ -841,7 +940,7 @@ flash_fwd_d512_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (q0 + sr < Tq) lse[bh * Tq + q0 + sr] = m_run * kLn2 + logf(l_run);
   }
   __syncthreads();
-  bf16* ob = o + bh * Tq * D;
+  T* ob = o + bh * Tq * D;
 #pragma unroll
   for (int m = 0; m < 2; ++m)
 #pragma unroll
@@ -956,18 +1055,21 @@ int tc_rows(int B, int H, int Tq) {
   return wide_tiles<DP>(B, H, Tq) ? Tc<DP, 4>::BR : Tc<DP, 1>::BR;
 }
 
+// The d = 512 kernel of element type T.
+template <typename T>
 cudaError_t launch_d512(const void* q, const void* k, const void* v, void* o,
                         void* lse, int B, int H, int Tq, int Tk, int D,
                         float scale, int vec, cudaStream_t stream) {
+  using W = D512<T>;
   static std::atomic<bool> done[kMaxDevices];
-  cudaError_t err = set_smem_once(flash_fwd_d512_tc_kernel, D512::smem_bytes,
+  cudaError_t err = set_smem_once(flash_fwd_d512_tc_kernel<T>, W::smem_bytes,
                                   done);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Tq + D512::BR - 1) / D512::BR, H, B);
-  flash_fwd_d512_tc_kernel<<<grid, kThreads, D512::smem_bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o),
-      static_cast<float*>(lse), H, Tq, Tk, D, scale * kLog2e, vec);
+  const dim3 grid((Tq + W::BR - 1) / W::BR, H, B);
+  flash_fwd_d512_tc_kernel<T><<<grid, kThreads, W::smem_bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
+      H, Tq, Tk, D, scale * kLog2e, vec);
   return cudaGetLastError();
 }
 
@@ -985,9 +1087,12 @@ extern "C" int aqualora_flash_fwd(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
+    if (D > 160)
+      return (int)launch_d512<float>(q, k, v, o, lse, B, H, Tq, Tk, D, scale,
+                                     D % 4 == 0 && aligned16({q, k, v, o}),
+                                     s);
 #define F32(DP) launch_f32<DP>(q, k, v, o, lse, B, H, Tq, Tk, D, scale, s)
-    return (int)(D <= 48 ? F32(48) : D <= 80 ? F32(80) : D <= 160 ? F32(160)
-                                                                  : F32(512));
+    return (int)(D <= 48 ? F32(48) : D <= 80 ? F32(80) : F32(160));
 #undef F32
   }
   if (dtype == 1) {
@@ -995,8 +1100,8 @@ extern "C" int aqualora_flash_fwd(const void* q, const void* k, const void* v,
 #define TC(DP) launch_tc<DP>(q, k, v, o, lse, B, H, Tq, Tk, D, scale, vec, s)
     return (int)(D <= 40 ? TC(40) : D <= 80 ? TC(80) : D <= 160
                      ? TC(160)
-                     : launch_d512(q, k, v, o, lse, B, H, Tq, Tk, D, scale,
-                                   vec, s));
+                     : launch_d512<bf16>(q, k, v, o, lse, B, H, Tq, Tk, D,
+                                         scale, vec, s));
 #undef TC
   }
   return (int)cudaErrorInvalidValue;
@@ -1009,5 +1114,5 @@ extern "C" int aqualora_flash_fwd(const void* q, const void* k, const void* v,
 extern "C" int aqualora_flash_fwd_tc_rows(int B, int H, int Tq, int D) {
   if (B < 1 || H < 1 || Tq < 1 || D < 1 || D > 512) return 0;
   return D <= 40 ? tc_rows<40>(B, H, Tq) : D <= 80 ? tc_rows<80>(B, H, Tq)
-       : D <= 160 ? tc_rows<160>(B, H, Tq) : D512::BR;
+       : D <= 160 ? tc_rows<160>(B, H, Tq) : D512<bf16>::BR;
 }

@@ -23,10 +23,10 @@ the 77-key cross-attention by the bytes of Q, O (and dO).  The kernels keep
 the [Tq, Tk] logits, P and dS out of device memory.  In bf16 the forward
 and the backward run their products on tensor cores (mma.sync, fed by
 cp.async; P rounded to bf16 only as a register operand).  In float32 the
-d = 512 backward (stage 1's VAE mid-block) runs TF32 tensor-core products
-split three ways (3xTF32), and the other float32 instances run float32
-FMAs on the CUDA cores; both keep the float32 limits (the sources' headers
-have the design, PERF.md the times).
+d = 512 forward and backward (stage 1's VAE mid-block, its default type)
+run TF32 tensor-core products split three ways (3xTF32), and the float32
+instances at d <= 160 run float32 FMAs on the CUDA cores; both keep the
+float32 limits (the sources' headers have the design, PERF.md the times).
 
 Routing: a CPU tensor goes to the plain versions (`flash_attention_plain`,
 `flash_attention_dq_plain`, `flash_attention_dkv_plain`); a CUDA tensor goes

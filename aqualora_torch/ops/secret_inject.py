@@ -8,12 +8,14 @@ side 2 * base_res, in the latent's type:
     latent + conv3x3(nearest_x2(repeat_C(silu(msg W^T + b))))
 
 It replaces the TPU kernel `_kernel` (`aqualora_tpu/ops/secret_inject.py:47`,
-launched by `_pallas_inject`).  As there, the dense layer, SiLU, the nearest
-x2 upsample and the zero pad stay outside the kernel as torch ops, and the
-channel repeat folds into the conv: conv(repeat(u), K) = conv(u, sum over
-input channels of K), one single-channel 3x3 stencil per output channel.
-The kernel (`csrc/secret_inject.cu`) is bound by bytes, and at the PPFT
-shape (B8 x 4 x 64 x 64) by its launch (PERF.md has the times).
+launched by `_pallas_inject`) and the XLA ops around it: on the card the
+whole function is one launch of `csrc/secret_inject.cu`, which computes the
+dense layer, SiLU, the nearest x2 upsample and the zero pad by index
+arithmetic, and folds the channel repeat into the conv: conv(repeat(u), K) =
+conv(u, sum over input channels of K), one single-channel 3x3 stencil per
+output channel.  It reads every input in its own type (float32 or bfloat16)
+and computes in float32.  The launch bounds it at the PPFT shape (B8 x 4 x
+64 x 64); PERF.md has the times.
 
 Weights use the torch layouts of `SecretEncoder`: `dense_w` [base^2, bits],
 `conv_w` OIHW [C, C, 3, 3].  The backward recomputes `inject_plain` under
@@ -35,7 +37,7 @@ import torch.nn.functional as F
 
 from aqualora_torch.ops import _build
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)     # what the kernel reads
 
 launches = _build.LaunchCounter()          # by (B, C, H, W)
 
@@ -85,23 +87,25 @@ def _inject(latent, msg, dense_w, dense_b, conv_w, conv_b, base_res):
     if latent.device.type == "cpu":
         return inject_plain(latent, msg, dense_w, dense_b, conv_w, conv_b,
                             base_res)
+    ins = (latent, msg, dense_w, dense_b, conv_w, conv_b)
+    for t in ins:
+        if t.dtype not in _DTYPES:
+            raise ValueError(f"the kernel takes float32 or bfloat16 inputs, "
+                             f"got {t.dtype}")
     fn = _build.bind(_build.build("secret_inject"), "aqualora_secret_inject",
-                     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                      + [ctypes.c_void_p])
+    # contiguous inputs (the trainer's) are taken as they are: no device op
+    # but the launch
+    ins = tuple(t.contiguous() for t in ins)
     b, c, h, w = latent.shape
-    v = F.silu(F.linear(msg.float(), dense_w.float(), dense_b.float()))
-    up = v.reshape(b, base_res, base_res).repeat_interleave(2, 1) \
-        .repeat_interleave(2, 2)
-    grid = F.pad(up, (1, 1, 1, 1)).contiguous()           # [B, H+2, W+2]
-    k1 = conv_w.float().sum(1).contiguous()                # [C, 3, 3]
-    bias = conv_b.float().contiguous()
-    latent = latent.contiguous()
-    out = torch.empty_like(latent)
+    out = torch.empty_like(ins[0])
+    dtypes = sum(1 << i for i, t in enumerate(ins)
+                 if t.dtype == torch.bfloat16)
     with torch.cuda.device(latent.device):
         stream = torch.cuda.current_stream(latent.device).cuda_stream
-        err = fn(latent.data_ptr(), grid.data_ptr(), k1.data_ptr(),
-                 bias.data_ptr(), out.data_ptr(), b, c, h, w,
-                 _DTYPES[latent.dtype], stream)
+        err = fn(*(t.data_ptr() for t in ins), out.data_ptr(), b, c,
+                 conv_w.shape[1], base_res, msg.shape[1], dtypes, stream)
     _build.check_launch(err, f"secret_inject at {tuple(latent.shape)} "
                              f"{latent.dtype}")
     launches.add(b, c, h, w)

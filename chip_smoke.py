@@ -14,9 +14,10 @@ Phases (any failure raises, so the exit code is not 0):
      flash_bwd, secret_inject), one nvcc each, all started together, and
      count the tensor-core instructions (HMMA, HGMMA) of every attention
      kernel in the built libraries with cuobjdump: each bfloat16 forward,
-     dQ and dK/dV instance (`*_tc_kernel`) and the float32 d = 512 dQ and
-     dK/dV instances (`*_d512_tc_kernel<float>`, 3xTF32) must have some,
-     each other float32 instance (the CUDA-core kernels) none.
+     dQ and dK/dV instance (`*_tc_kernel`) and the float32 d = 512
+     forward, dQ and dK/dV instances (`*_d512_tc_kernel<float>`, 3xTF32)
+     must have some, each other float32 instance (the CUDA-core kernels at
+     d <= 160) none.
   2. The forward kernel against `flash_attention_plain` on the card at every
      attention shape of the serving path, O and lse: float32 and bfloat16
      at batch 2, then bfloat16 at the serving batch, where the tiling the
@@ -44,7 +45,10 @@ Phases (any failure raises, so the exit code is not 0):
      delta included) beside the plain backward's.  At 64^2 self two
      bfloat16 calls must give the same bits.
   6. The secret-injection kernel against `inject_plain` at the training
-     latent [8, 4, 64, 64], float32 and bfloat16, with its time and bound.
+     latent [8, 4, 64, 64], float32 and bfloat16 latents with float32 and
+     bfloat16 weights (the PPFT trainer's are bf16), with its time and
+     bound.  First of the profiled phases, one call under torch.profiler
+     must run exactly one CUDA kernel, the injection's.
   7. The tiny PPFT step on the card (kernels) against the CPU (plain), the
      same weights and draws, float32: the loss and every trainable's
      gradient.
@@ -54,7 +58,8 @@ Phases (any failure raises, so the exit code is not 0):
      `aqualora_torch.train.ppft_train`, 1 warm-up and 3 timed steps.  Every
      step must launch 65 forward, 32 dQ, 32 dK/dV and 1 injection kernels;
      the loss and gradient norm must be finite and positive and the LoRA up
-     weights must move.  Then one more step under torch.profiler.
+     weights must move.  After phase 12's profile, one more step under
+     torch.profiler.
   9. SDPA's backward at each training shape, B8 bf16, as device time under
      torch.profiler (a yardstick for the pair; the port never calls it),
      beside the pair's own device time (delta, dQ and dK/dV kernels): at
@@ -66,16 +71,15 @@ Phases (any failure raises, so the exit code is not 0):
      largest kernels and the forward kernel's share (`--phases 11` runs
      phase 3 too).
  12. Stage 1's attention, the VAE mid-block at d = 512 differentiated
-     through the watermarked decode: the d = 512 backward kernels (dQ,
-     dK/dV) against their plain versions at the stage-1 batch (5, 1, 4096,
-     4096, 512) and at a ragged (2, 1, 1000, 1000, 512), float32 and
-     bfloat16, two calls of either type bit-identical; at B5 the forward's
-     instances against their plain version too; then at B5 each kernel's
-     time, the plain version's and the bound (float32: at the 3xTF32
-     rate, beside the bound at the CUDA cores' float32 rate).  After phase
-     11, the pair's and SDPA's backward (a yardstick; the port never calls
-     it) as device time under torch.profiler, with the SDPA backend torch
-     picked.
+     through the watermarked decode: the d = 512 forward and backward
+     kernels (dQ, dK/dV) against their plain versions at the stage-1 batch
+     (5, 1, 4096, 4096, 512) and at a ragged (2, 1, 1000, 1000, 512),
+     float32 and bfloat16, two calls of either type bit-identical; then at
+     B5 each kernel's time, the plain version's and the bound (float32: at
+     the 3xTF32 rate, beside the bound at the CUDA cores' float32 rate).
+     After phase 10, the forward's and SDPA's forward, the pair's and SDPA's
+     backward (a yardstick; the port never calls it) as device time under
+     torch.profiler, with the SDPA backend torch picked.
  13. The tiny stage-1 step on the card (kernels) against the CPU (plain),
      the same weights and draws, float32: the loss and every trainable's
      gradient, once for each of the six stage-1 distortions.
@@ -91,8 +95,11 @@ Phases (any failure raises, so the exit code is not 0):
      each under torch.profiler: the busy share and the d = 512 pair's
      share of device time.
 The timed phases run first (0-7, 12, 13, 14, 8) and the profiled ones after
-them (9, 10, 11, then the profiles of 12 and 14), so that the profiler
-touches no timed phase.  The line before the last names the card and its
+them, so that the profiler touches no timed phase: first the short
+sessions (6's profile, 9, 10, 12's profile), then the profiles of whole
+steps (8, 14) and of a generate call (11).  After a session of a whole
+step, short sessions in the same process have recorded some device events
+or none (PERF.md, section 7).  The line before the last names the card and its
 power limit; the last line is {"ok": true, "device": {...}}.
 """
 
@@ -112,8 +119,8 @@ import torch.nn.functional as F
 
 # H100 SXM data sheet: dense bf16 tensor-core rate, the float32 rate of the
 # CUDA cores (the float32 kernels' units at d <= 160), the dense TF32
-# tensor-core rate and HBM3 bandwidth.  The float32 d = 512 backward does
-# each product as three TF32 products (3xTF32): PEAK_TF32_FLOPS / 3.
+# tensor-core rate and HBM3 bandwidth.  The float32 d = 512 kernels do each
+# product as three TF32 products (3xTF32): PEAK_TF32_FLOPS / 3.
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 494.7e12
@@ -324,9 +331,9 @@ def phase1():
               f"(all {len(SOURCES)} nvcc started together)", flush=True)
     # bf16 instances: forward 3 head-dim tiles x 2 row tilings + d = 512;
     # backward 3 x 2 x (dQ, dK/dV) + d = 512 x (dQ, dK/dV).  float32 on the
-    # tensor cores (3xTF32): backward d = 512 x (dQ, dK/dV).  float32 on the
-    # CUDA cores: forward 4, backward 3 (d <= 160) x (dQ, dK/dV).
-    for name, n_tc, n_tf32, n_f32 in (("flash_fwd", 7, 0, 4),
+    # tensor cores (3xTF32): the d = 512 forward, dQ and dK/dV.  float32 on
+    # the CUDA cores (d <= 160): forward 3, backward 3 x (dQ, dK/dV).
+    for name, n_tc, n_tf32, n_f32 in (("flash_fwd", 7, 1, 3),
                                       ("flash_bwd", 14, 2, 6)):
         counts = tensor_core_counts(name)
         for fn, (hmma, hgmma) in sorted(counts.items()):
@@ -704,52 +711,98 @@ def phase5(smi: str) -> dict:
     return rows
 
 
-def phase6(smi: str) -> dict:
-    """The injection kernel against `inject_plain` at the training latent."""
-    from aqualora_torch.ops import secret_inject as si
-    gen = torch.Generator(device="cuda").manual_seed(6)
-    b, c, res, base, bits = TRAIN_BATCH, 4, 64, 32, 48
+def inject_inputs(wdtype: torch.dtype, seed: int = 6) -> tuple:
+    """The training latent's message and SecretEncoder weights [8, 48],
+    dense [1024, 48] and [1024], conv [4, 4, 3, 3] and [4], the weights in
+    `wdtype`, and a float32 latent maker."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
 
     def rnd(*shape):
         return torch.randn(*shape, device="cuda", generator=gen)
 
-    weights = (0.2 * rnd(base * base, bits), 0.1 * rnd(base * base),
-               0.1 * rnd(c, c, 3, 3), 0.1 * rnd(c))
+    b, c, res, base, bits = TRAIN_BATCH, 4, 64, 32, 48
     msg = torch.bernoulli(torch.full((b, bits), 0.5, device="cuda"),
                           generator=gen)
+    weights = tuple(w.to(wdtype) for w in (
+        0.2 * rnd(base * base, bits), 0.1 * rnd(base * base),
+        0.1 * rnd(c, c, 3, 3), 0.1 * rnd(c)))
+    return msg, weights, lambda: rnd(b, c, res, res)
+
+
+def phase6(smi: str) -> dict:
+    """The injection kernel against `inject_plain` at the training latent,
+    float32 and bf16 latents and weights; the time and bound at the PPFT
+    trainer's types (bf16 latent, bf16 weights)."""
+    from aqualora_torch.ops import secret_inject as si
+    b, c, res, base, bits = TRAIN_BATCH, 4, 64, 32, 48
     row = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        latent = rnd(b, c, res, res).to(dtype)
-        out = si.fused_secret_inject(latent, msg, *weights, base_res=base)
-        ref = si.inject_plain(latent, msg, *weights, base_res=base)
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        # float32: nine-term float32 sums in other orders; bf16: one ulp at
-        # the output's largest value (both sides round float32 once)
-        tol = 1e-5 if dtype == torch.float32 else \
-            2.0 ** -7 * ref.float().abs().max().item() + 1e-5
-        line = (f"[6] inject [{b}, {c}, {res}, {res}] {str(dtype)[6:]}: "
-                f"max|d| {err:.3e} (tol {tol:.3e})")
-        print(line, flush=True)
-        if not err <= tol:
-            raise AssertionError(f"inject kernel disagrees: {line}")
-        row["max_abs_err"] = err
-    ms = time_ms(lambda: si.fused_secret_inject(latent, msg, *weights,
-                                                base_res=base), iters=100)
-    plain_ms = time_ms(lambda: si.inject_plain(latent, msg, *weights,
-                                               base_res=base), iters=100)
-    n = b * c * res * res
-    # latent in, out (bf16), the padded grid (float32), k1 and bias;
-    # two operations per tap of the 3x3 stencil plus the two adds
-    bound_ms, bound_by = bound(20.0 * n, 2 * 2 * n + 4 * b * (res + 2) ** 2
-                               + 4 * (9 * c + c))
-    print(f"[6] inject B{b} bf16: kernel_ms {ms:.4f} (the whole wrapper: "
-          f"dense, SiLU, upsample, pad and the launch) plain_ms "
-          f"{plain_ms:.4f} library_ms none (no one PyTorch call computes "
-          f"it) bound_ms {bound_ms:.6f} ({bound_by}) | {smi}", flush=True)
+    for wdtype in (torch.float32, torch.bfloat16):
+        msg, weights, latent_of = inject_inputs(wdtype)
+        for dtype in (torch.float32, torch.bfloat16):
+            latent = latent_of().to(dtype)
+            before = si.launches.count
+            out = si.fused_secret_inject(latent, msg, *weights,
+                                         base_res=base)
+            ref = si.inject_plain(latent, msg, *weights, base_res=base)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            # float32: float32 sums in other orders; bf16: one ulp at the
+            # output's largest value (both sides round float32 once)
+            tol = 1e-5 if dtype == torch.float32 else \
+                2.0 ** -7 * ref.float().abs().max().item() + 1e-5
+            line = (f"[6] inject [{b}, {c}, {res}, {res}] latent "
+                    f"{str(dtype)[6:]}, weights {str(wdtype)[6:]}: max|d| "
+                    f"{err:.3e} (tol {tol:.3e}, {err / tol:.2f} of it)")
+            print(line, flush=True)
+            if not (err <= tol and si.launches.count == before + 1):
+                raise AssertionError(f"inject kernel disagrees: {line}")
+            row["max_abs_err"] = err       # the last: the PPFT types
+    args = (latent, msg, *weights)
+    ms = time_ms(lambda: si.fused_secret_inject(*args, base_res=base),
+                 iters=100)
+    plain_ms = time_ms(lambda: si.inject_plain(*args, base_res=base),
+                       iters=100)
+    n, cells = b * c * res * res, base * base
+    # bytes: latent in and out, msg (float32), the dense and conv weights
+    # and biases (bf16), each once; operations: the dense layer (a
+    # multiply-add per bit, the bias) and the stencil (nine multiply-adds,
+    # the latent and the bias), SiLU not counted
+    nbytes = (2 * 2 * n + 4 * b * bits
+              + 2 * (cells * bits + cells + 9 * c * c + c))
+    bound_ms, bound_by = bound(b * cells * (2.0 * bits + 1) + 20.0 * n,
+                               nbytes)
+    print(f"[6] inject B{b} bf16 latent and weights: kernel_ms {ms:.4f} (the "
+          f"whole wrapper: one launch) plain_ms {plain_ms:.4f} library_ms "
+          f"none (no one PyTorch call computes it) bound_ms "
+          f"{bound_ms:.6f} ({bound_by}) | {smi}", flush=True)
     row.update({"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": None})
     return row
+
+
+def phase6_profile(smi: str) -> None:
+    """One injection call at the PPFT types under torch.profiler: it must
+    run exactly one CUDA kernel, the injection's; then its device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from aqualora_torch.ops import secret_inject as si
+    msg, weights, latent_of = inject_inputs(torch.bfloat16)
+    args = (latent_of().to(torch.bfloat16), msg, *weights)
+    si.fused_secret_inject(*args, base_res=32)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        si.fused_secret_inject(*args, base_res=32)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev = device_ms(lambda: si.fused_secret_inject(*args, base_res=32),
+                    iters=20)
+    print(f"[6] one inject call B{TRAIN_BATCH} bf16 runs {len(kernels)} CUDA "
+          f"kernel(s): {kernels}; its device time {dev:.4f} ms | {smi}",
+          flush=True)
+    if len(kernels) != 1 or "secret_inject_kernel" not in kernels[0]:
+        raise AssertionError(f"one inject call ran {kernels}")
 
 
 def phase7():
@@ -856,7 +909,9 @@ def profile_step(tr, step_s: float, smi: str) -> None:
 
 
 def phase8(smi: str) -> tuple:
-    """The training path at full width through the trainer's entry point."""
+    """The training path at full width through the trainer's entry point;
+    returns the launches per shape and of the injection, and the trainer
+    with its median step, for the profiled step after phase 12's profile."""
     from aqualora_torch.ops import flash_attention as fa
     from aqualora_torch.ops import secret_inject as si
     from aqualora_torch.train import ppft_train as pt
@@ -936,10 +991,7 @@ def phase8(smi: str) -> tuple:
           f"{TRAIN_BATCH / med:.4f} samples/s (median of {len(times)}: "
           f"{', '.join(f'{x:.4f}' for x in times)} s), peak memory "
           f"{peak_gib:.2f} GiB | {smi}", flush=True)
-    profile_step(tr, med, smi)
-    del tr
-    torch.cuda.empty_cache()
-    return per_shape, inject_launches
+    return per_shape, inject_launches, (tr, med)
 
 
 def phase9(smi: str, bwd_rows: dict) -> None:
@@ -1027,7 +1079,7 @@ def phase11(smi: str, run, call_s: float) -> None:
 
 
 def phase12(smi: str) -> dict:
-    """The d = 512 backward (and forward) against the plain versions at the
+    """The d = 512 forward and backward against the plain versions at the
     stage-1 shapes; times at B5."""
     from aqualora_torch.ops import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(12)
@@ -1036,7 +1088,7 @@ def phase12(smi: str) -> dict:
         scale = d ** -0.5
         for dtype in (torch.float32, torch.bfloat16):
             tag = DTYPE_NAMES[dtype]
-            # the backward's peak: float32 runs 3xTF32 on the tensor cores
+            # the kernels' peak: float32 runs 3xTF32 on the tensor cores
             peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else \
                 PEAK_TF32_FLOPS / 3
             q, do = (torch.randn(b, h, tq, d, device="cuda", generator=gen)
@@ -1072,14 +1124,19 @@ def phase12(smi: str) -> dict:
                   f"bit-identical): "
                   + ", ".join(parts), flush=True)
             del got, want
+            # the forward's instance of this type, two calls bit-identical
+            fwd_out = fa.flash_attention_fwd(q, k, v, scale)
+            fwd_again = fa.flash_attention_fwd(q, k, v, scale)
+            if not all(torch.equal(x, y) for x, y in zip(fwd_out, fwd_again)):
+                raise AssertionError(f"{name} {tag}: two d = 512 forward "
+                                     f"calls differ")
+            fwd_err = check_fwd(f"[12] {name} forward (two calls "
+                                f"bit-identical)", q, k, v, scale,
+                                out=fwd_out)
+            del fwd_out, fwd_again
             if b != S1_BATCH:
                 del q, k, v, do, o, lse, delta, args
                 continue
-            # the forward's instance of this type at the stage-1 batch
-            fwd_out = fa.flash_attention_fwd(q, k, v, scale)
-            fwd_err = check_fwd(f"[12] {name} forward", q, k, v, scale,
-                                out=fwd_out)
-            del fwd_out
             t = {"fwd": time_ms(lambda: fa.flash_attention_fwd(q, k, v, scale),
                                 iters=5, warmup=1),
                  "fwd_plain": time_ms(lambda: fa.flash_attention_plain(
@@ -1096,16 +1153,14 @@ def phase12(smi: str) -> dict:
                      *args), iters=3, warmup=1)}
             eb = 2 if dtype == torch.bfloat16 else 4
             bounds = bwd_bounds(b, h, tq, tk, d, eb, peak)
-            # the float32 forward still runs on the CUDA cores
-            fb, fby = attention_bound(
-                b, h, tq, tk, d, eb,
-                PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS)
+            fb, fby = attention_bound(b, h, tq, tk, d, eb, peak)
             cuda_core = ""
             if dtype == torch.float32:
                 cc = bwd_bounds(b, h, tq, tk, d, eb, PEAK_F32_FLOPS)
-                cuda_core = (f" (at the CUDA cores' float32 rate: dq "
-                             f"{cc['dq'][0]:.4f}, dkv {cc['dkv'][0]:.4f}, "
-                             f"pair {cc['pair'][0]:.4f})")
+                cf = attention_bound(b, h, tq, tk, d, eb, PEAK_F32_FLOPS)
+                cuda_core = (f" (at the CUDA cores' float32 rate: forward "
+                             f"{cf[0]:.4f}, dq {cc['dq'][0]:.4f}, dkv "
+                             f"{cc['dkv'][0]:.4f}, pair {cc['pair'][0]:.4f})")
             print(f"[12] {name} B{b} {tag}: forward kernel_ms {t['fwd']:.4f} "
                   f"plain_ms {t['fwd_plain']:.4f} library_ms(sdpa) "
                   f"{t['fwd_library']:.4f} bound_ms {fb:.4f} ({fby}); dq "
@@ -1132,8 +1187,9 @@ def phase12(smi: str) -> dict:
 
 
 def phase12_profile(smi: str) -> None:
-    """The d = 512 pair and SDPA's backward at the stage-1 batch as device
-    time, and the SDPA backend torch picked (its backward node)."""
+    """The d = 512 forward and SDPA's forward, the pair and SDPA's backward,
+    at the stage-1 batch as device time, and the SDPA backend torch picked
+    (its backward node)."""
     from aqualora_torch.ops import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(13)
     name, b, h, tq, tk, d = S1_SHAPES[0]
@@ -1143,6 +1199,18 @@ def phase12_profile(smi: str) -> None:
                  .to(dtype) for _ in range(2))
         k, v = (torch.randn(b, h, tk, d, device="cuda", generator=gen)
                 .to(dtype) for _ in range(2))
+        fwd_dev = device_ms(lambda: fa.flash_attention_fwd(q, k, v, scale),
+                            iters=3)
+        sdpa_fwd = device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, scale=scale), iters=3)
+        bound_ms, bound_by = attention_bound(
+            b, h, tq, tk, d, 2 if dtype == torch.bfloat16 else 4,
+            PEAK_BF16_FLOPS if dtype == torch.bfloat16 else
+            PEAK_TF32_FLOPS / 3)
+        print(f"[12] {name} B{b} {DTYPE_NAMES[dtype]}: the d = 512 forward's "
+              f"device time {fwd_dev:.4f} ms; library_ms(sdpa forward, "
+              f"device time) {sdpa_fwd:.4f} = {fwd_dev / sdpa_fwd:.2f}x; "
+              f"bound {bound_ms:.4f} ({bound_by}) | {smi}", flush=True)
         o, lse = fa.flash_attention_fwd(q, k, v, scale)
         pair_dev = device_ms(lambda: fa.flash_attention_bwd(
             q, k, v, o, lse, do, scale), iters=3)
@@ -1415,7 +1483,10 @@ def kernels_line(rows, launches, bwd_rows, train_launches, inject_row,
                 "source": f"aqualora_torch/csrc/{src}.cu",
                 "replaces": f"aqualora_tpu/ops/flash_attention.py:{line}",
                 "launches": s1_launches[tag][kern], **s1_rows[(kern, tag)]})
-    return {"kernels": kernels}
+    # a device time the profiler did not measure is null, not NaN
+    return {"kernels": [{k: None if isinstance(x, float) and math.isnan(x)
+                         else x for k, x in kern.items()}
+                        for kern in kernels]}
 
 
 def main(argv=None):
@@ -1464,17 +1535,25 @@ def main(argv=None):
     if 14 in run_:
         s1_launches, s1_kept = phase14(smi)
     if 8 in run_:
-        train_launches, inject_launches = phase8(smi)
+        train_launches, inject_launches, ppft_kept = phase8(smi)
+    # the profiled phases: the short sessions first, then the profiles of
+    # whole steps and of the generate call (see the docstring)
+    if 6 in run_:
+        phase6_profile(smi)
     if 9 in run_:
         phase9(smi, bwd_rows)
     if 10 in run_:
         phase10(smi, rows)
-    if 11 in run_:
-        phase11(smi, serve, med_s)
     if 12 in run_:
         phase12_profile(smi)
+    if 8 in run_:
+        profile_step(*ppft_kept, smi)
+        del ppft_kept
+        torch.cuda.empty_cache()
     if 14 in run_:
         phase14_profile(smi, s1_kept)
+    if 11 in run_:
+        phase11(smi, serve, med_s)
     if run_ == every:
         print(json.dumps(kernels_line(rows, launches, bwd_rows,
                                       train_launches, inject_row,

@@ -64,6 +64,8 @@ def _need_cuda():
     (16, 8, 1024, 77, 80, 128),   # the serving batch's 32^2 cross-attention
     (2, 4, 100, 90, 36, 16),      # d not a multiple of 8: staged by plain loads
     (1, 1, 4096, 4096, 512, 32),  # the VAE mid-block at B1
+    (5, 1, 4096, 4096, 512, 32),  # the VAE mid-block at the stage-1 batch
+    (1, 2, 77, 50, 300, 32),      # d = 512 kernel at a narrower head dim
 ])
 def test_flash_kernel_matches_plain(dtype, b, h, tq, tk, d, rows):
     _need_cuda()
@@ -84,20 +86,23 @@ def test_flash_kernel_matches_plain(dtype, b, h, tq, tk, d, rows):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,h,tq,tk,d", [
-    (2, 8, 4096, 4096, 40),   # the 64^2 self-attention, 128-row tiles
-    (2, 8, 4096, 77, 40),     # its cross-attention
-    (16, 8, 1024, 1024, 80),  # the 32^2 self-attention at the serving batch
-    (2, 8, 300, 77, 160),     # 16-row tiles, the warps' sums merged
-    (1, 1, 1000, 1000, 512),  # the d = 512 kernel
+@pytest.mark.parametrize("b,h,tq,tk,d,dtype", [
+    (2, 8, 4096, 4096, 40, torch.bfloat16),   # the 64^2 self, 128-row tiles
+    (2, 8, 4096, 77, 40, torch.bfloat16),     # its cross-attention
+    (16, 8, 1024, 1024, 80, torch.bfloat16),  # 32^2 self at the serving batch
+    (2, 8, 300, 77, 160, torch.bfloat16),     # 16-row tiles, warps merged
+    (1, 1, 1000, 1000, 512, torch.bfloat16),  # the d = 512 kernel
+    (5, 1, 4096, 4096, 512, torch.float32),   # d = 512 float32 (3xTF32)
+    (2, 1, 1000, 1000, 512, torch.float32),   # d = 512 float32, ragged
 ])
-def test_flash_fwd_is_deterministic(b, h, tq, tk, d):
+def test_flash_fwd_is_deterministic(b, h, tq, tk, d, dtype):
     """No atomics, and the warps' partial results are merged in a fixed
-    order, so two bf16 calls give the same bits."""
+    order, so two calls give the same bits: bf16, and float32 on the d = 512
+    tensor-core kernel."""
     _need_cuda()
     gen = torch.Generator(device="cuda").manual_seed(tk + d)
     q, k, v = (torch.randn(b, h, t, d, device="cuda", generator=gen)
-               .bfloat16() for t in (tq, tk, tk))
+               .to(dtype) for t in (tq, tk, tk))
     first = fa.flash_attention_fwd(q, k, v, d ** -0.5)
     again = fa.flash_attention_fwd(q, k, v, d ** -0.5)
     torch.cuda.synchronize()
@@ -226,21 +231,31 @@ def test_gradient_through_dot_product_attention_on_cuda():
             torch.float32, g_cpu)
 
 
+def _inject_args(b, dtype, wdtype, seed=3):
+    """A latent [b, 4, 64, 64] of `dtype` and a 48-bit message with
+    SecretEncoder weights of `wdtype` (the PPFT trainer keeps them in bf16)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, device="cuda", generator=gen)
+    latent = rnd(b, 4, 64, 64).to(dtype)
+    msg = torch.bernoulli(torch.full((b, 48), 0.5, device="cuda"),
+                          generator=gen)
+    return (latent, msg, *(w.to(wdtype) for w in (
+        0.2 * rnd(1024, 48), 0.1 * rnd(1024), 0.1 * rnd(4, 4, 3, 3),
+        0.1 * rnd(4))))
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("b", [3, 8])
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_secret_inject_kernel_matches_plain(dtype):
-    """One bf16 ulp at the output's largest value for bf16 (both sides
-    compute in float32 and round once), float32 sums of 9 terms otherwise."""
+def test_secret_inject_kernel_matches_plain(dtype, wdtype, b):
+    """One bf16 ulp at the output's largest value for a bf16 latent (both
+    sides compute in float32 from the same weights and round once), float32
+    sums in other orders otherwise."""
     from aqualora_torch.ops import secret_inject as si
 
     _need_cuda()
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    rnd = lambda *s: torch.randn(*s, device="cuda", generator=gen)
-    latent = rnd(3, 4, 64, 64).to(dtype)
-    msg = torch.bernoulli(torch.full((3, 48), 0.5, device="cuda"),
-                          generator=gen)
-    args = (latent, msg, 0.2 * rnd(1024, 48), 0.1 * rnd(1024),
-            0.1 * rnd(4, 4, 3, 3), 0.1 * rnd(4))
+    args = _inject_args(b, dtype, wdtype)
     before = si.launches.count
     out = si.fused_secret_inject(*args, base_res=32)
     ref = si.inject_plain(*args, base_res=32)
@@ -249,6 +264,27 @@ def test_secret_inject_kernel_matches_plain(dtype):
     tol = 1e-5 if dtype == torch.float32 else \
         2.0 ** -7 * ref.float().abs().max().item() + 1e-5
     assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_secret_inject_is_one_cuda_kernel():
+    """One `fused_secret_inject` call at the PPFT shape (B8, bf16 latent and
+    weights) runs exactly one CUDA kernel on the card, the injection's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from aqualora_torch.ops import secret_inject as si
+
+    _need_cuda()
+    args = _inject_args(8, torch.bfloat16, torch.bfloat16)
+    si.fused_secret_inject(*args, base_res=32)       # built and loaded
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        si.fused_secret_inject(*args, base_res=32)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "secret_inject_kernel" in kernels[0], kernels
 
 
 @pytest.mark.cuda

@@ -364,10 +364,11 @@ _D512_SHAPES = [(256, 256), (200, 200), (256, 200), (200, 256)]
 
 @pytest.fixture(scope="module")
 def d512_cases():
-    """Seeded float32 inputs at d = 512, H = 1 and the JAX package's dq, dk,
-    dv for each (Tq, Tk) of _D512_SHAPES: the Pallas backward in interpret
-    mode where it takes the shape (Tq, Tk multiples of 128), else `jax.vjp`
-    of `_xla_attention` (the Pallas kernels refuse a ragged length)."""
+    """Seeded float32 inputs at d = 512, H = 1 and the JAX package's forward
+    (O, lse) and backward (dq, dk, dv) for each (Tq, Tk) of _D512_SHAPES:
+    the Pallas kernels in interpret mode where they take the shape (Tq, Tk
+    multiples of 128), else `_xla_attention`, its logsumexp and its
+    `jax.vjp` (the Pallas kernels refuse a ragged length)."""
     import aqualora_tpu.ops.flash_attention as F
     from aqualora_tpu.ops.attention import _xla_attention
 
@@ -379,21 +380,26 @@ def d512_cases():
         jq, jk, jv, jg = map(jax.numpy.asarray, (q, k, v, g))
         if tq % 128 == 0 and tk % 128 == 0:
             with _interpret_pallas():
-                _, res = F._fa_fwd(jq, jk, jv, scale)
+                out, res = F._fa_fwd(jq, jk, jv, scale)
                 ref = F._fa_bwd(scale, res, jg)
+            lse = res[4][..., 0]
         else:
-            _, vjp = jax.vjp(
+            out, vjp = jax.vjp(
                 lambda q, k, v: _xla_attention(q, k, v, None, scale),
                 jq, jk, jv)
             ref = vjp(jg)
-        cases[(tq, tk)] = ((q, k, v, g), [np.asarray(r) for r in ref])
+            lse = jax.nn.logsumexp(
+                jax.numpy.einsum("bhqd,bhkd->bhqk", jq, jk,
+                                 precision="highest") * scale, axis=-1)
+        cases[(tq, tk)] = ((q, k, v, g), [np.asarray(r) for r in ref],
+                           (np.asarray(out), np.asarray(lse)))
     return cases
 
 
 def _d512_errors(case, split):
     """Each gradient's max |error| of the emulated kernel arithmetic against
     the JAX reference, over its limit 1e-4 max|g| + 1e-5."""
-    (q, k, v, g), ref = case
+    (q, k, v, g), ref, _ = case
     q, k, v, do = map(torch.from_numpy, (q, k, v, g))
     scale = 512 ** -0.5
     o, lse = fa.flash_attention_plain(q, k, v, scale)
@@ -420,4 +426,56 @@ def test_fp32_d512_one_pass_tf32_misses_grad_tolerance(d512_cases):
     """Why the split: the same arithmetic with one TF32 product (10 mantissa
     bits an operand) misses that limit."""
     ratios = _d512_errors(d512_cases[(256, 256)], split=False)
+    assert max(ratios.values()) > 1.0, ratios
+
+
+def _f32_d512_fwd_kernel_arithmetic(q, k, v, scale, split):
+    """What csrc/flash_fwd.cu's float32 d = 512 forward computes, tile by
+    tile over 16 keys: S as four partials over 128-column quarters of the
+    head dim (one a warp), added in warp order; the online softmax in log2
+    units in float32; P kept in float32 (no rounding) and l summed from it;
+    O = alpha O + P V.  Every product is `_tf32_mma`."""
+    sl = scale * 1.4426950408889634
+    m = torch.full(q.shape[:3], float("-inf"))
+    l = torch.zeros(q.shape[:3])
+    acc = torch.zeros(q.shape)
+    for k0 in range(0, k.shape[2], 16):
+        kt, vt = k[:, :, k0:k0 + 16], v[:, :, k0:k0 + 16]
+        parts = [_tf32_mma(0.0, q[..., c:c + 128],
+                           kt[..., c:c + 128].transpose(-1, -2), split)
+                 for c in range(0, q.shape[-1], 128)]
+        s = (((parts[0] + parts[1]) + parts[2]) + parts[3]) * sl
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = _tf32_mma(acc * alpha[..., None], p, vt, split)
+        m = m_new
+    return acc / l[..., None], m * np.log(2.0) + torch.log(l)
+
+
+def _d512_fwd_errors(case, split):
+    """max |error| of the emulated forward's O and lse against the JAX
+    forward, each over its float32 limit of 1e-4."""
+    (q, k, v, _), _, (o_ref, lse_ref) = case
+    o, lse = _f32_d512_fwd_kernel_arithmetic(
+        *map(torch.from_numpy, (q, k, v)), 512 ** -0.5, split)
+    return {"o": np.abs(o.numpy() - o_ref).max() / 1e-4,
+            "lse": np.abs(lse.numpy() - lse_ref).max() / 1e-4}
+
+
+@pytest.mark.parametrize("tq,tk", _D512_SHAPES)
+def test_fp32_d512_fwd_3xtf32_arithmetic_fits_o_tolerance(d512_cases, tq, tk):
+    """The float32 d = 512 forward's arithmetic (3xTF32 products, partial
+    scores added in warp order, 16-key tiles, P in float32, ragged lengths)
+    keeps O and lse within the card's float32 limit (1e-4) of the JAX
+    forward."""
+    ratios = _d512_fwd_errors(d512_cases[(tq, tk)], split=True)
+    assert max(ratios.values()) <= 1.0, ratios
+
+
+def test_fp32_d512_fwd_one_pass_tf32_misses_o_tolerance(d512_cases):
+    """Why the forward splits too: the same arithmetic with one TF32 product
+    (10 mantissa bits an operand) misses the O limit."""
+    ratios = _d512_fwd_errors(d512_cases[(256, 256)], split=False)
     assert max(ratios.values()) > 1.0, ratios

@@ -109,6 +109,80 @@ def test_inject_matches_pallas_interpret():
     assert np.abs(ref - args[0]).max() > 1e-2      # the watermark is there
 
 
+def test_inject_plain_with_bf16_weights_matches_pallas_interpret():
+    """bf16 latent and bf16 SecretEncoder weights, as the PPFT trainer builds
+    them, through `fused_secret_inject` on the CPU (`inject_plain`) and the
+    Pallas kernel in interpret mode.  Both cast the weights to float32 and
+    round the output to bf16 once, so they differ by one bf16 ulp at the
+    output's largest value (2^-7 of it), plus what JAX's channel sum of the
+    bf16 conv kernel rounds away (it sums in bf16, the port in float32) over
+    the stencil's nine taps."""
+    from aqualora_torch.ops import secret_inject as si
+    from aqualora_tpu.ops.secret_inject import _pallas_inject
+
+    t_args = [t.bfloat16() if i != 1 else t for i, t in enumerate(
+        _torch_inject_args(*_inject_inputs(2, base=32, bits=48)))]
+    latent, msg, dk, db, ck, cb = t_args
+    j_args = (jnp.asarray(_nhwc(latent.float())).astype(jnp.bfloat16),
+              jnp.asarray(msg.numpy()),
+              jnp.asarray(dk.float().numpy().T).astype(jnp.bfloat16),
+              jnp.asarray(db.float().numpy()).astype(jnp.bfloat16),
+              jnp.asarray(ck.float().numpy().transpose(2, 3, 1, 0))
+              .astype(jnp.bfloat16),
+              jnp.asarray(cb.float().numpy()).astype(jnp.bfloat16))
+    with _interpret_pallas():
+        ref = np.asarray(_pallas_inject(*j_args, 32).astype(jnp.float32))
+    out = si.fused_secret_inject(*t_args, base_res=32)
+    assert out.dtype == torch.bfloat16
+    k1_jax = np.asarray(jnp.sum(j_args[4], axis=2).astype(jnp.float32))
+    k1_dk = np.abs(k1_jax - ck.float().sum(1).permute(1, 2, 0).numpy()).max()
+    u = torch.nn.functional.silu(msg @ dk.float().T + db.float())
+    tol = (2.0 ** -7 * np.abs(ref).max() + 9 * u.abs().max().item() * k1_dk
+           + 1e-5)
+    np.testing.assert_allclose(_nhwc(out.float()), ref, atol=tol)
+
+
+def _inject_kernel_order(latent, msg, dense_w, dense_b, conv_w, conv_b,
+                         base):
+    """What csrc/secret_inject.cu computes, in its order: each cell's dense
+    sum over the bits in order, then its bias and SiLU; k1 the conv kernel's
+    input channels added in order; then latent + bias and the nine taps in
+    order, over the zero-padded, nearest-x2 upsampled u; float32, the result
+    in the latent's type."""
+    b, c, h, w = latent.shape
+    m, wd = msg.float(), dense_w.float()
+    acc = torch.zeros(b, base * base)
+    for n in range(msg.shape[1]):
+        acc = acc + m[:, n:n + 1] * wd[:, n]
+    acc = acc + dense_b.float()
+    u = (acc / (1 + torch.exp(-acc))).reshape(b, base, base)
+    grid = torch.nn.functional.pad(
+        u.repeat_interleave(2, 1).repeat_interleave(2, 2), (1, 1, 1, 1))
+    k1 = torch.zeros(c, 3, 3)
+    for ci in range(conv_w.shape[1]):
+        k1 = k1 + conv_w[:, ci].float()
+    out = latent.float() + conv_b.float()[None, :, None, None]
+    for dy in range(3):
+        for dx in range(3):
+            out = out + (grid[:, None, dy:dy + h, dx:dx + w]
+                         * k1[None, :, dy, dx, None, None])
+    return out.to(latent.dtype)
+
+
+def test_inject_kernel_order_matches_pallas_interpret():
+    """The one-launch kernel's order of arithmetic (48-term dense sums a
+    cell, then the stencil), emulated in torch, against the Pallas kernel in
+    interpret mode, float32, within 1e-5 (float32 sums in other orders)."""
+    from aqualora_tpu.ops.secret_inject import _pallas_inject
+
+    args = _inject_inputs(3, base=32, bits=48)
+    with _interpret_pallas():
+        ref = np.asarray(_pallas_inject(*map(jnp.asarray, args), 32))
+    out = _inject_kernel_order(*_torch_inject_args(*args), 32)
+    np.testing.assert_allclose(_nhwc(out), ref, atol=1e-5)
+    assert np.abs(ref - args[0]).max() > 1e-2      # the watermark is there
+
+
 def test_inject_grads_match_jax():
     """The backward (inject_plain recomputed under autograd) gives
     `jax.grad`'s gradients of dense_w and conv_w."""

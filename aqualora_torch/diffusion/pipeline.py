@@ -1,11 +1,13 @@
 """Text -> watermarked image pipeline in PyTorch.
 
 The port of `aqualora_tpu/diffusion/pipeline.py:33-224` for the serving
-path: CLIP encode, the CFG denoise loop of the U-Net under DDIM, VAE
-decode.  The PPFT trainer (`train/ppft_train.py`) drives the same modules,
-the VAE encoder included.  The watermark enters through the MapperNet diagonal:
+path: CLIP encode, the CFG denoise loop of the U-Net under DPM-Solver++(2M)
+(`dpms_m`, the default, as in the JAX package) or DDIM, VAE decode.  The
+PPFT trainer (`train/ppft_train.py`) drives the same modules, the VAE
+encoder included.  The watermark enters through the MapperNet diagonal:
 `fold_message(msg)` folds `mapper(msg) * 1.03` into the U-Net's LoRA sites
-once, and generation then runs the plain U-Net.
+once, and generation then runs the plain U-Net.  `load_watermark_lora`
+reads the LoRA and MapperNet that the PPFT trainer saves.
 
 Unlike the JAX pipeline, whose parameters travel separately, the weights
 live in the modules (`pipe.clip`, `pipe.unet`, `pipe.vae`, `pipe.mapper`) on
@@ -16,6 +18,7 @@ images come back in [-1, 1].
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
@@ -24,10 +27,12 @@ import torch.nn as nn
 
 from aqualora_torch.core.config import PipelineConfig
 from aqualora_torch.core.convert import jax_params_to_torch
-from aqualora_torch.diffusion.samplers import SAMPLERS
+from aqualora_torch.core.io import (LORA_FILE, MAPPER_FILE, assign_state,
+                                    import_lora_safetensors, load_safetensors)
+from aqualora_torch.diffusion.samplers import Generators, batch_randn, sample
 from aqualora_torch.diffusion.schedule import NoiseSchedule
 from aqualora_torch.models.clip import CLIPTextModel
-from aqualora_torch.models.lora import fold_lora_tree
+from aqualora_torch.models.lora import LoRAConv2d, LoRALinear, fold_lora_tree
 from aqualora_torch.models.unet import UNet2DConditionModel
 from aqualora_torch.models.vae import AutoencoderKL
 from aqualora_torch.models.watermark import MapperNet
@@ -80,6 +85,13 @@ class StableDiffusionPipeline:
             self.mapper = MapperNet(wm.msg_bits, wm.lora_rank, wm.mapper_std)
         for m in self.modules():
             m.to(dtype).eval().requires_grad_(False)
+        # The LoRA and the MapperNet stay float32 under any compute type, as
+        # the JAX package keeps every parameter: a LoRA weight takes the
+        # activation's type at each call, and the fold computes in float32.
+        self.mapper.float()
+        for m in (*self.clip.modules(), *self.unet.modules()):
+            if isinstance(m, (LoRALinear, LoRAConv2d)) and m.lora is not None:
+                m.lora.float()
         self.schedule = NoiseSchedule.create(config.schedule, self.device)
 
     def modules(self):
@@ -99,6 +111,17 @@ class StableDiffusionPipeline:
                              ("vae", self.vae), ("mapper", self.mapper)):
             module.load_state_dict(jax_params_to_torch(params[name]),
                                    strict=True)
+
+    def load_watermark_lora(self, directory: str) -> None:
+        """Load the U-Net LoRA and the MapperNet that the PPFT trainer
+        saved in `directory` (`pytorch_lora_weights.safetensors` and
+        `mapper.safetensors`), strictly, each tensor in its module's type."""
+        state = load_safetensors(os.path.join(directory, LORA_FILE),
+                                 self.device)
+        import_lora_safetensors(self.unet, self.config.unet, state)
+        assign_state(self.mapper,
+                     load_safetensors(os.path.join(directory, MAPPER_FILE),
+                                      self.device), what="mapper")
 
     def load_state_from(self, other: "StableDiffusionPipeline") -> None:
         """Copy another pipeline's weights (any device, same config)."""
@@ -147,18 +170,16 @@ class StableDiffusionPipeline:
                        alpha_scale=self.config.unet.lora.alpha_scale)
 
     # -- the generator -----------------------------------------------------------
-    def make_generate(self, num_steps: int = 25, sampler: str = "ddim",
+    def make_generate(self, num_steps: int = 25, sampler: str = "dpms_m",
                       height: int = 512, width: int = 512):
         """Returns generate(prompt_ids, neg_ids, guidance_scale=7.5,
         lora_scale=None, z=None, generator=None) -> images NHWC in [-1, 1].
 
         `z` is an optional initial latent [B, h, w, C] (NHWC, as the JAX
-        side draws it); without it one is drawn with `generator`.
+        side draws it); without it one is drawn with `generator`, which is
+        one `torch.Generator` or a list of B, one per image (row i of the
+        latent drawn from generator i alone).
         lora_scale: None (folded or no LoRA) or a [B, rank] diagonal."""
-        if sampler not in SAMPLERS:
-            raise ValueError(f"sampler {sampler!r} is not ported; have "
-                             f"{sorted(SAMPLERS)}")
-        run_sampler = SAMPLERS[sampler]
         cfg = self.config
         lh, lw = height // cfg.vae.downscale, width // cfg.vae.downscale
         v_pred = cfg.unet.prediction_type == "v_prediction"
@@ -167,7 +188,7 @@ class StableDiffusionPipeline:
         def generate(prompt_ids, neg_ids, guidance_scale: float = 7.5,
                      lora_scale: Optional[torch.Tensor] = None,
                      z: Optional[torch.Tensor] = None,
-                     generator: Optional[torch.Generator] = None):
+                     generator: Generators = None):
             # CFG batch order [uncond, cond]
             context = torch.cat([self.encode_prompt(neg_ids),
                                  self.encode_prompt(prompt_ids)], dim=0)
@@ -175,8 +196,8 @@ class StableDiffusionPipeline:
             scale2 = (None if lora_scale is None
                       else torch.cat([lora_scale, lora_scale], dim=0))
             if z is None:
-                z = torch.randn((b, lh, lw, cfg.unet.in_channels),
-                                generator=generator, device=self.device)
+                z = batch_randn((b, lh, lw, cfg.unet.in_channels), generator,
+                                self.device)
             x = z.to(self.device, torch.float32).permute(0, 3, 1, 2)
 
             def denoise(x, t):
@@ -191,8 +212,8 @@ class StableDiffusionPipeline:
                 eps_u, eps_c = out.chunk(2, dim=0)
                 return eps_u + guidance_scale * (eps_c - eps_u)
 
-            latents = run_sampler(self.schedule, denoise, x.contiguous(),
-                                  num_steps, generator=generator)
+            latents = sample(sampler, self.schedule, denoise, x.contiguous(),
+                             num_steps, generator=generator)
             return self._decode(latents).permute(0, 2, 3, 1)
 
         return generate

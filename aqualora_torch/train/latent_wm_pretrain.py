@@ -47,11 +47,15 @@ Run on the card (the default) or on the CPU:
     python -m aqualora_torch.train.latent_wm_pretrain --tiny \\
         --max_train_steps 2 --batch_size 2 --device cpu
 
+`--pretrained_model_name_or_path` loads the frozen VAE from a local
+diffusers directory (`vae/diffusion_pytorch_model.safetensors`), a
+directory holding `diffusion_pytorch_model.safetensors`, or that file.
+
 Not ported yet, and refused when asked for: checkpoints and resume
 (`--resume_from_ckpt`), the tracker (`--report_to` other than none),
-FSDP (`--fsdp`), remat (`--remat_lpips`, `--remat_vae_decode`), the VAE
-import (`--pretrained_model_name_or_path`) and the image-folder dataset
-(`--dataset`).  The per-epoch sample image is not written.
+FSDP (`--fsdp`), remat (`--remat_lpips`, `--remat_vae_decode`) and the
+image-folder dataset (`--dataset`).  The per-epoch sample image is not
+written.
 """
 
 from __future__ import annotations
@@ -67,6 +71,7 @@ import torch
 
 from aqualora_torch.core.config import (EfficientNetConfig, VAEConfig,
                                         WatermarkConfig)
+from aqualora_torch.core.io import assign_state, load_safetensors
 from aqualora_torch.diffusion.pipeline import init_module_weights
 from aqualora_torch.distort.noiser import Noiser, NoiseDraw
 from aqualora_torch.models.efficientnet import Masks
@@ -335,8 +340,6 @@ class Trainer:
 
 def _refuse_unported(args: argparse.Namespace) -> None:
     asked = {"--resume_from_ckpt": args.resume_from_ckpt is not None,
-             "--pretrained_model_name_or_path":
-                 args.pretrained_model_name_or_path is not None,
              "--report_to": args.report_to != "none",
              "--fsdp": args.fsdp, "--remat_lpips": args.remat_lpips,
              "--remat_vae_decode": args.remat_vae_decode}
@@ -360,6 +363,8 @@ def build_trainer(args: argparse.Namespace) -> Trainer:
     dtype = torch.bfloat16 if args.mixed_precision == "bf16" else torch.float32
     models = build_models(vae_cfg, wm_cfg, backbone, device, dtype)
     init_models(models, args.seed)
+    if args.pretrained_model_name_or_path:
+        _load_vae_params(args.pretrained_model_name_or_path, models.vae)
     dataset = data_lib.make_dataset(args.dataset, resolution)
     steps_per_epoch = max(1, len(dataset) // args.batch_size)
     optimizer, scheduler = make_optimizer(models, args.lr, steps_per_epoch)
@@ -370,6 +375,18 @@ def build_trainer(args: argparse.Namespace) -> Trainer:
                    steps_per_epoch)
 
 
+def _load_vae_params(path: str, vae: AutoencoderKL) -> None:
+    """The VAE from a diffusers safetensors checkpoint, strictly, in the
+    module's type (`_load_vae_params`, `latent_wm_pretrain.py:359-369`)."""
+    for sub in ("vae/diffusion_pytorch_model.safetensors",
+                "diffusion_pytorch_model.safetensors", ""):
+        p = os.path.join(path, sub) if sub else path
+        if os.path.isfile(p):
+            assign_state(vae, load_safetensors(p), what="vae")
+            return
+    raise FileNotFoundError(f"no VAE safetensors under {path}")
+
+
 def save_artifact(models: Stage1Models, path: str) -> None:
     """The trained encoder and decoder (with its BatchNorm statistics) as
     torch state dicts, the hand-off to stages 2 and 3."""
@@ -378,18 +395,22 @@ def save_artifact(models: Stage1Models, path: str) -> None:
 
 
 def run(args: argparse.Namespace) -> Dict[str, Any]:
+    """Train and write `<output_dir>/pretrained_latentwm.pt`; -> {"history":
+    logged metrics, "seconds": each step's wall time (to its message loss
+    read back), "final_acc", "trainer"}."""
     tr = build_trainer(args)
     models = tr.models
     warmup = bool(args.warmup)
     fixinit = bool(args.fixinit) and warmup
     msgloss_buf: list = []
-    history = []
+    history, seconds = [], []
     step = 0
     acc = float("nan")
     t0 = time.time()
     for epoch in range(args.epochs):
         batches = tr.dataset.batches(args.batch_size, seed=args.seed + epoch)
         for _ in range(tr.steps_per_epoch):
+            t1 = time.perf_counter()
             images, _ = next(batches)
             ctl = curriculum(epoch, warmup, fixinit, bool(args.random_aug))
             d = draw(models, tr.generator, (images.shape[0], 3,
@@ -397,6 +418,7 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
                      ctl.distort_probs)
             metrics = tr.train_step(images, d, ctl)
             ml = float(metrics["msgloss"])
+            seconds.append(time.perf_counter() - t1)
             msgloss_buf = (msgloss_buf + [ml])[-10:]
             if warmup and len(msgloss_buf) == 10 and np.mean(msgloss_buf) < 0.1:
                 warmup = fixinit = False
@@ -420,7 +442,8 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
     os.makedirs(args.output_dir, exist_ok=True)
     save_artifact(models, os.path.join(args.output_dir,
                                        "pretrained_latentwm.pt"))
-    return {"history": history, "final_acc": acc, "trainer": tr}
+    return {"history": history, "seconds": seconds, "final_acc": acc,
+            "trainer": tr}
 
 
 def _flag(s: str) -> bool:
@@ -431,7 +454,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("--pretrained_model_name_or_path", type=str, default=None,
-                   help="not ported yet: refused")
+                   help="the frozen VAE from a local diffusers directory")
     p.add_argument("--epochs", type=int, default=10)
     p.add_argument("--batch_size", type=int, default=5)
     p.add_argument("--bit_num", type=int, default=48)

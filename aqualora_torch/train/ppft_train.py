@@ -27,22 +27,45 @@ port drifts unnoticed:
   factor(k), which is what stepping the scheduler after the optimizer
   gives.
 
-With `--mixed_precision bf16` the frozen modules (U-Net base, VAE, CLIP,
-SecretEncoder) are stored in bfloat16 and the trainables (LoRA, MapperNet)
-in float32, which is the JAX trainer's per-call cast done once.
+With `--mixed_precision bf16` the frozen U-Net base, VAE and CLIP are
+stored in bfloat16 and the trainables (LoRA, MapperNet) in float32 (the
+pipeline's rule under any compute type), which is the JAX trainer's
+per-call cast done once.  The frozen SecretEncoder and
+the SecretDecoder keep float32 parameters, as the JAX trainer's do: the
+injection computes in float32 from them and returns the latent's type.
+
+Loading (`run`, `ppft_train.py:276-345` of the JAX package):
+`--pretrained_model_name_or_path` reads a local diffusers directory (unet,
+vae, text_encoder safetensors; the LoRA stays at its init);
+`--start_from_pretrain` reads stage 1's `pretrained_latentwm.pt` (this
+port's own torch file, where the JAX trainer reads its orbax tree): the
+SecretEncoder, and the SecretDecoder with its BatchNorm statistics;
+`--resume_from_lora` reads `pytorch_lora_weights.safetensors` and
+`mapper.safetensors` from a directory.
+
+Saving (`save_artifacts`, `:547-562`): with `--output_dir`, the end of the
+run writes `pytorch_lora_weights.safetensors` (the reference's key layout),
+`mapper.safetensors` (`bit_embeddings.weight`, float32) and the decoder as
+`msgdecoder.pt`, a torch state dict (the JAX trainer writes an orbax
+directory `msgdecoder`).  Without `--output_dir` nothing is written.  With
+`--validation_prompt` too, the final sanity inference reads the two
+safetensors back from disk, generates `--num_validation_images` images
+with DPM-Solver++(2M) and prints the decoded bit accuracy.
 
 Run on the card (the default) or on the CPU:
 
     python -m aqualora_torch.train.ppft_train --rank 320 --resolution 512 \\
-        --train_batch_size 8 --mixed_precision bf16 --max_train_steps 4
+        --train_batch_size 8 --mixed_precision bf16 --max_train_steps 4 \\
+        --start_from_pretrain s1/pretrained_latentwm.pt --output_dir out
     python -m aqualora_torch.train.ppft_train --tiny --max_train_steps 2 \\
-        --train_batch_size 2 --device cpu
+        --train_batch_size 2 --device cpu --output_dir /tmp/ppft \\
+        --validation_prompt "a photo"
 
-Not ported yet: the LoRA / mapper artifacts, checkpoints and resume,
-validation, gradient accumulation, the kohya dropouts, block LR, 8-bit
-Adam, the text-encoder LoRA, cached latents, the int8 teacher and the
-scale-0 teacher (`--teacher_skip_lora 0`), remat, FSDP and the image-folder
-and HF datasets.
+Not ported yet: checkpoints and resume, periodic validation, gradient
+accumulation, the kohya dropouts, block LR, 8-bit Adam, the text-encoder
+LoRA, cached latents, the int8 teacher and the scale-0 teacher
+(`--teacher_skip_lora 0`), remat, FSDP and the image-folder and HF
+datasets.
 """
 
 from __future__ import annotations
@@ -50,19 +73,27 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import math
+import os
 import time
 from typing import Any, Callable, Dict, List, Tuple
 
 import torch
 import torch.nn as nn
 
-from aqualora_torch.core.config import PipelineConfig, WatermarkConfig
+from aqualora_torch.core.config import (EfficientNetConfig, PipelineConfig,
+                                        WatermarkConfig)
+from aqualora_torch.core.io import (LORA_FILE, MAPPER_FILE, assign_state,
+                                    export_lora_safetensors, load_safetensors,
+                                    save_safetensors)
 from aqualora_torch.core.tokenizer import load_tokenizer
 from aqualora_torch.diffusion.pipeline import (StableDiffusionPipeline,
                                                init_module_weights)
-from aqualora_torch.models.watermark import SecretEncoder
+from aqualora_torch.eval.utils_eval import decode_bits
+from aqualora_torch.models.watermark import SecretDecoder, SecretEncoder
 from aqualora_torch.ops.secret_inject import inject_from_params
 from aqualora_torch.train.data import SyntheticDataset
+
+MSGDECODER_FILE = "msgdecoder.pt"
 
 
 # ---------------------------------------------------------------------------
@@ -94,14 +125,13 @@ def cosine_with_warmup_lr_end(base_lr: float, warmup: int, total: int,
 
 
 def trainable_groups(pipe: StableDiffusionPipeline) -> Dict[str, List]:
-    """Make the U-Net's LoRA weights and the MapperNet float32 and
-    trainable; -> {"lora": [...], "mapper": [...]}."""
+    """Make the U-Net's LoRA weights and the MapperNet trainable (the
+    pipeline keeps them float32); -> {"lora": [...], "mapper": [...]}."""
     _, lora = split_lora(pipe.unet)
     groups = {"lora": list(lora.values()),
               "mapper": list(pipe.mapper.parameters())}
     for params in groups.values():
         for p in params:
-            p.data = p.data.float()
             p.requires_grad_(True)
     return groups
 
@@ -242,20 +272,20 @@ def make_train_step(pipe: StableDiffusionPipeline, sec_encoder: SecretEncoder,
 # the training loop
 # ---------------------------------------------------------------------------
 
-def build_configs(args) -> Tuple[PipelineConfig, int]:
-    """-> (pipeline config, pixel resolution); `--tiny` ignores
-    `--resolution`, as in the JAX trainer."""
+def build_configs(args) -> Tuple[PipelineConfig, EfficientNetConfig, int]:
+    """-> (pipeline config, SecretDecoder backbone, pixel resolution);
+    `--tiny` ignores `--resolution`, as in the JAX trainer."""
     if args.tiny:
         cfg = PipelineConfig.tiny()
         if args.mapper_std != 1.0:
             cfg = dataclasses.replace(cfg, watermark=dataclasses.replace(
                 cfg.watermark, mapper_std=args.mapper_std))
-        return cfg, 64
+        return cfg, EfficientNetConfig.tiny(), 64
     cfg = PipelineConfig.sd15(args.rank)
     cfg = dataclasses.replace(cfg, watermark=WatermarkConfig(
         msg_bits=args.msg_bits, lora_rank=args.rank,
         mapper_std=args.mapper_std))
-    return cfg, args.resolution
+    return cfg, EfficientNetConfig.b1(), args.resolution
 
 
 @torch.no_grad()
@@ -272,12 +302,13 @@ def init_lora(unet: nn.Module, generator: torch.Generator) -> None:
 
 @dataclasses.dataclass
 class Trainer:
-    """What `run` builds: the pipeline, the SecretEncoder, the trainable
-    groups, the LR schedule and the step, the data and the step's
-    generator."""
+    """What `run` builds: the pipeline, the SecretEncoder and SecretDecoder,
+    the trainable groups, the LR schedule and the step, the data and the
+    step's generator."""
 
     pipe: StableDiffusionPipeline
     sec_encoder: SecretEncoder
+    msgdecoder: SecretDecoder
     groups: Dict[str, List]
     scheduler: Any
     train_step: Any
@@ -287,14 +318,49 @@ class Trainer:
     max_steps: int
 
 
+def _load_sd_checkpoint(path: str, pipe: StableDiffusionPipeline) -> None:
+    """Load a local diffusers-layout SD checkpoint directory into the
+    pipeline (`_load_sd_checkpoint`, `ppft_train.py:661-688`): the unet,
+    vae and text_encoder safetensors, strictly; the U-Net's LoRA keeps its
+    values.  The CLIP keys lose `text_model.`, `embeddings.` and `encoder.`,
+    and `position_ids` is dropped, as in JAX."""
+    subdirs = (("unet", pipe.unet, "unet/diffusion_pytorch_model.safetensors"),
+               ("vae", pipe.vae, "vae/diffusion_pytorch_model.safetensors"),
+               ("text_encoder", pipe.clip, "text_encoder/model.safetensors"))
+    for name, module, sub in subdirs:
+        p = os.path.join(path, sub)
+        if not os.path.isfile(p):
+            raise FileNotFoundError(f"missing {p}")
+        state = load_safetensors(p)
+        if name == "text_encoder":
+            state = {k[len("text_model."):] if k.startswith("text_model.")
+                     else k: v for k, v in state.items()}
+            state = {k.replace("embeddings.", "").replace("encoder.", ""): v
+                     for k, v in state.items() if "position_ids" not in k}
+        skip = split_lora(module)[1] if name == "unet" else ()
+        assign_state(module, state, skip=skip, what=name)
+
+
+def load_pretrain(path: str, sec_encoder: SecretEncoder,
+                  msgdecoder: SecretDecoder) -> None:
+    """`--start_from_pretrain`: stage 1's `pretrained_latentwm.pt` (the
+    port's torch file) into the SecretEncoder and the SecretDecoder, its
+    BatchNorm statistics included, strictly."""
+    art = torch.load(path, map_location="cpu", weights_only=True)
+    assign_state(sec_encoder, art["sec_encoder"], what="sec_encoder")
+    assign_state(msgdecoder, art["sec_decoder"], what="sec_decoder")
+
+
 def build_trainer(args: argparse.Namespace) -> Trainer:
     device = torch.device(args.device)
     seed = args.seed or 0
     torch.manual_seed(seed)
-    cfg, resolution = build_configs(args)
+    cfg, backbone, resolution = build_configs(args)
     dtype = torch.bfloat16 if args.mixed_precision == "bf16" else torch.float32
     pipe = StableDiffusionPipeline(cfg, dtype=dtype, device=device)
     pipe.init_params(seed)
+    if args.pretrained_model_name_or_path:
+        _load_sd_checkpoint(args.pretrained_model_name_or_path, pipe)
     groups = trainable_groups(pipe)
     gen = torch.Generator(device=device).manual_seed(seed)
     init_lora(pipe.unet, gen)
@@ -305,7 +371,16 @@ def build_trainer(args: argparse.Namespace) -> Trainer:
                                     cfg.watermark.secret_grid, latent_res,
                                     cfg.vae.latent_channels)
     init_module_weights(sec_encoder.secret_dense, gen)
-    sec_encoder.to(dtype).eval().requires_grad_(False)
+    # float32 parameters under either training type, as the JAX trainer's
+    sec_encoder.eval().requires_grad_(False)
+    msgdecoder = SecretDecoder(cfg.watermark.msg_bits, backbone,
+                               device=device)
+    init_module_weights(msgdecoder, gen)
+    msgdecoder.eval().requires_grad_(False)
+    if args.start_from_pretrain:
+        load_pretrain(args.start_from_pretrain, sec_encoder, msgdecoder)
+    if args.resume_from_lora:
+        pipe.load_watermark_lora(args.resume_from_lora)
 
     dataset = SyntheticDataset(resolution)
     steps_per_epoch = max(1, len(dataset) // args.train_batch_size)
@@ -316,7 +391,7 @@ def build_trainer(args: argparse.Namespace) -> Trainer:
         args.adam_weight_decay)
     step = make_train_step(pipe, sec_encoder, optimizer, scheduler,
                            args.max_grad_norm)
-    return Trainer(pipe, sec_encoder, groups, scheduler, step,
+    return Trainer(pipe, sec_encoder, msgdecoder, groups, scheduler, step,
                    dataset.batches(args.train_batch_size, seed=seed),
                    load_tokenizer(args.tokenizer_vocab,
                                   vocab_size=cfg.clip.vocab_size),
@@ -324,11 +399,56 @@ def build_trainer(args: argparse.Namespace) -> Trainer:
                    max_steps)
 
 
+def save_artifacts(output_dir: str, pipe: StableDiffusionPipeline,
+                   msgdecoder: SecretDecoder) -> None:
+    """The run's artifacts (`save_artifacts`, `ppft_train.py:547-562`):
+    the U-Net LoRA in the reference's layout, the MapperNet's
+    `bit_embeddings.weight` in float32, and the decoder as a torch state
+    dict (`msgdecoder.pt`; the JAX trainer writes an orbax directory)."""
+    os.makedirs(output_dir, exist_ok=True)
+    export_lora_safetensors(pipe.unet, pipe.config.unet,
+                            os.path.join(output_dir, LORA_FILE))
+    save_safetensors({"bit_embeddings.weight":
+                      pipe.mapper.bit_embeddings.weight.detach().float()},
+                     os.path.join(output_dir, MAPPER_FILE))
+    torch.save({k: v.cpu() for k, v in msgdecoder.state_dict().items()},
+               os.path.join(output_dir, MSGDECODER_FILE))
+
+
+def final_sanity_inference(tr: Trainer, args: argparse.Namespace,
+                           generator: torch.Generator) -> float:
+    """End-of-training sanity inference (`final_sanity_inference`,
+    `ppft_train.py:616-658`): read the saved LoRA and mapper back from
+    `--output_dir` into the pipeline, generate `--num_validation_images`
+    images of `--validation_prompt` with DPM-Solver++(2M) (2 steps at 64 px
+    with `--tiny`, else 25 at `--resolution`) with a random message at LoRA
+    multiplier 1, decode them and return the bit accuracy."""
+    pipe = tr.pipe
+    pipe.load_watermark_lora(args.output_dir)
+    res = 64 if args.tiny else args.resolution
+    steps = 2 if args.tiny else 25
+    gen = pipe.make_generate(num_steps=steps, sampler="dpms_m", height=res,
+                             width=res)
+    n = args.num_validation_images
+    msg = torch.bernoulli(torch.full((n, pipe.config.watermark.msg_bits), 0.5,
+                                     device=pipe.device), generator=generator)
+    diag = pipe.message_scale(msg, multiplier=1.0)
+    images = gen(tr.tokenizer([args.validation_prompt] * n),
+                 tr.tokenizer([""] * n), 7.5, diag, generator=generator)
+    bits, _ = decode_bits(tr.msgdecoder, images)
+    return float((bits == msg.long()).float().mean())
+
+
 def run(args: argparse.Namespace) -> Dict[str, Any]:
+    """Train, then save the artifacts and run the sanity inference when
+    asked; -> {"history": logged metrics, "seconds": each step's wall time
+    (the loss read back when it is logged), "trainer", and
+    "sanity_bit_accuracy" when the sanity inference ran}."""
     tr = build_trainer(args)
-    history = []
+    history, seconds = [], []
     t0 = time.time()
     for global_step in range(1, tr.max_steps + 1):
+        t1 = time.perf_counter()
         pixels, captions = next(tr.batches)
         ids = tr.tokenizer(captions)
         draws = draw(tr.pipe, tr.generator, pixels)
@@ -341,7 +461,16 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
                   + " ".join(f"{k}={v:.6f}" for k, v in m.items())
                   + f" ({(time.time() - t0) / global_step:.2f}s/step)",
                   flush=True)
-    return {"history": history, "trainer": tr}
+        seconds.append(time.perf_counter() - t1)
+    out = {"history": history, "seconds": seconds, "trainer": tr}
+    if args.output_dir:
+        save_artifacts(args.output_dir, tr.pipe, tr.msgdecoder)
+        if args.validation_prompt and args.num_validation_images > 0:
+            acc = final_sanity_inference(tr, args, tr.generator)
+            print(f"final sanity inference: bit_accuracy {acc:.4f}",
+                  flush=True)
+            out["sanity_bit_accuracy"] = acc
+    return out
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -369,6 +498,23 @@ def build_argparser() -> argparse.ArgumentParser:
                    choices=["no", "bf16"],
                    help="bf16: frozen modules in bfloat16, trainables in "
                         "float32")
+    p.add_argument("--pretrained_model_name_or_path", type=str,
+                   default=None,
+                   help="a local diffusers directory (unet, vae, "
+                        "text_encoder safetensors)")
+    p.add_argument("--start_from_pretrain", type=str, default=None,
+                   help="stage 1's pretrained_latentwm.pt (SecretEncoder "
+                        "and SecretDecoder)")
+    p.add_argument("--resume_from_lora", type=str, default=None,
+                   help="a directory with pytorch_lora_weights.safetensors "
+                        "and mapper.safetensors")
+    p.add_argument("--output_dir", type=str, default=None,
+                   help="where the LoRA, mapper and msgdecoder are written "
+                        "at the end (nothing is written without it)")
+    p.add_argument("--validation_prompt", type=str, default=None,
+                   help="with --output_dir: the final sanity inference's "
+                        "prompt")
+    p.add_argument("--num_validation_images", type=int, default=1)
     p.add_argument("--tokenizer_vocab", type=str, default=None)
     p.add_argument("--log_every", type=int, default=1)
     p.add_argument("--device", type=str, default="cuda",

@@ -6,6 +6,7 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py                 # every phase
     python3 chip_smoke.py --phases 0,2    # some phases (no kernels line)
+    python3 chip_smoke.py --phases 15     # the publisher's chain only
 
 Phases (any failure raises, so the exit code is not 0):
   0. torch and CUDA versions, the card's name and power limit (nvidia-smi).
@@ -94,8 +95,25 @@ Phases (any failure raises, so the exit code is not 0):
      BatchNorm statistics must move.  After phase 12's profile, one step of
      each under torch.profiler: the busy share and the d = 512 pair's
      share of device time.
-The timed phases run first (0-7, 12, 13, 14, 8) and the profiled ones after
-them, so that the profiler touches no timed phase: first the short
+ 15. The publisher's chain at full width, each stage through the entry
+     point a user calls: stage 1 (`latent_wm_pretrain.run`, 512^2 B5 bf16,
+     2 steps) writes pretrained_latentwm.pt to a temporary directory; PPFT
+     (`ppft_train.run`, 512^2 B8 rank 320 bf16, 2 steps) starts from it
+     with --start_from_pretrain, saves the LoRA, mapper and msgdecoder with
+     --output_dir and runs its final sanity inference; the LoRA file must
+     hold 384 tensors and a second export the same bytes (its size, write
+     and read seconds printed), the PPFT SecretEncoder must be stage 1's bit
+     for bit and float32; a fresh SD-1.5 pipeline loads the LoRA, mapper and
+     decoder (bit for bit the trained ones), folds a message and generates
+     8 images at 512^2 with DPM-Solver++(2M) 25 steps, CFG 7.5, from
+     per-image generators: 801 forward launches a call, imgs/s (median of
+     3 after a warm-up) beside phase 3's DDIM-25, peak memory, finite
+     images, a repeat call bit-identical, row i of the initial latent the
+     B1 draw of generator i, the decoded bit accuracy (printed only: the
+     weights are random).  Each stage's launches are counted from 0.  Then
+     the tiny dpms_m slice on the card against the CPU, as phase 4 for DDIM.
+The timed phases run first (0-7, 12, 13, 14, 8, 15) and the profiled ones
+after them, so that the profiler touches no timed phase: first the short
 sessions (6's profile, 9, 10, 12's profile), then the profiles of whole
 steps (8, 14) and of a generate call (11).  After a session of a whole
 step, short sessions in the same process have recorded some device events
@@ -439,6 +457,14 @@ def phase2(smi: str) -> dict:
 
 
 N_IMG, STEPS, RES = 8, 25, 512
+PROMPTS = ["a photograph of an astronaut riding a horse",
+           "a watercolor of a lighthouse at dusk",
+           "a bowl of ramen, studio lighting",
+           "a red fox in fresh snow",
+           "an isometric city block at night",
+           "a portrait of an old fisherman",
+           "a field of sunflowers under storm clouds",
+           "a cat reading a newspaper"]
 
 
 def serving_setup():
@@ -462,15 +488,7 @@ def serving_setup():
                           generator=torch.Generator().manual_seed(2))
     pipe.fold_message(msg)
     tok = FallbackTokenizer(cfg.clip.vocab_size)
-    prompts = ["a photograph of an astronaut riding a horse",
-               "a watercolor of a lighthouse at dusk",
-               "a bowl of ramen, studio lighting",
-               "a red fox in fresh snow",
-               "an isometric city block at night",
-               "a portrait of an old fisherman",
-               "a field of sunflowers under storm clouds",
-               "a cat reading a newspaper"]
-    ids, neg = tok(prompts), tok([""] * N_IMG)
+    ids, neg = tok(PROMPTS), tok([""] * N_IMG)
     generate = pipe.make_generate(num_steps=STEPS, sampler="ddim",
                                   height=RES, width=RES)
     torch.cuda.synchronize()
@@ -926,10 +944,10 @@ def phase8(smi: str) -> tuple:
     base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     tr = pt.build_trainer(args)
-    # a non-zero SecretEncoder conv stands in for the stage-1 weights the
-    # JAX trainer loads with --start_from_pretrain (not ported yet): with
-    # its zero init and the zero-init LoRA ups, student == teacher and the
-    # loss and every gradient are exactly 0
+    # a non-zero SecretEncoder conv stands in for stage 1's weights (phase
+    # 15 loads real ones with --start_from_pretrain): with its zero init
+    # and the zero-init LoRA ups, student == teacher and the loss and every
+    # gradient are exactly 0
     with torch.no_grad():
         w = tr.sec_encoder.conv_out.weight
         w.copy_(0.1 * torch.randn(w.shape, device="cuda",
@@ -1451,6 +1469,290 @@ def phase14_profile(smi: str, kept: dict) -> None:
                   f"x{e.count:<5d} {e.key[:100]}", flush=True)
 
 
+# phase 15, the publisher's chain: steps of each stage, the LoRA file's
+# tensors at SD-1.5 widths (192 sites, down and up), the sampler's steps,
+# and the tiny dpms_m slice's steps (three or more, so that a second-order
+# step runs: below 15 steps the first and the last are first order)
+CHAIN_STEPS = 2
+CHAIN_LORA_TENSORS = 384
+CHAIN_TINY_STEPS = 4
+
+
+def chain_stage1(tmp: str):
+    """Chain step 1: stage 1 through its entry point at 512^2 B5 bf16."""
+    from aqualora_torch.train import latent_wm_pretrain as s1
+    out_dir = str(Path(tmp) / "stage1")
+    args = s1.build_argparser().parse_args([
+        "--batch_size", str(S1_BATCH), "--mixed_precision", "bf16",
+        "--max_train_steps", str(CHAIN_STEPS), "--seed", "0",
+        "--output_dir", out_dir])
+    reset_counts()
+    res = s1.run(args)
+    torch.cuda.synchronize()
+    got = counts()
+    # each step 3 / 1 / 1, and the epoch's eval encodes and decodes once
+    want = {"fwd": 3 * CHAIN_STEPS + 2, "dq": CHAIN_STEPS, "dkv": CHAIN_STEPS,
+            "inject": 0}
+    print(f"[15] stage 1 bf16 512^2 B{S1_BATCH}, {CHAIN_STEPS} steps through "
+          f"latent_wm_pretrain.run: step wall times "
+          f"{', '.join(f'{x:.4f}' for x in res['seconds'])} s, final loss "
+          f"{res['history'][-1]['loss']:.6e}, launches {got}", flush=True)
+    if got != want:
+        raise AssertionError(f"stage-1 launches {got}, want {want}")
+    if not all(math.isfinite(h["loss"]) and h["loss"] > 0
+               for h in res["history"]):
+        raise AssertionError("stage-1 loss not finite positive")
+    enc = {k: v.detach().clone() for k, v in
+           res["trainer"].models.sec_encoder.state_dict().items()}
+    return str(Path(out_dir) / "pretrained_latentwm.pt"), enc
+
+
+def chain_ppft(tmp: str, s1_file: str, s1_encoder: dict):
+    """Chain steps 2-3: PPFT from stage 1's file through its entry point
+    at 512^2 B8 rank 320 bf16, with the artifacts and the final sanity
+    inference; then the three files and the LoRA file's write and read
+    times.  Returns the output directory and the trained tensors."""
+    from aqualora_torch.core import io as aio
+    from aqualora_torch.train import ppft_train as pt
+    out_dir = str(Path(tmp) / "ppft")
+    args = pt.build_argparser().parse_args([
+        "--rank", "320", "--msg_bits", "48", "--resolution", "512",
+        "--train_batch_size", str(TRAIN_BATCH), "--mixed_precision", "bf16",
+        "--learning_rate", "1e-4", "--lr_warmup_steps", "0",
+        "--max_train_steps", str(CHAIN_STEPS), "--seed", "0",
+        "--start_from_pretrain", s1_file, "--output_dir", out_dir,
+        "--validation_prompt", PROMPTS[0],
+        "--num_validation_images", "1"])
+    reset_counts()
+    res = pt.run(args)
+    torch.cuda.synchronize()
+    got = counts()
+    # each step 65 / 32 / 32 / 1; the sanity inference is one generate call
+    want = {"fwd": FWD_PER_STEP * CHAIN_STEPS + LAUNCHES_PER_GENERATE,
+            "dq": BWD_PER_STEP * CHAIN_STEPS,
+            "dkv": BWD_PER_STEP * CHAIN_STEPS, "inject": CHAIN_STEPS}
+    hist = res["history"]
+    print(f"[15] PPFT 512^2 B{TRAIN_BATCH} rank 320 bf16 from stage 1's file, "
+          f"{CHAIN_STEPS} steps through ppft_train.run: step wall times "
+          f"{', '.join(f'{x:.4f}' for x in res['seconds'])} s, ppft_loss "
+          f"{', '.join(f'{h['ppft_loss']:.6e}' for h in hist)}, grad_norm "
+          f"{', '.join(f'{h['grad_norm']:.6e}' for h in hist)}; sanity "
+          f"inference (dpms_m 25, B1) bit accuracy "
+          f"{res['sanity_bit_accuracy']:.4f}; launches {got}", flush=True)
+    if got != want:
+        raise AssertionError(f"PPFT launches {got}, want {want}")
+    if not all(math.isfinite(h[k]) and h[k] > 0 for h in hist
+               for k in ("ppft_loss", "grad_norm")):
+        raise AssertionError("PPFT loss or gradient norm not finite positive")
+    tr = res["trainer"]
+    enc = tr.sec_encoder.state_dict()
+    same_enc = all(torch.equal(enc[k], s1_encoder[k]) for k in s1_encoder)
+    f32_enc = all(v.dtype == torch.float32 for v in enc.values())
+    print(f"[15] PPFT SecretEncoder equals stage 1's bit for bit: "
+          f"{same_enc}; float32: {f32_enc}", flush=True)
+    if not (same_enc and f32_enc and set(enc) == set(s1_encoder)):
+        raise AssertionError("the PPFT encoder is not stage 1's, in float32")
+
+    lora_path = Path(out_dir) / aio.LORA_FILE
+    header, _, _, data_len = aio.read_safetensors_header(str(lora_path))
+    n_params = sum(math.prod(h["shape"]) for h in header.values())
+    mapper = aio.load_safetensors(str(Path(out_dir) / aio.MAPPER_FILE))
+    dec_state = torch.load(Path(out_dir) / pt.MSGDECODER_FILE,
+                           map_location="cpu", weights_only=True)
+    # the LoRA file's write (the export save_artifacts makes) and read times
+    again = Path(tmp) / "again.safetensors"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    aio.export_lora_safetensors(tr.pipe.unet, tr.pipe.config.unet, str(again))
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = aio.load_safetensors(str(lora_path), "cuda")
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    same_bytes = again.read_bytes() == lora_path.read_bytes()
+    size = lora_path.stat().st_size
+    print(f"[15] {aio.LORA_FILE}: {len(header)} tensors, {n_params} "
+          f"parameters, {size} bytes ({size / 2 ** 30:.4f} GiB); write "
+          f"{write_s:.4f} s ({size / write_s / 2 ** 30:.3f} GiB/s), read to "
+          f"the card {read_s:.4f} s ({size / read_s / 2 ** 30:.3f} GiB/s); a "
+          f"second export gives the same bytes: {same_bytes}; "
+          f"{aio.MAPPER_FILE}: "
+          + ", ".join(f"{k} {tuple(v.shape)} {v.dtype}" for k, v in
+                      mapper.items())
+          + f"; {pt.MSGDECODER_FILE}: {len(dec_state)} tensors", flush=True)
+    emb = mapper.get("bit_embeddings.weight")
+    if not (len(header) == CHAIN_LORA_TENSORS and same_bytes
+            and data_len == 4 * n_params and emb is not None
+            and emb.dtype == torch.float32
+            and tuple(emb.shape) == (48, 320)
+            and set(dec_state) == set(tr.msgdecoder.state_dict())):
+        raise AssertionError("the saved artifacts are not as written")
+    trained = {"lora": {k: p.detach().clone() for k, p in
+                        pt.split_lora(tr.pipe.unet)[1].items()},
+               "mapper": tr.pipe.mapper.bit_embeddings.weight.detach().clone(),
+               "decoder": {k: v.detach().clone() for k, v in
+                           tr.msgdecoder.state_dict().items()}}
+    del res, tr, loaded
+    torch.cuda.empty_cache()
+    return out_dir, trained
+
+
+def chain_generate(smi: str, out_dir: str, trained: dict,
+                   ddim_s: float | None) -> None:
+    """Chain steps 4-5: a fresh pipeline loads the saved LoRA, mapper and
+    decoder, folds a message and generates B8 at 512^2 with DPM-Solver++(2M)
+    25 steps at CFG 7.5 from per-image generators; decode the bits."""
+    from aqualora_torch.core.config import EfficientNetConfig, PipelineConfig
+    from aqualora_torch.core.tokenizer import FallbackTokenizer
+    from aqualora_torch.diffusion import pipeline as pl
+    from aqualora_torch.eval.utils_eval import decode_bits
+    from aqualora_torch.models.watermark import SecretDecoder
+    from aqualora_torch.ops import flash_attention as fa
+    from aqualora_torch.train import ppft_train as pt
+
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = PipelineConfig.sd15(lora_rank=320)
+    pipe = pl.StableDiffusionPipeline(cfg, dtype=torch.bfloat16,
+                                      device="cuda")
+    pipe.init_params(seed=0)                 # the trainer's base weights
+    pipe.load_watermark_lora(out_dir)
+    decoder = SecretDecoder(cfg.watermark.msg_bits, EfficientNetConfig.b1(),
+                            device="cuda")
+    decoder.load_state_dict(torch.load(Path(out_dir) / pt.MSGDECODER_FILE,
+                                       map_location="cuda",
+                                       weights_only=True))
+    decoder.eval()
+    lora = pt.split_lora(pipe.unet)[1]
+    same = (set(lora) == set(trained["lora"])
+            and all(torch.equal(lora[k], v) for k, v in
+                    trained["lora"].items())
+            and torch.equal(pipe.mapper.bit_embeddings.weight,
+                            trained["mapper"])
+            and all(torch.equal(decoder.state_dict()[k], v)
+                    for k, v in trained["decoder"].items()))
+    print(f"[15] fresh pipeline: {len(lora)} LoRA tensors, the mapper and "
+          f"the decoder loaded from {Path(out_dir).name}/; equal to the "
+          f"trained ones bit for bit: {same}", flush=True)
+    if not same:
+        raise AssertionError("the loaded artifacts differ from the trained")
+    msg = torch.bernoulli(torch.full((cfg.watermark.msg_bits,), 0.5),
+                          generator=torch.Generator().manual_seed(15))
+    pipe.fold_message(msg)
+    tok = FallbackTokenizer(cfg.clip.vocab_size)
+    ids, neg = tok(PROMPTS), tok([""] * N_IMG)
+    generate = pipe.make_generate(num_steps=STEPS, sampler="dpms_m",
+                                  height=RES, width=RES)
+
+    def gens(seed):
+        return [torch.Generator(device="cuda").manual_seed(seed + i)
+                for i in range(N_IMG)]
+
+    # the call's initial latent, recorded where generate draws it
+    drawn = []
+    draw = pl.batch_randn
+    pl.batch_randn = lambda *a, **k: drawn.append(draw(*a, **k)) or drawn[-1]
+    try:
+        reset_counts()
+        images = generate(ids, neg, guidance_scale=7.5, generator=gens(100))
+        torch.cuda.synchronize()
+        per_call = counts()
+    finally:
+        pl.batch_randn = draw
+    rows_ok = all(torch.equal(drawn[0][i:i + 1], torch.randn(
+        (1, *drawn[0].shape[1:]), device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(100 + i)))
+        for i in range(N_IMG))
+    repeat = generate(ids, neg, guidance_scale=7.5, generator=gens(100))
+    identical = torch.equal(images, repeat)
+    times = []
+    for i in range(3):
+        before = fa.launches.count
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        generate(ids, neg, guidance_scale=7.5, generator=gens(200 + 10 * i))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if fa.launches.count - before != LAUNCHES_PER_GENERATE:
+            raise AssertionError("launch count changed between calls")
+    med = statistics.median(times)
+    peak_gib = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    bits, margins = decode_bits(decoder, images)
+    acc = (bits.cpu() == msg.long()).float().mean().item()
+    beside = (f"; phase 3's DDIM-25 {N_IMG / ddim_s:.4f} imgs/s, dpms_m / "
+              f"DDIM time {med / ddim_s:.4f}" if ddim_s else "")
+    print(f"[15] generate 8 x 512^2 dpms_m-25 CFG 7.5 bf16, message folded: "
+          f"{N_IMG / med:.4f} imgs/s (median of 3: "
+          f"{', '.join(f'{t:.4f}' for t in times)} s){beside}; peak memory "
+          f"{peak_gib:.2f} GiB above the {base / 2 ** 30:.2f} GiB resident; "
+          f"launches a call {per_call}; images {tuple(images.shape)} finite "
+          f"{bool(torch.isfinite(images).all())}; repeat call bit-identical "
+          f"{identical}; row i of the B8 latent is generator i's B1 draw "
+          f"{rows_ok}; decoded bit accuracy {acc:.4f} (random weights: "
+          f"printed, not checked) | {smi}", flush=True)
+    want = {"fwd": LAUNCHES_PER_GENERATE, "dq": 0, "dkv": 0, "inject": 0}
+    if not (per_call == want and identical and rows_ok
+            and tuple(images.shape) == (N_IMG, RES, RES, 3)
+            and torch.isfinite(images).all()
+            and torch.isfinite(margins).all()):
+        raise AssertionError("the chain's generate failed a check")
+
+
+def chain_tiny_card_vs_cpu() -> None:
+    """Chain step 6: the tiny dpms_m slice on the card (kernels) against the
+    CPU (plain versions), float32, the same weights and initial latents."""
+    import numpy as np
+
+    from aqualora_torch.core.config import PipelineConfig
+    from aqualora_torch.diffusion.pipeline import StableDiffusionPipeline
+    from aqualora_torch.ops import flash_attention as fa
+
+    cfg = PipelineConfig.tiny()
+    pipes = {dev: StableDiffusionPipeline(cfg, dtype=torch.float32,
+                                          device=dev)
+             for dev in ("cpu", "cuda")}
+    pipes["cpu"].init_params(seed=15)
+    pipes["cuda"].load_state_from(pipes["cpu"])
+    rng = np.random.default_rng(15)
+    msg = torch.from_numpy(rng.integers(0, 2, cfg.watermark.msg_bits)
+                           .astype(np.float32))
+    z = rng.standard_normal((2, 16, 16, cfg.unet.in_channels),
+                            dtype=np.float32)
+    ids = rng.integers(0, cfg.clip.vocab_size, (2, 77), dtype=np.int32)
+    neg = rng.integers(0, cfg.clip.vocab_size, (2, 77), dtype=np.int32)
+    out = {}
+    fa.launches.reset()
+    for dev, pipe in pipes.items():
+        pipe.fold_message(msg)
+        gen = pipe.make_generate(num_steps=CHAIN_TINY_STEPS, sampler="dpms_m",
+                                 height=32, width=32)
+        out[dev] = gen(ids, neg, guidance_scale=7.5,
+                       z=torch.from_numpy(z).to(dev)).cpu()
+    err = (out["cuda"] - out["cpu"]).abs().max().item()
+    print(f"[15] tiny dpms_m-{CHAIN_TINY_STEPS} slice card vs CPU: max|d "
+          f"image| {err:.3e} (tol {TINY_IMAGE_TOL:g}), kernel launches "
+          f"{fa.launches.count}", flush=True)
+    if not (err <= TINY_IMAGE_TOL and fa.launches.count > 0):
+        raise AssertionError("tiny dpms_m slice on the card disagrees with "
+                             "the CPU")
+
+
+def phase15(smi: str, ddim_s: float | None) -> None:
+    """The publisher's chain at full width: stage 1 -> PPFT from its file ->
+    the artifacts saved -> a fresh pipeline loads them -> dpms_m generate ->
+    decode; then the tiny dpms_m slice card vs CPU.  The counts are set to 0
+    before each stage and read after it."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="aqualora_chain_") as tmp:
+        s1_file, s1_encoder = chain_stage1(tmp)
+        torch.cuda.empty_cache()
+        out_dir, trained = chain_ppft(tmp, s1_file, s1_encoder)
+        chain_generate(smi, out_dir, trained, ddim_s)
+        del trained
+        torch.cuda.empty_cache()
+    chain_tiny_card_vs_cpu()
+
+
 def kernels_line(rows, launches, bwd_rows, train_launches, inject_row,
                  inject_launches, s1_rows, s1_launches) -> dict:
     kernels = []
@@ -1496,7 +1798,7 @@ def main(argv=None):
                          "phase 0 always runs, and the kernels line needs "
                          "all of them)")
     args = ap.parse_args(argv)
-    every = set(range(15))
+    every = set(range(16))
     run_ = every if args.phases is None else \
         {0} | {int(x) for x in args.phases.split(",")}
     if 11 in run_:
@@ -1536,6 +1838,8 @@ def main(argv=None):
         s1_launches, s1_kept = phase14(smi)
     if 8 in run_:
         train_launches, inject_launches, ppft_kept = phase8(smi)
+    if 15 in run_:
+        phase15(smi, med_s if 3 in run_ else None)
     # the profiled phases: the short sessions first, then the profiles of
     # whole steps and of the generate call (see the docstring)
     if 6 in run_:

@@ -803,8 +803,9 @@ def test_stage1_cli_runs_on_cpu(tmp_path):
 
 def test_stage1_cli_defaults_and_refusals():
     """`--device` defaults to cuda; the flags not ported are refused,
-    never ignored; a dataset path is refused rather than trained on
-    noise."""
+    never ignored; a VAE directory that does not exist is refused (the
+    loader is held against JAX's in tests/test_torch_port_artifacts.py); a
+    dataset path is refused rather than trained on noise."""
     from aqualora_torch.train import data
     from aqualora_torch.train import latent_wm_pretrain as tt
 
@@ -812,11 +813,14 @@ def test_stage1_cli_defaults_and_refusals():
     assert args.device == "cuda" and args.batch_size == 5
     assert args.mixed_precision == "no"
     for extra in (["--resume_from_ckpt", "x"], ["--fsdp"], ["--remat_lpips"],
-                  ["--remat_vae_decode"], ["--report_to", "tensorboard"],
-                  ["--pretrained_model_name_or_path", "x"]):
+                  ["--remat_vae_decode"], ["--report_to", "tensorboard"]):
         with pytest.raises(NotImplementedError):
             tt.build_trainer(tt.build_argparser().parse_args(
                 ["--tiny", "--device", "cpu"] + extra))
+    with pytest.raises(FileNotFoundError):
+        tt.build_trainer(tt.build_argparser().parse_args(
+            ["--tiny", "--device", "cpu", "--pretrained_model_name_or_path",
+             "/nonexistent/sd"]))
     with pytest.raises(NotImplementedError):
         data.make_dataset("/nonexistent/images", 64)
     assert len(data.make_dataset(None, 64)) == 256

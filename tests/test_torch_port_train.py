@@ -227,6 +227,80 @@ def test_inject_from_params_equals_secret_encoder():
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
 
 
+def test_bf16_ppft_injection_keeps_a_float32_encoder(monkeypatch):
+    """Under `--mixed_precision bf16` the PPFT trainer's SecretEncoder keeps
+    float32 parameters, as the JAX trainer's do (`sec_encoder.init`), and a
+    bf16 step's injected latent is what JAX computes from the same bf16
+    latent with those float32 parameters.
+
+    Recorded inside `make_loss_fn`: the VAE's latent and the injected
+    latent times the VAE scaling, as the step hands it to `add_noise`.
+    - The module path (64 px, latent 32, not 2 * secret_grid): float32 on
+      both sides, within 1e-6 * max|.| (float32 sums in other orders).  With
+      the encoder cast to bf16, as the trainer did, the result is bf16 and
+      misses by the rounding of the weights and of the sum, about 1e-2.
+    - The fused path (32 px, latent 16) against `_pallas_inject` in
+      interpret mode: each side computes in float32 and rounds to bf16
+      once, then once more times the scaling, so within one bf16 ulp at the
+      largest value, 2^-7 * max|.|."""
+    from aqualora_torch.train import ppft_train as tt
+    from aqualora_tpu.models.watermark import SecretEncoder as JEnc
+    from aqualora_tpu.ops.secret_inject import _pallas_inject
+
+    tr = tt.build_trainer(tt.build_argparser().parse_args(
+        ["--tiny", "--device", "cpu", "--mixed_precision", "bf16"]))
+    assert tr.pipe.unet.conv_in.weight.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in tr.sec_encoder.parameters())
+    cfg = tr.pipe.config
+    bits, grid = cfg.watermark.msg_bits, cfg.watermark.secret_grid
+    rng = np.random.default_rng(8)
+    jparams = {"secret_dense": {
+        "kernel": (0.5 * rng.standard_normal((bits, grid * grid))),
+        "bias": 0.1 * rng.standard_normal(grid * grid)},
+        "conv_out": {"kernel": 0.3 * rng.standard_normal((3, 3, 4, 4)),
+                     "bias": 0.1 * rng.standard_normal(4)}}
+    jparams = jax.tree_util.tree_map(lambda v: v.astype(np.float32), jparams)
+    tr.sec_encoder.load_state_dict(jax_params_to_torch(jparams), strict=True)
+
+    latents, noised = [], []
+    vae, sched = tr.pipe.vae, tr.pipe.schedule
+    sample, add_noise = vae.sample_from_moments, sched.add_noise
+    monkeypatch.setattr(vae, "sample_from_moments", lambda *a: latents.append(
+        sample(*a)) or latents[-1])
+    monkeypatch.setattr(sched, "add_noise", lambda x, *a: noised.append(x)
+                        or add_noise(x, *a))
+    loss_fn = tt.make_loss_fn(tr.pipe, tr.sec_encoder)
+    scaling = cfg.vae.scaling_factor
+    for res in (64, 32):
+        pixels = rng.uniform(-1, 1, (2, res, res, 3)).astype(np.float32)
+        draws = tt.draw(tr.pipe, tr.generator, pixels)
+        with torch.no_grad():
+            loss_fn(pixels, np.zeros((2, 77), np.int32), draws)
+        lat = jnp.asarray(_nhwc(latents[-1].float())).astype(jnp.bfloat16)
+        got = noised[-1]
+        assert lat.shape[1] == res // 2 and latents[-1].dtype == torch.bfloat16
+        msg = jnp.asarray(draws.msg.numpy())
+        if res == 64:
+            injected, _ = JEnc(bits, grid, 32, 4).apply({"params": jparams},
+                                                        lat, msg)
+            want = np.asarray(injected * scaling)
+            assert want.dtype == np.float32 and got.dtype == torch.float32
+            tol = 1e-6 * np.abs(want).max()
+        else:
+            with _interpret_pallas():
+                injected = _pallas_inject(
+                    lat, msg, *(jnp.asarray(jparams[m][k]) for m, k in (
+                        ("secret_dense", "kernel"), ("secret_dense", "bias"),
+                        ("conv_out", "kernel"), ("conv_out", "bias"))), grid)
+            want = np.asarray((injected * scaling).astype(jnp.float32))
+            assert got.dtype == torch.bfloat16
+            tol = 2.0 ** -7 * np.abs(want).max()
+        np.testing.assert_allclose(_nhwc(got.float()), want, rtol=0, atol=tol,
+                                   err_msg=f"{res} px")
+        assert np.abs(want - np.asarray(lat.astype(jnp.float32)) * scaling
+                      ).max() > 0.1             # the watermark is there
+
+
 # ---------------------------------------------------------------------------
 # the PPFT step, tiny config
 # ---------------------------------------------------------------------------

@@ -7,6 +7,7 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py                 # every phase
     python3 chip_smoke.py --phases 0,2    # some phases (no kernels line)
     python3 chip_smoke.py --phases 15     # the publisher's chain only
+    python3 chip_smoke.py --phases 16     # the chain, then the auditor's path
 
 Phases (any failure raises, so the exit code is not 0):
   0. torch and CUDA versions, the card's name and power limit (nvidia-smi).
@@ -23,7 +24,11 @@ Phases (any failure raises, so the exit code is not 0):
      attention shape of the serving path, O and lse: float32 and bfloat16
      at batch 2, then bfloat16 at the serving batch, where the tiling the
      kernel picks (printed: 16-row tiles or wide ones) is the one the
-     generate call launches.  There two kernel calls must give the same
+     generate call launches, and at the eval protocol's batch (4 images:
+     2 x 4 for the U-Net under CFG, 4 for the VAE), whose tiling may
+     differ.  Then the same at SD-2.1's 512^2 shapes, d = 64 at every level
+     (the DP = 80 instances, 16 columns masked), self- and
+     cross-attention.  At each batch two kernel calls must give the same
      bits; then the kernel's time, the plain version's, PyTorch's
      scaled_dot_product_attention's (a yardstick only: the port never
      calls it) and the H100 bound.
@@ -66,7 +71,8 @@ Phases (any failure raises, so the exit code is not 0):
      beside the pair's own device time (delta, dQ and dK/dV kernels): at
      the small shapes phase 5's times are the host's launch cost.
  10. The forward kernel and SDPA's forward at each serving shape and batch,
-     bf16, as device time under torch.profiler.
+     at the protocol's batch and at SD-2.1's d = 64 shapes, bf16, as device
+     time under torch.profiler.
  11. One more generate call of phase 3's pipeline, kept from phase 3,
      under torch.profiler: the device's busy share of the median call, its
      largest kernels and the forward kernel's share (`--phases 11` runs
@@ -112,7 +118,30 @@ Phases (any failure raises, so the exit code is not 0):
      B1 draw of generator i, the decoded bit accuracy (printed only: the
      weights are random).  Each stage's launches are counted from 0.  Then
      the tiny dpms_m slice on the card against the CPU, as phase 4 for DDIM.
-The timed phases run first (0-7, 12, 13, 14, 8, 15) and the profiled ones
+     The temporary directory stays until phase 16 ends.
+ 16. The auditor's path at full width on phase 15's artifacts, through the
+     entry points a user calls (`--phases 16` runs phase 15 too):
+     `aqualora_torch.eval.run_eval_base` with --train_folder --hidinfo
+     (SD-1.5 512^2, dpms_m 25, CFG 7.5, bf16, batch 4, 8 prompts x 2 seeds:
+     16 images written as PNGs, read back through the PIL-exact bicubic
+     preprocess and decoded), then create_wm_lora's CLI and run_eval_base
+     with --lora --msg_gt.  Every generate call must launch the forward
+     801 times; 16 PNGs and eval_base.json as written; the PNGs must equal
+     the device-quantized images and decode to the same bits; both flows
+     must give the same images and fields.  Then simple_sample with four
+     messages in one B4 batch (801 launches), each image beside the same
+     message folded (printed).  Prints images/s end to end, the seconds of
+     the parts (generate calls, quantize and fetch, PNG write, PNG read and
+     preprocess, decode, the rest), peak memory and the bit accuracy
+     (printed: the weights are random).
+ 17. The twelve samplers: each on the tiny slice on the card against the
+     CPU (the stochastic ones with the same draws on both sides); then at
+     full width (SD-1.5 512^2, B8, CFG 7.5, 25 steps, bf16, a folded
+     message) one timed call each after a shared warm-up, beside DDIM-25's
+     in the same run: finite images, forward launches = 32 per U-Net
+     evaluation of the sampler + 1 (801; 833 for pndm; 1569 for heun,
+     kdpm2, kdpm2a and dpms_s).
+The timed phases run first (0-7, 12, 13, 14, 8, 15, 16, 17) and the profiled ones
 after them, so that the profiler touches no timed phase: first the short
 sessions (6's profile, 9, 10, 12's profile), then the profiles of whole
 steps (8, 14) and of a generate call (11).  After a session of a whole
@@ -129,6 +158,7 @@ import math
 import re
 import statistics
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
@@ -158,6 +188,22 @@ SHAPES = [
     ("vae_mid", 1, 4096, 4096, 512, 8, 1),
 ]
 LAUNCHES_PER_GENERATE = sum(s[-1] for s in SHAPES)          # 801
+# the eval protocol's batch (run_eval_base): 4 prompts, so 2 x 4 for the
+# U-Net under CFG and 4 for the VAE; the bf16 tiling depends on the batch
+PROTOCOL_IMAGES = 4
+# SD-2.1 at 512^2: the JAX package sends d = 64 to the forward kernel at every
+# level (flash_shapes_ok), which the port runs on its DP = 80 instances with
+# 16 columns masked.  name, heads, Tq, Tk, head dim, serving batch (CFG of 8)
+SD21_SHAPES = [
+    ("sd21_64_self", 5, 4096, 4096, 64, 16),
+    ("sd21_64_cross", 5, 4096, 77, 64, 16),
+    ("sd21_32_self", 10, 1024, 1024, 64, 16),
+    ("sd21_32_cross", 10, 1024, 77, 64, 16),
+    ("sd21_16_self", 20, 256, 256, 64, 16),
+    ("sd21_16_cross", 20, 256, 77, 64, 16),
+    ("sd21_8_self", 20, 64, 64, 64, 16),
+    ("sd21_8_cross", 20, 64, 77, 64, 16),
+]
 SOURCES = ("flash_fwd", "flash_bwd", "secret_inject")
 # the differentiated attentions of one PPFT step at 512 px: name, heads,
 # Tq, Tk, head dim, student launches per step (each also runs once in the
@@ -416,43 +462,71 @@ def check_fwd(tag: str, q, k, v, scale: float, out=None) -> float:
     return err_o
 
 
-def phase2(smi: str) -> dict:
+def check_serving_shape(tag: str, h, tq, tk, d, b, gen, smi: str,
+                        at_b2: bool = True) -> dict:
+    """The forward at one attention shape: float32 and bf16 against the
+    plain version at batch 2 (`at_b2`), then bf16 at batch `b`, whose
+    tiling is the one a call at that batch launches: two calls bit-identical,
+    against the plain version, then the kernel's, the plain version's and
+    SDPA's times (SDPA a yardstick only: the port never calls it) and the
+    H100 bound.  Returns the row."""
     from aqualora_torch.ops import flash_attention as fa
+    scale = d ** -0.5
+    for dtype in (torch.float32, torch.bfloat16) if at_b2 else ():
+        q, k, v = (torch.randn(CHECK_BATCH, h, t, d, device="cuda",
+                               generator=gen).to(dtype)
+                   for t in (tq, tk, tk))
+        check_fwd(f"[2] {tag}", q, k, v, scale)
+        del q, k, v
+    q, k, v = (torch.randn(b, h, t, d, device="cuda",
+                           generator=gen).to(torch.bfloat16)
+               for t in (tq, tk, tk))
+    first, again = (fa.flash_attention_fwd(q, k, v, scale) for _ in range(2))
+    if not all(torch.equal(x, y) for x, y in zip(first, again)):
+        raise AssertionError(f"{tag}: two forward calls differ")
+    err = check_fwd(f"[2] {tag}", q, k, v, scale, out=first)
+    del first, again
+    kernel_ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, scale))
+    plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, scale),
+                       iters=3, warmup=1)
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, scale=scale))
+    bound_ms, bound_by = attention_bound(b, h, tq, tk, d)
+    print(f"[2] {tag} B{b} bf16 (two calls bit-identical): "
+          f"kernel_ms {kernel_ms:.4f} "
+          f"plain_ms {plain_ms:.4f} library_ms(sdpa) {library_ms:.4f} "
+          f"= {kernel_ms / library_ms:.2f}x, bound_ms {bound_ms:.4f} "
+          f"({bound_by}) | {smi}", flush=True)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def protocol_shapes():
+    """SHAPES at the eval protocol's batch: (key, name, heads, Tq, Tk, d,
+    batch)."""
+    return [(f"protocol_b{PROTOCOL_IMAGES}/{name}", name, h, tq, tk, d,
+             b * PROTOCOL_IMAGES // N_IMG)
+            for name, h, tq, tk, d, b, _ in SHAPES]
+
+
+def phase2(smi: str) -> dict:
+    """Every serving shape at batch 2 and at the serving batch, each of them
+    at the protocol's batch, and SD-2.1's d = 64 shapes; rows keyed by the
+    shape's name (the protocol's under `protocol_b4/`)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {}
     for name, h, tq, tk, d, serve_b, _ in SHAPES:
-        scale = d ** -0.5
-        for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = (torch.randn(CHECK_BATCH, h, t, d, device="cuda",
-                                   generator=gen).to(dtype)
-                       for t in (tq, tk, tk))
-            check_fwd(f"[2] {name}", q, k, v, scale)
-            del q, k, v
-        # the serving batch: the instance (tiling) the main path launches
-        q, k, v = (torch.randn(serve_b, h, t, d, device="cuda",
-                               generator=gen).to(torch.bfloat16)
-                   for t in (tq, tk, tk))
-        first, again = (fa.flash_attention_fwd(q, k, v, scale)
-                        for _ in range(2))
-        if not all(torch.equal(a, b) for a, b in zip(first, again)):
-            raise AssertionError(f"{name}: two forward calls differ")
-        err = check_fwd(f"[2] {name}", q, k, v, scale, out=first)
-        del first, again
-        kernel_ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, scale))
-        plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, scale),
-                           iters=3, warmup=1)
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, scale=scale))
-        bound_ms, bound_by = attention_bound(serve_b, h, tq, tk, d)
-        print(f"[2] {name} B{serve_b} bf16 (two calls bit-identical): "
-              f"kernel_ms {kernel_ms:.4f} "
-              f"plain_ms {plain_ms:.4f} library_ms(sdpa) {library_ms:.4f} "
-              f"bound_ms {bound_ms:.4f} ({bound_by}) | {smi}", flush=True)
-        rows[name] = {"max_abs_err": err, "ms": kernel_ms,
-                      "plain_ms": plain_ms, "bound_ms": bound_ms,
-                      "bound_by": bound_by, "library_ms": library_ms}
-        del q, k, v
-        torch.cuda.empty_cache()
+        rows[name] = check_serving_shape(name, h, tq, tk, d, serve_b, gen,
+                                         smi)
+    for key, name, h, tq, tk, d, b in protocol_shapes():
+        rows[key] = check_serving_shape(key, h, tq, tk, d, b, gen, smi,
+                                        at_b2=False)
+    for name, h, tq, tk, d, serve_b in SD21_SHAPES:
+        rows[name] = check_serving_shape(name, h, tq, tk, d, serve_b, gen,
+                                         smi)
     return rows
 
 
@@ -1040,11 +1114,16 @@ def phase9(smi: str, bwd_rows: dict) -> None:
 
 def phase10(smi: str, rows: dict) -> None:
     """The forward kernel and SDPA's forward at each serving shape and
-    batch, device time (phase 2's kernel_ms is host-timed, which at the
-    small shapes is the wrapper's launch cost)."""
+    batch, at the protocol's batch and at SD-2.1's d = 64 shapes, device
+    time (phase 2's kernel_ms is host-timed, which at the small shapes is
+    the wrapper's launch cost)."""
     from aqualora_torch.ops import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(10)
-    for name, h, tq, tk, d, b, _ in SHAPES:
+    cases = ([(name, h, tq, tk, d, b) for name, h, tq, tk, d, b, _ in SHAPES]
+             + [(key, h, tq, tk, d, b)
+                for key, _, h, tq, tk, d, b in protocol_shapes()]
+             + SD21_SHAPES)
+    for name, h, tq, tk, d, b in cases:
         scale = d ** -0.5
         q, k, v = (torch.randn(b, h, t, d, device="cuda", generator=gen)
                    .to(torch.bfloat16) for t in (tq, tk, tk))
@@ -1598,10 +1677,11 @@ def chain_ppft(tmp: str, s1_file: str, s1_encoder: dict):
 
 
 def chain_generate(smi: str, out_dir: str, trained: dict,
-                   ddim_s: float | None) -> None:
+                   ddim_s: float | None) -> float:
     """Chain steps 4-5: a fresh pipeline loads the saved LoRA, mapper and
     decoder, folds a message and generates B8 at 512^2 with DPM-Solver++(2M)
-    25 steps at CFG 7.5 from per-image generators; decode the bits."""
+    25 steps at CFG 7.5 from per-image generators; decode the bits.
+    Returns the median call in seconds."""
     from aqualora_torch.core.config import EfficientNetConfig, PipelineConfig
     from aqualora_torch.core.tokenizer import FallbackTokenizer
     from aqualora_torch.diffusion import pipeline as pl
@@ -1696,6 +1776,7 @@ def chain_generate(smi: str, out_dir: str, trained: dict,
             and torch.isfinite(images).all()
             and torch.isfinite(margins).all()):
         raise AssertionError("the chain's generate failed a check")
+    return med
 
 
 def chain_tiny_card_vs_cpu() -> None:
@@ -1737,24 +1818,379 @@ def chain_tiny_card_vs_cpu() -> None:
                              "the CPU")
 
 
-def phase15(smi: str, ddim_s: float | None) -> None:
+def phase15(smi: str, ddim_s: float | None, tmp: str) -> tuple:
     """The publisher's chain at full width: stage 1 -> PPFT from its file ->
-    the artifacts saved -> a fresh pipeline loads them -> dpms_m generate ->
-    decode; then the tiny dpms_m slice card vs CPU.  The counts are set to 0
-    before each stage and read after it."""
-    import tempfile
-    with tempfile.TemporaryDirectory(prefix="aqualora_chain_") as tmp:
-        s1_file, s1_encoder = chain_stage1(tmp)
-        torch.cuda.empty_cache()
-        out_dir, trained = chain_ppft(tmp, s1_file, s1_encoder)
-        chain_generate(smi, out_dir, trained, ddim_s)
-        del trained
-        torch.cuda.empty_cache()
+    the artifacts saved (under `tmp`, which phase 16 reads) -> a fresh
+    pipeline loads them -> dpms_m generate -> decode; then the tiny dpms_m
+    slice card vs CPU.  The counts are set to 0 before each stage and read
+    after it.  Returns the PPFT output directory and the median dpms_m B8
+    call in seconds."""
+    s1_file, s1_encoder = chain_stage1(tmp)
+    torch.cuda.empty_cache()
+    out_dir, trained = chain_ppft(tmp, s1_file, s1_encoder)
+    dpms_s = chain_generate(smi, out_dir, trained, ddim_s)
+    del trained
+    torch.cuda.empty_cache()
     chain_tiny_card_vs_cpu()
+    return out_dir, dpms_s
+
+
+# phase 16, the auditor's path: run_eval_base at the protocol's settings
+# (dpms_m 25, CFG 7.5, 512^2, bf16, batch 4) on phase 15's artifacts, 8
+# prompts x 2 seeds; the per-image path at one B4 batch of 4 messages
+EVAL_PROMPTS, EVAL_SEEDS = 8, 2
+EVAL_MSG_BITS = 48
+NO_TRAINING = {"dq": 0, "dkv": 0, "inject": 0}
+
+
+class RunnerParts:
+    """Times the runner's parts by wrapping what `utils_eval` calls (each
+    wrapper synchronizes the card before it stops its clock), counts the
+    forward launches of each generate call, and keeps the device-quantized
+    images.  `install()` / `remove()` put the wrappers in and take them
+    out."""
+
+    def __init__(self):
+        from aqualora_torch.diffusion import pipeline as pl
+        from aqualora_torch.eval import utils_eval as ue
+        self.targets = [(ue, "images_to_uint8"), (ue, "save_png"),
+                        (ue, "preprocess"), (ue, "decode_bits"),
+                        (pl.StableDiffusionPipeline, "make_generate")]
+        self.saved = {}
+        self.reset()
+
+    def reset(self):
+        self.seconds = {"generate": 0.0, "quantize_fetch": 0.0,
+                        "png_write": 0.0, "png_read_preprocess": 0.0,
+                        "decode": 0.0}
+        self.per_call, self.images = [], []
+
+    def _timed(self, part, fn):
+        def wrapper(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            self.seconds[part] += time.perf_counter() - t0
+            return out
+        return wrapper
+
+    def install(self):
+        self.saved = {(obj, name): getattr(obj, name)
+                      for obj, name in self.targets}
+        ue, pl_cls = self.targets[0][0], self.targets[-1][0]
+        quantize = self._timed("quantize_fetch", self.saved[
+            (ue, "images_to_uint8")])
+
+        def keep(images):
+            out = quantize(images)
+            self.images.extend(out)
+            return out
+
+        make_generate = self.saved[(pl_cls, "make_generate")]
+
+        def counted_make_generate(pipe, *a, **k):
+            generate = self._timed("generate", make_generate(pipe, *a, **k))
+
+            def counted(*ga, **gk):
+                torch.cuda.synchronize()
+                before = counts()
+                out = generate(*ga, **gk)
+                after = counts()
+                self.per_call.append({c: after[c] - before[c] for c in after})
+                return out
+            return counted
+
+        ue.images_to_uint8 = keep
+        ue.save_png = self._timed("png_write", self.saved[(ue, "save_png")])
+        ue.preprocess = self._timed("png_read_preprocess",
+                                    self.saved[(ue, "preprocess")])
+        ue.decode_bits = self._timed("decode",
+                                     self.saved[(ue, "decode_bits")])
+        pl_cls.make_generate = counted_make_generate
+
+    def remove(self):
+        for (obj, name), fn in self.saved.items():
+            setattr(obj, name, fn)
+
+
+def run_runner(argv, parts: RunnerParts, n_images: int) -> tuple:
+    """One `run_eval_base.main(argv)` with the counts set to 0 before it
+    and read after it, and the parts timed; -> (result, wall seconds,
+    launches by shape, counts)."""
+    from aqualora_torch.eval import run_eval_base
+    from aqualora_torch.ops import flash_attention as fa
+    parts.reset()
+    parts.install()
+    try:
+        torch.cuda.synchronize()
+        reset_counts()                          # counts start here
+        t0 = time.perf_counter()
+        result = run_eval_base.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got, by_shape = counts(), dict(fa.launches.by_shape)
+    finally:
+        parts.remove()
+    calls = n_images // PROTOCOL_IMAGES
+    want_call = {"fwd": LAUNCHES_PER_GENERATE, **NO_TRAINING}
+    if (len(parts.per_call) != calls
+            or any(c != want_call for c in parts.per_call)
+            or got != {"fwd": calls * LAUNCHES_PER_GENERATE, **NO_TRAINING}):
+        raise AssertionError(f"runner launches {got}, per call "
+                             f"{parts.per_call}; want {calls} calls of "
+                             f"{want_call}")
+    return result, wall, by_shape, got
+
+
+def phase16(smi: str, out_dir: str, tmp: str,
+            dpms_s: float | None) -> dict:
+    """The auditor's path at full width on phase 15's artifacts, through
+    the entry points a user calls: run_eval_base with --train_folder
+    --hidinfo (the message folded in memory), then create_wm_lora's CLI
+    and run_eval_base with --lora --msg_gt (the folded file); then
+    simple_sample with one message per image in one B4 batch.  Returns the
+    forward launches by serving shape of the first run."""
+    import numpy as np
+
+    from aqualora_torch.eval import image_io
+    from aqualora_torch.eval import utils_eval as ue
+    from aqualora_torch.eval.prompts import load_prompts
+    from aqualora_torch.ops import flash_attention as fa
+    from aqualora_torch.tools import create_wm_lora as cwl
+    from aqualora_torch.train.ppft_train import MSGDECODER_FILE
+
+    dec_path = str(Path(out_dir) / MSGDECODER_FILE)
+    rng = np.random.default_rng(16)
+    hidinfo = "".join(map(str, rng.integers(0, 2, EVAL_MSG_BITS)))
+    n_images = EVAL_PROMPTS * EVAL_SEEDS
+    common = ["--msgdecoder_path", dec_path, "--num_prompts",
+              str(EVAL_PROMPTS), "--num_seeds", str(EVAL_SEEDS),
+              "--batch_size", str(PROTOCOL_IMAGES), "--sampler", "dpms_m",
+              "--steps", str(STEPS), "--cfg", "7.5", "--resolution",
+              str(RES), "--msg_bits", str(EVAL_MSG_BITS), "--device", "cuda"]
+    names = [f"{s}_{i}.png" for s in range(EVAL_SEEDS)
+             for i in range(EVAL_PROMPTS)]
+    parts = RunnerParts()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    # flow 1: the message folded in memory
+    eval1 = Path(tmp) / "eval_one_step"
+    res1, wall, by_shape, got = run_runner(
+        ["--train_folder", out_dir, "--hidinfo", hidinfo,
+         "--output_dir", str(eval1)] + common, parts, n_images)
+    peak_gib = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    seconds, in_memory = dict(parts.seconds), list(parts.images)
+    pngs = sorted(p.name for p in (eval1 / "images").glob("*.png"))
+    on_disk = json.loads((eval1 / "eval_base.json").read_text())
+    rest = wall - sum(seconds.values())
+    print(f"[16] run_eval_base --train_folder --hidinfo: {n_images} images "
+          f"({EVAL_PROMPTS} prompts x {EVAL_SEEDS} seeds) at 512^2 dpms_m-"
+          f"{STEPS} CFG 7.5 bf16 B{PROTOCOL_IMAGES} in {wall:.4f} s = "
+          f"{n_images / wall:.4f} images/s end to end"
+          + (f" (phase 15's dpms_m B8 generate {N_IMG / dpms_s:.4f} imgs/s)"
+             if dpms_s else "")
+          + "; seconds: " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                       seconds.items())
+          + f", the rest (pipeline build, fold, prompts) {rest:.4f}; peak "
+          f"memory {peak_gib:.2f} GiB above the {base / 2 ** 30:.2f} GiB "
+          f"resident; launches {got}, each generate call "
+          f"{parts.per_call[0]}; bit_accuracy {res1['bit_acc']:.4f} TPR "
+          f"{res1['tpr']:.4f} at FPR {res1['fpr']:g} (random weights: "
+          f"printed, not checked) | {smi}", flush=True)
+    if not (pngs == sorted(names) and len(in_memory) == n_images
+            and on_disk == res1 and res1["n_images"] == n_images
+            and res1["message"] == hidinfo and res1["sampler"] == "dpms_m"
+            and 0.0 <= res1["bit_acc"] <= 1.0 and 0.0 <= res1["tpr"] <= 1.0):
+        raise AssertionError(f"the runner's outputs are not as written: "
+                             f"{pngs}, {res1}, {on_disk}")
+    # the PNG round trip is lossless: the files decode to the bits of the
+    # same calls' device-quantized images
+    png_arrays = [image_io.load_png(str(eval1 / "images" / n)) for n in names]
+    same_pixels = all(np.array_equal(a, b)
+                      for a, b in zip(png_arrays, in_memory))
+    _, _, from_png = ue.simple_decode(EVAL_MSG_BITS, dec_path,
+                                      [str(eval1 / "images" / n)
+                                       for n in names], resolution=RES, device="cuda")
+    _, _, from_memory = ue.simple_decode(EVAL_MSG_BITS, dec_path, in_memory,
+                                         resolution=RES, device="cuda")
+    print(f"[16] PNGs read back equal the device-quantized images: "
+          f"{same_pixels}; bits from the PNGs equal the bits from memory: "
+          f"{from_png == from_memory} ({len(set(from_png))} distinct "
+          f"bitstrings)", flush=True)
+    if not (same_pixels and from_png == from_memory):
+        raise AssertionError("the PNG round trip lost information")
+
+    # flow 2: create_wm_lora's CLI, then the folded file with --msg_gt
+    t0 = time.perf_counter()
+    written = cwl.main(["--train_folder", out_dir, "--msg_bits",
+                        str(EVAL_MSG_BITS), "--hidinfo", hidinfo])
+    fold_s = time.perf_counter() - t0
+    eval2 = Path(tmp) / "eval_two_step"
+    res2, wall2, _, _ = run_runner(
+        ["--lora", str(Path(out_dir) / hidinfo /
+                       "pytorch_lora_weights.safetensors"),
+         "--msg_gt", hidinfo, "--output_dir", str(eval2)] + common,
+        parts, n_images)
+    same_images = all(np.array_equal(
+        image_io.load_png(str(eval1 / "images" / n)),
+        image_io.load_png(str(eval2 / "images" / n))) for n in names)
+    same_result = all(res2[k] == res1[k] for k in
+                      ("bit_acc", "tpr", "n_images", "message"))
+    rest2 = wall2 - sum(parts.seconds.values())
+    print(f"[16] create_wm_lora CLI {fold_s:.4f} s, then run_eval_base "
+          f"--lora --msg_gt: {n_images / wall2:.4f} images/s ({wall2:.4f} "
+          f"s; seconds: " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                      parts.seconds.items())
+          + f", the rest {rest2:.4f}); the same images as the one-step "
+          f"flow: {same_images}; the same eval_base.json fields: "
+          f"{same_result} | {smi}", flush=True)
+    if not (written == hidinfo and same_images and same_result):
+        raise AssertionError("the two flows disagree")
+
+    # one message per image in one B4 batch, against each message folded
+    msgs = ["".join(map(str, r)) for r in
+            rng.integers(0, 2, (PROTOCOL_IMAGES, EVAL_MSG_BITS))]
+    prompts = load_prompts(None, PROTOCOL_IMAGES)
+    kw = dict(seeds=[0], batch_size=PROTOCOL_IMAGES, resolution=RES,
+              num_inference_steps=STEPS, device="cuda")
+    torch.cuda.synchronize()
+    reset_counts()
+    per_image = ue.simple_sample(None, "dpms_m", prompts, messages=msgs,
+                                 train_folder=out_dir, **kw)
+    torch.cuda.synchronize()
+    got = counts()
+    if got != {"fwd": LAUNCHES_PER_GENERATE, **NO_TRAINING}:
+        raise AssertionError(f"per-image call launches {got}")
+    pi_bits = ue.simple_decode(EVAL_MSG_BITS, dec_path, per_image,
+                               resolution=RES, device="cuda")[2]
+    for i, m in enumerate(msgs):
+        _, folded = cwl.create_watermark_lora(out_dir, msg_bits=EVAL_MSG_BITS,
+                                              hidinfo=m, save=False)
+        f_img = ue.simple_sample(None, "dpms_m", prompts, lora=folded,
+                                 **kw)[i]
+        f_bits = ue.simple_decode(EVAL_MSG_BITS, dec_path, [f_img],
+                                  resolution=RES, device="cuda")[2][0]
+        d = np.abs(f_img.astype(np.int16) - per_image[i].astype(np.int16))
+        agree = sum(a == b for a, b in zip(f_bits, pi_bits[i]))
+        print(f"[16] per-image message {i} (one B4 call, {got['fwd']} "
+              f"forward launches) against the same message folded: max|d "
+              f"pixel| {int(d.max())}, mean {d.mean():.4f} levels; decoded "
+              f"bits agree {agree}/{EVAL_MSG_BITS}; bits match the message "
+              f"{sum(a == b for a, b in zip(pi_bits[i], m))}/"
+              f"{EVAL_MSG_BITS} (random weights: printed)", flush=True)
+        del folded
+        torch.cuda.empty_cache()
+    return {name: by_shape.get((h, tq, tk, d), 0)
+            for name, h, tq, tk, d, _, _ in SHAPES}
+
+
+# phase 17, the samplers: the tiny slice's steps (enough for each sampler's
+# higher-order steps) and the full-width call's
+TINY_SAMPLER_STEPS = 5
+
+
+def phase17(smi: str) -> None:
+    """Each of the twelve samplers: the tiny slice on the card (kernels)
+    against the CPU (plain versions), float32, the same weights, initial
+    latents and draws; then at full width (SD-1.5 512^2, B8, CFG 7.5, 25
+    steps, bf16, a folded message), one timed call after a shared warm-up,
+    beside DDIM-25's: forward launches = 32 per U-Net evaluation + 1."""
+    import numpy as np
+
+    from aqualora_torch.core.config import PipelineConfig
+    from aqualora_torch.core.tokenizer import FallbackTokenizer
+    from aqualora_torch.diffusion import samplers as smp
+    from aqualora_torch.diffusion.pipeline import StableDiffusionPipeline
+    from aqualora_torch.ops import flash_attention as fa
+
+    cfg = PipelineConfig.tiny()
+    pipes = {dev: StableDiffusionPipeline(cfg, dtype=torch.float32,
+                                          device=dev)
+             for dev in ("cpu", "cuda")}
+    pipes["cpu"].init_params(seed=17)
+    pipes["cuda"].load_state_from(pipes["cpu"])
+    rng = np.random.default_rng(17)
+    msg = torch.from_numpy(rng.integers(0, 2, cfg.watermark.msg_bits)
+                           .astype(np.float32))
+    z = rng.standard_normal((2, 16, 16, cfg.unet.in_channels),
+                            dtype=np.float32)
+    ids = rng.integers(0, cfg.clip.vocab_size, (2, 77), dtype=np.int32)
+    neg = rng.integers(0, cfg.clip.vocab_size, (2, 77), dtype=np.int32)
+    for pipe in pipes.values():
+        pipe.fold_message(msg)
+    draw = smp.batch_randn
+    for name in sorted(smp.SAMPLERS):
+        out = {}
+        fa.launches.reset()
+        for dev, pipe in pipes.items():
+            # the stochastic samplers' draws: the same numbers on both sides
+            cpu_gen = torch.Generator().manual_seed(170)
+            smp.batch_randn = (lambda shape, generator, device,
+                               dtype=torch.float32, g=cpu_gen:
+                               torch.randn(shape, generator=g, dtype=dtype)
+                               .to(device))
+            try:
+                gen = pipe.make_generate(num_steps=TINY_SAMPLER_STEPS,
+                                         sampler=name, height=32, width=32)
+                out[dev] = gen(ids, neg, guidance_scale=7.5,
+                               z=torch.from_numpy(z).to(dev)).cpu()
+            finally:
+                smp.batch_randn = draw
+        err = (out["cuda"] - out["cpu"]).abs().max().item()
+        print(f"[17] tiny {name}-{TINY_SAMPLER_STEPS} slice card vs CPU: "
+              f"max|d image| {err:.3e} (tol {TINY_IMAGE_TOL:g}), kernel "
+              f"launches {fa.launches.count}", flush=True)
+        if not (err <= TINY_IMAGE_TOL and fa.launches.count > 0):
+            raise AssertionError(f"tiny {name} slice on the card disagrees "
+                                 "with the CPU")
+    del pipes
+
+    cfg = PipelineConfig.sd15(lora_rank=320)
+    pipe = StableDiffusionPipeline(cfg, dtype=torch.bfloat16, device="cuda")
+    pipe.init_params(seed=0)
+    pipe.fold_message(torch.bernoulli(
+        torch.full((cfg.watermark.msg_bits,), 0.5),
+        generator=torch.Generator().manual_seed(17)))
+    tok = FallbackTokenizer(cfg.clip.vocab_size)
+    ids, neg = tok(PROMPTS), tok([""] * N_IMG)
+
+    def gens(seed):
+        return [torch.Generator(device="cuda").manual_seed(seed + i)
+                for i in range(N_IMG)]
+
+    pipe.make_generate(STEPS, "ddim", RES, RES)(ids, neg, 7.5,
+                                                generator=gens(0))
+    per_unet = LAUNCHES_PER_GENERATE // STEPS            # 32
+    ddim_s = None
+    for name in ["ddim"] + sorted(set(smp.SAMPLERS) - {"ddim"}):
+        generate = pipe.make_generate(STEPS, name, RES, RES)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        images = generate(ids, neg, 7.5, generator=gens(300))
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+        got = counts()
+        evals = smp.unet_evaluations(name, STEPS)
+        ddim_s = ddim_s or call_s
+        print(f"[17] {name}-{STEPS} 8 x 512^2 CFG 7.5 bf16, message folded: "
+              f"{evals} U-Net evaluations, {got['fwd']} forward launches, "
+              f"{N_IMG / call_s:.4f} imgs/s (one call, {call_s:.4f} s; "
+              f"DDIM-{STEPS} {N_IMG / ddim_s:.4f}); images finite "
+              f"{bool(torch.isfinite(images).all())} | {smi}", flush=True)
+        if not (got == {"fwd": per_unet * evals + 1, **NO_TRAINING}
+                and tuple(images.shape) == (N_IMG, RES, RES, 3)
+                and torch.isfinite(images).all()):
+            raise AssertionError(f"{name} at full width: launches {got}, "
+                                 f"images {tuple(images.shape)}")
+    del pipe, images
+    torch.cuda.empty_cache()
 
 
 def kernels_line(rows, launches, bwd_rows, train_launches, inject_row,
-                 inject_launches, s1_rows, s1_launches) -> dict:
+                 inject_launches, s1_rows, s1_launches,
+                 proto_launches) -> dict:
     kernels = []
     for name, *_ in SHAPES:
         kernels.append({
@@ -1762,6 +2198,14 @@ def kernels_line(rows, launches, bwd_rows, train_launches, inject_row,
             "source": "aqualora_torch/csrc/flash_fwd.cu",
             "replaces": "aqualora_tpu/ops/flash_attention.py:147",
             "launches": launches[name], **rows[name]})
+    # the auditor's path (phase 16's first run_eval_base) at the protocol's
+    # batch
+    for key, name, *_ in protocol_shapes():
+        kernels.append({
+            "name": f"flash_attention_fwd/{key}", "route": "cuda",
+            "source": "aqualora_torch/csrc/flash_fwd.cu",
+            "replaces": "aqualora_tpu/ops/flash_attention.py:147",
+            "launches": proto_launches[name], **rows[key]})
     for kern, line in (("dq", 239), ("dkv", 269)):
         for name, *_ in TRAIN_SHAPES:
             kernels.append({
@@ -1798,11 +2242,13 @@ def main(argv=None):
                          "phase 0 always runs, and the kernels line needs "
                          "all of them)")
     args = ap.parse_args(argv)
-    every = set(range(16))
+    every = set(range(18))
     run_ = every if args.phases is None else \
         {0} | {int(x) for x in args.phases.split(",")}
     if 11 in run_:
         run_.add(3)          # phase 11 profiles phase 3's generate call
+    if 16 in run_:
+        run_.add(15)         # phase 16 reads phase 15's artifacts
     smi = phase0()
     rows, launches, med_s, serve = {}, {}, 0.0, None
     bwd_rows, inject_row, train_launches, inject_launches = {}, {}, {}, 0
@@ -1838,8 +2284,14 @@ def main(argv=None):
         s1_launches, s1_kept = phase14(smi)
     if 8 in run_:
         train_launches, inject_launches, ppft_kept = phase8(smi)
+    proto_launches = {}
     if 15 in run_:
-        phase15(smi, med_s if 3 in run_ else None)
+        with tempfile.TemporaryDirectory(prefix="aqualora_chain_") as tmp:
+            out_dir, dpms_s = phase15(smi, med_s if 3 in run_ else None, tmp)
+            if 16 in run_:
+                proto_launches = phase16(smi, out_dir, tmp, dpms_s)
+    if 17 in run_:
+        phase17(smi)
     # the profiled phases: the short sessions first, then the profiles of
     # whole steps and of the generate call (see the docstring)
     if 6 in run_:
@@ -1861,7 +2313,8 @@ def main(argv=None):
     if run_ == every:
         print(json.dumps(kernels_line(rows, launches, bwd_rows,
                                       train_launches, inject_row,
-                                      inject_launches, s1_rows, s1_launches)))
+                                      inject_launches, s1_rows, s1_launches,
+                                      proto_launches)))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

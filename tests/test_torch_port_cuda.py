@@ -66,6 +66,16 @@ def _need_cuda():
     (1, 1, 4096, 4096, 512, 32),  # the VAE mid-block at B1
     (5, 1, 4096, 4096, 512, 32),  # the VAE mid-block at the stage-1 batch
     (1, 2, 77, 50, 300, 32),      # d = 512 kernel at a narrower head dim
+    # SD-2.1 at 512^2: d = 64 at every level, on the DP = 80 instances with
+    # 16 columns masked
+    (4, 5, 4096, 4096, 64, 128),  # 64^2 self
+    (4, 5, 4096, 77, 64, 128),    # 64^2 cross
+    (16, 10, 1024, 1024, 64, 128),  # 32^2 self at the serving batch
+    (16, 10, 1024, 77, 64, 128),  # 32^2 cross
+    (16, 20, 256, 256, 64, 128),  # 16^2 self
+    (1, 20, 256, 77, 64, 16),     # 16^2 cross, 16-row tiles
+    (2, 20, 64, 64, 64, 16),      # the mid-block's 8^2 self
+    (2, 20, 64, 77, 64, 16),      # its cross-attention
 ])
 def test_flash_kernel_matches_plain(dtype, b, h, tq, tk, d, rows):
     _need_cuda()
@@ -91,6 +101,7 @@ def test_flash_kernel_matches_plain(dtype, b, h, tq, tk, d, rows):
     (2, 8, 4096, 77, 40, torch.bfloat16),     # its cross-attention
     (16, 8, 1024, 1024, 80, torch.bfloat16),  # 32^2 self at the serving batch
     (2, 8, 300, 77, 160, torch.bfloat16),     # 16-row tiles, warps merged
+    (16, 10, 1024, 1024, 64, torch.bfloat16),  # SD-2.1's d = 64, masked
     (1, 1, 1000, 1000, 512, torch.bfloat16),  # the d = 512 kernel
     (5, 1, 4096, 4096, 512, torch.float32),   # d = 512 float32 (3xTF32)
     (2, 1, 1000, 1000, 512, torch.float32),   # d = 512 float32, ragged

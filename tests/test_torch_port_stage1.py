@@ -37,6 +37,18 @@ STEPS_PER_EPOCH = 3
 NAMES = ("identity", "jpeg", "crop", "blur", "noise", "jitter")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch's CPU ops on one thread in this module: the tier-1 run puts
+    several test workers on one host, and a thread pool as wide as the host
+    in each of them oversubscribes the cores (the tiny torch ops here then
+    run one to two orders of magnitude slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @contextlib.contextmanager
 def _interpret_pallas():
     from jax.experimental import pallas as pl
@@ -258,20 +270,27 @@ def test_distortion_matches_jax(name):
     np.testing.assert_allclose(_nhwc(got), np.asarray(want), atol=2e-5)
 
 
+@pytest.fixture(scope="module")
+def jax_noiser():
+    """The JAX stage-1 Noiser, jitted once for the six layers: the layer
+    probabilities are a traced argument, so one trace serves them all."""
+    from aqualora_tpu.distort.noiser import Noiser as JaxNoiser
+    return jax.jit(JaxNoiser())
+
+
 @pytest.mark.parametrize("index", range(6))
-def test_noiser_layer_matches_jax(index):
+def test_noiser_layer_matches_jax(index, jax_noiser):
     """The stage-1 Noiser with one layer's probability at 1: the layer the
     JAX Noiser picks with `jax.random.choice`, applied with its draws
     from the layer key, at 64 px (the crop range clamps to the image)."""
     from aqualora_torch.distort.noiser import STAGE1_LAYERS, Noiser, NoiseDraw
-    from aqualora_tpu.distort.noiser import Noiser as JaxNoiser
 
     assert STAGE1_LAYERS == NAMES
     shape = (2, 64, 64, 3)
     x = _images(6 + index, shape)
     probs = np.eye(6, dtype=np.float32)[index]
     key = jax.random.PRNGKey(20 + index)
-    want = jax.jit(JaxNoiser())(key, jnp.asarray(x), jnp.asarray(probs))
+    want = jax_noiser(key, jnp.asarray(x), jnp.asarray(probs))
     kc, ka = jax.random.split(key)
     picked = int(jax.random.choice(kc, 6, p=jnp.asarray(probs)))
     assert picked == index
@@ -775,19 +794,20 @@ def test_step_lr_and_curriculum_match_jax():
 # the entry point
 # ---------------------------------------------------------------------------
 
-def test_stage1_cli_runs_on_cpu(tmp_path):
-    """The entry point as a user calls it, on the CPU: two logged steps,
-    finite losses, and the artifact loads into fresh tiny modules."""
+def test_stage1_cli_runs_on_cpu(tmp_path, monkeypatch, capsys):
+    """The entry point as a user calls it (`main`, what `python -m` runs,
+    in this process), on the CPU: two logged steps, finite losses, and the
+    artifact loads into fresh tiny modules."""
     import aqualora_torch.core.config as tcfg
     from aqualora_torch.train import latent_wm_pretrain as tt
 
-    proc = subprocess.run(
-        [sys.executable, "-m", "aqualora_torch.train.latent_wm_pretrain",
-         "--tiny", "--max_train_steps", "2", "--batch_size", "2",
-         "--device", "cpu", "--output_dir", str(tmp_path)], cwd=REPO,
-        capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    lines = [ln for ln in proc.stdout.splitlines() if " step " in ln]
+    monkeypatch.setattr(sys, "argv", [
+        "latent_wm_pretrain", "--tiny", "--max_train_steps", "2",
+        "--batch_size", "2", "--device", "cpu", "--output_dir",
+        str(tmp_path)])
+    tt.main()
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if " step " in ln]
     assert len(lines) == 2
     for ln in lines:
         fields = dict(kv.split("=") for kv in ln.split() if "=" in kv)

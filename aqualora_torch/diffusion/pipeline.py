@@ -6,8 +6,9 @@ path: CLIP encode, the CFG denoise loop of the U-Net under DPM-Solver++(2M)
 PPFT trainer (`train/ppft_train.py`) drives the same modules, the VAE
 encoder included.  The watermark enters through the MapperNet diagonal:
 `fold_message(msg)` folds `mapper(msg) * 1.03` into the U-Net's LoRA sites
-once, and generation then runs the plain U-Net.  `load_watermark_lora`
-reads the LoRA and MapperNet that the PPFT trainer saves.
+once (from their float32 base weights, in any compute type), and generation
+then runs the plain U-Net.  `load_watermark_lora` reads the LoRA and
+MapperNet that the PPFT trainer saves.
 
 Unlike the JAX pipeline, whose parameters travel separately, the weights
 live in the modules (`pipe.clip`, `pipe.unet`, `pipe.vae`, `pipe.mapper`) on
@@ -32,7 +33,7 @@ from aqualora_torch.core.io import (LORA_FILE, MAPPER_FILE, assign_state,
 from aqualora_torch.diffusion.samplers import Generators, batch_randn, sample
 from aqualora_torch.diffusion.schedule import NoiseSchedule
 from aqualora_torch.models.clip import CLIPTextModel
-from aqualora_torch.models.lora import LoRAConv2d, LoRALinear, fold_lora_tree
+from aqualora_torch.models.lora import fold_lora_tree, lora_sites
 from aqualora_torch.models.unet import UNet2DConditionModel
 from aqualora_torch.models.vae import AutoencoderKL
 from aqualora_torch.models.watermark import MapperNet
@@ -84,18 +85,35 @@ class StableDiffusionPipeline:
             wm = config.watermark
             self.mapper = MapperNet(wm.msg_bits, wm.lora_rank, wm.mapper_std)
         for m in self.modules():
-            m.to(dtype).eval().requires_grad_(False)
-        # The LoRA and the MapperNet stay float32 under any compute type, as
-        # the JAX package keeps every parameter: a LoRA weight takes the
-        # activation's type at each call, and the fold computes in float32.
-        self.mapper.float()
-        for m in (*self.clip.modules(), *self.unet.modules()):
-            if isinstance(m, (LoRALinear, LoRAConv2d)) and m.lora is not None:
-                m.lora.float()
+            m.eval().requires_grad_(False)
+        # What the JAX package computes from float32 weights under any
+        # compute type stays float32 here (every JAX parameter is float32,
+        # and flax casts a kernel to the compute type at use): the LoRA and
+        # the MapperNet, whose weights take the activation's type at each
+        # call; the two conv_out layers flax runs in float32; and the base
+        # weights of the U-Net's LoRA sites, cast at each call until a
+        # message is folded into them (`fold_diag`), so that the fold rounds
+        # once, as JAX's float32 fold cast at use.  Everything else is
+        # stored in `dtype`, which is JAX's cast at use done once.
+        keep = {id(p) for p in self._float32_parameters()}
+        with torch.no_grad():
+            for m in self.modules():
+                for t in (*m.parameters(), *m.buffers()):
+                    if id(t) not in keep and t.is_floating_point():
+                        t.data = t.data.to(dtype)
         self.schedule = NoiseSchedule.create(config.schedule, self.device)
 
     def modules(self):
         return (self.clip, self.unet, self.vae, self.mapper)
+
+    def _float32_parameters(self):
+        yield from self.mapper.parameters()
+        for m in (*lora_sites(self.clip), *lora_sites(self.unet)):
+            yield from m.lora.parameters()
+        for m in lora_sites(self.unet):
+            yield m.weight
+        yield from self.unet.conv_out.parameters()
+        yield from self.vae.decoder.conv_out.parameters()
 
     # -- weights -------------------------------------------------------------
     def init_params(self, seed: int = 0) -> None:
@@ -164,10 +182,21 @@ class StableDiffusionPipeline:
                      multiplier: float | None = None) -> None:
         """Fold one message into the U-Net weights, in place (call it once
         per set of weights).  msg: [bits] or [1, bits]."""
-        diag = self.message_scale(torch.as_tensor(msg).reshape(1, -1),
-                                  multiplier)[0]
+        self.fold_diag(self.message_scale(
+            torch.as_tensor(msg).reshape(1, -1), multiplier)[0])
+
+    @torch.no_grad()
+    def fold_diag(self, diag: torch.Tensor) -> None:
+        """Fold a [rank] diagonal into the U-Net's LoRA sites, in place:
+        W + alpha * down . diag . up in float32 from the float32 base
+        weights, then cast to the compute type, one rounding (JAX's float32
+        fold, `aqualora_tpu/models/lora.py:206-232`, cast at use).  The
+        float32 base weights go with it, so call it once per set of
+        weights."""
         fold_lora_tree(self.unet, diag,
                        alpha_scale=self.config.unet.lora.alpha_scale)
+        for m in lora_sites(self.unet):
+            m.weight.data = m.weight.data.to(self.dtype)
 
     # -- the generator -----------------------------------------------------------
     def make_generate(self, num_steps: int = 25, sampler: str = "dpms_m",

@@ -1,24 +1,31 @@
-"""The stage-1 distortion sampler: one distortion per batch.
+"""The distortion samplers of stages 1 and 3: one distortion per batch.
 
-The port of `aqualora_tpu/distort/noiser.py:25-86` (`Noiser`).  The JAX
-`Noiser` picks one layer with `jax.random.choice` over a probability
-vector and applies it with that layer's own draws from a key.  Here the
-pick and the layer's numbers are drawn first (`Noiser.draw`, from a
-`torch.Generator`) and applied second (`Noiser.__call__`), so that the
-training step takes them as arguments and a test can hand it the JAX
-package's numbers.
+The port of `aqualora_tpu/distort/noiser.py` (`Noiser`, `distortion_unit`,
+`Stage3Noiser`).  The JAX samplers pick one layer with `jax.random.choice`
+over a probability vector and apply it with that layer's own draws from a
+key.  Here the pick and the layer's numbers are drawn first
+(`Noiser.draw`, from a `torch.Generator`) and applied second
+(`Noiser.__call__`), so that the training step takes them as arguments and
+a test can hand it the JAX package's numbers.
 
-The stage-1 menu, in the reference's order: identity, JPEG (Y/U/V keep
-25/9/9), crop of U(256, 512)^2 resized back, Gaussian blur with sigma
-U(0.001, 10), Gaussian noise with std U(0, 0.2) and colour jitter.  The
-table also has the stage-1 reference's rotation (U(-180, 180) degrees)
-and sharpness (factor U(0, s), s ~ U(0, 1)).  `Stage3Noiser` and
-`distortion_unit` belong to stage 3 and are not ported yet.
+The stage-1 menu (`Noiser`), in the reference's order: identity, JPEG
+(Y/U/V keep 25/9/9), crop of U(256, 512)^2 resized back, Gaussian blur with
+sigma U(0.001, 10), Gaussian noise with std U(0, 0.2) and colour jitter.
+The table also has the stage-1 reference's rotation (U(-180, 180) degrees)
+and sharpness (factor U(0, s), s ~ U(0, 1)).
+
+The milder stage-3 menu (`Stage3Noiser`, `distortion_unit`), on [0, 1]
+images: identity; colour jitter (brightness, contrast and saturation
+U(0.8, 1.2), hue U(-0.1, 0.1)); a crop of U(432, 512)^2 resized back to the
+image's own size; blur at sigma 4 with a 5-tap kernel; noise of std 0.1
+clamped to [0, 1]; by default with probabilities (0.6, 0.1, 0.15, 0.05,
+0.1).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Dict, Sequence, Tuple
 
 import torch
@@ -47,10 +54,10 @@ def _draw_none(gen, shape) -> Params:
     return {}
 
 
-def _draw_crop(gen, shape) -> Params:
+def _draw_crop(gen, shape, lo: int = 256, hi: int = 512) -> Params:
     b, _, h, w = shape
-    ch = _uniform(gen, (b,), *_crop_range(h))
-    cw = _uniform(gen, (b,), *_crop_range(w))
+    ch = _uniform(gen, (b,), *_crop_range(h, lo, hi))
+    cw = _uniform(gen, (b,), *_crop_range(w, lo, hi))
     ty = _uniform(gen, (b,), 0.0, 1.0) * (h - ch)
     tx = _uniform(gen, (b,), 0.0, 1.0) * (w - cw)
     return {"ch": ch, "cw": cw, "ty": ty, "tx": tx}
@@ -83,21 +90,70 @@ def _draw_sharpness(gen, shape) -> Params:
     return {"factor": _uniform(gen, (shape[0],), 0.0, 1.0) * s}
 
 
+def _crop(x, p):
+    return noises.crop_and_resize(x, p["ch"], p["cw"], p["ty"], p["tx"],
+                                  out_size=x.shape[2])
+
+
+def _jitter(x, p, input_range="pm1"):
+    return noises.color_jitter(x, p["brightness"], p["contrast"],
+                               p["saturation"], p["hue"], input_range)
+
+
 # name -> (draw(generator, shape), apply(x, params))
 LAYERS: Dict[str, Tuple[Callable, Callable]] = {
     "identity": (_draw_none, lambda x, p: x),
     "jpeg": (_draw_none, lambda x, p: jpeg_compress(x).to(x.dtype)),
-    "crop": (_draw_crop, lambda x, p: noises.crop_and_resize(
-        x, p["ch"], p["cw"], p["ty"], p["tx"], out_size=x.shape[2])),
+    "crop": (_draw_crop, _crop),
     "blur": (_draw_blur, lambda x, p: noises.gaussian_blur(x, p["sigma"])),
     "noise": (_draw_noise, lambda x, p: noises.gaussian_noise(
         x, p["std"], p["noise"])),
-    "jitter": (_draw_jitter, lambda x, p: noises.color_jitter(
-        x, p["brightness"], p["contrast"], p["saturation"], p["hue"])),
+    "jitter": (_draw_jitter, _jitter),
     "rotation": (_draw_rotation, lambda x, p: noises.rotate(x, p["angle"])),
     "sharpness": (_draw_sharpness,
                   lambda x, p: noises.sharpness(x, p["factor"])),
 }
+
+
+# -- the stage-3 menu (`aqualora_tpu/distort/noiser.py:89-136`) -------------
+
+def _draw_unit_jitter(gen, shape) -> Params:
+    b = shape[0]
+    return {"brightness": _uniform(gen, (b,), 0.8, 1.2),
+            "contrast": _uniform(gen, (b,), 0.8, 1.2),
+            "saturation": _uniform(gen, (b,), 0.8, 1.2),
+            "hue": _uniform(gen, (b,), -0.1, 0.1)}
+
+
+def _draw_unit_blur(gen, shape) -> Params:
+    return {"sigma": _uniform(gen, (shape[0],), 4.0 - 1e-6, 4.0)}
+
+
+def _draw_unit_noise(gen, shape) -> Params:
+    return {"noise": torch.randn(shape, generator=gen, device=gen.device)}
+
+
+def _unit_noise(x, p):
+    std = torch.full((x.shape[0],), 0.1, device=x.device)
+    return torch.clamp(noises.gaussian_noise(x, std, p["noise"]), 0.0, 1.0)
+
+
+DISTORTION_UNITS: Dict[str, Tuple[Callable, Callable]] = {
+    "identity": (_draw_none, lambda x, p: x),
+    "color_jitter": (_draw_unit_jitter,
+                     functools.partial(_jitter, input_range="01")),
+    "crop": (functools.partial(_draw_crop, lo=432, hi=512), _crop),
+    "blur": (_draw_unit_blur,
+             lambda x, p: noises.gaussian_blur(x, p["sigma"], size=5)),
+    "noise": (_draw_unit_noise, _unit_noise),
+}
+
+
+def distortion_unit(x01: torch.Tensor, kind: str, params: Params
+                    ) -> torch.Tensor:
+    """Apply one named stage-3 distortion, with its numbers, to [0, 1]
+    images."""
+    return DISTORTION_UNITS[kind][1](x01, params)
 
 
 @dataclasses.dataclass
@@ -111,10 +167,13 @@ class NoiseDraw:
 
 class Noiser:
     """draw(generator, shape, probs) -> NoiseDraw; noiser(x, draw) -> the
-    distorted images (one layer for the whole batch)."""
+    distorted images (one layer for the whole batch).  `table` maps a
+    layer's name to its (draw, apply) pair."""
 
-    def __init__(self, layers: Sequence[str] = STAGE1_LAYERS):
+    def __init__(self, layers: Sequence[str] = STAGE1_LAYERS,
+                 table: Dict[str, Tuple[Callable, Callable]] = None):
         self.names = list(layers)
+        self.table = LAYERS if table is None else table
 
     def draw(self, gen: torch.Generator, shape, probs) -> NoiseDraw:
         """Pick a layer with the probabilities `probs` (one per layer) and
@@ -128,7 +187,24 @@ class Noiser:
             acc += pi
             if u < acc:
                 break
-        return NoiseDraw(index, LAYERS[self.names[index]][0](gen, shape))
+        return NoiseDraw(index, self.table[self.names[index]][0](gen, shape))
 
     def __call__(self, x: torch.Tensor, draw: NoiseDraw) -> torch.Tensor:
-        return LAYERS[self.names[draw.index]][1](x, draw.params)
+        return self.table[self.names[draw.index]][1](x, draw.params)
+
+
+class Stage3Noiser(Noiser):
+    """The stage-3 sampler (`Stage3Noiser`, the reference's
+    `rob_enhance_finetune.py:121-132`) over [identity, color_jitter, crop,
+    blur, noise] on [0, 1] images; `draw` takes DEFAULT_PROBS unless given
+    others."""
+
+    ORDER = ("identity", "color_jitter", "crop", "blur", "noise")
+    DEFAULT_PROBS = (0.6, 0.1, 0.15, 0.05, 0.1)
+
+    def __init__(self):
+        super().__init__(self.ORDER, DISTORTION_UNITS)
+
+    def draw(self, gen: torch.Generator, shape, probs=None) -> NoiseDraw:
+        return super().draw(gen, shape,
+                            self.DEFAULT_PROBS if probs is None else probs)

@@ -209,7 +209,7 @@ def simple_sample(model_path: Optional[str], sampler: str,
     `int8`: not ported (ROADMAP A.10); anything truthy raises."""
     from aqualora_torch.core.tokenizer import load_tokenizer
     from aqualora_torch.diffusion.pipeline import StableDiffusionPipeline
-    from aqualora_torch.models.lora import fold_lora_tree, strip_lora_params
+    from aqualora_torch.models.lora import strip_lora_params
     from aqualora_torch.tools.create_wm_lora import (load_mapper_state,
                                                      mapper_diag_from_state)
 
@@ -250,8 +250,7 @@ def simple_sample(model_path: Optional[str], sampler: str,
     diag_all = None
     if lora is not None:
         import_lora_safetensors(pipe.unet, cfg.unet, lora)
-        fold_lora_tree(pipe.unet, torch.ones(cfg.unet.lora.rank),
-                       alpha_scale=cfg.unet.lora.alpha_scale)
+        pipe.fold_diag(torch.ones(cfg.unet.lora.rank))
         strip_lora_params(pipe.unet)
     elif lora_unfolded is not None:
         import_lora_safetensors(pipe.unet, cfg.unet, lora_unfolded)

@@ -9,10 +9,12 @@ an optional `lora.{down,up}` pair.  `DiagScale` values accepted everywhere:
   [rank] or [B, rank] tensor -> diagonal modulation between down and up
 
 Every branch is multiplied by the config's `alpha_scale`.  The LoRA
-weights take the activation's type at every call, as flax's `dtype=` casts
-the kernel to the compute type, so float32 trainable LoRA weights run under
-a bfloat16 U-Net (the PPFT trainer's mixed precision).  The kohya dropouts
-are training-only and are not ported yet.
+weights and the base weight take the activation's type at every call, as
+flax's `dtype=` casts the kernel to the compute type, so float32 trainable
+LoRA weights run under a bfloat16 U-Net (the PPFT trainer's mixed
+precision), and a float32 base weight that a bfloat16 pipeline keeps for
+the fold (`StableDiffusionPipeline.fold_diag`) runs in bfloat16.  The
+kohya dropouts are training-only and are not ported yet.
 """
 
 from __future__ import annotations
@@ -106,7 +108,7 @@ class LoRALinear(nn.Module):
         self.alpha_scale = lora.alpha_scale if _enabled(lora) else 1.0
 
     def forward(self, x: torch.Tensor, scale: DiagScale = None) -> torch.Tensor:
-        y = F.linear(x, self.weight, self.bias)
+        y = F.linear(x, self.weight.to(x.dtype), self.bias)
         if self.lora is not None and scale is not None:
             y = y + self.alpha_scale * self.lora(x, scale)
         return y
@@ -133,23 +135,29 @@ class LoRAConv2d(nn.Module):
         self.alpha_scale = lora.alpha_scale if _enabled(lora) else 1.0
 
     def forward(self, x: torch.Tensor, scale: DiagScale = None) -> torch.Tensor:
-        y = F.conv2d(x, self.weight, self.bias, self.stride, self.padding)
+        y = F.conv2d(x, self.weight.to(x.dtype), self.bias, self.stride,
+                     self.padding)
         if self.lora is not None and scale is not None:
             y = y + self.alpha_scale * self.lora(x, scale)
         return y
+
+
+def lora_sites(module: nn.Module):
+    """The layers of `module` that carry a LoRA pair."""
+    return [m for m in module.modules()
+            if isinstance(m, (LoRALinear, LoRAConv2d)) and m.lora is not None]
 
 
 @torch.no_grad()
 def fold_lora_tree(module: nn.Module, diag: torch.Tensor,
                    multiplier: float = 1.0, alpha_scale: float = 1.0) -> None:
     """Fold one message's diagonal into every LoRA layer's base weight, in
-    place: W += alpha * down . diag(s) . up, so the denoise loop can run the
-    plain layers (scale=None).  diag: [rank].  The LoRA weights stay; call
+    place: W += alpha * down . diag(s) . up, computed in float32 and written
+    in W's type, so the denoise loop can run the plain layers (scale=None).
+    diag: [rank].  The LoRA weights stay; call
     `strip_lora_params` to free them.  In place rather than a copy: a copy
     of the SD-1.5 U-Net would double its memory for no use."""
-    for m in module.modules():
-        if not isinstance(m, (LoRALinear, LoRAConv2d)) or m.lora is None:
-            continue
+    for m in lora_sites(module):
         s = (diag.float() * (multiplier * alpha_scale)).to(m.weight.device)
         down = m.lora.down.weight.float()
         up = m.lora.up.weight.float()

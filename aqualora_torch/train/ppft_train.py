@@ -61,11 +61,20 @@ Run on the card (the default) or on the CPU:
         --train_batch_size 2 --device cpu --output_dir /tmp/ppft \\
         --validation_prompt "a photo"
 
-Not ported yet: checkpoints and resume, periodic validation, gradient
-accumulation, the kohya dropouts, block LR, 8-bit Adam, the text-encoder
-LoRA, cached latents, the int8 teacher and the scale-0 teacher
-(`--teacher_skip_lora 0`), remat, FSDP and the image-folder and HF
-datasets.
+Checkpoints and the tracker (`ppft_train.py:434-501`), with
+`--output_dir`: every `--checkpointing_steps` the LoRA and mapper, the
+optimizer, the schedule, the step and the step generator's state go to
+`<output_dir>/checkpoints/<step>.pt` (`core/checkpoint.py`; at most
+`--checkpoints_total_limit` kept); `--resume_from_checkpoint` ("latest" or
+a step) restores them and replays the skipped steps' batches and draws, so
+the resumed run sees the draws of an uninterrupted one.  `--report_to`
+adds TensorBoard or wandb logs under `<output_dir>/logs` where installed
+(`utils/logging.py`); the scalars are printed in any case.
+
+Not ported yet: periodic validation, gradient accumulation, the kohya
+dropouts, block LR, 8-bit Adam, the text-encoder LoRA, cached latents, the
+int8 teacher and the scale-0 teacher (`--teacher_skip_lora 0`), remat,
+FSDP and the image-folder and HF datasets.
 """
 
 from __future__ import annotations
@@ -80,6 +89,7 @@ from typing import Any, Callable, Dict, List, Tuple
 import torch
 import torch.nn as nn
 
+from aqualora_torch.core.checkpoint import CheckpointManager
 from aqualora_torch.core.config import (EfficientNetConfig, PipelineConfig,
                                         WatermarkConfig)
 from aqualora_torch.core.io import (LORA_FILE, MAPPER_FILE, assign_state,
@@ -92,6 +102,7 @@ from aqualora_torch.eval.utils_eval import decode_bits
 from aqualora_torch.models.watermark import SecretDecoder, SecretEncoder
 from aqualora_torch.ops.secret_inject import inject_from_params
 from aqualora_torch.train.data import SyntheticDataset
+from aqualora_torch.utils.logging import Tracker
 
 MSGDECODER_FILE = "msgdecoder.pt"
 
@@ -416,7 +427,8 @@ def save_artifacts(output_dir: str, pipe: StableDiffusionPipeline,
 
 
 def final_sanity_inference(tr: Trainer, args: argparse.Namespace,
-                           generator: torch.Generator) -> float:
+                           generator: torch.Generator,
+                           tracker: Tracker | None = None) -> float:
     """End-of-training sanity inference (`final_sanity_inference`,
     `ppft_train.py:616-658`): read the saved LoRA and mapper back from
     `--output_dir` into the pipeline, generate `--num_validation_images`
@@ -435,19 +447,61 @@ def final_sanity_inference(tr: Trainer, args: argparse.Namespace,
     diag = pipe.message_scale(msg, multiplier=1.0)
     images = gen(tr.tokenizer([args.validation_prompt] * n),
                  tr.tokenizer([""] * n), 7.5, diag, generator=generator)
+    if tracker is not None:
+        tracker.log_images("test", images.float().cpu().numpy(), 0)
     bits, _ = decode_bits(tr.msgdecoder, images)
     return float((bits == msg.long()).float().mean())
+
+
+def checkpoint_state(tr: Trainer, step: int) -> Dict[str, Any]:
+    """The state a checkpoint keeps: the trainables, the optimizer, the
+    schedule, the step and the step generator's state."""
+    return {"lora": {k: p.detach() for k, p in
+                     split_lora(tr.pipe.unet)[1].items()},
+            "mapper": tr.pipe.mapper.state_dict(),
+            "optimizer": tr.scheduler.optimizer.state_dict(),
+            "scheduler": tr.scheduler.state_dict(), "step": step,
+            "generator": tr.generator.get_state()}
+
+
+def resume(tr: Trainer, ckpt: CheckpointManager, which: str) -> int:
+    """Restore the checkpoint `which` ("latest" or a step), replay the
+    skipped steps' batches and draws, and return the step it was saved
+    at."""
+    state = ckpt.restore(None if which == "latest" else int(which))
+    assign_state(tr.pipe.unet, state["lora"],
+                 skip=split_lora(tr.pipe.unet)[0], what="lora")
+    assign_state(tr.pipe.mapper, state["mapper"], what="mapper")
+    tr.scheduler.optimizer.load_state_dict(state["optimizer"])
+    tr.scheduler.load_state_dict(state["scheduler"])
+    start = int(state["step"])
+    for _ in range(start):
+        pixels, _ = next(tr.batches)
+        draw(tr.pipe, tr.generator, pixels)
+    if not torch.equal(tr.generator.get_state(), state["generator"]):
+        raise ValueError(f"checkpoint {start}: its draws are not this run's "
+                         "(another --seed, --train_batch_size or --tiny?)")
+    return start
 
 
 def run(args: argparse.Namespace) -> Dict[str, Any]:
     """Train, then save the artifacts and run the sanity inference when
     asked; -> {"history": logged metrics, "seconds": each step's wall time
-    (the loss read back when it is logged), "trainer", and
+    (the loss read back when it is logged), "trainer", "start_step", and
     "sanity_bit_accuracy" when the sanity inference ran}."""
+    if args.resume_from_checkpoint and not args.output_dir:
+        raise ValueError("--resume_from_checkpoint reads "
+                         "<output_dir>/checkpoints: pass --output_dir")
     tr = build_trainer(args)
+    ckpt = (CheckpointManager(os.path.join(args.output_dir, "checkpoints"),
+                              max_to_keep=args.checkpoints_total_limit)
+            if args.output_dir else None)
+    start = (resume(tr, ckpt, args.resume_from_checkpoint)
+             if args.resume_from_checkpoint else 0)
+    tracker = Tracker(args.output_dir, args.report_to)
     history, seconds = [], []
     t0 = time.time()
-    for global_step in range(1, tr.max_steps + 1):
+    for global_step in range(start + 1, tr.max_steps + 1):
         t1 = time.perf_counter()
         pixels, captions = next(tr.batches)
         ids = tr.tokenizer(captions)
@@ -457,19 +511,24 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
             m = {k: float(v) for k, v in metrics.items()}
             history.append(m)
             m["lr"] = tr.scheduler.get_last_lr()[0]     # lr of the next step
+            tracker.log(m, global_step)
             print(f"step {global_step}/{tr.max_steps}: "
                   + " ".join(f"{k}={v:.6f}" for k, v in m.items())
-                  + f" ({(time.time() - t0) / global_step:.2f}s/step)",
-                  flush=True)
+                  + f" ({(time.time() - t0) / (global_step - start):.2f}"
+                  "s/step)", flush=True)
+        if ckpt is not None and global_step % args.checkpointing_steps == 0:
+            ckpt.save(global_step, checkpoint_state(tr, global_step))
         seconds.append(time.perf_counter() - t1)
-    out = {"history": history, "seconds": seconds, "trainer": tr}
+    out = {"history": history, "seconds": seconds, "trainer": tr,
+           "start_step": start}
     if args.output_dir:
         save_artifacts(args.output_dir, tr.pipe, tr.msgdecoder)
         if args.validation_prompt and args.num_validation_images > 0:
-            acc = final_sanity_inference(tr, args, tr.generator)
+            acc = final_sanity_inference(tr, args, tr.generator, tracker)
             print(f"final sanity inference: bit_accuracy {acc:.4f}",
                   flush=True)
             out["sanity_bit_accuracy"] = acc
+    tracker.close()
     return out
 
 
@@ -510,7 +569,15 @@ def build_argparser() -> argparse.ArgumentParser:
                         "and mapper.safetensors")
     p.add_argument("--output_dir", type=str, default=None,
                    help="where the LoRA, mapper and msgdecoder are written "
-                        "at the end (nothing is written without it)")
+                        "at the end, the checkpoints and the logs (nothing "
+                        "is written without it)")
+    p.add_argument("--checkpointing_steps", type=int, default=500)
+    p.add_argument("--checkpoints_total_limit", type=int, default=None)
+    p.add_argument("--resume_from_checkpoint", type=str, default=None,
+                   help='"latest" or a step saved under '
+                        '<output_dir>/checkpoints')
+    p.add_argument("--report_to", type=str, default="tensorboard",
+                   choices=["tensorboard", "wandb", "all", "none"])
     p.add_argument("--validation_prompt", type=str, default=None,
                    help="with --output_dir: the final sanity inference's "
                         "prompt")

@@ -8,6 +8,7 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py --phases 0,2    # some phases (no kernels line)
     python3 chip_smoke.py --phases 15     # the publisher's chain only
     python3 chip_smoke.py --phases 16     # the chain, then the auditor's path
+    python3 chip_smoke.py --phases 18     # the chain, then stage 3
 
 Phases (any failure raises, so the exit code is not 0):
   0. torch and CUDA versions, the card's name and power limit (nvidia-smi).
@@ -141,13 +142,38 @@ Phases (any failure raises, so the exit code is not 0):
      in the same run: finite images, forward launches = 32 per U-Net
      evaluation of the sampler + 1 (801; 833 for pndm; 1569 for heun,
      kdpm2, kdpm2a and dpms_s).
-The timed phases run first (0-7, 12, 13, 14, 8, 15, 16, 17) and the profiled ones
-after them, so that the profiler touches no timed phase: first the short
-sessions (6's profile, 9, 10, 12's profile), then the profiles of whole
-steps (8, 14) and of a generate call (11).  After a session of a whole
-step, short sessions in the same process have recorded some device events
-or none (PERF.md, section 7).  The line before the last names the card and its
-power limit; the last line is {"ok": true, "device": {...}}.
+ 18. Stage 3, the decoder's robustness fine-tune (`--phases 18` runs phase
+     15 too), whose generation draws one resolution of 512^2-768^2 a step:
+     (a) every forward shape of a B4 generate at 576^2, 640^2, 704^2 and
+     768^2 (U-Net self and cross at each level at B8, the VAE at B4) in
+     bf16 as phase 2 holds the serving shapes, the plain version one batch
+     item at a time where its logits would pass 4 GiB; at 768^2 also float32
+     and bf16 at batch 2; (b) the tiny stage-3 step on the card against the
+     CPU, float32, the same weights and draws, for each of the five
+     distortions: the images, the loss and every decoder gradient; (c)
+     `rob_enhance_finetune.run` at full width on phase 15's stage-1 file and
+     LoRA directory (SD-1.5, rank 320, 48 bits, B4, bf16, a constant
+     learning rate, a checkpoint every 2 steps): 4 steps, resumed from the
+     latest checkpoint to 6, and an uninterrupted 6-step run; every step
+     launches the forward 641 times at its resolution's shapes, the loss is
+     finite and positive, every decoder tensor moves, the resumed steps and
+     decoder equal the uninterrupted run's bit for bit (cuDNN's
+     deterministic algorithms on), msgdecoder.pt read by load_msgdecoder
+     equals the trained decoder, and phase 15's image decodes (printed);
+     (d) 1 warm-up and 3 timed steps at 512^2 and at 768^2 through the step
+     functions `run` uses (steps/s, the generation's and the decoder step's
+     shares, peak memory), then one float32 step at 512^2, the JAX CLI's
+     default precision.  After the timed phases, the 768^2 shapes' device
+     time beside SDPA's (with the short sessions) and one profiled step of
+     each kind of (d) (with the whole-step profiles).
+The timed phases run first (0-7, 12, 13, 14, 8, 15, 16, 18b-d, 17, 18a) and
+the profiled ones after them, so that the profiler touches no timed phase:
+first the short sessions (6's profile, 9, 10, 12's profile, 18a's), then the
+profiles of whole steps (8, 14, 18d's) and of a generate call (11).  After
+a session of a whole step, short sessions in the same process have recorded
+some device events or none (PERF.md, section 7).  The line before the last
+names the card and its power limit; the last line is {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -437,13 +463,28 @@ def counts() -> dict:
     return {k: c.count for k, c in counters().items()}
 
 
-def check_fwd(tag: str, q, k, v, scale: float, out=None) -> float:
+def plain_by_batch(q, k, v, scale: float) -> tuple:
+    """`flash_attention_plain`, one batch item at a time where the whole
+    batch's float32 logits would take more than 4 GiB (the plain version
+    materialises them: 22 GB at stage 3's (8, 8, 9216, 9216, 40))."""
+    from aqualora_torch.ops import flash_attention as fa
+    b, h, tq, _ = q.shape
+    if b * h * tq * k.shape[2] * 4 <= 2 ** 32:
+        return fa.flash_attention_plain(q, k, v, scale)
+    outs = [fa.flash_attention_plain(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                     scale) for i in range(b)]
+    return torch.cat([o for o, _ in outs]), torch.cat([lse for _, lse in outs])
+
+
+def check_fwd(tag: str, q, k, v, scale: float, out=None,
+              plain=None) -> float:
     """Hold the forward kernel's (o, lse) (`out`, else one call) against
-    `flash_attention_plain` on the same inputs; print the line, with the
-    query rows per block of the bf16 instance that ran, and return max|dO|."""
+    `plain` (`flash_attention_plain` unless given) on the same inputs;
+    print the line, with the query rows per block of the bf16 instance
+    that ran, and return max|dO|."""
     from aqualora_torch.ops import flash_attention as fa
     o, lse = fa.flash_attention_fwd(q, k, v, scale) if out is None else out
-    o_ref, lse_ref = fa.flash_attention_plain(q, k, v, scale)
+    o_ref, lse_ref = (plain or fa.flash_attention_plain)(q, k, v, scale)
     torch.cuda.synchronize()
     err_o = (o.float() - o_ref.float()).abs().max().item()
     err_l = (lse - lse_ref).abs().max().item()
@@ -463,20 +504,23 @@ def check_fwd(tag: str, q, k, v, scale: float, out=None) -> float:
 
 
 def check_serving_shape(tag: str, h, tq, tk, d, b, gen, smi: str,
-                        at_b2: bool = True) -> dict:
+                        at_b2: bool = True, phase: int = 2,
+                        plain=None) -> dict:
     """The forward at one attention shape: float32 and bf16 against the
-    plain version at batch 2 (`at_b2`), then bf16 at batch `b`, whose
-    tiling is the one a call at that batch launches: two calls bit-identical,
-    against the plain version, then the kernel's, the plain version's and
-    SDPA's times (SDPA a yardstick only: the port never calls it) and the
-    H100 bound.  Returns the row."""
+    plain version (`plain`, else `flash_attention_plain`) at batch 2
+    (`at_b2`), then bf16 at batch `b`, whose tiling is the one a call at
+    that batch launches: two calls bit-identical, against the plain version,
+    then the kernel's, the plain version's and SDPA's times (SDPA a
+    yardstick only: the port never calls it) and the H100 bound.  Returns
+    the row."""
     from aqualora_torch.ops import flash_attention as fa
     scale = d ** -0.5
+    plain = plain or fa.flash_attention_plain
     for dtype in (torch.float32, torch.bfloat16) if at_b2 else ():
         q, k, v = (torch.randn(CHECK_BATCH, h, t, d, device="cuda",
                                generator=gen).to(dtype)
                    for t in (tq, tk, tk))
-        check_fwd(f"[2] {tag}", q, k, v, scale)
+        check_fwd(f"[{phase}] {tag}", q, k, v, scale, plain=plain)
         del q, k, v
     q, k, v = (torch.randn(b, h, t, d, device="cuda",
                            generator=gen).to(torch.bfloat16)
@@ -484,15 +528,15 @@ def check_serving_shape(tag: str, h, tq, tk, d, b, gen, smi: str,
     first, again = (fa.flash_attention_fwd(q, k, v, scale) for _ in range(2))
     if not all(torch.equal(x, y) for x, y in zip(first, again)):
         raise AssertionError(f"{tag}: two forward calls differ")
-    err = check_fwd(f"[2] {tag}", q, k, v, scale, out=first)
+    err = check_fwd(f"[{phase}] {tag}", q, k, v, scale, out=first,
+                    plain=plain)
     del first, again
     kernel_ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, scale))
-    plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, scale),
-                       iters=3, warmup=1)
+    plain_ms = time_ms(lambda: plain(q, k, v, scale), iters=3, warmup=1)
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, scale=scale))
     bound_ms, bound_by = attention_bound(b, h, tq, tk, d)
-    print(f"[2] {tag} B{b} bf16 (two calls bit-identical): "
+    print(f"[{phase}] {tag} B{b} bf16 (two calls bit-identical): "
           f"kernel_ms {kernel_ms:.4f} "
           f"plain_ms {plain_ms:.4f} library_ms(sdpa) {library_ms:.4f} "
           f"= {kernel_ms / library_ms:.2f}x, bound_ms {bound_ms:.4f} "
@@ -635,7 +679,8 @@ def phase3(smi: str) -> tuple:
     print(f"[3] generate 8 x 512^2 DDIM-25 CFG 7.5 bf16: "
           f"{N_IMG / med:.4f} imgs/s (median of 3: "
           f"{', '.join(f'{t:.4f}' for t in times)} s), peak memory "
-          f"{peak_gib:.2f} GiB | {smi}", flush=True)
+          f"{peak_gib:.2f} GiB (7.36 when the fold rounded twice) | {smi}",
+          flush=True)
 
     # the first call again with the plain forward in the kernel's place
     kernel_fwd, before = fa.flash_attention_fwd, fa.launches.count
@@ -1677,11 +1722,11 @@ def chain_ppft(tmp: str, s1_file: str, s1_encoder: dict):
 
 
 def chain_generate(smi: str, out_dir: str, trained: dict,
-                   ddim_s: float | None) -> float:
+                   ddim_s: float | None) -> tuple:
     """Chain steps 4-5: a fresh pipeline loads the saved LoRA, mapper and
     decoder, folds a message and generates B8 at 512^2 with DPM-Solver++(2M)
     25 steps at CFG 7.5 from per-image generators; decode the bits.
-    Returns the median call in seconds."""
+    Returns the median call in seconds and the first image (NHWC)."""
     from aqualora_torch.core.config import EfficientNetConfig, PipelineConfig
     from aqualora_torch.core.tokenizer import FallbackTokenizer
     from aqualora_torch.diffusion import pipeline as pl
@@ -1776,7 +1821,7 @@ def chain_generate(smi: str, out_dir: str, trained: dict,
             and torch.isfinite(images).all()
             and torch.isfinite(margins).all()):
         raise AssertionError("the chain's generate failed a check")
-    return med
+    return med, images[:1].clone()
 
 
 def chain_tiny_card_vs_cpu() -> None:
@@ -1823,16 +1868,17 @@ def phase15(smi: str, ddim_s: float | None, tmp: str) -> tuple:
     the artifacts saved (under `tmp`, which phase 16 reads) -> a fresh
     pipeline loads them -> dpms_m generate -> decode; then the tiny dpms_m
     slice card vs CPU.  The counts are set to 0 before each stage and read
-    after it.  Returns the PPFT output directory and the median dpms_m B8
-    call in seconds."""
+    after it.  Returns the PPFT output directory, the median dpms_m B8 call
+    in seconds, stage 1's file and one generated image (phase 18 reads
+    them)."""
     s1_file, s1_encoder = chain_stage1(tmp)
     torch.cuda.empty_cache()
     out_dir, trained = chain_ppft(tmp, s1_file, s1_encoder)
-    dpms_s = chain_generate(smi, out_dir, trained, ddim_s)
+    dpms_s, image = chain_generate(smi, out_dir, trained, ddim_s)
     del trained
     torch.cuda.empty_cache()
     chain_tiny_card_vs_cpu()
-    return out_dir, dpms_s
+    return out_dir, dpms_s, s1_file, image
 
 
 # phase 16, the auditor's path: run_eval_base at the protocol's settings
@@ -2188,9 +2234,350 @@ def phase17(smi: str) -> None:
     torch.cuda.empty_cache()
 
 
+# phase 18, stage 3 (the decoder's robustness fine-tune): B4 (8 under CFG),
+# dpms_m 20 steps a generation, one resolution of RESOLUTIONS a step.  512^2
+# at B4 is phase 2's protocol batch; the four others are new to the card.
+STAGE3_BATCH = 4
+STAGE3_NEW_RES = (576, 640, 704, 768)
+STAGE3_GEN_STEPS = 20
+STAGE3_PER_STEP = 32 * STAGE3_GEN_STEPS + 1                  # 641
+# seed 0 draws the resolutions 768, 704, 640, 576, 576, 512 for steps 1-6
+STAGE3_SEED = 0
+STAGE3_STEPS, STAGE3_FIRST = 6, 4       # 4 steps, then resumed to 6
+STAGE3_TIMED = 4                        # 1 warm-up + 3 timed, per resolution
+STAGE3_TINY_RES = 48
+
+
+def stage3_shapes(res: int) -> list:
+    """The forward's shapes of one stage-3 generate at res^2: (key, heads,
+    Tq, Tk, d, batch, launches a step): self and cross at each U-Net level
+    (the latent res // 8, halved three times; 5 launches a U-Net evaluation
+    each, 1 at the lowest) and the VAE's mid-block."""
+    n, out = res // 8, []
+    for side, d, per in ((n, 40, 5), (n // 2, 80, 5), (n // 4, 160, 5),
+                         (n // 8, 160, 1)):
+        for kind, tk in (("self", side * side), ("cross", 77)):
+            out.append((f"stage3_{res}_unet{side}_{kind}", 8, side * side,
+                        tk, d, 2 * STAGE3_BATCH, per * STAGE3_GEN_STEPS))
+    out.append((f"stage3_{res}_vae_mid", 1, n * n, n * n, 512, STAGE3_BATCH,
+                1))
+    return out
+
+
+def phase18a(smi: str) -> dict:
+    """Every forward shape of a stage-3 generate at 576^2-768^2 (ROADMAP
+    B.0), bf16 at its batch: two calls bit-identical, against the plain
+    version, the tiling, kernel, plain, SDPA and bound times; at 768^2 also
+    float32 and bf16 at batch 2 (the CUDA-core instances at d <= 160, the
+    3xTF32 one at d = 512).  Rows keyed by the shape's key."""
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    rows = {}
+    for res in STAGE3_NEW_RES:
+        for key, h, tq, tk, d, b, _ in stage3_shapes(res):
+            rows[key] = check_serving_shape(key, h, tq, tk, d, b, gen, smi,
+                                            at_b2=res == 768, phase=18,
+                                            plain=plain_by_batch)
+    return rows
+
+
+def phase18a_profile(smi: str, rows: dict) -> None:
+    """The 768^2 shapes' forward and SDPA's forward as device time (as
+    phase 10)."""
+    from aqualora_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(181)
+    for key, h, tq, tk, d, b, _ in stage3_shapes(768):
+        scale = d ** -0.5
+        q, k, v = (torch.randn(b, h, t, d, device="cuda", generator=gen)
+                   .to(torch.bfloat16) for t in (tq, tk, tk))
+        kernel_dev = device_ms(lambda: fa.flash_attention_fwd(q, k, v, scale))
+        library_dev = device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, scale=scale))
+        bound_ms, bound_by = attention_bound(b, h, tq, tk, d)
+        print(f"[18] {key} B{b} bf16: forward device time {kernel_dev:.4f} "
+              f"ms, sdpa forward {library_dev:.4f} = "
+              f"{kernel_dev / library_dev:.2f}x, bound {bound_ms:.4f} "
+              f"({bound_by}) (phase 18's kernel_ms {rows[key]['ms']:.4f}) "
+              f"| {smi}", flush=True)
+        rows[key].update(device_ms=kernel_dev, library_device_ms=library_dev)
+        del q, k, v
+        torch.cuda.empty_cache()
+
+
+def phase18b(tmp: str) -> None:
+    """The tiny stage-3 step on the card (kernels) against the CPU (plain),
+    float32, the same weights and draws: the generated images, the loss
+    and every decoder gradient, once for each of the five distortions."""
+    import dataclasses
+
+    from aqualora_torch.train import rob_enhance_finetune as s3
+    trs = {dev: s3.build_trainer(s3.build_argparser().parse_args([
+        "--tiny", "--train_batch_size", "2", "--device", dev, "--seed", "18",
+        "--lr_warmup_steps", "0", "--report_to", "none",
+        "--output_dir", str(Path(tmp) / "stage3_tiny")]))
+        for dev in ("cpu", "cuda")}
+    cpu = trs["cpu"]
+    trs["cuda"].pipe.load_state_from(cpu.pipe)
+    start = {k: v.clone() for k, v in cpu.decoder.state_dict().items()}
+    gen = torch.Generator().manual_seed(18)
+    res, captions = STAGE3_TINY_RES, ["a photo of a cat", "a red fox"]
+    for index, kind in enumerate(cpu.noiser.names):
+        probs = [float(i == index) for i in range(len(cpu.noiser.names))]
+        d = s3.draw(cpu.pipe, cpu.decoder, cpu.noiser, gen, 2, res)
+        d = dataclasses.replace(d, noise=cpu.noiser.draw(
+            gen, (2, 3, res, res), probs))
+        out = {}
+        for dev, tr in trs.items():
+            tr.decoder.load_state_dict(start)
+            dd = d.to(dev)
+            reset_counts()
+            images = s3.generate_images(tr, res, captions, dd)
+            metrics = tr.decoder_step(images, dd.msg, dd.noise, dd.masks)
+            out[dev] = (images.cpu(), float(metrics["loss"]), counts(), {
+                n: p.grad.cpu() for n, p in tr.decoder.named_parameters()})
+        (i_card, l_card, launched, g_card), (i_cpu, l_cpu, _, g_cpu) = (
+            out["cuda"], out["cpu"])
+        img_err = (i_card - i_cpu).abs().max().item()
+        rel = abs(l_card - l_cpu) / abs(l_cpu)
+        top = max(g.abs().max().item() for g in g_cpu.values())
+        # phase 13's limit: 1e-3 of each leaf's largest gradient plus 1e-5
+        # of the module's
+        worst = max((g_card[n] - g).abs().max().item()
+                    / (TINY_GRAD_TOL * g.abs().max().item() + 1e-5 * top)
+                    for n, g in g_cpu.items())
+        print(f"[18] tiny stage-3 step at {res}^2, {kind}: max|d image| "
+              f"{img_err:.3e} (tol {TINY_IMAGE_TOL:g}); loss {l_card:.6e} vs "
+              f"{l_cpu:.6e} (rel {rel:.2e}, tol {TINY_LOSS_RTOL:g}); "
+              f"{len(g_cpu)} gradients, worst {worst:.2f} of the limit; "
+              f"kernel launches {launched}", flush=True)
+        if not (img_err <= TINY_IMAGE_TOL and rel <= TINY_LOSS_RTOL
+                and worst <= 1.0 and l_cpu > 0 and launched["fwd"] > 0
+                and launched["dq"] == launched["dkv"] == 0):
+            raise AssertionError(f"tiny stage-3 step ({kind}) on the card "
+                                 f"disagrees with the CPU")
+
+
+def stage3_argv(s1_file: str, ppft_dir: str, out: str, steps: int,
+                *extra: str) -> list:
+    """The stage-3 CLI's arguments at full width.  The learning rate is
+    constant (no warm-up, and `--lr_end 1` holds the cosine at its start),
+    so that a run of 4 steps resumed to 6 follows the schedule of a 6-step
+    run: the cosine's length is the run's step count."""
+    return ["--rank", "320", "--msg_bits", "48", "--resolution", "512",
+            "--train_batch_size", str(STAGE3_BATCH), "--mixed_precision",
+            "bf16", "--lr_warmup_steps", "0", "--lr_end", "1",
+            "--checkpointing_steps", "2",
+            "--seed", str(STAGE3_SEED), "--start_from_pretrain", s1_file,
+            "--resume_from_lora", ppft_dir, "--output_dir", out,
+            "--max_train_steps", str(steps), *extra]
+
+
+def run_stage3(tag: str, argv: list, n_steps: int, smi: str) -> tuple:
+    """One `rob_enhance_finetune.run(argv)` with the counts set to 0 before
+    it and read after it; -> (result, forward launches by shape).  Every
+    step must launch the forward STAGE3_PER_STEP times, at its
+    resolution's shapes."""
+    from aqualora_torch.ops import flash_attention as fa
+    from aqualora_torch.train import rob_enhance_finetune as s3
+    args = s3.build_argparser().parse_args(argv)
+    torch.cuda.synchronize()
+    reset_counts()                              # counts start here
+    res = s3.run(args)
+    torch.cuda.synchronize()
+    got, by_shape = counts(), dict(fa.launches.by_shape)
+    want_shapes = {}
+    for r in res["resolutions"]:
+        for _, h, tq, tk, d, _, per in stage3_shapes(r):
+            want_shapes[(h, tq, tk, d)] = want_shapes.get((h, tq, tk, d),
+                                                          0) + per
+    hist = res["history"]
+    print(f"[18] stage 3 {tag}: steps {res['start_step'] + 1}-"
+          f"{res['start_step'] + len(hist)} at "
+          + ", ".join(f"{r}^2 {t:.4f} s" for r, t in
+                      zip(res["resolutions"], res["seconds"]))
+          + "; loss " + ", ".join(f"{h['loss']:.6e}" for h in hist)
+          + f"; launches {got} | {smi}", flush=True)
+    if not (got == {"fwd": STAGE3_PER_STEP * n_steps, **NO_TRAINING}
+            and len(hist) == n_steps and by_shape == want_shapes
+            and all(math.isfinite(h["loss"]) and h["loss"] > 0
+                    for h in hist)):
+        raise AssertionError(f"stage 3 {tag}: launches {got}, by shape "
+                             f"{by_shape} (want {want_shapes}), history "
+                             f"{hist}")
+    return res, by_shape
+
+
+def phase18c(smi: str, tmp: str, s1_file: str, ppft_dir: str,
+             image: torch.Tensor) -> tuple:
+    """Stage 3 at full width through `rob_enhance_finetune.run`, chained
+    after phase 15: 4 steps, resumed from the latest checkpoint to 6, and
+    an uninterrupted 6-step run to hold the resumed steps against; the
+    msgdecoder.pt read back by the auditor's loader; the bits of phase
+    15's image.  cuDNN's deterministic algorithms are on for the runs, so
+    that equal draws give equal bits.  Returns the forward launches by
+    shape of the 4 + 2 steps and the uninterrupted run's trainer."""
+    from aqualora_torch.eval.utils_eval import decode_bits, load_msgdecoder
+    from aqualora_torch.train.ppft_train import MSGDECODER_FILE
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        out = str(Path(tmp) / "stage3")
+        first, launched = run_stage3(
+            f"512^2-768^2 B{STAGE3_BATCH} bf16 rank 320",
+            stage3_argv(s1_file, ppft_dir, out, STAGE3_FIRST), STAGE3_FIRST,
+            smi)
+        del first
+        torch.cuda.empty_cache()
+        resumed, more = run_stage3(
+            "resumed from the latest checkpoint",
+            stage3_argv(s1_file, ppft_dir, out, STAGE3_STEPS,
+                        "--resume_from_checkpoint", "latest"),
+            STAGE3_STEPS - STAGE3_FIRST, smi)
+        for key, n in more.items():
+            launched[key] = launched.get(key, 0) + n
+        dec = {k: v.detach().clone() for k, v in
+               resumed["decoder"].state_dict().items()}
+        hist = resumed["history"]
+        del resumed
+        torch.cuda.empty_cache()
+        straight, _ = run_stage3(
+            "uninterrupted", stage3_argv(s1_file, ppft_dir,
+                                         str(Path(tmp) / "stage3_straight"),
+                                         STAGE3_STEPS), STAGE3_STEPS, smi)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    tr = straight["trainer"]
+    same_steps = (hist == straight["history"][STAGE3_FIRST:]
+                  and all(torch.equal(dec[k], v) for k, v in
+                          tr.decoder.state_dict().items()))
+    start = torch.load(s1_file, map_location="cuda",
+                       weights_only=True)["sec_decoder"]
+    moved = {k: not torch.equal(dec[k], start[k].to(dec[k].dtype))
+             for k in dec}
+    n_params = len(dict(tr.decoder.named_parameters()))
+    loaded = load_msgdecoder(str(Path(out) / MSGDECODER_FILE), 48,
+                             device="cuda")
+    read_back = all(torch.equal(loaded.state_dict()[k], v)
+                    for k, v in dec.items())
+    bits, margins = decode_bits(loaded, image)
+    print(f"[18] resumed steps {STAGE3_FIRST + 1}-{STAGE3_STEPS} equal the "
+          f"uninterrupted run's bit for bit (metrics and the decoder): "
+          f"{same_steps}; {sum(moved.values())} of {len(moved)} decoder "
+          f"tensors moved from stage 1's ({n_params} parameters, the rest "
+          f"BatchNorm statistics); {MSGDECODER_FILE} read by "
+          f"load_msgdecoder equals the trained decoder bit for bit: "
+          f"{read_back}; phase 15's image decodes to "
+          f"{''.join(map(str, bits[0].tolist()))} (random weights: "
+          f"printed)", flush=True)
+    if not (same_steps and all(moved.values()) and read_back
+            and torch.isfinite(margins).all()):
+        raise AssertionError("stage 3's resume, training or read-back "
+                             "failed a check")
+    return launched, tr
+
+
+def time_stage3(tag: str, tr, res: int, n: int, smi: str) -> float:
+    """n steps at res^2 through the step functions `run` uses (the first a
+    warm-up); prints steps/s, the generation's and the decoder step's
+    shares and the peak memory; returns the median step in seconds."""
+    from aqualora_torch.train import rob_enhance_finetune as s3
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    steps, gens, decs = [], [], []
+    for i in range(n):
+        _, captions = next(tr.batches)
+        d = s3.draw(tr.pipe, tr.decoder, tr.noiser, tr.generator,
+                    tr.batch_size, res)
+        before = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        images = s3.generate_images(tr, res, captions, d)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        metrics = tr.decoder_step(images, d.msg, d.noise, d.masks)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        got = {k: v - before[k] for k, v in counts().items()}
+        if got != {"fwd": STAGE3_PER_STEP, **NO_TRAINING} or not \
+                math.isfinite(float(metrics["loss"])):
+            raise AssertionError(f"stage-3 step at {res}^2: launches {got}")
+        if i:
+            steps.append(t2 - t0)
+            gens.append(t1 - t0)
+            decs.append(t2 - t1)
+    med = statistics.median(steps)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[18] stage-3 step {tag} {res}^2 B{tr.batch_size}: "
+          f"{1 / med:.4f} steps/s, {tr.batch_size / med:.4f} samples/s "
+          f"(median of {len(steps)}: {', '.join(f'{x:.4f}' for x in steps)} "
+          f"s); generation {statistics.median(gens):.4f} s "
+          f"({100 * sum(gens) / sum(steps):.1f}%), decoder step "
+          f"{statistics.median(decs):.4f} s "
+          f"({100 * sum(decs) / sum(steps):.1f}%); {STAGE3_PER_STEP} forward "
+          f"launches a step; peak memory {peak / 2 ** 30:.2f} GiB "
+          f"({(peak - base) / 2 ** 30:.2f} above the "
+          f"{base / 2 ** 30:.2f} resident) | {smi}", flush=True)
+    return med
+
+
+def phase18d(smi: str, tr, s1_file: str, ppft_dir: str, tmp: str) -> list:
+    """Timed stage-3 steps at fixed resolutions: bf16 at 512^2 and 768^2,
+    then float32 (the JAX CLI's default precision) at 512^2, warm-up and
+    one timed.  Returns what the profiled steps need."""
+    from aqualora_torch.train import rob_enhance_finetune as s3
+    kept = [("bf16", tr, res, time_stage3("bf16", tr, res, STAGE3_TIMED,
+                                           smi)) for res in (512, 768)]
+    f32 = s3.build_trainer(s3.build_argparser().parse_args(
+        stage3_argv(s1_file, ppft_dir, str(Path(tmp) / "stage3_f32"), 1,
+                    "--mixed_precision", "no")))
+    kept.append(("f32", f32, 512, time_stage3("f32", f32, 512, 2, smi)))
+    return kept
+
+
+def phase18_profile(smi: str, kept: list) -> None:
+    """One more stage-3 step of each timed kind under torch.profiler: the
+    busy share (`kernel_union_ms`) of its own wall time, the forward
+    kernel's share of the summed kernel time and the largest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from aqualora_torch.train import rob_enhance_finetune as s3
+    for tag, tr, res, med in kept:
+        _, captions = next(tr.batches)
+        d = s3.draw(tr.pipe, tr.decoder, tr.noiser, tr.generator,
+                    tr.batch_size, res)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            s3.train_step(tr, res, captions, d)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+        if not events:
+            print(f"[18] {tag} {res}^2 device time by kernel: not measured "
+                  f"(the profiler saw no CUDA kernel)", flush=True)
+            continue
+        busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+        fwd_ms = sum(e.self_device_time_total for e in events
+                     if "flash_fwd" in e.key) / 1e3
+        union_ms = kernel_union_ms(prof)
+        print(f"[18] profiled stage-3 step {tag} {res}^2 "
+              f"({tr.noiser.names[d.noise.index]}): device busy "
+              f"{union_ms:.1f} ms = {100 * union_ms / wall_ms:.1f}% of its "
+              f"own {wall_ms:.1f} ms wall time (the timed median "
+              f"{med * 1e3:.1f} ms); kernel time summed {busy_ms:.1f} ms, "
+              f"the forward kernel {fwd_ms:.1f} ms "
+              f"({100 * fwd_ms / busy_ms:.1f}%) | {smi}", flush=True)
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
+            print(f"[18]   {e.self_device_time_total / 1e3:9.2f} ms  "
+                  f"x{e.count:<5d} {e.key[:100]}", flush=True)
+
+
 def kernels_line(rows, launches, bwd_rows, train_launches, inject_row,
-                 inject_launches, s1_rows, s1_launches,
-                 proto_launches) -> dict:
+                 inject_launches, s1_rows, s1_launches, proto_launches,
+                 s3_rows, s3_launches) -> dict:
     kernels = []
     for name, *_ in SHAPES:
         kernels.append({
@@ -2206,6 +2593,13 @@ def kernels_line(rows, launches, bwd_rows, train_launches, inject_row,
             "source": "aqualora_torch/csrc/flash_fwd.cu",
             "replaces": "aqualora_tpu/ops/flash_attention.py:147",
             "launches": proto_launches[name], **rows[key]})
+    # stage 3 at 768^2 (phase 18): the launches of phase 18c's 4 + 2 steps
+    for key, h, tq, tk, d, *_ in stage3_shapes(768):
+        kernels.append({
+            "name": f"flash_attention_fwd/{key}", "route": "cuda",
+            "source": "aqualora_torch/csrc/flash_fwd.cu",
+            "replaces": "aqualora_tpu/ops/flash_attention.py:147",
+            "launches": s3_launches.get((h, tq, tk, d), 0), **s3_rows[key]})
     for kern, line in (("dq", 239), ("dkv", 269)):
         for name, *_ in TRAIN_SHAPES:
             kernels.append({
@@ -2242,13 +2636,13 @@ def main(argv=None):
                          "phase 0 always runs, and the kernels line needs "
                          "all of them)")
     args = ap.parse_args(argv)
-    every = set(range(18))
+    every = set(range(19))
     run_ = every if args.phases is None else \
         {0} | {int(x) for x in args.phases.split(",")}
     if 11 in run_:
         run_.add(3)          # phase 11 profiles phase 3's generate call
-    if 16 in run_:
-        run_.add(15)         # phase 16 reads phase 15's artifacts
+    if 16 in run_ or 18 in run_:
+        run_.add(15)         # phases 16 and 18 read phase 15's artifacts
     smi = phase0()
     rows, launches, med_s, serve = {}, {}, 0.0, None
     bwd_rows, inject_row, train_launches, inject_launches = {}, {}, {}, 0
@@ -2284,14 +2678,23 @@ def main(argv=None):
         s1_launches, s1_kept = phase14(smi)
     if 8 in run_:
         train_launches, inject_launches, ppft_kept = phase8(smi)
-    proto_launches = {}
+    proto_launches, s3_rows, s3_launches, s3_kept = {}, {}, {}, []
     if 15 in run_:
         with tempfile.TemporaryDirectory(prefix="aqualora_chain_") as tmp:
-            out_dir, dpms_s = phase15(smi, med_s if 3 in run_ else None, tmp)
+            out_dir, dpms_s, s1_file, image = phase15(
+                smi, med_s if 3 in run_ else None, tmp)
             if 16 in run_:
                 proto_launches = phase16(smi, out_dir, tmp, dpms_s)
+            if 18 in run_:
+                phase18b(tmp)
+                s3_launches, s3_tr = phase18c(smi, tmp, s1_file, out_dir,
+                                              image)
+                s3_kept = phase18d(smi, s3_tr, s1_file, out_dir, tmp)
+                del s3_tr
     if 17 in run_:
         phase17(smi)
+    if 18 in run_:
+        s3_rows = phase18a(smi)
     # the profiled phases: the short sessions first, then the profiles of
     # whole steps and of the generate call (see the docstring)
     if 6 in run_:
@@ -2302,19 +2705,25 @@ def main(argv=None):
         phase10(smi, rows)
     if 12 in run_:
         phase12_profile(smi)
+    if 18 in run_:
+        phase18a_profile(smi, s3_rows)
     if 8 in run_:
         profile_step(*ppft_kept, smi)
         del ppft_kept
         torch.cuda.empty_cache()
     if 14 in run_:
         phase14_profile(smi, s1_kept)
+    if 18 in run_:
+        phase18_profile(smi, s3_kept)
+        del s3_kept
+        torch.cuda.empty_cache()
     if 11 in run_:
         phase11(smi, serve, med_s)
     if run_ == every:
         print(json.dumps(kernels_line(rows, launches, bwd_rows,
                                       train_launches, inject_row,
                                       inject_launches, s1_rows, s1_launches,
-                                      proto_launches)))
+                                      proto_launches, s3_rows, s3_launches)))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -528,7 +528,8 @@ def test_bf16_pipeline_keeps_the_loaded_lora_float32(tiny, tmp_path):
     """A bf16 pipeline holds its LoRA and MapperNet in float32, as the JAX
     package keeps every parameter: `load_watermark_lora` keeps the saved
     float32 values bit for bit (no bf16 rounding before the fold), and the
-    fold adds the float32 delta to the bf16 base weight."""
+    fold adds the float32 delta to the float32 base weight and rounds the
+    sum to bf16 once."""
     from aqualora_torch.diffusion.pipeline import StableDiffusionPipeline
     from aqualora_torch.models.lora import LoRALinear
     from aqualora_torch.models.watermark import SecretDecoder
@@ -557,15 +558,91 @@ def test_bf16_pipeline_keeps_the_loaded_lora_float32(tiny, tmp_path):
     site = next(m for m in pipe.unet.modules()
                 if isinstance(m, LoRALinear) and m.lora is not None)
     base = site.weight.detach().clone()
+    assert base.dtype == torch.float32
     msg = torch.from_numpy(np.random.default_rng(3).integers(
         0, 2, cfg.watermark.msg_bits).astype(np.float32))
     diag = (pipe.message_scale(msg[None])[0]
             * cfg.unet.lora.alpha_scale)
-    want = (base.float() + (site.lora.up.weight * diag)
+    want = (base + (site.lora.up.weight * diag)
             @ site.lora.down.weight).bfloat16()
     pipe.fold_message(msg)
     assert site.weight.dtype == torch.bfloat16
     assert torch.equal(site.weight, want)
+
+
+# at most this share of the folded elements may sit one bf16 ulp from JAX's
+# float32 fold cast to bf16: where the two float32 deltas (different
+# summation orders and a different grouping of diag * multiplier * alpha)
+# differ in their last bit and the sum lies on a bf16 rounding boundary
+FOLD_ULP_SHARE = 1e-3
+
+
+def test_bf16_fold_matches_jax_fold_cast_to_bf16(tiny):
+    """A bf16 pipeline whose float32 weights came from JAX folds a message
+    as the JAX package does: JAX folds in float32 and flax casts the kernel
+    to bf16 at use, so every folded weight must equal JAX's float32 folded
+    kernel cast to bf16, except where the float32 deltas differ in their
+    last bit (at most FOLD_ULP_SHARE of the elements, one bf16 ulp).  A
+    fold onto weights already rounded to bf16 rounds twice (18-27% of the
+    elements one ulp off)."""
+    jpipe, params = tiny
+    from aqualora_torch.diffusion.pipeline import StableDiffusionPipeline
+
+    msg = np.random.default_rng(8).integers(
+        0, 2, jpipe.config.watermark.msg_bits).astype(np.float32)
+    want = jax_params_to_torch(jax.tree_util.tree_map(
+        np.asarray, jpipe.fold_message(params, jnp.asarray(msg))["unet"]))
+    pipe = StableDiffusionPipeline(tcfg.PipelineConfig.tiny(),
+                                   dtype=torch.bfloat16, device="cpu")
+    pipe.load_jax_params(params)
+    pipe.fold_message(torch.from_numpy(msg))
+    got = pipe.unet.state_dict()
+    sites = [k for k in got if k.endswith(".weight")
+             and k[:-len("weight")] + "lora.down.weight" in got]
+    assert sites
+    n = off = 0
+    for k in sites:
+        assert got[k].dtype == torch.bfloat16, k
+        w = want[k].bfloat16()
+        diff = got[k].float() - w.float()
+        ulp = (w.float().abs().clamp_min(2.0 ** -126)
+               * 2.0 ** -7).float()
+        assert (diff.abs() <= ulp).all(), k
+        n += diff.numel()
+        off += int((diff != 0).sum())
+    assert off <= FOLD_ULP_SHARE * n, f"{off} of {n} elements off"
+
+
+def test_bf16_pipeline_keeps_the_float32_layers_of_jax(tiny):
+    """The bf16 pipeline stores in bf16 what flax casts to bf16 at use, and
+    keeps in float32 what the JAX modules compute in float32: the two
+    conv_out layers (`dtype=jnp.float32`, aqualora_tpu/models/unet.py:190,
+    vae.py:145), the LoRA and the MapperNet, and the LoRA sites' base
+    weights until the fold."""
+    from aqualora_torch.diffusion.pipeline import StableDiffusionPipeline
+    from aqualora_torch.models.lora import lora_sites
+
+    _, params = tiny
+    pipe = StableDiffusionPipeline(tcfg.PipelineConfig.tiny(),
+                                   dtype=torch.bfloat16, device="cpu")
+    pipe.load_jax_params(params)
+    f32 = {id(p) for p in (
+        *pipe.unet.conv_out.parameters(),
+        *pipe.vae.decoder.conv_out.parameters(), *pipe.mapper.parameters(),
+        *(p for m in lora_sites(pipe.unet) for p in
+          (m.weight, *m.lora.parameters())))}
+    for name, module in (("text_encoder", pipe.clip), ("unet", pipe.unet),
+                         ("vae", pipe.vae)):
+        want = jax_params_to_torch(params[name])
+        for k, v in module.state_dict(keep_vars=True).items():
+            if not v.is_floating_point():
+                continue
+            ref = torch.as_tensor(np.asarray(want[k]))
+            if id(v) in f32:
+                assert v.dtype == torch.float32 and torch.equal(v, ref), k
+            else:
+                assert v.dtype == torch.bfloat16, k
+                assert torch.equal(v, ref.bfloat16()), k
 
 
 def test_jax_pipeline_generates_from_the_port_artifacts(tiny, tmp_path):

@@ -45,6 +45,12 @@ def _need_cuda():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
 
 
+# the tilings of stage 3's 768^2 shapes (B8 under CFG, the VAE at B4) that
+# the determinism cases must reach
+STAGE3_768_ROWS = {(8, 8, 9216, 9216, 40): 128, (8, 8, 144, 144, 160): 16,
+                   (4, 1, 9216, 9216, 512): 32}
+
+
 # rows: the query rows per block of the bf16 instance the case must reach
 # (fwd_tile_rows).  The wide tiles are taken when they give at least two
 # blocks per SM; every case has at most 64 or at least 512 wide blocks, so
@@ -76,6 +82,10 @@ def _need_cuda():
     (1, 20, 256, 77, 64, 16),     # 16^2 cross, 16-row tiles
     (2, 20, 64, 64, 64, 16),      # the mid-block's 8^2 self
     (2, 20, 64, 77, 64, 16),      # its cross-attention
+    # stage 3 at 768^2 (STAGE3_768_ROWS)
+    (2, 8, 9216, 9216, 40, 128),  # 96^2 self
+    (8, 8, 144, 144, 160, 16),    # 12^2 self at the CFG batch
+    (4, 1, 9216, 9216, 512, 32),  # the VAE mid-block at B4
 ])
 def test_flash_kernel_matches_plain(dtype, b, h, tq, tk, d, rows):
     _need_cuda()
@@ -105,6 +115,11 @@ def test_flash_kernel_matches_plain(dtype, b, h, tq, tk, d, rows):
     (1, 1, 1000, 1000, 512, torch.bfloat16),  # the d = 512 kernel
     (5, 1, 4096, 4096, 512, torch.float32),   # d = 512 float32 (3xTF32)
     (2, 1, 1000, 1000, 512, torch.float32),   # d = 512 float32, ragged
+    # stage 3 at 768^2, with their tilings (STAGE3_768_ROWS)
+    (8, 8, 9216, 9216, 40, torch.bfloat16),   # 96^2 self
+    (8, 8, 144, 144, 160, torch.bfloat16),    # 12^2 self
+    (4, 1, 9216, 9216, 512, torch.bfloat16),  # the VAE mid-block
+    (4, 1, 9216, 9216, 512, torch.float32),
 ])
 def test_flash_fwd_is_deterministic(b, h, tq, tk, d, dtype):
     """No atomics, and the warps' partial results are merged in a fixed
@@ -114,6 +129,8 @@ def test_flash_fwd_is_deterministic(b, h, tq, tk, d, dtype):
     gen = torch.Generator(device="cuda").manual_seed(tk + d)
     q, k, v = (torch.randn(b, h, t, d, device="cuda", generator=gen)
                .to(dtype) for t in (tq, tk, tk))
+    if dtype == torch.bfloat16 and (b, h, tq, tk, d) in STAGE3_768_ROWS:
+        assert fa.fwd_tile_rows(q) == STAGE3_768_ROWS[(b, h, tq, tk, d)]
     first = fa.flash_attention_fwd(q, k, v, d ** -0.5)
     again = fa.flash_attention_fwd(q, k, v, d ** -0.5)
     torch.cuda.synchronize()

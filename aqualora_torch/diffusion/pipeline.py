@@ -1,8 +1,9 @@
 """Text -> watermarked image pipeline in PyTorch.
 
-The port of `aqualora_tpu/diffusion/pipeline.py:33-224` for the serving
-path: CLIP encode, the CFG denoise loop of the U-Net under DPM-Solver++(2M)
-(`dpms_m`, the default, as in the JAX package) or DDIM, VAE decode.  The
+The port of `aqualora_tpu/diffusion/pipeline.py:33-286` for the serving
+path and img2img (`make_img2img`, the SDEdit attack): CLIP encode, the CFG
+denoise loop of the U-Net under DPM-Solver++(2M) (`dpms_m`, the default,
+as in the JAX package) or DDIM, VAE decode.  The
 PPFT trainer (`train/ppft_train.py`) drives the same modules, the VAE
 encoder included.  The watermark enters through the MapperNet diagonal:
 `fold_message(msg)` folds `mapper(msg) * 1.03` into the U-Net's LoRA sites
@@ -246,3 +247,70 @@ class StableDiffusionPipeline:
             return self._decode(latents).permute(0, 2, 3, 1)
 
         return generate
+
+    def make_img2img(self, num_steps: int = 10, strength: float = 0.1,
+                     height: int = 512, width: int = 512):
+        """img2img (SDEdit), the regeneration attack of the eval protocol
+        (`aqualora_tpu/diffusion/pipeline.py:226-286`): encode, take a
+        posterior sample, noise it to the first of the last
+        eff = max(1, int(num_steps * strength)) timesteps of the grid, then
+        eff deterministic (DDIM) steps of the CFG U-Net, and decode.
+
+        Returns img2img(images, prompt_ids, neg_ids, guidance_scale=7.5,
+        posterior_noise=None, noise=None, generator=None) -> images NHWC
+        in [-1, 1].  `images` are NHWC in [-1, 1]; the two draws are NHWC
+        latents, drawn from `generator` (one `torch.Generator` or a list
+        of B) when not given: the posterior sample's, then the forward
+        process's."""
+        cfg, schedule = self.config, self.schedule
+        lh, lw = height // cfg.vae.downscale, width // cfg.vae.downscale
+        eff = max(1, int(num_steps * strength))
+        ts = schedule.inference_timesteps(num_steps)[num_steps - eff:]
+        # the coefficients as the JAX function takes them: numpy on the
+        # float32 alphas_cumprod, then float32
+        acp = schedule.alphas_cumprod.cpu().numpy()[ts]
+        alpha, sigma = np.sqrt(acp), np.sqrt(1 - acp)
+        alpha_n = np.concatenate([alpha[1:], [1.0]]).astype(np.float32)
+        sigma_n = np.concatenate([sigma[1:], [0.0]]).astype(np.float32)
+        v_pred = cfg.unet.prediction_type == "v_prediction"
+
+        @torch.no_grad()
+        def img2img(images, prompt_ids, neg_ids, guidance_scale: float = 7.5,
+                    posterior_noise: Optional[torch.Tensor] = None,
+                    noise: Optional[torch.Tensor] = None,
+                    generator: Generators = None):
+            context = torch.cat([self.encode_prompt(neg_ids),
+                                 self.encode_prompt(prompt_ids)], dim=0)
+            b = images.shape[0]
+            x = torch.as_tensor(images).to(self.device).permute(0, 3, 1, 2)
+            mean, logvar = self.vae.encode_moments(x)
+            shape = (b, lh, lw, cfg.vae.latent_channels)
+            if posterior_noise is None:
+                posterior_noise = batch_randn(shape, generator, self.device)
+            if noise is None:
+                noise = batch_randn(shape, generator, self.device)
+            post = posterior_noise.to(self.device, mean.dtype).permute(
+                0, 3, 1, 2)
+            z0 = self.vae.sample_from_moments(mean, logvar, post) \
+                * cfg.vae.scaling_factor
+            x = schedule.add_noise(
+                z0.float(), noise.to(self.device, torch.float32).permute(
+                    0, 3, 1, 2),
+                torch.full((b,), int(ts[0]), device=self.device))
+            for i, t in enumerate(ts):
+                x2 = torch.cat([x, x], dim=0).to(self.dtype)
+                tb = torch.full((2 * b,), float(t), device=self.device)
+                out = self.unet(x2, tb, context, None)
+                if v_pred:
+                    ti = tb.long().clamp(0, cfg.schedule.num_train_timesteps
+                                         - 1)
+                    out = schedule.velocity_to_epsilon(out, x2.float(), ti)
+                # the guidance in the U-Net's type, as JAX's; the step in
+                # float32
+                eps_u, eps_c = out.chunk(2, dim=0)
+                eps = (eps_u + guidance_scale * (eps_c - eps_u)).float()
+                x0 = (x - float(sigma[i]) * eps) / float(alpha[i])
+                x = float(alpha_n[i]) * x0 + float(sigma_n[i]) * eps
+            return self._decode(x).permute(0, 2, 3, 1)
+
+        return img2img

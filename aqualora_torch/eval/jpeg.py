@@ -1,0 +1,288 @@
+"""libjpeg's lossy round trip at a fixed quality, in integer torch ops.
+
+The counterpart of `aqualora_tpu/core/native_loader.py:jpeg_roundtrip_batch`
+(libjpeg through ctypes) and of the PIL save and open it falls back to
+(`aqualora_tpu/eval/distortions.py:jpeg_compress`): the pixels that libjpeg
+(libjpeg-turbo, with libjpeg 6b's arithmetic) gives for an encode with
+`jpeg_set_defaults` and `jpeg_set_quality(quality, TRUE)` and a decode with
+its defaults.  That is 4:2:0 YCbCr, the accurate integer DCT both ways
+(JDCT_ISLOW) and fancy upsampling.  The Huffman stage is lossless and
+cannot change a pixel, so it is not written: the quantized coefficients go
+straight to the decoder's half.
+
+Every stage is libjpeg's integer arithmetic, file by file:
+  - RGB -> YCbCr, 16-bit fixed point (`jccolor.c`, `rgb_ycc_start`);
+  - 2x2 chroma downsampling with the alternating bias 1, 2
+    (`jcsample.c`, `h2v2_downsample`); the edges replicated as
+    `jcprepct.c` and `expand_right_edge` do;
+  - the forward DCT (`jfdctint.c`) and the rounding division by the
+    quantization table times 8 (`jcdctmgr.c`); the tables of Annex K
+    scaled by `jpeg_quality_scaling` and clamped to 1..255 (`jcparam.c`);
+  - dequantization and the inverse DCT (`jidctint.c`), its output through
+    the range-limit table (`jdmaster.c`, `prepare_range_limit_table`);
+  - the triangle filter of `h2v2_fancy_upsample` (`jdsample.c`), its
+    context rows replicated at the top and bottom (`jdmainct.c`);
+  - YCbCr -> RGB (`jdcolor.c`, `build_ycc_rgb_table`).
+
+Integers only, on the images' device, so the CPU and the card give the same
+bits.  `tests/test_torch_port_distortion.py` holds it to Pillow bit for bit.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+# jfdctint.c / jidctint.c
+CONST_BITS, PASS1_BITS = 13, 2
+# jccolor.c / jdcolor.c
+SCALEBITS = 16
+ONE_HALF = 1 << (SCALEBITS - 1)
+CENTER = 128
+
+
+def _fix(x: float, bits: int = SCALEBITS) -> int:
+    return int(x * (1 << bits) + 0.5)
+
+
+# the DCTs' constants, FIX(x) at CONST_BITS
+F_0_298 = _fix(0.298631336, CONST_BITS)
+F_0_390 = _fix(0.390180644, CONST_BITS)
+F_0_541 = _fix(0.541196100, CONST_BITS)
+F_0_765 = _fix(0.765366865, CONST_BITS)
+F_0_899 = _fix(0.899976223, CONST_BITS)
+F_1_175 = _fix(1.175875602, CONST_BITS)
+F_1_501 = _fix(1.501321110, CONST_BITS)
+F_1_847 = _fix(1.847759065, CONST_BITS)
+F_1_961 = _fix(1.961570560, CONST_BITS)
+F_2_053 = _fix(2.053119869, CONST_BITS)
+F_2_562 = _fix(2.562915447, CONST_BITS)
+F_3_072 = _fix(3.072711026, CONST_BITS)
+
+# Annex K.1, natural (row-major) order, as jcparam.c holds them
+STD_LUMINANCE = np.array([
+    16, 11, 10, 16, 24, 40, 51, 61,
+    12, 12, 14, 19, 26, 58, 60, 55,
+    14, 13, 16, 24, 40, 57, 69, 56,
+    14, 17, 22, 29, 51, 87, 80, 62,
+    18, 22, 37, 56, 68, 109, 103, 77,
+    24, 35, 55, 64, 81, 104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101,
+    72, 92, 95, 98, 112, 100, 103, 99], np.int64).reshape(8, 8)
+STD_CHROMINANCE = np.array([
+    17, 18, 24, 47, 99, 99, 99, 99,
+    18, 21, 26, 66, 99, 99, 99, 99,
+    24, 26, 56, 99, 99, 99, 99, 99,
+    47, 66, 99, 99, 99, 99, 99, 99] + [99] * 32, np.int64).reshape(8, 8)
+
+
+def quality_scaling(quality: int) -> int:
+    """`jpeg_quality_scaling`: a quality of 1..100 -> a percentage."""
+    quality = min(max(int(quality), 1), 100)
+    return 5000 // quality if quality < 50 else 200 - 2 * quality
+
+
+def quant_tables(quality: int) -> tuple:
+    """(luminance, chrominance) [8, 8] int64 tables of `jpeg_set_quality(q,
+    force_baseline=TRUE)`: (basic * scale + 50) / 100, clamped to 1..255."""
+    scale = quality_scaling(quality)
+    return tuple(np.clip((t * scale + 50) // 100, 1, 255)
+                 for t in (STD_LUMINANCE, STD_CHROMINANCE))
+
+
+@functools.lru_cache()
+def _range_limit_np() -> np.ndarray:
+    """The post-IDCT view of `sample_range_limit`, indexed by
+    (x & 1023) for a centred IDCT output x: x + 128 for x in [-128, 127],
+    255 above, 0 below, wrapping beyond +-512 as libjpeg's table does."""
+    v = np.arange(1024)
+    return np.where(v < 128, v + 128, np.where(
+        v < 512, 255, np.where(v < 896, 0, v - 896))).astype(np.int64)
+
+
+def _descale(x: torch.Tensor, n: int) -> torch.Tensor:
+    return (x + (1 << (n - 1))) >> n
+
+
+# ---------------------------------------------------------------------------
+# the DCTs on [..., 8] vectors (one 1-D pass)
+# ---------------------------------------------------------------------------
+
+def _fdct_1d(d, first: bool):
+    """One pass of `jpeg_fdct_islow` over the 8 tensors `d` (one per
+    sample of the row or column): the first pass scales by 2^PASS1_BITS,
+    the second removes it."""
+    tmp0, tmp7 = d[0] + d[7], d[0] - d[7]
+    tmp1, tmp6 = d[1] + d[6], d[1] - d[6]
+    tmp2, tmp5 = d[2] + d[5], d[2] - d[5]
+    tmp3, tmp4 = d[3] + d[4], d[3] - d[4]
+    tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
+    tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
+    out = [None] * 8
+    if first:
+        out[0] = (tmp10 + tmp11) << PASS1_BITS
+        out[4] = (tmp10 - tmp11) << PASS1_BITS
+        n = CONST_BITS - PASS1_BITS
+    else:
+        out[0] = _descale(tmp10 + tmp11, PASS1_BITS)
+        out[4] = _descale(tmp10 - tmp11, PASS1_BITS)
+        n = CONST_BITS + PASS1_BITS
+    z1 = (tmp12 + tmp13) * F_0_541
+    out[2] = _descale(z1 + tmp13 * F_0_765, n)
+    out[6] = _descale(z1 - tmp12 * F_1_847, n)
+    z1, z2 = tmp4 + tmp7, tmp5 + tmp6
+    z3, z4 = tmp4 + tmp6, tmp5 + tmp7
+    z5 = (z3 + z4) * F_1_175
+    tmp4, tmp5 = tmp4 * F_0_298, tmp5 * F_2_053
+    tmp6, tmp7 = tmp6 * F_3_072, tmp7 * F_1_501
+    z1, z2 = z1 * -F_0_899, z2 * -F_2_562
+    z3, z4 = z3 * -F_1_961 + z5, z4 * -F_0_390 + z5
+    out[7] = _descale(tmp4 + z1 + z3, n)
+    out[5] = _descale(tmp5 + z2 + z4, n)
+    out[3] = _descale(tmp6 + z2 + z3, n)
+    out[1] = _descale(tmp7 + z1 + z4, n)
+    return out
+
+
+def _idct_1d(z, n: int):
+    """One pass of `jpeg_idct_islow` over the 8 dequantized tensors `z`,
+    descaled by `n` bits.  (libjpeg's shortcut for an all-zero AC part
+    gives the same numbers as the general formula.)"""
+    z1 = (z[2] + z[6]) * F_0_541
+    tmp2 = z1 - z[6] * F_1_847
+    tmp3 = z1 + z[2] * F_0_765
+    tmp0 = (z[0] + z[4]) << CONST_BITS
+    tmp1 = (z[0] - z[4]) << CONST_BITS
+    tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
+    tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
+    t0, t1, t2, t3 = z[7], z[5], z[3], z[1]
+    z1, z2 = t0 + t3, t1 + t2
+    z3, z4 = t0 + t2, t1 + t3
+    z5 = (z3 + z4) * F_1_175
+    t0, t1 = t0 * F_0_298, t1 * F_2_053
+    t2, t3 = t2 * F_3_072, t3 * F_1_501
+    z1, z2 = z1 * -F_0_899, z2 * -F_2_562
+    z3, z4 = z3 * -F_1_961 + z5, z4 * -F_0_390 + z5
+    t0, t1 = t0 + z1 + z3, t1 + z2 + z4
+    t2, t3 = t2 + z2 + z3, t3 + z1 + z4
+    return [_descale(tmp10 + t3, n), _descale(tmp11 + t2, n),
+            _descale(tmp12 + t1, n), _descale(tmp13 + t0, n),
+            _descale(tmp13 - t0, n), _descale(tmp12 - t1, n),
+            _descale(tmp11 - t2, n), _descale(tmp10 - t3, n)]
+
+
+def _blocks(plane: torch.Tensor) -> torch.Tensor:
+    """[N, 8h, 8w] -> [N, h, w, 8, 8] (rows, columns of each block)."""
+    n, hh, ww = plane.shape
+    return plane.reshape(n, hh // 8, 8, ww // 8, 8).permute(0, 1, 3, 2, 4)
+
+
+def _unblocks(blocks: torch.Tensor) -> torch.Tensor:
+    n, h, w = blocks.shape[:3]
+    return blocks.permute(0, 1, 3, 2, 4).reshape(n, 8 * h, 8 * w)
+
+
+def _code_plane(plane: torch.Tensor, table: np.ndarray) -> torch.Tensor:
+    """One component's samples [N, 8h, 8w] (0..255) -> encode (forward DCT,
+    quantization) and decode (dequantization, inverse DCT, range limit) ->
+    samples [N, 8h, 8w]."""
+    q = torch.from_numpy(table).to(plane.device)
+    x = _blocks(plane) - CENTER
+    # forward DCT: rows (the last axis), then columns
+    x = torch.stack(_fdct_1d(x.unbind(-1), True), -1)
+    x = torch.stack(_fdct_1d(x.unbind(-2), False), -2)
+    # quantization: the rounding division by table * 8, the sign restored
+    div = q * 8
+    coef = torch.sign(x) * ((x.abs() + (div >> 1)) // div)
+    # decode: dequantize, inverse DCT on columns, then rows
+    z = coef * q
+    z = torch.stack(_idct_1d(z.unbind(-2), CONST_BITS - PASS1_BITS), -2)
+    z = torch.stack(_idct_1d(z.unbind(-1), CONST_BITS + PASS1_BITS + 3), -1)
+    limit = torch.from_numpy(_range_limit_np()).to(plane.device)
+    return _unblocks(limit[z & 1023])
+
+
+def _pad_to(plane: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """Replicate the last row and column of [N, h, w] out to rows x cols."""
+    _, h, w = plane.shape
+    if (h, w) == (rows, cols):
+        return plane
+    ri = torch.arange(rows, device=plane.device).clamp(max=h - 1)
+    ci = torch.arange(cols, device=plane.device).clamp(max=w - 1)
+    return plane[:, ri][:, :, ci]
+
+
+def _downsample(c: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """`h2v2_downsample` of a full-resolution chroma plane [N, h, w]: the
+    columns replicated out to the component's blocks (ceil(w/16) * 16),
+    the rows to an even count; each 2x2 sum plus the bias 1, 2, 1, 2, ...
+    along a row, / 4; then the last chroma row replicated out to the
+    component's blocks (ceil(h/16) * 8 rows)."""
+    cols = -(-w // 16) * 16
+    c = _pad_to(c, h + h % 2, cols)
+    s = c[:, 0::2, 0::2] + c[:, 0::2, 1::2] + c[:, 1::2, 0::2] + c[:, 1::2,
+                                                                   1::2]
+    bias = 1 + torch.arange(s.shape[2], device=c.device) % 2
+    s = (s + bias) >> 2
+    return _pad_to(s, -(-h // 16) * 8, cols // 2)
+
+
+def _fancy_upsample(c: torch.Tensor) -> torch.Tensor:
+    """`h2v2_fancy_upsample` of [N, h, w] chroma (the component's real rows
+    and columns): each output row is 3 x its nearer input row + the farther
+    one (rows above the first and below the last replicated), then along a
+    row 3 x the nearer column sum + the farther, + 8 or + 7, / 16 (the
+    columns beyond either end replicated)."""
+    above = torch.cat([c[:, :1], c[:, :-1]], 1)
+    below = torch.cat([c[:, 1:], c[:, -1:]], 1)
+    rows = torch.stack([3 * c + above, 3 * c + below], 2).flatten(1, 2)
+    left = torch.cat([rows[:, :, :1], rows[:, :, :-1]], 2)
+    right = torch.cat([rows[:, :, 1:], rows[:, :, -1:]], 2)
+    return torch.stack([(3 * rows + left + 8) >> 4,
+                        (3 * rows + right + 7) >> 4], 3).flatten(2, 3)
+
+
+def jpeg_roundtrip(images: torch.Tensor, quality: int = 50) -> torch.Tensor:
+    """[N, H, W, 3] uint8 RGB -> the same images after libjpeg's encode at
+    `quality` and decode (see the module docstring), uint8 on their
+    device.  Anything that is not uint8 is refused, as the JAX binding
+    refuses it: a float image in [0, 1] would truncate to black."""
+    if images.dtype != torch.uint8:
+        raise ValueError(f"jpeg_roundtrip expects uint8 RGB, got "
+                         f"{images.dtype}")
+    if images.dim() != 4 or images.shape[-1] != 3:
+        raise ValueError(f"expected [N, H, W, 3], got {tuple(images.shape)}")
+    n, h, w, _ = images.shape
+    lum, chrom = quant_tables(quality)
+    r, g, b = images.to(torch.int64).unbind(-1)
+    off = CENTER << SCALEBITS
+    y = (_fix(0.299) * r + _fix(0.587) * g + _fix(0.114) * b
+         + ONE_HALF) >> SCALEBITS
+    cb = (-_fix(0.16874) * r - _fix(0.33126) * g + _fix(0.5) * b
+          + off + ONE_HALF - 1) >> SCALEBITS
+    cr = (_fix(0.5) * r - _fix(0.41869) * g - _fix(0.08131) * b
+          + off + ONE_HALF - 1) >> SCALEBITS
+
+    # luminance: blocks of 8, the edges replicated; the decoder crops
+    y = _code_plane(_pad_to(y, -(-h // 8) * 8, -(-w // 8) * 8), lum)[:, :h,
+                                                                      :w]
+    ch, cw = -(-h // 2), -(-w // 2)
+    up = []
+    for c in (cb, cr):
+        c = _code_plane(_downsample(c, h, w), chrom)[:, :ch, :cw]
+        if cw > 2:
+            c = _fancy_upsample(c)
+        else:       # jdsample.c: no triangle filter at 2 columns or fewer
+            c = c.repeat_interleave(2, 1).repeat_interleave(2, 2)
+        up.append(c[:, :h, :w])
+    cb, cr = up
+
+    x_cb, x_cr = cb - CENTER, cr - CENTER
+    red = y + ((_fix(1.40200) * x_cr + ONE_HALF) >> SCALEBITS)
+    blue = y + ((_fix(1.77200) * x_cb + ONE_HALF) >> SCALEBITS)
+    green = y + ((-_fix(0.34414) * x_cb + ONE_HALF
+                  - _fix(0.71414) * x_cr) >> SCALEBITS)
+    out = torch.stack([red, green, blue], -1).clamp(0, 255)
+    return out.to(torch.uint8)

@@ -62,7 +62,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--tiny", action="store_true",
                    help="tiny test config (CI/smoke)")
     p.add_argument("--int8", nargs="?", const="conv", default=False,
-                   help="not ported (ROADMAP A.10): refused")
+                   help="not ported (ROADMAP A.8): refused")
     p.add_argument("--device", type=str, default="cuda")
     return p
 
@@ -70,7 +70,7 @@ def build_argparser() -> argparse.ArgumentParser:
 def main(argv=None):
     args = build_argparser().parse_args(argv)
     if args.int8:
-        raise SystemExit("--int8: int8 serving is not ported (ROADMAP A.10)")
+        raise SystemExit("--int8: int8 serving is not ported (ROADMAP A.8)")
     cfg = backbone = None
     if args.tiny:
         from aqualora_torch.core.config import (EfficientNetConfig,

@@ -17,7 +17,7 @@ The port of `aqualora_tpu/eval/utils_eval.py`:
 
 Generation runs on `device` ("cuda" unless the caller asks for the CPU), in
 bfloat16 on the card and float32 on the CPU, as the JAX package picks bf16
-on the TPU.  There is no int8 path (ROADMAP A.10) and no mesh (A.13).
+on the TPU.  There is no int8 path (ROADMAP A.8) and no mesh (A.9).
 """
 
 from __future__ import annotations
@@ -206,7 +206,7 @@ def simple_sample(model_path: Optional[str], sampler: str,
     `model_path`'s), as torch state dicts by module: {"text_encoder",
     "unet", "vae", "mapper"}.
     `dtype`: bfloat16 on a CUDA device, float32 on the CPU by default.
-    `int8`: not ported (ROADMAP A.10); anything truthy raises."""
+    `int8`: not ported (ROADMAP A.8); anything truthy raises."""
     from aqualora_torch.core.tokenizer import load_tokenizer
     from aqualora_torch.diffusion.pipeline import StableDiffusionPipeline
     from aqualora_torch.models.lora import strip_lora_params
@@ -216,7 +216,7 @@ def simple_sample(model_path: Optional[str], sampler: str,
     if sampler not in SAMPLER_NAMES:
         raise ValueError(f"unknown sampler {sampler}; have {SAMPLER_NAMES}")
     if int8:
-        raise NotImplementedError("int8 serving is not ported (ROADMAP A.10)")
+        raise NotImplementedError("int8 serving is not ported (ROADMAP A.8)")
     device = torch.device(device)
     lora_unfolded = mapper_state = None
     if messages is not None:

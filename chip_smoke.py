@@ -9,6 +9,8 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py --phases 15     # the publisher's chain only
     python3 chip_smoke.py --phases 16     # the chain, then the auditor's path
     python3 chip_smoke.py --phases 18     # the chain, then stage 3
+    python3 chip_smoke.py --phases 19     # the chain, then the robustness
+                                          # benchmark
 
 Phases (any failure raises, so the exit code is not 0):
   0. torch and CUDA versions, the card's name and power limit (nvidia-smi).
@@ -166,10 +168,32 @@ Phases (any failure raises, so the exit code is not 0):
      default precision.  After the timed phases, the 768^2 shapes' device
      time beside SDPA's (with the short sessions) and one profiled step of
      each kind of (d) (with the whole-step profiles).
-The timed phases run first (0-7, 12, 13, 14, 8, 15, 16, 18b-d, 17, 18a) and
-the profiled ones after them, so that the profiler touches no timed phase:
-first the short sessions (6's profile, 9, 10, 12's profile, 18a's), then the
-profiles of whole steps (8, 14, 18d's) and of a generate call (11).  After
+ 19. The robustness benchmark (`--phases 19` runs phase 15 too): (a)
+     SD-2.1's d = 64 shapes at B8, the batch of an SDEdit2 call, as phase 2
+     holds the serving shapes; (b) the tiny img2img slice on the card
+     against the CPU, float32, epsilon and v-prediction, strength 0.1 and
+     0.2 of 10 steps and 0.5 of 4; (c) the JPEG quality-50 round trip
+     (`eval/jpeg.py`) at B8 512^2 on the card against the same on the CPU,
+     bit for bit, and against Pillow where the machine has it (printed),
+     with its time; (d) `run_eval_distortion.main` at full width on phase
+     15's artifacts (8 prompts, 512^2, dpms_m 25, CFG 7.5, bf16, B4, the
+     seven distortions, --with_sdedit on SD-1.5 and --with_sdedit2 on
+     SD-2.1, seeded random weights): every generate call launches the
+     forward 801 times, every SDEdit call 34 (the VAE encoder, one U-Net
+     evaluation, the decoder) and every SDEdit2 call 66 (two evaluations),
+     every kind's directory holds 8 PNGs of the right size, every distorted
+     batch is finite; the seconds of the clean set, of each distortion, of
+     each SDEdit call and of each decode, images/s, peak memory, each
+     kind's bit accuracy (printed: random weights); (e) the float32
+     forward at d <= 160 (the CUDA-core instances) at stage 3's 512^2
+     shapes, B8, against its plain version, with its time, SDPA's float32
+     time and the bound at the CUDA cores' float32 rate, and after the
+     timed phases the same as device time (with the short sessions).
+The timed phases run first (0-7, 12, 13, 14, 8, 15, 16, 18b-d, 19d, 17,
+18a, 19a-c, 19e) and the profiled ones after them, so that the profiler
+touches no timed phase: first the short sessions (6's profile, 9, 10, 12's
+profile, 18a's, 19e's), then the profiles of whole steps (8, 14, 18d's) and
+of a generate call (11).  After
 a session of a whole step, short sessions in the same process have recorded
 some device events or none (PERF.md, section 7).  The line before the last
 names the card and its power limit; the last line is {"ok": true,
@@ -2575,9 +2599,391 @@ def phase18_profile(smi: str, kept: list) -> None:
                   f"x{e.count:<5d} {e.key[:100]}", flush=True)
 
 
+# phase 19, the robustness benchmark: run_eval_distortion at the protocol's
+# settings (dpms_m 25, CFG 7.5, 512^2, bf16, batch 4) on phase 15's
+# artifacts, 8 prompts, the seven distortions and both SDEdit attacks
+DIST_PROMPTS = 8
+DIST_KINDS = ("color_jitter", "crop", "blur", "noise", "jpeg_compress",
+              "rotation", "sharpness", "SDEdit", "SDEdit2")
+# forward launches of one img2img call of 10 steps: the VAE encoder's and
+# the decoder's mid-block, and 32 a U-Net evaluation for each of its
+# max(1, int(10 * strength)) steps (strength 0.1 for SDEdit, 0.2 for
+# SDEdit2, whose SD-2.1 U-Net has SD-1.5's 16 transformer blocks)
+SDEDIT_LAUNCHES = {0.1: 1 + 32 + 1, 0.2: 1 + 2 * 32 + 1}
+JPEG_QUALITY = 50
+TINY_IMG2IMG = ((10, 0.1), (10, 0.2), (4, 0.5))
+
+
+def sdedit2_shapes():
+    """SD-2.1's d = 64 shapes at the batch of an SDEdit2 call (4 images:
+    2 x 4 under CFG): (key, name, heads, Tq, Tk, d, batch)."""
+    b = 2 * PROTOCOL_IMAGES
+    return [(f"sdedit2_b{b}/{name}", name, h, tq, tk, d, b)
+            for name, h, tq, tk, d, _ in SD21_SHAPES]
+
+
+def phase19a(smi: str) -> dict:
+    """SD-2.1's d = 64 shapes at B8, the batch the SDEdit2 calls launch
+    (phase 2 holds them at B16 and batch 2; the tiling depends on the
+    batch), as phase 2 holds the serving shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    return {key: check_serving_shape(key, h, tq, tk, d, b, gen, smi,
+                                     at_b2=False, phase=19)
+            for key, _, h, tq, tk, d, b in sdedit2_shapes()}
+
+
+def phase19b() -> None:
+    """The tiny img2img slice on the card (kernels) against the CPU (plain
+    versions), float32, the same weights and draws: epsilon and
+    v-prediction, strength 0.1 and 0.2 of 10 steps and 0.5 of 4."""
+    import dataclasses
+
+    from aqualora_torch.core.config import PipelineConfig
+    from aqualora_torch.core.tokenizer import load_tokenizer
+    from aqualora_torch.diffusion.pipeline import StableDiffusionPipeline
+    from aqualora_torch.ops import flash_attention as fa
+
+    gen = torch.Generator().manual_seed(19)
+    images = torch.rand(2, 32, 32, 3, generator=gen) * 2 - 1
+    draws = {k: torch.randn(2, 16, 16, 4, generator=gen)
+             for k in ("posterior_noise", "noise")}
+    for pred in ("epsilon", "v_prediction"):
+        cfg = PipelineConfig.tiny()
+        cfg = dataclasses.replace(
+            cfg, unet=dataclasses.replace(cfg.unet, prediction_type=pred),
+            schedule=dataclasses.replace(cfg.schedule, prediction_type=pred))
+        pipes = {dev: StableDiffusionPipeline(cfg, dtype=torch.float32,
+                                              device=dev)
+                 for dev in ("cpu", "cuda")}
+        pipes["cpu"].init_params(seed=19)
+        pipes["cuda"].load_state_from(pipes["cpu"])
+        tok = load_tokenizer(None, vocab_size=cfg.clip.vocab_size)
+        ids, neg = tok(["masterpiece"] * 2), tok([""] * 2)
+        for steps, strength in TINY_IMG2IMG:
+            fa.launches.reset()
+            out = {dev: pipe.make_img2img(steps, strength, 32, 32)(
+                images, ids, neg, 7.5, **draws).cpu()
+                for dev, pipe in pipes.items()}
+            err = (out["cuda"] - out["cpu"]).abs().max().item()
+            moved = (out["cpu"] - images).abs().max().item()
+            print(f"[19] tiny img2img {pred} strength {strength} of {steps} "
+                  f"steps, card vs CPU: max|d image| {err:.3e} (tol "
+                  f"{TINY_IMAGE_TOL:g}), the attack moved the image by "
+                  f"{moved:.3f}, kernel launches {fa.launches.count}",
+                  flush=True)
+            if not (err <= TINY_IMAGE_TOL and fa.launches.count > 0
+                    and moved > 0.05):
+                raise AssertionError("tiny img2img on the card disagrees "
+                                     "with the CPU")
+
+
+def jpeg_batch(n: int = N_IMG, res: int = RES) -> torch.Tensor:
+    """[n, res, res, 3] uint8 on the CPU: half uniform noise, half smooth
+    gradients with a little noise (the two ends of what the coder meets)."""
+    gen = torch.Generator().manual_seed(19)
+    noise = torch.randint(0, 256, (n // 2, res, res, 3), generator=gen,
+                          dtype=torch.uint8)
+    yy, xx = torch.meshgrid(torch.arange(float(res)), torch.arange(float(res)),
+                            indexing="ij")
+    smooth = torch.stack([(torch.sin(yy / 37 + c) * 0.5 + 0.5) * xx * 0.4
+                          for c in range(3)], -1)
+    smooth = smooth + torch.rand((n - n // 2, res, res, 3), generator=gen) * 8
+    return torch.cat([noise, smooth.clamp(0, 255).to(torch.uint8)])
+
+
+def phase19c(smi: str) -> dict:
+    """The JPEG round trip (eval/jpeg.py, integer torch ops) at B8 512^2 on
+    the card against the same round trip on the CPU, bit for bit, then
+    against Pillow's where this machine has Pillow (printed only: the port
+    never calls it); its time on the card and on the CPU."""
+    from aqualora_torch.eval.jpeg import jpeg_roundtrip
+    images = jpeg_batch()
+    card = jpeg_roundtrip(images.cuda(), JPEG_QUALITY)
+    t0 = time.perf_counter()
+    cpu = jpeg_roundtrip(images, JPEG_QUALITY)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    same = torch.equal(card.cpu(), cpu)
+    dev = images.cuda()
+    card_ms = time_ms(lambda: jpeg_roundtrip(dev, JPEG_QUALITY), iters=5)
+    try:
+        import io
+
+        import numpy as np
+        from PIL import Image
+    except ImportError:
+        pil = "no Pillow on this machine"
+    else:
+        ref = []
+        for img in images.numpy():
+            buf = io.BytesIO()
+            Image.fromarray(img).save(buf, format="JPEG", quality=JPEG_QUALITY)
+            buf.seek(0)
+            with Image.open(buf) as im:
+                ref.append(np.asarray(im.convert("RGB")))
+        pil = ("equal to Pillow's bit for bit"
+               if np.array_equal(np.stack(ref), cpu.numpy())
+               else "differs from Pillow's")
+    lossy = (card.cpu().int() - images.int()).abs().float().mean().item()
+    print(f"[19] JPEG quality {JPEG_QUALITY} round trip B{N_IMG} {RES}^2: "
+          f"card equals CPU bit for bit: {same}; {pil}; mean |d| "
+          f"{lossy:.3f} levels from the input; {card_ms:.4f} ms on the card "
+          f"(mean of 5), {cpu_ms:.1f} ms on the CPU | {smi}", flush=True)
+    if not same:
+        raise AssertionError("the JPEG round trip differs between the card "
+                             "and the CPU")
+    return {"ms": card_ms, "cpu_ms": cpu_ms}
+
+
+class DistParts:
+    """Times the robustness runner's parts by wrapping what it calls (each
+    wrapper synchronizes the card before it stops its clock), counts the
+    forward launches of each generate and img2img call, and checks every
+    distorted batch is finite.  `install()` / `remove()`."""
+
+    def __init__(self):
+        from aqualora_torch.diffusion import pipeline as pl
+        from aqualora_torch.eval import distortions as dist
+        from aqualora_torch.eval import utils_eval as ue
+        self.targets = [(ue, "simple_sample"), (ue, "simple_decode"),
+                        (dist, "distortion_unit"),
+                        (pl.StableDiffusionPipeline, "make_generate"),
+                        (pl.StableDiffusionPipeline, "make_img2img")]
+        self.saved = {}
+        self.sample_s, self.generate, self.img2img = 0.0, [], []
+        self.distort, self.decode = {}, []
+
+    def _calls(self, record, make):
+        """Wrap a pipeline's make_* so each call of what it returns is
+        timed and its launches counted into `record`."""
+        def wrapped_make(pipe, *a, **k):
+            fn = make(pipe, *a, **k)
+            tag = k.get("strength")
+
+            def counted(*ca, **ck):
+                torch.cuda.synchronize()
+                before, t0 = counts(), time.perf_counter()
+                out = fn(*ca, **ck)
+                torch.cuda.synchronize()
+                after = counts()
+                record.append((tag, time.perf_counter() - t0,
+                               {c: after[c] - before[c] for c in after}))
+                return out
+            return counted
+        return wrapped_make
+
+    def install(self):
+        self.saved = {(o, n): getattr(o, n) for o, n in self.targets}
+        (ue, _), _, (dist, _), (pl_cls, _), _ = self.targets
+        sample = self.saved[(ue, "simple_sample")]
+        decode = self.saved[(ue, "simple_decode")]
+        unit = self.saved[(dist, "distortion_unit")]
+
+        def timed_sample(*a, **k):
+            t0 = time.perf_counter()
+            out = sample(*a, **k)
+            torch.cuda.synchronize()
+            self.sample_s += time.perf_counter() - t0
+            return out
+
+        def timed_unit(x01, kind, *a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = unit(x01, kind, *a, **k)
+            torch.cuda.synchronize()
+            self.distort[kind] = (time.perf_counter() - t0,
+                                  bool(torch.isfinite(out).all()),
+                                  tuple(out.shape))
+            return out
+
+        def timed_decode(*a, **k):
+            t0 = time.perf_counter()
+            out = decode(*a, **k)
+            torch.cuda.synchronize()
+            self.decode.append(time.perf_counter() - t0)
+            return out
+
+        ue.simple_sample, ue.simple_decode = timed_sample, timed_decode
+        dist.distortion_unit = timed_unit
+        pl_cls.make_generate = self._calls(
+            self.generate, self.saved[(pl_cls, "make_generate")])
+        pl_cls.make_img2img = self._calls(
+            self.img2img, self.saved[(pl_cls, "make_img2img")])
+
+    def remove(self):
+        for (obj, name), fn in self.saved.items():
+            setattr(obj, name, fn)
+
+
+def phase19d(smi: str, out_dir: str, tmp: str) -> dict:
+    """The robustness benchmark at full width on phase 15's artifacts,
+    through `run_eval_distortion.main`: the clean set (8 prompts, 512^2,
+    dpms_m 25, CFG 7.5, bf16, B4), the seven distortions, SDEdit (SD-1.5,
+    strength 0.1) and SDEdit2 (SD-2.1, strength 0.2), PNGs, decode.  The
+    counts are set to 0 before it and read after it.  Returns the forward
+    launches by shape."""
+    from aqualora_torch.eval import run_eval_distortion
+    from aqualora_torch.eval.image_io import load_png
+    from aqualora_torch.ops import flash_attention as fa
+    from aqualora_torch.train.ppft_train import MSGDECODER_FILE
+
+    out = Path(tmp) / "eval_distortion"
+    argv = ["--train_folder", out_dir, "--msgdecoder_path",
+            str(Path(out_dir) / MSGDECODER_FILE), "--num_prompts",
+            str(DIST_PROMPTS), "--batch_size", str(PROTOCOL_IMAGES),
+            "--sampler", "dpms_m", "--steps", str(STEPS), "--cfg", "7.5",
+            "--resolution", str(RES), "--msg_bits", str(EVAL_MSG_BITS),
+            "--with_sdedit", "--with_sdedit2", "--device", "cuda",
+            "--output_dir", str(out)]
+    parts = DistParts()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    parts.install()
+    try:
+        torch.cuda.synchronize()
+        reset_counts()                          # counts start here
+        t0 = time.perf_counter()
+        results = run_eval_distortion.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got, by_shape = counts(), dict(fa.launches.by_shape)
+    finally:
+        parts.remove()
+    peak_gib = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    n_gen = DIST_PROMPTS // PROTOCOL_IMAGES
+    want_gen = {"fwd": LAUNCHES_PER_GENERATE, **NO_TRAINING}
+    want_total = {"fwd": n_gen * LAUNCHES_PER_GENERATE + n_gen * sum(
+        SDEDIT_LAUNCHES.values()), **NO_TRAINING}
+    gen_s = [s for _, s, _ in parts.generate]
+    print(f"[19] run_eval_distortion: {DIST_PROMPTS} clean images at 512^2 "
+          f"dpms_m-{STEPS} CFG 7.5 bf16 B{PROTOCOL_IMAGES}, "
+          f"{len(DIST_KINDS)} kinds, {DIST_PROMPTS * len(DIST_KINDS)} "
+          f"distorted images written and decoded in {wall:.4f} s = "
+          f"{DIST_PROMPTS * len(DIST_KINDS) / wall:.4f} images/s end to end; "
+          f"clean set {parts.sample_s:.4f} s (generate calls "
+          + ", ".join(f"{s:.4f}" for s in gen_s)
+          + f" s); peak memory {peak_gib:.2f} GiB above the "
+          f"{base / 2 ** 30:.2f} GiB resident; launches {got} | {smi}",
+          flush=True)
+    for (kind, (sec, finite, shape)), dec_s in zip(parts.distort.items(),
+                                                   parts.decode):
+        acc, tpr = results[kind]
+        calls = [f"{s:.4f} s, {c['fwd']} launches" for tag, s, c in
+                 parts.img2img if (tag == 0.1) == (kind == "SDEdit")]
+        print(f"[19] {kind}: distortion {sec:.4f} s"
+              + (f" (img2img calls: {'; '.join(calls)})"
+                 if kind.startswith("SDEdit") else "")
+              + f", decode {dec_s:.4f} s; output {shape}, finite {finite}; "
+              f"bit_accuracy {acc:.4f} TPR {tpr:.4f} (random weights: "
+              f"printed, not checked) | {smi}", flush=True)
+    pngs = {k: sorted(p.name for p in (out / k).glob("*.png"))
+            for k in ("clean",) + DIST_KINDS}
+    sides = {k: {load_png(str(out / k / n)).shape[:2] for n in names}
+             for k, names in pngs.items()}
+    want_sides = {k: {(460, 460) if k == "crop" else (RES, RES)}
+                  for k in pngs}
+    want_img2img = sorted(SDEDIT_LAUNCHES[t] for t in SDEDIT_LAUNCHES
+                          for _ in range(n_gen))
+    ok = (got == want_total and len(gen_s) == n_gen
+          and all(c == want_gen for _, _, c in parts.generate)
+          and sorted(c["fwd"] for _, _, c in parts.img2img) == want_img2img
+          and all(SDEDIT_LAUNCHES[t] == c["fwd"] for t, _, c in
+                  parts.img2img)
+          and list(results) == list(DIST_KINDS)
+          and tuple(parts.distort) == DIST_KINDS
+          and all(f for _, f, _ in parts.distort.values())
+          and all(len(v) == DIST_PROMPTS for v in pngs.values())
+          and len({tuple(v) for v in pngs.values()}) == 1
+          and sides == want_sides
+          and all(0.0 <= a <= 1.0 and 0.0 <= t <= 1.0
+                  for a, t in results.values()))
+    print(f"[19] launches per generate call "
+          f"{[c for _, _, c in parts.generate]}, per img2img call "
+          f"{[(t, c['fwd']) for t, _, c in parts.img2img]}"
+          f" (want {want_gen['fwd']}, SDEdit {SDEDIT_LAUNCHES[0.1]}, SDEdit2 "
+          f"{SDEDIT_LAUNCHES[0.2]}); {DIST_PROMPTS} PNGs in each of "
+          f"{len(pngs)} directories: "
+          f"{all(len(v) == DIST_PROMPTS for v in pngs.values())}", flush=True)
+    if not ok:
+        raise AssertionError(f"the robustness benchmark failed a check: "
+                             f"launches {got} (want {want_total}), "
+                             f"generate {parts.generate}, img2img "
+                             f"{parts.img2img}, distortions {parts.distort}, "
+                             f"PNGs {pngs}, results {results}")
+    return by_shape
+
+
+# float32 stage 3 at 512^2 (phase 18d's float32 step): the CUDA-core forward
+# at d <= 160, B8 under CFG, 20 steps a generation
+def f32_stage3_shapes():
+    return [s for s in stage3_shapes(512) if s[4] <= 160]
+
+
+def phase19e(smi: str) -> dict:
+    """The float32 forward at d <= 160 (the CUDA-core instances) at stage
+    3's 512^2 shapes, B8: against the plain version, kernel_ms and the
+    plain version's (host-timed), SDPA's float32 time, the bound at the
+    CUDA cores' float32 rate and HBM3's bandwidth."""
+    from aqualora_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(190)
+    rows = {}
+    for key, h, tq, tk, d, b, per in f32_stage3_shapes():
+        scale = d ** -0.5
+        q, k, v = (torch.randn(b, h, t, d, device="cuda", generator=gen)
+                   for t in (tq, tk, tk))
+        err = check_fwd(f"[19] {key} float32", q, k, v, scale,
+                        plain=plain_by_batch)
+        kernel_ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, scale))
+        plain_ms = time_ms(lambda: plain_by_batch(q, k, v, scale), iters=3,
+                           warmup=1)
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, scale=scale))
+        bound_ms, bound_by = attention_bound(b, h, tq, tk, d, elem_bytes=4,
+                                             peak=PEAK_F32_FLOPS)
+        print(f"[19] {key} B{b} float32 (CUDA cores), {per} launches a "
+              f"stage-3 step: kernel_ms {kernel_ms:.4f} plain_ms "
+              f"{plain_ms:.4f} library_ms(sdpa float32) {library_ms:.4f} = "
+              f"{kernel_ms / library_ms:.2f}x, bound_ms {bound_ms:.4f} "
+              f"({bound_by}, float32 at {PEAK_F32_FLOPS / 1e12:g} TFLOP/s) "
+              f"| {smi}", flush=True)
+        rows[key] = {"max_abs_err": err, "ms": kernel_ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": library_ms}
+        del q, k, v
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase19e_profile(smi: str, rows: dict) -> None:
+    """The float32 d <= 160 forward and SDPA's float32 forward as device
+    time (as phase 10), with the step's launches."""
+    from aqualora_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(191)
+    step_kernel = step_sdpa = 0.0
+    for key, h, tq, tk, d, b, per in f32_stage3_shapes():
+        scale = d ** -0.5
+        q, k, v = (torch.randn(b, h, t, d, device="cuda", generator=gen)
+                   for t in (tq, tk, tk))
+        kernel_dev = device_ms(lambda: fa.flash_attention_fwd(q, k, v, scale))
+        library_dev = device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, scale=scale))
+        step_kernel += per * kernel_dev
+        step_sdpa += per * library_dev
+        print(f"[19] {key} B{b} float32: forward device time "
+              f"{kernel_dev:.4f} ms, sdpa float32 forward {library_dev:.4f} "
+              f"= {kernel_dev / library_dev:.2f}x, bound "
+              f"{rows[key]['bound_ms']:.4f} ({rows[key]['bound_by']}), "
+              f"{per} launches a step (kernel_ms {rows[key]['ms']:.4f}) "
+              f"| {smi}", flush=True)
+        del q, k, v
+        torch.cuda.empty_cache()
+    print(f"[19] float32 stage-3 512^2 step, the d <= 160 forward launches: "
+          f"{step_kernel:.1f} ms of device time, SDPA's float32 at the same "
+          f"launches {step_sdpa:.1f} ms | {smi}", flush=True)
+
+
 def kernels_line(rows, launches, bwd_rows, train_launches, inject_row,
                  inject_launches, s1_rows, s1_launches, proto_launches,
-                 s3_rows, s3_launches) -> dict:
+                 s3_rows, s3_launches, dist_launches, s21_rows) -> dict:
     kernels = []
     for name, *_ in SHAPES:
         kernels.append({
@@ -2600,6 +3006,21 @@ def kernels_line(rows, launches, bwd_rows, train_launches, inject_row,
             "source": "aqualora_torch/csrc/flash_fwd.cu",
             "replaces": "aqualora_tpu/ops/flash_attention.py:147",
             "launches": s3_launches.get((h, tq, tk, d), 0), **s3_rows[key]})
+    # the robustness benchmark (phase 19): the clean set and SDEdit at
+    # SD-1.5's protocol shapes (phase 2's rows), SDEdit2 at SD-2.1's B8 ones
+    for key, name, h, tq, tk, d, _ in protocol_shapes():
+        kernels.append({
+            "name": f"flash_attention_fwd/eval_distortion/{name}",
+            "route": "cuda", "source": "aqualora_torch/csrc/flash_fwd.cu",
+            "replaces": "aqualora_tpu/ops/flash_attention.py:147",
+            "launches": dist_launches.get((h, tq, tk, d), 0), **rows[key]})
+    for key, name, h, tq, tk, d, _ in sdedit2_shapes():
+        kernels.append({
+            "name": f"flash_attention_fwd/{key}", "route": "cuda",
+            "source": "aqualora_torch/csrc/flash_fwd.cu",
+            "replaces": "aqualora_tpu/ops/flash_attention.py:147",
+            "launches": dist_launches.get((h, tq, tk, d), 0),
+            **s21_rows[key]})
     for kern, line in (("dq", 239), ("dkv", 269)):
         for name, *_ in TRAIN_SHAPES:
             kernels.append({
@@ -2636,13 +3057,13 @@ def main(argv=None):
                          "phase 0 always runs, and the kernels line needs "
                          "all of them)")
     args = ap.parse_args(argv)
-    every = set(range(19))
+    every = set(range(20))
     run_ = every if args.phases is None else \
         {0} | {int(x) for x in args.phases.split(",")}
     if 11 in run_:
         run_.add(3)          # phase 11 profiles phase 3's generate call
-    if 16 in run_ or 18 in run_:
-        run_.add(15)         # phases 16 and 18 read phase 15's artifacts
+    if run_ & {16, 18, 19}:
+        run_.add(15)         # phases 16, 18 and 19 read phase 15's artifacts
     smi = phase0()
     rows, launches, med_s, serve = {}, {}, 0.0, None
     bwd_rows, inject_row, train_launches, inject_launches = {}, {}, {}, 0
@@ -2679,6 +3100,7 @@ def main(argv=None):
     if 8 in run_:
         train_launches, inject_launches, ppft_kept = phase8(smi)
     proto_launches, s3_rows, s3_launches, s3_kept = {}, {}, {}, []
+    dist_launches, s21_rows, f32_rows = {}, {}, {}
     if 15 in run_:
         with tempfile.TemporaryDirectory(prefix="aqualora_chain_") as tmp:
             out_dir, dpms_s, s1_file, image = phase15(
@@ -2691,10 +3113,18 @@ def main(argv=None):
                                               image)
                 s3_kept = phase18d(smi, s3_tr, s1_file, out_dir, tmp)
                 del s3_tr
+            if 19 in run_:
+                torch.cuda.empty_cache()
+                dist_launches = phase19d(smi, out_dir, tmp)
     if 17 in run_:
         phase17(smi)
     if 18 in run_:
         s3_rows = phase18a(smi)
+    if 19 in run_:
+        s21_rows = phase19a(smi)
+        phase19b()
+        phase19c(smi)
+        f32_rows = phase19e(smi)
     # the profiled phases: the short sessions first, then the profiles of
     # whole steps and of the generate call (see the docstring)
     if 6 in run_:
@@ -2707,6 +3137,8 @@ def main(argv=None):
         phase12_profile(smi)
     if 18 in run_:
         phase18a_profile(smi, s3_rows)
+    if 19 in run_:
+        phase19e_profile(smi, f32_rows)
     if 8 in run_:
         profile_step(*ppft_kept, smi)
         del ppft_kept
@@ -2723,7 +3155,8 @@ def main(argv=None):
         print(json.dumps(kernels_line(rows, launches, bwd_rows,
                                       train_launches, inject_row,
                                       inject_launches, s1_rows, s1_launches,
-                                      proto_launches, s3_rows, s3_launches)))
+                                      proto_launches, s3_rows, s3_launches,
+                                      dist_launches, s21_rows)))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -372,3 +372,69 @@ def test_stage1_tiny_step_card_matches_cpu():
                 tol = 1e-3 * g.abs().max().item() + 1e-5 * part_max
                 err = (g_gpu[part][name] - g).abs().max().item()
                 assert err <= tol, (index, part, name, err, tol)
+
+
+@pytest.mark.cuda
+def test_jpeg_roundtrip_card_equals_cpu():
+    """libjpeg's round trip in integer torch ops (`eval/jpeg.py`) gives the
+    same bits on the card as on the CPU: noise and a smooth image at the
+    protocol's B8 512^2, and a ragged 37x45 batch, at qualities 50 and
+    10."""
+    from aqualora_torch.eval.jpeg import jpeg_roundtrip
+
+    _need_cuda()
+    gen = torch.Generator().manual_seed(12)
+    noise = torch.randint(0, 256, (4, 512, 512, 3), generator=gen,
+                          dtype=torch.uint8)
+    yy, xx = torch.meshgrid(torch.arange(512.0), torch.arange(512.0),
+                            indexing="ij")
+    smooth = torch.stack([(torch.sin(yy / 40 + c) * 0.5 + 0.5) * xx / 2
+                          for c in range(3)], -1).to(torch.uint8)
+    batch = torch.cat([noise, smooth.expand(4, -1, -1, -1)])
+    ragged = torch.randint(0, 256, (3, 37, 45, 3), generator=gen,
+                           dtype=torch.uint8)
+    for images in (batch, ragged):
+        for quality in (50, 10):
+            card = jpeg_roundtrip(images.cuda(), quality)
+            assert card.is_cuda
+            assert torch.equal(card.cpu(), jpeg_roundtrip(images, quality))
+
+
+@pytest.mark.cuda
+def test_img2img_tiny_card_matches_cpu_and_launches():
+    """The tiny SDEdit call on the card (kernels) against the CPU (plain
+    versions), the same weights and draws, float32, at strength 0.1 and
+    0.2 of 10 steps: images within 2e-3, and the forward kernel launched
+    once in the VAE encoder, once in the decoder and a U-Net evaluation's
+    worth for each denoising step (32 + 2 at SD-1.5's width for 0.1)."""
+    from aqualora_torch.core.config import PipelineConfig
+    from aqualora_torch.core.tokenizer import load_tokenizer
+    from aqualora_torch.diffusion.pipeline import StableDiffusionPipeline
+
+    _need_cuda()
+    cfg = PipelineConfig.tiny()
+    pipes = {dev: StableDiffusionPipeline(cfg, device=dev)
+             for dev in ("cpu", "cuda")}
+    pipes["cpu"].init_params(12)
+    pipes["cuda"].load_state_from(pipes["cpu"])
+    tok = load_tokenizer(None, vocab_size=cfg.clip.vocab_size)
+    ids, neg = tok(["masterpiece"] * 2), tok([""] * 2)
+    gen = torch.Generator().manual_seed(12)
+    images = torch.rand(2, 32, 32, 3, generator=gen) * 2 - 1
+    draws = {k: torch.randn(2, 16, 16, 4, generator=gen)
+             for k in ("posterior_noise", "noise")}
+    # a U-Net evaluation's launches: one DDIM step's generate less the VAE's
+    before = fa.launches.count
+    pipes["cuda"].make_generate(1, "ddim", 32, 32)(
+        ids, neg, z=torch.randn(2, 16, 16, 4, generator=gen))
+    per_eval = fa.launches.count - before - 1
+    assert per_eval > 0
+    for strength, eff in ((0.1, 1), (0.2, 2)):
+        out = {}
+        for dev, pipe in pipes.items():
+            before = fa.launches.count
+            out[dev] = pipe.make_img2img(10, strength, 32, 32)(
+                images, ids, neg, **draws).cpu()
+            launched = fa.launches.count - before
+        assert launched == 2 + eff * per_eval, (strength, launched)
+        assert (out["cuda"] - out["cpu"]).abs().max().item() <= 2e-3

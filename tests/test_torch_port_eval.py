@@ -606,7 +606,7 @@ def test_run_eval_base_flag_validation(art, tmp_path):
     tests/test_eval_runners.py for the port: no LoRA source, a non-square
     --height/--width, --lora_scale or --msg_gt with --train_folder and
     --lora without --msg_gt all exit before generating; --int8 is refused
-    (ROADMAP A.10); --device defaults to cuda."""
+    (ROADMAP A.8); --device defaults to cuda."""
     from aqualora_torch.eval import run_eval_base as tr
     from aqualora_torch.tools.create_wm_lora import create_watermark_lora
 
@@ -619,7 +619,7 @@ def test_run_eval_base_flag_validation(art, tmp_path):
             (["--train_folder", art["wm"], "--lora_scale", "1.2"],
              "lora_scale"),
             (["--train_folder", art["wm"], "--msg_gt", HIDINFO], "msg_gt"),
-            (["--train_folder", art["wm"], "--int8"], "A.10")):
+            (["--train_folder", art["wm"], "--int8"], "A.8")):
         with pytest.raises(SystemExit, match=match):
             tr.main(["--output_dir", out] + argv + dec)
     folder = tmp_path / "h"
@@ -822,7 +822,7 @@ def test_simple_sample_per_image_messages_match_jax(art, tmp_path):
                          config=tcfg.PipelineConfig.tiny(), resolution=32)
     with pytest.raises(ValueError, match="unknown sampler"):
         tu.simple_sample(None, "ddpm", prompts, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.10"):
+    with pytest.raises(NotImplementedError, match="A.8"):
         tu.simple_sample(None, "dpms_m", prompts, int8=True, device="cpu")
 
 
@@ -876,11 +876,14 @@ def test_simple_sample_properties(art):
 
 
 def test_eval_modules_import_no_jax():
-    """The eval slice's modules import neither jax nor aqualora_tpu, nor
-    PIL."""
+    """The eval slice's modules, the robustness benchmark's included,
+    import neither jax nor aqualora_tpu, nor PIL."""
     mods = ["aqualora_torch.eval.run_eval_base",
             "aqualora_torch.eval.utils_eval", "aqualora_torch.eval.image_io",
             "aqualora_torch.eval.prompts",
+            "aqualora_torch.eval.run_eval_distortion",
+            "aqualora_torch.eval.distortions", "aqualora_torch.eval.jpeg",
+            "aqualora_torch.diffusion.pipeline",
             "aqualora_torch.tools.create_wm_lora",
             "aqualora_torch.diffusion.samplers"]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)

@@ -10,12 +10,16 @@ itself, bit for bit:
 
 - `images_to_uint8`: round((x + 1) * 127.5) clipped to 0..255, on the
   images' device (ties to even, as `jnp.round`), then fetched as uint8;
-- `save_png` / `load_png`: 8-bit PNG.  The writer writes RGB rows with
-  filter 0 (None); the reader takes grey, grey + alpha, RGB and RGBA
-  (colour types 0, 4, 2, 6), any number of IDAT chunks and all five row
-  filters, and converts to RGB as PIL's `convert("RGB")` does (grey
-  replicated, alpha dropped).  Other bit depths, palettes and interlaced
-  files are refused;
+- `save_png` / `load_png`: PNG.  The writer writes 8-bit RGB rows with
+  filter 0 (None); the reader takes every PNG the JAX package's native
+  loader reads through libpng (`native/imageloader.cpp:68-99`) and gives
+  its pixels: any colour type and bit depth, palettes (a tRNS chunk
+  ignored, as the stripped alpha), grey at 1, 2 or 4 bits scaled to 8
+  (`png_set_expand_gray_1_2_4_to_8`), 16-bit samples cut to their high
+  byte (`png_set_strip_16`), grey replicated and alpha dropped, Adam7
+  interlacing, any number of IDAT chunks and all five row filters.  That
+  is PIL's `convert("RGB")` too, but for 16-bit grey, which PIL opens as
+  `I;16` and clips to 255: `pil=True` takes PIL's rule;
 - `resize_bicubic_pil`: Pillow's `Image.resize(size, BICUBIC)` on RGB, as
   `src/libImaging/Resample.c` computes it (below);
 - `preprocess`: RGB, the resize, then / 127.5 - 1.
@@ -34,8 +38,8 @@ import numpy as np
 import torch
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-# colour type -> channels in the file
-_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+# Pillow's decompression-bomb limit, 2 * Image.MAX_IMAGE_PIXELS
+_MAX_PIXELS = 178956970
 
 
 # ---------------------------------------------------------------------------
@@ -101,7 +105,11 @@ def _average_row(filt: bytes, prior: bytes, bpp: int) -> bytearray:
 
 
 def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
-    """Undo the five PNG row filters -> [h, stride] uint8."""
+    """Undo the five PNG row filters of `h` rows of `stride` bytes -> [h,
+    stride] uint8; `bpp` is the filters' byte distance (bytes a pixel, at
+    least 1).  None, Sub and Up run on whole rows in numpy; Average and
+    Paeth, whose bytes depend on their left neighbour's result, byte by
+    byte."""
     if len(raw) < h * (stride + 1):
         raise ValueError(f"PNG image data has {len(raw)} bytes, want "
                          f"{h * (stride + 1)}")
@@ -131,14 +139,60 @@ def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
-def load_png(path: str) -> np.ndarray:
-    """Read an 8-bit PNG -> HWC uint8 RGB (grey replicated, alpha
-    dropped, as PIL's convert("RGB"))."""
-    with open(path, "rb") as f:
-        blob = f.read()
+# colour type -> the bit depths the PNG specification allows
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
+           6: (8, 16)}
+# Adam7: (first row, first column, row step, column step) of each pass
+_ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4),
+          (2, 0, 4, 2), (0, 1, 2, 2), (1, 0, 2, 1))
+
+
+def _samples(rows: np.ndarray, width: int, channels: int,
+             depth: int) -> np.ndarray:
+    """Unfiltered rows [h, stride] -> samples [h, width, channels]: uint8
+    for depths up to 8 (unscaled), uint16 for 16."""
+    h = rows.shape[0]
+    if depth == 16:
+        pairs = rows[:, :2 * width * channels].reshape(h, width, channels, 2)
+        return (pairs[..., 0].astype(np.uint16) << 8) | pairs[..., 1]
+    if depth == 8:
+        return rows[:, :width * channels].reshape(h, width, channels)
+    # 1, 2 or 4 bits, one channel: the samples of a byte from its top bits
+    shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+    vals = (rows[:, :, None] >> shifts) & np.uint8((1 << depth) - 1)
+    return vals.reshape(h, -1)[:, :width, None]
+
+
+def _decode_passes(raw: bytes, w: int, h: int, channels: int, depth: int,
+                   interlace: int) -> np.ndarray:
+    """The inflated image data -> samples [h, w, channels], through the
+    seven Adam7 passes when `interlace`."""
+    bits = channels * depth
+    bpp = max(1, bits // 8)
+    passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
+    out = None
+    pos = 0
+    for y0, x0, dy, dx in passes:
+        ph, pw = -(-(h - y0) // dy), -(-(w - x0) // dx)
+        if ph <= 0 or pw <= 0:
+            continue                      # an empty pass has no scanlines
+        stride = -(-pw * bits // 8)
+        rows = _unfilter(raw[pos:], ph, stride, bpp)
+        pos += ph * (stride + 1)
+        samples = _samples(rows, pw, channels, depth)
+        if not interlace:
+            return samples
+        if out is None:
+            out = np.empty((h, w, channels), samples.dtype)
+        out[y0::dy, x0::dx] = samples
+    return out
+
+
+def _read_chunks(path: str, blob: bytes):
+    """-> (IHDR fields, PLTE bytes or None, the joined IDAT data)."""
     if not blob.startswith(PNG_SIGNATURE):
         raise ValueError(f"{path}: not a PNG file")
-    pos, header, idat = len(PNG_SIGNATURE), None, []
+    pos, header, palette, idat = len(PNG_SIGNATURE), None, None, []
     while pos + 8 <= len(blob):
         n, kind = struct.unpack(">I4s", blob[pos:pos + 8])
         data = blob[pos + 8:pos + 8 + n]
@@ -149,25 +203,59 @@ def load_png(path: str) -> np.ndarray:
             raise ValueError(f"{path}: chunk {kind!r} fails its CRC")
         pos += 12 + n
         if kind == b"IHDR":
+            if n != 13:
+                raise ValueError(f"{path}: IHDR has {n} bytes, want 13")
             header = struct.unpack(">IIBBBBB", data)
+        elif kind == b"PLTE":
+            palette = data
         elif kind == b"IDAT":
             idat.append(data)
         elif kind == b"IEND":
             break
     if header is None or not idat:
         raise ValueError(f"{path}: no IHDR or no IDAT chunk")
-    w, h, depth, ctype, _, _, interlace = header
-    if depth != 8:
-        raise ValueError(f"{path}: bit depth {depth}; only 8-bit PNGs are "
-                         f"read")
-    if ctype not in _CHANNELS:
-        raise ValueError(f"{path}: colour type {ctype} (palette?); only "
-                         f"grey, grey+alpha, RGB and RGBA are read")
-    if interlace:
-        raise ValueError(f"{path}: interlaced (Adam7) PNGs are not read")
-    c = _CHANNELS[ctype]
-    pix = _unfilter(zlib.decompress(b"".join(idat)), h, w * c, c)
-    pix = pix.reshape(h, w, c)
+    return header, palette, b"".join(idat)
+
+
+def load_png(path: str, pil: bool = False) -> np.ndarray:
+    """Read a PNG -> HWC uint8 RGB, libpng's pixels under the JAX native
+    loader's transforms (see the module docstring); `pil=True` clips
+    16-bit grey to 255 as PIL's `I;16` -> RGB conversion does."""
+    with open(path, "rb") as f:
+        blob = f.read()
+    (w, h, depth, ctype, comp, filt, interlace), palette, data = \
+        _read_chunks(path, blob)
+    if ctype not in _DEPTHS or depth not in _DEPTHS[ctype]:
+        raise ValueError(f"{path}: colour type {ctype} at bit depth {depth} "
+                         "is not a PNG kind")
+    if comp != 0 or filt != 0 or interlace > 1:
+        raise ValueError(f"{path}: compression {comp}, filter {filt} or "
+                         f"interlace {interlace} method is not PNG's")
+    if w < 1 or h < 1 or w * h > _MAX_PIXELS:
+        raise ValueError(f"{path}: {w}x{h} pixels (at most {_MAX_PIXELS})")
+    channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[ctype]
+    try:
+        raw = zlib.decompress(data)
+    except zlib.error as e:
+        raise ValueError(f"{path}: corrupt image data ({e})") from None
+    pix = _decode_passes(raw, w, h, channels, depth, interlace)
+    if ctype == 3:
+        if palette is None or len(palette) % 3 or not palette:
+            raise ValueError(f"{path}: a palette image without a valid PLTE")
+        lut = np.frombuffer(palette, np.uint8).reshape(-1, 3)
+        idx = pix[:, :, 0]
+        if idx.max() >= len(lut):
+            raise ValueError(f"{path}: a palette index beyond the "
+                             f"{len(lut)} PLTE entries")
+        return np.ascontiguousarray(lut[idx])
+    if depth == 16:
+        if pil and ctype == 0:
+            pix = np.minimum(pix, 255)
+        else:
+            pix = pix >> 8
+        pix = pix.astype(np.uint8)
+    elif depth < 8:                   # grey only: 1, 2, 4 bits -> 8
+        pix = pix * np.uint8(255 // ((1 << depth) - 1))
     return _to_rgb(pix)
 
 

@@ -26,6 +26,14 @@ Every stage is libjpeg's integer arithmetic, file by file:
 
 Integers only, on the images' device, so the CPU and the card give the same
 bits.  `tests/test_torch_port_distortion.py` holds it to Pillow bit for bit.
+
+`decode_from_coefficients` is the decoder's half on its own, from a file's
+quantized blocks: any quantization tables, grey or three components (YCbCr
+or RGB), and every component at sampling factors up to 2, upsampled by
+`h2v1_fancy_upsample`, `h1v2_fancy_upsample` or `h2v2_fancy_upsample`
+(`jdsample.c`; plain replication where libjpeg takes it).  It is the plain
+version of `csrc/jpeg_decode.cpp`, the training data's JPEG decoder, which
+`tests/test_torch_port_data.py` and `chip_smoke.py` hold to it.
 """
 
 from __future__ import annotations
@@ -196,12 +204,18 @@ def _code_plane(plane: torch.Tensor, table: np.ndarray) -> torch.Tensor:
     # quantization: the rounding division by table * 8, the sign restored
     div = q * 8
     coef = torch.sign(x) * ((x.abs() + (div >> 1)) // div)
-    # decode: dequantize, inverse DCT on columns, then rows
+    return _unblocks(_idct_blocks(coef, q))
+
+
+def _idct_blocks(coef: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Quantized blocks [..., 8, 8] (int64) and their table [8, 8] ->
+    samples [..., 8, 8]: dequantize, inverse DCT on the columns, then the
+    rows, then the range limit."""
     z = coef * q
     z = torch.stack(_idct_1d(z.unbind(-2), CONST_BITS - PASS1_BITS), -2)
     z = torch.stack(_idct_1d(z.unbind(-1), CONST_BITS + PASS1_BITS + 3), -1)
-    limit = torch.from_numpy(_range_limit_np()).to(plane.device)
-    return _unblocks(limit[z & 1023])
+    limit = torch.from_numpy(_range_limit_np()).to(coef.device)
+    return limit[z & 1023]
 
 
 def _pad_to(plane: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
@@ -279,6 +293,12 @@ def jpeg_roundtrip(images: torch.Tensor, quality: int = 50) -> torch.Tensor:
         up.append(c[:, :h, :w])
     cb, cr = up
 
+    return _ycc_to_rgb(y, cb, cr)
+
+
+def _ycc_to_rgb(y: torch.Tensor, cb: torch.Tensor,
+                cr: torch.Tensor) -> torch.Tensor:
+    """`ycc_rgb_convert` (jdcolor.c) of int64 planes -> [..., 3] uint8."""
     x_cb, x_cr = cb - CENTER, cr - CENTER
     red = y + ((_fix(1.40200) * x_cr + ONE_HALF) >> SCALEBITS)
     blue = y + ((_fix(1.77200) * x_cb + ONE_HALF) >> SCALEBITS)
@@ -286,3 +306,71 @@ def jpeg_roundtrip(images: torch.Tensor, quality: int = 50) -> torch.Tensor:
                   - _fix(0.71414) * x_cr) >> SCALEBITS)
     out = torch.stack([red, green, blue], -1).clamp(0, 255)
     return out.to(torch.uint8)
+
+
+# ---------------------------------------------------------------------------
+# the decoder's half from a file's coefficients
+# ---------------------------------------------------------------------------
+
+def _rows_above_below(c: torch.Tensor, dim: int):
+    """c shifted by one along `dim` both ways, the ends replicated."""
+    n = c.shape[dim]
+    idx = torch.arange(n, device=c.device)
+    return (c.index_select(dim, (idx - 1).clamp(min=0)),
+            c.index_select(dim, (idx + 1).clamp(max=n - 1)))
+
+
+def _interleave(even: torch.Tensor, odd: torch.Tensor,
+                dim: int) -> torch.Tensor:
+    return torch.stack([even, odd], dim + 1).flatten(dim, dim + 1)
+
+
+def upsample_component(c: torch.Tensor, rh: int, rv: int) -> torch.Tensor:
+    """One component's real samples [h, w] (int64) -> [h * rv, w * rh] by
+    libjpeg's method for the ratio: `h2v1_fancy_upsample` (3 x the nearer
+    column + the farther, + 1 or + 2, / 4), `h1v2_fancy_upsample` (the
+    same down the rows), `h2v2_fancy_upsample` (`_fancy_upsample`), and
+    plain replication across where a row has 2 samples or fewer
+    (`jinit_upsampler`)."""
+    if (rh, rv) == (1, 1):
+        return c
+    w = c.shape[1]
+    if rh == 2 and w <= 2:                   # h2v1_upsample, h2v2_upsample
+        return c.repeat_interleave(2, 1).repeat_interleave(rv, 0)
+    if (rh, rv) == (2, 2):
+        return _fancy_upsample(c[None])[0]
+    dim = 1 if rh == 2 else 0
+    before, after = _rows_above_below(c, dim)
+    return _interleave((3 * c + before + 1) >> 2, (3 * c + after + 2) >> 2,
+                       dim)
+
+
+def decode_from_coefficients(blocks, quant, sampling, size,
+                             color: str = "ycbcr") -> torch.Tensor:
+    """A JPEG's quantized blocks -> [H, W, 3] uint8 RGB, libjpeg-turbo's
+    default decode (JDCT_ISLOW, fancy upsampling, JCS_RGB; grey
+    replicated).
+
+    blocks: per component [blocks down, blocks across, 8, 8] (the MCU
+    grid's), natural order; quant: [components, 8, 8], each component's
+    table; sampling: per component (h, v), at most 2; size: (width,
+    height); color: "grey", "ycbcr" or "rgb".  Computed on the device of
+    the first block tensor (numpy arrays: the CPU)."""
+    width, height = size
+    hmax = max(h for h, _ in sampling)
+    vmax = max(v for _, v in sampling)
+    planes = []
+    for coef, q, (h, v) in zip(blocks, quant, sampling):
+        coef = torch.as_tensor(coef).to(torch.int64)
+        q = torch.as_tensor(q).to(coef.device, torch.int64)
+        dw = -(-width * h // hmax)
+        dh = -(-height * v // vmax)
+        plane = _unblocks(_idct_blocks(coef, q)[None])[0][:dh, :dw]
+        up = upsample_component(plane, hmax // h, vmax // v)
+        planes.append(up[:height, :width])
+    if color == "grey":
+        return planes[0].to(torch.uint8)[..., None].expand(
+            height, width, 3).contiguous()
+    if color == "rgb":
+        return torch.stack(planes, -1).to(torch.uint8)
+    return _ycc_to_rgb(*planes)

@@ -1,13 +1,16 @@
-"""Build the `csrc/*.cu` sources with nvcc and load them with ctypes.
+"""Build the `csrc/*.cu` and `csrc/*.cpp` sources and load them with ctypes.
 
 Every hand-written kernel of the port has a plain C interface and is built
 the same way: `nvcc -gencode arch=compute_90a,code=sm_90a -shared` into
 `aqualora_torch/_build/lib<name>_<hash>.so`, where the hash is of the
 source's content and of the csrc headers it includes (`#include "x.cuh"`),
 so an edited source or header is rebuilt and an unchanged one is loaded as
-it is.  A kernel's wrapper builds on first use, never at import;
-`build_all` starts one nvcc per source at once.  A failed build raises;
-nothing falls back.
+it is.  Host code (`csrc/<name>.cpp`, the JPEG decoder) takes the same
+route with `g++ -O3 -shared -fPIC -std=c++17 -pthread` and no flag that
+lets the compiler change float results (no -ffast-math, no -march, FMA
+contraction off), so it gives the same bits on every x86-64 or ARM host.
+A library is built on first use, never at import; `build_all` starts one
+compiler per source at once.  A failed build raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -63,10 +66,27 @@ def nvcc() -> str:
 _LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 
+def source(name: str) -> Path:
+    """csrc/<name>.cu, else csrc/<name>.cpp (host code)."""
+    cu = CSRC / f"{name}.cu"
+    return cu if cu.exists() else CSRC / f"{name}.cpp"
+
+
+def compile_command(name: str, output: str) -> List[str]:
+    """nvcc for a .cu source, g++ for a .cpp one."""
+    src = source(name)
+    if src.suffix == ".cpp":
+        return ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-pthread",
+                "-ffp-contract=off", "-o", output, str(src)]
+    return [nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+            "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+            "-Xptxas", "-v", "-o", output, str(src)]
+
+
 def source_files(name: str) -> List[Path]:
-    """csrc/<name>.cu and every csrc header it includes with quotes, directly
-    or through another header, each once."""
-    files, todo = [], [CSRC / f"{name}.cu"]
+    """csrc/<name>.cu (or .cpp) and every csrc header it includes with
+    quotes, directly or through another header, each once."""
+    files, todo = [], [source(name)]
     while todo:
         path = todo.pop(0)
         if path in files:
@@ -78,8 +98,8 @@ def source_files(name: str) -> List[Path]:
 
 
 def library_path(name: str) -> Path:
-    """Where csrc/<name>.cu is built: named by the content hash of the
-    source and of the csrc headers it includes."""
+    """Where csrc/<name>.cu (or .cpp) is built: named by the content hash
+    of the source and of the csrc headers it includes."""
     digest = hashlib.sha256()
     for path in source_files(name):
         digest.update(path.name.encode() + b"\0" + path.read_bytes())
@@ -88,10 +108,11 @@ def library_path(name: str) -> Path:
 
 def build_all(names: Iterable[str], verbose: bool = False
               ) -> Dict[str, float]:
-    """Compile every csrc/<name>.cu not built yet, one nvcc each, all
-    started together, and load them.  Returns each build's seconds from the
-    common start to its end (0.0 for a library already built).  With
-    `verbose`, ptxas's register and spill report is printed."""
+    """Compile every csrc source of `names` not built yet, one compiler
+    each, all started together, and load them.  Returns each build's
+    seconds from the common start to its end (0.0 for a library already
+    built).  With `verbose`, ptxas's register and spill report is
+    printed."""
     names = [n for n in names if n not in _loaded]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     seconds = {name: 0.0 for name in names}
@@ -104,9 +125,7 @@ def build_all(names: Iterable[str], verbose: bool = False
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         log = tempfile.TemporaryFile(mode="w+")
-        cmd = [nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-o", tmp, str(CSRC / f"{name}.cu")]
+        cmd = compile_command(name, tmp)
         running[name] = (subprocess.Popen(cmd, stdout=log,
                                           stderr=subprocess.STDOUT),
                          log, tmp, so)
@@ -123,7 +142,7 @@ def build_all(names: Iterable[str], verbose: bool = False
             log.close()
             if proc.returncode != 0:
                 os.unlink(tmp)
-                failed.append(f"nvcc failed on {name}.cu "
+                failed.append(f"{proc.args[0]} failed on {source(name).name} "
                               f"({proc.returncode}):\n{out}")
                 continue
             if verbose:
@@ -138,7 +157,8 @@ def build_all(names: Iterable[str], verbose: bool = False
 
 
 def build(name: str) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cu, built first if need be."""
+    """The loaded library of csrc/<name>.cu (or .cpp), built first if need
+    be."""
     if name not in _loaded:
         build_all([name])
     return _loaded[name]

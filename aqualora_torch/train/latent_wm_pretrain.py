@@ -51,11 +51,15 @@ Run on the card (the default) or on the CPU:
 diffusers directory (`vae/diffusion_pytorch_model.safetensors`), a
 directory holding `diffusion_pytorch_model.safetensors`, or that file.
 
+`--dataset DIR` trains on a folder of JPEG and PNG files (`train/data.py`,
+the JAX loader's rule: no crop, no flip), each epoch one pass over its
+permutation at `--seed` + epoch, decoded a batch ahead on a background
+thread (`data.prefetch`); without it, synthetic images.
+
 Not ported yet, and refused when asked for: checkpoints and resume
 (`--resume_from_ckpt`), the tracker (`--report_to` other than none),
-FSDP (`--fsdp`), remat (`--remat_lpips`, `--remat_vae_decode`) and the
-image-folder dataset (`--dataset`).  The per-epoch sample image is not
-written.
+FSDP (`--fsdp`) and remat (`--remat_lpips`, `--remat_vae_decode`).  The
+per-epoch sample image is not written.
 """
 
 from __future__ import annotations
@@ -333,7 +337,7 @@ class Trainer:
     scheduler: Any
     train_step: Any
     eval_step: Any
-    dataset: data_lib.SyntheticDataset
+    dataset: Any
     generator: torch.Generator
     steps_per_epoch: int
 
@@ -408,29 +412,35 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
     acc = float("nan")
     t0 = time.time()
     for epoch in range(args.epochs):
-        batches = tr.dataset.batches(args.batch_size, seed=args.seed + epoch)
-        for _ in range(tr.steps_per_epoch):
+        batches = data_lib.prefetch(tr.dataset.batches(
+            args.batch_size, seed=args.seed + epoch, epochs=1))
+        try:
             t1 = time.perf_counter()
-            images, _ = next(batches)
-            ctl = curriculum(epoch, warmup, fixinit, bool(args.random_aug))
-            d = draw(models, tr.generator, (images.shape[0], 3,
-                                            *images.shape[1:3]),
-                     ctl.distort_probs)
-            metrics = tr.train_step(images, d, ctl)
-            ml = float(metrics["msgloss"])
-            seconds.append(time.perf_counter() - t1)
-            msgloss_buf = (msgloss_buf + [ml])[-10:]
-            if warmup and len(msgloss_buf) == 10 and np.mean(msgloss_buf) < 0.1:
-                warmup = fixinit = False
-            step += 1
-            if step % args.log_every == 0:
-                m = {k: float(v) for k, v in metrics.items()}
-                history.append(m)
-                print(f"epoch {epoch} step {step}: "
-                      + " ".join(f"{k}={v:.4f}" for k, v in m.items()),
-                      f"({(time.time() - t0) / step:.2f}s/step)", flush=True)
-            if args.max_train_steps and step >= args.max_train_steps:
-                break
+            for images, _ in batches:
+                ctl = curriculum(epoch, warmup, fixinit, bool(args.random_aug))
+                d = draw(models, tr.generator, (images.shape[0], 3,
+                                                *images.shape[1:3]),
+                         ctl.distort_probs)
+                metrics = tr.train_step(images, d, ctl)
+                ml = float(metrics["msgloss"])
+                seconds.append(time.perf_counter() - t1)
+                msgloss_buf = (msgloss_buf + [ml])[-10:]
+                if (warmup and len(msgloss_buf) == 10
+                        and np.mean(msgloss_buf) < 0.1):
+                    warmup = fixinit = False
+                step += 1
+                if step % args.log_every == 0:
+                    m = {k: float(v) for k, v in metrics.items()}
+                    history.append(m)
+                    print(f"epoch {epoch} step {step}: "
+                          + " ".join(f"{k}={v:.4f}" for k, v in m.items()),
+                          f"({(time.time() - t0) / step:.2f}s/step)",
+                          flush=True)
+                if args.max_train_steps and step >= args.max_train_steps:
+                    break
+                t1 = time.perf_counter()
+        finally:
+            batches.close()             # ends the prefetch thread
         # the epoch's eval on its last batch with fresh noise and bits
         # (`latent_wm_pretrain.py:312,325`)
         e = draw(models, tr.generator, (images.shape[0], 3,
@@ -461,7 +471,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--resume_from_ckpt", type=str, default=None,
                    help="not ported yet: refused")
     p.add_argument("--dataset", type=str, default=None,
-                   help="not ported yet: refused (synthetic images)")
+                   help="a folder of JPEG and PNG files; synthetic images "
+                        "without it")
     p.add_argument("--output_dir", default="checkpoints")
     p.add_argument("--warmup", type=_flag, default=True)
     p.add_argument("--fixinit", type=_flag, default=True)

@@ -61,6 +61,18 @@ Run on the card (the default) or on the CPU:
         --train_batch_size 2 --device cpu --output_dir /tmp/ppft \\
         --validation_prompt "a photo"
 
+Data (`ppft_train.py:346-378`): `--train_data_dir` trains on a folder of
+JPEG and PNG files with `metadata.jsonl` captions (`train/data.py`,
+decoded by the port itself: no PIL, no libjpeg), with
+`--max_train_samples`, `--center_crop`, `--random_flip`,
+`--caption_column` and `--dataloader_num_workers` (decoder threads, 0:
+the host's count); without it, synthetic images.  Batches are decoded a
+step ahead on a background thread (`data.prefetch`).  `--cache_latents`
+encodes every sample once to VAE posterior moments (float16 on the host)
+and the step samples the posterior from them in the pipeline's type,
+without the VAE encoder (refused with `--random_flip`).  `--dataset_name`
+and `--dataset_config_name` (the HF datasets path) are refused.
+
 Checkpoints and the tracker (`ppft_train.py:434-501`), with
 `--output_dir`: every `--checkpointing_steps` the LoRA and mapper, the
 optimizer, the schedule, the step and the step generator's state go to
@@ -72,9 +84,9 @@ adds TensorBoard or wandb logs under `<output_dir>/logs` where installed
 (`utils/logging.py`); the scalars are printed in any case.
 
 Not ported yet: periodic validation, gradient accumulation, the kohya
-dropouts, block LR, 8-bit Adam, the text-encoder LoRA, cached latents, the
-int8 teacher and the scale-0 teacher (`--teacher_skip_lora 0`), remat,
-FSDP and the image-folder and HF datasets.
+dropouts, block LR, 8-bit Adam, the text-encoder LoRA, the int8 teacher
+and the scale-0 teacher (`--teacher_skip_lora 0`), remat, FSDP and the HF
+datasets.
 """
 
 from __future__ import annotations
@@ -101,7 +113,7 @@ from aqualora_torch.diffusion.pipeline import (StableDiffusionPipeline,
 from aqualora_torch.eval.utils_eval import decode_bits
 from aqualora_torch.models.watermark import SecretDecoder, SecretEncoder
 from aqualora_torch.ops.secret_inject import inject_from_params
-from aqualora_torch.train.data import SyntheticDataset
+from aqualora_torch.train import data as data_lib
 from aqualora_torch.utils.logging import Tracker
 
 MSGDECODER_FILE = "msgdecoder.pt"
@@ -195,12 +207,13 @@ class Draws:
 
 
 def draw(pipe: StableDiffusionPipeline, generator: torch.Generator,
-         pixels) -> Draws:
-    """A step's `Draws` for a batch of NHWC `pixels`, from `generator` (on
-    the pipeline's device)."""
+         pixels, cached: bool = False) -> Draws:
+    """A step's `Draws` for a batch of NHWC `pixels` (with `cached`, of
+    cached moments [B, h, w, 2C]), from `generator` (on the pipeline's
+    device)."""
     cfg, dev = pipe.config, pipe.device
     b, h, w = pixels.shape[:3]
-    down = cfg.vae.downscale
+    down = 1 if cached else cfg.vae.downscale
     lat = (b, cfg.vae.latent_channels, h // down, w // down)
     msg = torch.bernoulli(torch.full((b, cfg.watermark.msg_bits), 0.5,
                                      device=dev), generator=generator)
@@ -212,10 +225,16 @@ def draw(pipe: StableDiffusionPipeline, generator: torch.Generator,
     return Draws(msg, vae_noise, noise, t)
 
 
-def make_loss_fn(pipe: StableDiffusionPipeline, sec_encoder: SecretEncoder):
+def make_loss_fn(pipe: StableDiffusionPipeline, sec_encoder: SecretEncoder,
+                 cache_latents: bool = False):
     """The PPFT objective (`make_loss_fn`, `ppft_train.py:107-203`) ->
     loss_fn(pixels NHWC, input_ids, draws) -> (loss, metrics).  The draws
-    are an argument, so a test can hand it the JAX trainer's."""
+    are an argument, so a test can hand it the JAX trainer's.
+
+    With `cache_latents`, `pixels` are cached posterior moments [B, h, w,
+    2C] (`data.CachedMomentsDataset`): cast to the pipeline's type before
+    the posterior sample, as JAX casts them (`:117-123`), since a float32
+    latent would promote the whole U-Net to float32."""
     sched, cfg = pipe.schedule, pipe.config
     v_pred = cfg.unet.prediction_type == "v_prediction"
     scaling = cfg.vae.scaling_factor
@@ -225,8 +244,11 @@ def make_loss_fn(pipe: StableDiffusionPipeline, sec_encoder: SecretEncoder):
         x = torch.as_tensor(pixels, device=pipe.device).permute(0, 3, 1, 2)
         diag = pipe.mapper(draws.msg)
         with torch.no_grad():
-            latents = pipe.vae.sample_from_moments(
-                *pipe.vae.encode_moments(x), draws.vae_noise)
+            if cache_latents:
+                moments = x.to(pipe.vae.quant_conv.weight.dtype).chunk(2, 1)
+            else:
+                moments = pipe.vae.encode_moments(x)
+            latents = pipe.vae.sample_from_moments(*moments, draws.vae_noise)
             if latents.shape[2] == latents.shape[3] == 2 * grid:
                 injected = inject_from_params(
                     dict(sec_encoder.named_parameters()), latents, draws.msg,
@@ -253,10 +275,10 @@ def make_loss_fn(pipe: StableDiffusionPipeline, sec_encoder: SecretEncoder):
 
 def make_train_step(pipe: StableDiffusionPipeline, sec_encoder: SecretEncoder,
                     optimizer: torch.optim.Optimizer, scheduler,
-                    max_grad_norm: float = 1.0):
+                    max_grad_norm: float = 1.0, cache_latents: bool = False):
     """-> train_step(pixels NHWC, input_ids, draws) -> metrics: one update
     of the LoRA and mapper groups of `optimizer` (see `make_optimizer`)."""
-    loss_fn = make_loss_fn(pipe, sec_encoder)
+    loss_fn = make_loss_fn(pipe, sec_encoder, cache_latents)
     groups = {g["name"]: g["params"] for g in optimizer.param_groups}
 
     def train_step(pixels, input_ids, draws: Draws) -> Dict[str, Any]:
@@ -314,8 +336,10 @@ def init_lora(unet: nn.Module, generator: torch.Generator) -> None:
 @dataclasses.dataclass
 class Trainer:
     """What `run` builds: the pipeline, the SecretEncoder and SecretDecoder,
-    the trainable groups, the LR schedule and the step, the data and the
-    step's generator."""
+    the trainable groups, the LR schedule and the step, the data (a
+    prefetching iterator of (pixels or cached moments, captions), which
+    outlives `run` for a caller that takes more steps; `close()` ends its
+    thread) and the step's generator; `cached` with `--cache_latents`."""
 
     pipe: StableDiffusionPipeline
     sec_encoder: SecretEncoder
@@ -327,6 +351,7 @@ class Trainer:
     tokenizer: Any
     generator: torch.Generator
     max_steps: int
+    cached: bool = False
 
 
 def _load_sd_checkpoint(path: str, pipe: StableDiffusionPipeline) -> None:
@@ -393,21 +418,59 @@ def build_trainer(args: argparse.Namespace) -> Trainer:
     if args.resume_from_lora:
         pipe.load_watermark_lora(args.resume_from_lora)
 
-    dataset = SyntheticDataset(resolution)
+    if args.dataset_config_name:
+        raise NotImplementedError(
+            "--dataset_config_name belongs to the HF datasets path, which "
+            "the port does not have; pass a folder with --train_data_dir")
+    dataset = data_lib.make_dataset(
+        args.train_data_dir, resolution, dataset_name=args.dataset_name,
+        max_samples=args.max_train_samples, center_crop=args.center_crop,
+        random_flip=args.random_flip, caption_column=args.caption_column,
+        image_column=args.image_column,
+        num_threads=args.dataloader_num_workers)
     steps_per_epoch = max(1, len(dataset) // args.train_batch_size)
+    if args.cache_latents:
+        dataset = build_latent_cache(args, pipe, dataset, seed)
     max_steps = args.max_train_steps or args.num_train_epochs * steps_per_epoch
     optimizer, scheduler = make_optimizer(
         groups, args.learning_rate, args.lr_warmup_steps, max_steps,
         args.lr_end, (args.adam_beta1, args.adam_beta2), args.adam_epsilon,
         args.adam_weight_decay)
     step = make_train_step(pipe, sec_encoder, optimizer, scheduler,
-                           args.max_grad_norm)
+                           args.max_grad_norm, args.cache_latents)
     return Trainer(pipe, sec_encoder, msgdecoder, groups, scheduler, step,
-                   dataset.batches(args.train_batch_size, seed=seed),
+                   data_lib.prefetch(dataset.batches(args.train_batch_size,
+                                                     seed=seed)),
                    load_tokenizer(args.tokenizer_vocab,
                                   vocab_size=cfg.clip.vocab_size),
                    torch.Generator(device=device).manual_seed(seed + 1),
-                   max_steps)
+                   max_steps, args.cache_latents)
+
+
+def build_latent_cache(args: argparse.Namespace,
+                       pipe: StableDiffusionPipeline, dataset,
+                       seed: int) -> data_lib.CachedMomentsDataset:
+    """`--cache_latents` (`ppft_train.py:357-378`): every sample's VAE
+    posterior moments, encoded once at the training batch size in the
+    pipeline's type and kept as float16 on the host."""
+    if args.random_flip:
+        raise ValueError("--cache_latents cannot be combined with "
+                         "--random_flip (the cache is per-sample; kohya "
+                         "imposes the same restriction)")
+
+    @torch.no_grad()
+    def encode(pixels):
+        x = torch.as_tensor(pixels, device=pipe.device).permute(0, 3, 1, 2)
+        moments = torch.cat(pipe.vae.encode_moments(x), 1)
+        return moments.permute(0, 2, 3, 1).float().cpu().numpy()
+
+    t0 = time.perf_counter()
+    cache = data_lib.CachedMomentsDataset.build(
+        dataset, encode, args.train_batch_size, seed=seed)
+    print(f"cached VAE moments for {len(cache)} samples "
+          f"({cache.moments.nbytes / 1e6:.1f} MB host, "
+          f"{time.perf_counter() - t0:.1f}s)", flush=True)
+    return cache
 
 
 def save_artifacts(output_dir: str, pipe: StableDiffusionPipeline,
@@ -477,7 +540,7 @@ def resume(tr: Trainer, ckpt: CheckpointManager, which: str) -> int:
     start = int(state["step"])
     for _ in range(start):
         pixels, _ = next(tr.batches)
-        draw(tr.pipe, tr.generator, pixels)
+        draw(tr.pipe, tr.generator, pixels, tr.cached)
     if not torch.equal(tr.generator.get_state(), state["generator"]):
         raise ValueError(f"checkpoint {start}: its draws are not this run's "
                          "(another --seed, --train_batch_size or --tiny?)")
@@ -504,8 +567,8 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
     for global_step in range(start + 1, tr.max_steps + 1):
         t1 = time.perf_counter()
         pixels, captions = next(tr.batches)
-        ids = tr.tokenizer(captions)
-        draws = draw(tr.pipe, tr.generator, pixels)
+        ids = tr.tokenizer(captions or [""] * len(pixels))
+        draws = draw(tr.pipe, tr.generator, pixels, tr.cached)
         metrics = tr.train_step(pixels, ids, draws)
         if global_step % args.log_every == 0:
             m = {k: float(v) for k, v in metrics.items()}
@@ -542,6 +605,25 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--mapper_std", type=float, default=1.0)
     p.add_argument("--resolution", type=int, default=512)
     p.add_argument("--train_batch_size", type=int, default=4)
+    p.add_argument("--train_data_dir", type=str, default=None,
+                   help="a folder of JPEG and PNG files (captions from its "
+                        "metadata.jsonl); synthetic images without it")
+    p.add_argument("--dataset_name", type=str, default=None,
+                   help="the HF datasets path: refused (no `datasets` "
+                        "package, no download)")
+    p.add_argument("--dataset_config_name", type=str, default=None,
+                   help="the HF datasets path: refused")
+    p.add_argument("--max_train_samples", type=int, default=None)
+    p.add_argument("--image_column", type=str, default="image")
+    p.add_argument("--caption_column", type=str, default="text")
+    p.add_argument("--center_crop", action="store_true")
+    p.add_argument("--random_flip", action="store_true")
+    p.add_argument("--dataloader_num_workers", type=int, default=0,
+                   help="decoder threads (0 = the host's count)")
+    p.add_argument("--cache_latents", action="store_true",
+                   help="encode the dataset to VAE posterior moments once "
+                        "and skip the VAE encoder in the step; "
+                        "incompatible with --random_flip")
     p.add_argument("--num_train_epochs", type=int, default=1)
     p.add_argument("--max_train_steps", type=int, default=None)
     p.add_argument("--learning_rate", type=float, default=5e-4)

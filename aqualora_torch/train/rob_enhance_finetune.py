@@ -52,8 +52,18 @@ Run on the card (the default) or on the CPU:
         --max_train_steps 2 --train_batch_size 2 --device cpu \\
         --output_dir /tmp/s3
 
-Refused, each naming its ROADMAP item: `--fsdp` (A.9), `--int8_gen` (A.8),
-`--train_data_dir` and `--dataset_name` (A.5).
+Data (`:149-155,196-210`): `--train_data_dir` reads a folder of JPEG and
+PNG files with `metadata.jsonl` captions (`train/data.py`; also
+`--max_train_samples`, `--caption_column`, `--dataloader_num_workers`),
+decoded a step ahead on a background thread (`data.prefetch`); its
+captions are the generation's prompts, and a folder without captions
+prompts with "".  Without it, synthetic captions.  As in the JAX trainer,
+the parser is PPFT's: `--center_crop`, `--random_flip` and
+`--cache_latents` are accepted and have no effect here.
+
+Refused, each naming its ROADMAP item: `--fsdp` (A.9), `--int8_gen` (A.8);
+`--dataset_name` and `--dataset_config_name`, the HF datasets path (no
+`datasets` package, no download).
 """
 
 from __future__ import annotations
@@ -171,8 +181,9 @@ class Trainer:
 def _refuse_unported(args: argparse.Namespace) -> None:
     asked = {"--fsdp (ROADMAP A.9)": args.fsdp,
              "--int8_gen (ROADMAP A.8)": args.int8_gen,
-             "--train_data_dir (ROADMAP A.5)": args.train_data_dir,
-             "--dataset_name (ROADMAP A.5)": args.dataset_name}
+             "--dataset_name (the HF datasets path)": args.dataset_name,
+             "--dataset_config_name (the HF datasets path)":
+                 args.dataset_config_name}
     refused = [flag for flag, on in asked.items() if on]
     if refused:
         raise NotImplementedError(
@@ -217,7 +228,10 @@ def build_trainer(args: argparse.Namespace) -> Trainer:
     generators = {r: pipe.make_generate(num_steps=gen_steps, sampler="dpms_m",
                                         height=r, width=r)
                   for r in resolutions}
-    dataset = data_lib.make_dataset(None, base_res)
+    dataset = data_lib.make_dataset(
+        args.train_data_dir, base_res, max_samples=args.max_train_samples,
+        caption_column=args.caption_column, image_column=args.image_column,
+        num_threads=args.dataloader_num_workers)
     steps_per_epoch = max(1, len(dataset) // args.train_batch_size)
     max_steps = args.max_train_steps or args.num_train_epochs * steps_per_epoch
     optimizer, scheduler = ppft_train.make_optimizer(
@@ -227,7 +241,8 @@ def build_trainer(args: argparse.Namespace) -> Trainer:
         args.adam_weight_decay)
     return Trainer(pipe, generators, decoder, Stage3Noiser(), optimizer,
                    scheduler, make_decoder_step(decoder, optimizer, scheduler),
-                   dataset.batches(args.train_batch_size, seed=seed),
+                   data_lib.prefetch(dataset.batches(args.train_batch_size,
+                                                     seed=seed)),
                    load_tokenizer(args.tokenizer_vocab,
                                   vocab_size=cfg.clip.vocab_size),
                    torch.Generator(device=device).manual_seed(seed + 1),
@@ -327,10 +342,6 @@ def build_argparser() -> argparse.ArgumentParser:
     p = ppft_train.build_argparser()
     p.description = __doc__
     p.set_defaults(learning_rate=5e-6, msg_bits=48)
-    p.add_argument("--train_data_dir", type=str, default=None,
-                   help="not ported yet: refused (ROADMAP A.5)")
-    p.add_argument("--dataset_name", type=str, default=None,
-                   help="not ported yet: refused (ROADMAP A.5)")
     p.add_argument("--fsdp", action="store_true",
                    help="not ported yet: refused (ROADMAP A.9)")
     p.add_argument("--int8_gen", action="store_true",

@@ -11,12 +11,14 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py --phases 18     # the chain, then stage 3
     python3 chip_smoke.py --phases 19     # the chain, then the robustness
                                           # benchmark
+    python3 chip_smoke.py --phases 20     # training from a folder of JPEGs
 
 Phases (any failure raises, so the exit code is not 0):
   0. torch and CUDA versions, the card's name and power limit (nvidia-smi).
      Without a CUDA card the script stops here with an error.
   1. Build the three kernel sources of aqualora_torch/csrc (flash_fwd,
-     flash_bwd, secret_inject), one nvcc each, all started together, and
+     flash_bwd, secret_inject), one nvcc each, and the host JPEG decoder
+     (jpeg_decode.cpp, g++), all started together, and
      count the tensor-core instructions (HMMA, HGMMA) of every attention
      kernel in the built libraries with cuobjdump: each bfloat16 forward,
      dQ and dK/dV instance (`*_tc_kernel`) and the float32 d = 512
@@ -189,11 +191,36 @@ Phases (any failure raises, so the exit code is not 0):
      shapes, B8, against its plain version, with its time, SDPA's float32
      time and the bound at the CUDA cores' float32 rate, and after the
      timed phases the same as device time (with the short sessions).
+ 20. Training on real images: the data path of `train/data.py` on the
+     committed fixtures of tests/torch_port_images (the card's machine has
+     no PIL): (a) on the host, every small fixture decodes to its committed
+     Pillow (JPEG) or libpng (PNG) pixels bit for bit, every JPEG also
+     through `decode_from_coefficients` on the card fed the decoder's
+     coefficients, a truncated copy of each raises, each refused kind
+     raises naming its feature, each realistic file (512x512 to 1024x768)
+     decodes to the SHA-256 of Pillow's pixels; then `decode_batch` alone
+     at 512^2 on the realistic set copied under 64 names, with the host's
+     thread count and with one (images/s, the host's CPU count), and the
+     PNG path on the same images; (b) two steps of stage 1 from a folder
+     of those 64 files with metadata.jsonl captions (--dataset, B5, bf16),
+     whose file the PPFT runs start from; (c) `ppft_train.run` from the
+     folder (SD-1.5, rank 320, 48 bits, B8, 512^2, bf16), 1 warm-up and 5
+     timed steps, in turns with the same run on synthetic images (folder,
+     synthetic, synthetic, folder), then once on 2 decoder threads: every
+     step launches 65 forward, 32 dQ, 32 dK/dV and 1 injection kernels, the
+     loss is finite and positive; samples/s beside synthetic images' (and
+     phase 8's step rate); (d) the same with --cache_latents: the cache's
+     build seconds, host bytes and encode launches, 64 forward launches a
+     step (no VAE encoder), steps/s; (e) two steps of stage 3
+     (--train_data_dir, B4, --resolution 512): finite losses, the prompts
+     the folder's captions.  With the whole-step profiles, one profiled
+     step of the folder-fed and of the synthetic PPFT trainer: the device's
+     busy share of the step's own wall time and of the unprofiled median.
 The timed phases run first (0-7, 12, 13, 14, 8, 15, 16, 18b-d, 19d, 17,
-18a, 19a-c, 19e) and the profiled ones after them, so that the profiler
+18a, 19a-c, 19e, 20) and the profiled ones after them, so that the profiler
 touches no timed phase: first the short sessions (6's profile, 9, 10, 12's
-profile, 18a's, 19e's), then the profiles of whole steps (8, 14, 18d's) and
-of a generate call (11).  After
+profile, 18a's, 19e's), then the profiles of whole steps (8, 14, 18d's,
+20's) and of a generate call (11).  After
 a session of a whole step, short sessions in the same process have recorded
 some device events or none (PERF.md, section 7).  The line before the last
 names the card and its power limit; the last line is {"ok": true,
@@ -203,9 +230,12 @@ names the card and its power limit; the last line is {"ok": true,
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import math
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import tempfile
@@ -255,6 +285,9 @@ SD21_SHAPES = [
     ("sd21_8_cross", 20, 64, 77, 64, 16),
 ]
 SOURCES = ("flash_fwd", "flash_bwd", "secret_inject")
+# host code built with g++ beside the kernels: the training data's JPEG
+# decoder
+HOST_SOURCES = ("jpeg_decode",)
 # the differentiated attentions of one PPFT step at 512 px: name, heads,
 # Tq, Tk, head dim, student launches per step (each also runs once in the
 # teacher, forward only).  16 transformer blocks, self + cross each.
@@ -439,10 +472,12 @@ def tensor_core_counts(name: str) -> dict:
 
 def phase1():
     from aqualora_torch.ops import _build
-    seconds = _build.build_all(SOURCES, verbose=True)
-    for name in SOURCES:
-        print(f"[1] built csrc/{name}.cu in {seconds[name]:.1f} s "
-              f"(all {len(SOURCES)} nvcc started together)", flush=True)
+    seconds = _build.build_all(SOURCES + HOST_SOURCES, verbose=True)
+    for name in SOURCES + HOST_SOURCES:
+        src = _build.source(name).relative_to(_build.CSRC.parent)
+        print(f"[1] built {src} in {seconds[name]:.1f} s (all "
+              f"{len(SOURCES)} nvcc and {len(HOST_SOURCES)} g++ started "
+              "together)", flush=True)
     # bf16 instances: forward 3 head-dim tiles x 2 row tilings + d = 512;
     # backward 3 x 2 x (dQ, dK/dV) + d = 512 x (dQ, dK/dV).  float32 on the
     # tensor cores (3xTF32): the d = 512 forward, dQ and dK/dV.  float32 on
@@ -2981,6 +3016,384 @@ def phase19e_profile(smi: str, rows: dict) -> None:
           f"launches {step_sdpa:.1f} ms | {smi}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 20, training on real images: the image-folder data path, the JPEG
+# decoder written by hand, prefetch and --cache_latents
+# ---------------------------------------------------------------------------
+
+FIXTURES = Path(__file__).resolve().parent / "tests" / "torch_port_images"
+FOLDER_FILES = 64
+FOLDER_RES = 512
+S3_FOLDER_BATCH = 4
+P20_STEPS = 6                  # 1 warm-up + 5 timed, per PPFT run
+
+
+def p20_decoder(smi: str, folder: str) -> None:
+    """(a) The decoders on the host against the committed pixels, the plain
+    version on the card, the refusals, and decode_batch's rate."""
+    import numpy as np
+
+    from aqualora_torch.eval import image_io
+    from aqualora_torch.eval.jpeg import decode_from_coefficients
+    from aqualora_torch.train import image_decode
+
+    manifest = json.loads((FIXTURES / "manifest.json").read_text())
+    pixels = np.load(FIXTURES / "pixels.npz")
+    small = FIXTURES / "small"
+    checked = {"pixels": 0, "plain": 0, "truncated": 0, "refused": 0}
+    for name, meta in sorted(manifest["small"].items()):
+        path = str(small / name)
+        if meta["refused"]:
+            try:
+                image_decode.decode_file(path)
+            except ValueError as e:
+                if meta["refused"] not in str(e) or path not in str(e):
+                    raise AssertionError(f"{name}: refused as {e}") from None
+                checked["refused"] += 1
+                continue
+            raise AssertionError(f"{name}: decoded, want refused")
+        got = image_decode.decode_file(path)
+        if not np.array_equal(got, pixels[name.split(".")[0]]):
+            raise AssertionError(f"{name}: pixels differ from the committed "
+                                 "reference")
+        checked["pixels"] += 1
+        data = Path(path).read_bytes()
+        if name.endswith(".jpg"):
+            head, quant, blocks = image_decode.jpeg_coefficients(data, path)
+            plain = decode_from_coefficients(
+                [torch.from_numpy(b).cuda() for b in blocks],
+                torch.from_numpy(quant).cuda(),
+                [c[:2] for c in head.components], (head.width, head.height),
+                head.color)
+            if not (plain.is_cuda and np.array_equal(plain.cpu().numpy(),
+                                                     got)):
+                raise AssertionError(f"{name}: the plain version on the card "
+                                     "differs from the decoder")
+            checked["plain"] += 1
+        cut = Path(folder) / ("cut_" + name)
+        cut.write_bytes(data[:len(data) // 2])
+        try:
+            image_decode.decode_file(str(cut))
+        except ValueError:
+            checked["truncated"] += 1
+        else:
+            raise AssertionError(f"{name}: a truncated copy decoded")
+        cut.unlink()
+    for row in manifest["realistic"]:
+        img = image_decode.decode_file(str(FIXTURES / "realistic" /
+                                           row["file"]))
+        if (img.shape != (row["height"], row["width"], 3) or
+                hashlib.sha256(img.tobytes()).hexdigest()
+                != row["pixels_sha256"]):
+            raise AssertionError(f"{row['file']}: pixels differ from "
+                                 "Pillow's")
+        checked["pixels"] += 1
+    print(f"[20] decoder on the host: {checked['pixels']} files equal their "
+          f"committed pixels (Pillow's JPEG, libpng's PNG; 8 realistic ones "
+          f"by SHA-256), {checked['plain']} JPEG files equal "
+          f"decode_from_coefficients on the card fed the decoder's "
+          f"coefficients, {checked['truncated']} truncated copies raised, "
+          f"{checked['refused']} refused kinds named their feature",
+          flush=True)
+
+    paths = sorted(str(p) for p in Path(folder).glob("img*.jpg"))
+    cpus = os.cpu_count()
+    usable = len(os.sched_getaffinity(0))
+    rates = {}
+    image_decode.decode_batch(paths[:8], FOLDER_RES)          # warm
+    for threads in (0, 1):
+        ts = []
+        for _ in range(3 if threads == 0 else 2):
+            t0 = time.perf_counter()
+            out = image_decode.decode_batch(paths, FOLDER_RES, threads)
+            ts.append(time.perf_counter() - t0)
+        if not (out.shape == (len(paths), FOLDER_RES, FOLDER_RES, 3)
+                and np.isfinite(out).all() and out.min() >= -1
+                and out.max() <= 1):
+            raise AssertionError("decode_batch output out of range")
+        rates[threads] = len(paths) / statistics.median(ts)
+    kpx = statistics.mean(r["height"] * r["width"] for r in
+                          manifest["realistic"]) / 1e3
+    print(f"[20] decode_batch JPEG -> {FOLDER_RES}^2 float32, {len(paths)} "
+          f"files of 512x512-1024x768 (mean {kpx:.0f} kpx, "
+          f"{sum(os.path.getsize(p) for p in paths) / len(paths) / 1e3:.1f} "
+          f"kB): {rates[0]:.1f} images/s with the host's threads, "
+          f"{rates[1]:.1f} with one; host: {cpus} CPUs, {usable} usable",
+          flush=True)
+    # PNG: the same images written by the port's writer (filter None on
+    # every row, the vectorised path), then rows of Paeth (byte by byte)
+    pngs = []
+    for i, row in enumerate(manifest["realistic"]):
+        img = image_decode.decode_file(str(FIXTURES / "realistic" /
+                                           row["file"]))
+        pngs.append(str(Path(folder) / f"p{i}.png"))
+        image_io.save_png(pngs[-1], img)
+    t0 = time.perf_counter()
+    image_decode.decode_batch(pngs, FOLDER_RES)
+    png_rate = len(pngs) / (time.perf_counter() - t0)
+    h, w = 768, 1024
+    rows = np.random.default_rng(0).integers(0, 256, (h, 3 * w),
+                                             dtype=np.uint8)
+    raw = np.concatenate([np.full((h, 1), 4, np.uint8), rows], 1).tobytes()
+    t0 = time.perf_counter()
+    image_io._unfilter(raw, h, 3 * w, 3)
+    paeth_s = time.perf_counter() - t0
+    print(f"[20] decode_batch PNG -> {FOLDER_RES}^2 (zlib and numpy "
+          f"in Python, one thread): {png_rate:.2f} images/s for rows of "
+          f"filter None; a {w}x{h} RGB image whose rows are all Paeth "
+          f"spends {paeth_s:.3f} s unfiltering | {smi}", flush=True)
+
+
+def p20_folder(tmp: str) -> tuple:
+    """The realistic set under 64 names with metadata.jsonl captions."""
+    manifest = json.loads((FIXTURES / "manifest.json").read_text())
+    folder = Path(tmp) / "images"
+    folder.mkdir()
+    captions = []
+    with open(folder / "metadata.jsonl", "w") as f:
+        for i in range(FOLDER_FILES):
+            row = manifest["realistic"][i % len(manifest["realistic"])]
+            name = f"img{i:02d}.jpg"
+            shutil.copy(FIXTURES / "realistic" / row["file"], folder / name)
+            captions.append(f"{row['caption']}, take {i}")
+            f.write(json.dumps({"file_name": name,
+                                "text": captions[-1]}) + "\n")
+    return str(folder), captions
+
+
+def p20_ppft(tag: str, argv: list, per_step: dict, smi: str) -> tuple:
+    """`ppft_train.run(argv)` with the counts set to 0 before it; every
+    train step's launches read around it (the step function `run` builds,
+    wrapped), and the cache's build time, bytes and launches.  -> (samples
+    per second of the timed steps' median wall time, that median)."""
+    from aqualora_torch.train import ppft_train as pt
+    steps, cache = [], {}
+    make_step, build_cache = pt.make_train_step, pt.build_latent_cache
+
+    def counted_step(*a, **k):
+        step = make_step(*a, **k)
+
+        def run_step(*sa):
+            before = counts()
+            out = step(*sa)
+            steps.append({n: v - before[n] for n, v in counts().items()})
+            return out
+        return run_step
+
+    def timed_cache(*a):
+        before = counts()
+        t0 = time.perf_counter()
+        ds = build_cache(*a)
+        torch.cuda.synchronize()
+        cache.update(seconds=time.perf_counter() - t0,
+                     bytes=ds.moments.nbytes, samples=len(ds),
+                     shape=ds.moments.shape,
+                     launches={n: v - before[n] for n, v in counts().items()})
+        return ds
+
+    pt.make_train_step, pt.build_latent_cache = counted_step, timed_cache
+    try:
+        args = pt.build_argparser().parse_args(argv)
+        torch.cuda.synchronize()
+        reset_counts()                              # counts start here
+        res = pt.run(args)
+        torch.cuda.synchronize()
+    finally:
+        pt.make_train_step, pt.build_latent_cache = make_step, build_cache
+    losses = [h["ppft_loss"] for h in res["history"]]
+    med = statistics.median(res["seconds"][1:])
+    rate = TRAIN_BATCH / med
+    print(f"[20] PPFT {tag}: {rate:.4f} samples/s (median of "
+          f"{len(res['seconds']) - 1} steps after a warm-up, wall time "
+          f"{', '.join(f'{x:.4f}' for x in res['seconds'])} s, the batch's "
+          f"wait included), ppft_loss {', '.join(f'{x:.4e}' for x in losses)}"
+          f", launches a step {steps[-1]} | {smi}", flush=True)
+    if cache:
+        print(f"[20] latent cache: {cache['samples']} samples "
+              f"{tuple(cache['shape'])} float16, {cache['bytes']} bytes "
+              f"({cache['bytes'] / cache['samples'] / 1024:.1f} KiB a sample)"
+              f" on the host, built in {cache['seconds']:.3f} s, launches "
+              f"{cache['launches']}", flush=True)
+        want_cache = {"fwd": FOLDER_FILES // TRAIN_BATCH, "dq": 0, "dkv": 0,
+                      "inject": 0}
+        if cache["launches"] != want_cache or cache["samples"] != FOLDER_FILES:
+            raise AssertionError(f"cache build: {cache}")
+    if len(steps) != P20_STEPS or any(s != per_step for s in steps):
+        raise AssertionError(f"PPFT {tag}: launches {steps}, want "
+                             f"{per_step} each of {P20_STEPS} steps")
+    if not all(math.isfinite(x) and x > 0 for x in losses):
+        raise AssertionError(f"PPFT {tag}: loss not finite positive: "
+                             f"{losses}")
+    return rate, med
+
+
+def ppft_folder_argv(folder: str | None, s1_file: str, *extra: str) -> list:
+    """PPFT at full width from stage 1's file (a trained SecretEncoder, so
+    the loss is not 0), from the folder or on synthetic images."""
+    return (["--rank", "320", "--msg_bits", "48", "--resolution",
+             str(FOLDER_RES), "--train_batch_size", str(TRAIN_BATCH),
+             "--mixed_precision", "bf16", "--learning_rate", "1e-4",
+             "--lr_warmup_steps", "0", "--max_train_steps", str(P20_STEPS),
+             "--seed", "0", "--report_to", "none",
+             "--start_from_pretrain", s1_file]
+            + (["--train_data_dir", folder] if folder else []) + list(extra))
+
+
+def phase20(smi: str, tmp: str, step_rate: float | None) -> tuple:
+    """Training from a folder of JPEG files (see the docstring); returns
+    what the profiled steps need: the folder, stage 1's file and the
+    unprofiled median steps."""
+    from aqualora_torch.train import latent_wm_pretrain as s1
+    from aqualora_torch.train import rob_enhance_finetune as s3
+    t_phase = time.perf_counter()
+    folder, captions = p20_folder(tmp)
+    p20_decoder(smi, folder)
+
+    out = Path(tmp) / "s1"
+    reset_counts()
+    r1 = s1.run(s1.build_argparser().parse_args([
+        "--batch_size", str(S1_BATCH), "--mixed_precision", "bf16",
+        "--max_train_steps", str(CHAIN_STEPS), "--seed", "0",
+        "--dataset", folder, "--output_dir", str(out)]))
+    torch.cuda.synchronize()
+    got1 = counts()
+    want1 = {"fwd": 3 * CHAIN_STEPS + 2, "dq": CHAIN_STEPS,
+             "dkv": CHAIN_STEPS, "inject": 0}
+    losses1 = [h["loss"] for h in r1["history"]]
+    print(f"[20] stage 1 from the folder (--dataset, B{S1_BATCH} 512^2 "
+          f"bf16): step wall times "
+          f"{', '.join(f'{x:.4f}' for x in r1['seconds'])} s, loss "
+          f"{', '.join(f'{x:.6e}' for x in losses1)}, launches {got1}",
+          flush=True)
+    if got1 != want1 or not all(math.isfinite(x) for x in losses1):
+        raise AssertionError(f"stage 1 from the folder: launches {got1} "
+                             f"(want {want1}), losses {losses1}")
+    del r1
+    s1_file = str(out / "pretrained_latentwm.pt")
+
+    per_step = {"fwd": FWD_PER_STEP, "dq": BWD_PER_STEP, "dkv": BWD_PER_STEP,
+                "inject": 1}
+    rates, meds = {"folder": [], "synthetic": []}, {}
+    # in turns, so that neither kind gets the process's first or last run
+    for kind in ("folder", "synthetic", "synthetic", "folder"):
+        rate, med = p20_ppft(
+            f"{kind} (B8 512^2 bf16 rank 320, from stage 1's file)",
+            ppft_folder_argv(folder if kind == "folder" else None, s1_file),
+            per_step, smi)
+        rates[kind].append(rate)
+        meds.setdefault(kind, med)
+    two, _ = p20_ppft("folder, 2 decoder threads (--dataloader_num_workers "
+                      "2)", ppft_folder_argv(folder, s1_file,
+                                             "--dataloader_num_workers", "2"),
+                      per_step, smi)
+    cached = dict(per_step, fwd=FWD_PER_STEP - 1)
+    cache_rate, _ = p20_ppft("folder with --cache_latents",
+                             ppft_folder_argv(folder, s1_file,
+                                              "--cache_latents"),
+                             cached, smi)
+    torch.cuda.empty_cache()
+    f_rate = statistics.mean(rates["folder"])
+    s_rate = statistics.mean(rates["synthetic"])
+    print(f"[20] PPFT samples/s (each run the median of 5 steps, the "
+          f"batch's wait included): folder "
+          f"{', '.join(f'{x:.4f}' for x in rates['folder'])} (mean "
+          f"{f_rate:.4f}), synthetic "
+          f"{', '.join(f'{x:.4f}' for x in rates['synthetic'])} (mean "
+          f"{s_rate:.4f}); folder / synthetic {f_rate / s_rate:.4f}; folder "
+          f"on 2 decoder threads {two:.4f}; cached latents {cache_rate:.4f} "
+          f"({cache_rate / TRAIN_BATCH:.4f} steps/s, "
+          f"{cache_rate / f_rate:.4f}x the folder's); phase 8's train step "
+          f"alone on synthetic images "
+          + (f"{step_rate:.4f}" if step_rate else "not run")
+          + f" | {smi}", flush=True)
+
+    prompts = []
+    generate = s3.generate_images
+
+    def recorded(tr, res, caps, d):
+        prompts.append(list(caps))
+        return generate(tr, res, caps, d)
+
+    s3.generate_images = recorded
+    try:
+        reset_counts()
+        r3 = s3.run(s3.build_argparser().parse_args([
+            "--rank", "320", "--msg_bits", "48", "--resolution", "512",
+            "--train_batch_size", str(S3_FOLDER_BATCH), "--mixed_precision",
+            "bf16", "--max_train_steps", str(CHAIN_STEPS), "--seed", "0",
+            "--train_data_dir", folder, "--output_dir", str(Path(tmp) / "s3"),
+            "--report_to", "none"]))
+        torch.cuda.synchronize()
+    finally:
+        s3.generate_images = generate
+    got3 = counts()
+    losses3 = [h["loss"] for h in r3["history"]]
+    print(f"[20] stage 3 from the folder (--train_data_dir, "
+          f"B{S3_FOLDER_BATCH} bf16): "
+          + ", ".join(f"{r}^2 {t:.4f} s" for r, t in
+                      zip(r3["resolutions"], r3["seconds"]))
+          + f", loss {', '.join(f'{x:.6e}' for x in losses3)}, launches "
+          f"{got3}, prompts {prompts[0][:2]}...", flush=True)
+    if not (got3 == {"fwd": STAGE3_PER_STEP * CHAIN_STEPS, **NO_TRAINING}
+            and all(math.isfinite(x) for x in losses3)
+            and len(prompts) == CHAIN_STEPS
+            and all(len(p) == S3_FOLDER_BATCH and set(p) <= set(captions)
+                    for p in prompts)):
+        raise AssertionError(f"stage 3 from the folder: launches {got3}, "
+                             f"losses {losses3}, prompts {prompts}")
+    del r3
+    torch.cuda.empty_cache()
+    print(f"[20] phase 20 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return folder, s1_file, meds
+
+
+def phase20_profile(smi: str, kept: tuple) -> None:
+    """One profiled PPFT step from the folder and one on synthetic images,
+    each after a warm-up step, each step as `run` takes it (the next
+    batch from the prefetch thread, the tokenizer, the draws, the train
+    step): the device's busy share of the step's own wall time and of the
+    unprofiled median step of its kind."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from aqualora_torch.train import ppft_train as pt
+    folder, s1_file, meds = kept
+    shares = {}
+    for tag, data in (("folder", folder), ("synthetic", None)):
+        tr = pt.build_trainer(pt.build_argparser().parse_args(
+            ppft_folder_argv(data, s1_file)))
+
+        def step():
+            pixels, caps = next(tr.batches)
+            ids = tr.tokenizer(caps or [""] * len(pixels))
+            tr.train_step(pixels, ids, pt.draw(tr.pipe, tr.generator,
+                                               pixels, tr.cached))
+            torch.cuda.synchronize()
+
+        step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        busy = kernel_union_ms(prof)
+        shares[tag] = (busy / wall_ms, busy / (meds[tag] * 1e3))
+        print(f"[20] profiled PPFT step ({tag}): device busy {busy:.1f} ms "
+              f"= {100 * shares[tag][0]:.1f}% of its own {wall_ms:.1f} ms "
+              f"wall time, {100 * shares[tag][1]:.1f}% of the unprofiled "
+              f"median step ({meds[tag] * 1e3:.1f} ms) | {smi}", flush=True)
+        tr.batches.close()
+        del tr
+        torch.cuda.empty_cache()
+    print(f"[20] busy share, own wall / unprofiled median step: folder "
+          f"{100 * shares['folder'][0]:.1f}% / "
+          f"{100 * shares['folder'][1]:.1f}%, synthetic "
+          f"{100 * shares['synthetic'][0]:.1f}% / "
+          f"{100 * shares['synthetic'][1]:.1f}%", flush=True)
+
+
+
 def kernels_line(rows, launches, bwd_rows, train_launches, inject_row,
                  inject_launches, s1_rows, s1_launches, proto_launches,
                  s3_rows, s3_launches, dist_launches, s21_rows) -> dict:
@@ -3057,7 +3470,7 @@ def main(argv=None):
                          "phase 0 always runs, and the kernels line needs "
                          "all of them)")
     args = ap.parse_args(argv)
-    every = set(range(20))
+    every = set(range(21))
     run_ = every if args.phases is None else \
         {0} | {int(x) for x in args.phases.split(",")}
     if 11 in run_:
@@ -3097,8 +3510,10 @@ def main(argv=None):
         phase13()
     if 14 in run_:
         s1_launches, s1_kept = phase14(smi)
+    step_rate = None
     if 8 in run_:
         train_launches, inject_launches, ppft_kept = phase8(smi)
+        step_rate = TRAIN_BATCH / ppft_kept[1]
     proto_launches, s3_rows, s3_launches, s3_kept = {}, {}, {}, []
     dist_launches, s21_rows, f32_rows = {}, {}, {}
     if 15 in run_:
@@ -3125,6 +3540,9 @@ def main(argv=None):
         phase19b()
         phase19c(smi)
         f32_rows = phase19e(smi)
+    if 20 in run_:
+        p20_tmp = tempfile.TemporaryDirectory(prefix="aqualora_data_")
+        p20_kept = phase20(smi, p20_tmp.name, step_rate)
     # the profiled phases: the short sessions first, then the profiles of
     # whole steps and of the generate call (see the docstring)
     if 6 in run_:
@@ -3149,6 +3567,9 @@ def main(argv=None):
         phase18_profile(smi, s3_kept)
         del s3_kept
         torch.cuda.empty_cache()
+    if 20 in run_:
+        phase20_profile(smi, p20_kept)
+        p20_tmp.cleanup()
     if 11 in run_:
         phase11(smi, serve, med_s)
     if run_ == every:

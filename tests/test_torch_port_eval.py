@@ -318,33 +318,54 @@ def test_png_reader_matches_pillow(tmp_path):
 
 
 def test_png_reader_refuses_what_it_does_not_read(tmp_path):
-    """16-bit, palette and interlaced files are refused with a clear
-    error, as is a corrupted chunk."""
+    """What the reader used to refuse it now reads as libpng does (16-bit
+    cut to its high byte, or clipped to 255 as PIL under `pil=True`;
+    palettes; Adam7; the kinds: tests/test_torch_port_data.py).  What
+    is not a PNG is refused with a clear error: a colour type at a bit
+    depth PNG does not allow, an unknown interlace method, image data
+    that does not fill the header's image, a corrupted chunk."""
     from PIL import Image
 
     rng = np.random.default_rng(2)
     deep = str(tmp_path / "deep.png")
-    Image.fromarray(rng.integers(0, 65535, (8, 8), dtype=np.uint16)).save(deep)
-    with pytest.raises(ValueError, match="bit depth 16"):
-        image_io.load_png(deep)
+    wide = rng.integers(0, 65535, (8, 8), dtype=np.uint16)
+    Image.fromarray(wide).save(deep)
+    got = image_io.load_png(deep)
+    np.testing.assert_array_equal(got[..., 0], (wide >> 8).astype(np.uint8))
+    with Image.open(deep) as im:
+        np.testing.assert_array_equal(image_io.load_png(deep, pil=True),
+                                      np.asarray(im.convert("RGB")))
     pal = str(tmp_path / "pal.png")
     Image.fromarray(_smooth(rng, 8, 8, 3)).convert("P").save(pal)
-    with pytest.raises(ValueError, match="colour type 3"):
-        image_io.load_png(pal)
-    # an interlaced header: the IHDR's last byte set, its CRC redone
+    with Image.open(pal) as im:
+        np.testing.assert_array_equal(image_io.load_png(pal),
+                                      np.asarray(im.convert("RGB")))
+
     plain = str(tmp_path / "plain.png")
     image_io.save_png(plain, _smooth(rng, 8, 8, 3))
     blob = bytearray(open(plain, "rb").read())
-    blob[8 + 8 + 12] = 1
-    blob[29:33] = struct.pack(">I", zlib.crc32(bytes(blob[12:29])))
-    inter = str(tmp_path / "inter.png")
-    open(inter, "wb").write(bytes(blob))
-    with pytest.raises(ValueError, match="interlaced"):
-        image_io.load_png(inter)
+
+    def patched(offset, value, name):
+        b = bytearray(blob)
+        b[offset] = value
+        b[29:33] = struct.pack(">I", zlib.crc32(bytes(b[12:29])))
+        path = str(tmp_path / name)
+        open(path, "wb").write(bytes(b))
+        return path
+
+    # IHDR's bytes 16-28: width, height, depth, colour type, ..., interlace
+    with pytest.raises(ValueError, match="bit depth 4"):
+        image_io.load_png(patched(8 + 8 + 8, 4, "depth.png"))
+    with pytest.raises(ValueError, match="interlace 2"):
+        image_io.load_png(patched(8 + 8 + 12, 2, "method.png"))
+    # an Adam7 header over plain rows: the second pass starts mid-row
+    with pytest.raises(ValueError, match="filter type|image data has"):
+        image_io.load_png(patched(8 + 8 + 12, 1, "inter.png"))
     blob[40] ^= 0xFF
-    open(inter, "wb").write(bytes(blob))
+    bad = str(tmp_path / "crc.png")
+    open(bad, "wb").write(bytes(blob))
     with pytest.raises(ValueError, match="CRC"):
-        image_io.load_png(inter)
+        image_io.load_png(bad)
 
 
 @pytest.mark.parametrize("src,size", [

@@ -825,7 +825,8 @@ def test_stage1_cli_defaults_and_refusals():
     """`--device` defaults to cuda; the flags not ported are refused,
     never ignored; a VAE directory that does not exist is refused (the
     loader is held against JAX's in tests/test_torch_port_artifacts.py); a
-    dataset path is refused rather than trained on noise."""
+    dataset path that is not a directory raises rather than training on
+    noise (the folder itself: tests/test_torch_port_data.py)."""
     from aqualora_torch.train import data
     from aqualora_torch.train import latent_wm_pretrain as tt
 
@@ -841,8 +842,11 @@ def test_stage1_cli_defaults_and_refusals():
         tt.build_trainer(tt.build_argparser().parse_args(
             ["--tiny", "--device", "cpu", "--pretrained_model_name_or_path",
              "/nonexistent/sd"]))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(FileNotFoundError, match="not a directory"):
         data.make_dataset("/nonexistent/images", 64)
+    with pytest.raises(FileNotFoundError, match="not a directory"):
+        tt.build_trainer(tt.build_argparser().parse_args(
+            ["--tiny", "--device", "cpu", "--dataset", "/nonexistent/images"]))
     assert len(data.make_dataset(None, 64)) == 256
 
 

@@ -548,9 +548,11 @@ def test_stage3_cli_writes_a_msgdecoder_the_auditor_reads(tmp_path, capsys):
 
 def test_stage3_cli_defaults_and_refusals(tmp_path):
     """The parser has JAX's stage-3 defaults (PPFT's parser, lr 5e-6, 48
-    bits) and PPFT's checkpoint flags with JAX's defaults; `--fsdp`,
-    `--int8_gen`, `--train_data_dir` and `--dataset_name` are refused,
-    each naming its ROADMAP item, and a run needs `--output_dir`."""
+    bits) and PPFT's checkpoint flags with JAX's defaults; `--fsdp` and
+    `--int8_gen` are refused, each naming its ROADMAP item, and
+    `--dataset_name` and `--dataset_config_name` naming the HF datasets
+    path; a `--train_data_dir` that is not a directory raises; a run
+    needs `--output_dir`."""
     from aqualora_torch.train import rob_enhance_finetune as s3
 
     args = s3.build_argparser().parse_args([])
@@ -563,10 +565,13 @@ def test_stage3_cli_defaults_and_refusals(tmp_path):
     assert "--output_dir is required" in s3.build_argparser().format_help()
     base = ["--tiny", "--device", "cpu", "--output_dir", str(tmp_path)]
     for flag, item in (("--fsdp", "A.9"), ("--int8_gen", "A.8"),
-                       ("--train_data_dir=d", "A.5"),
-                       ("--dataset_name=n", "A.5")):
+                       ("--dataset_name=n", "HF datasets"),
+                       ("--dataset_config_name=c", "HF datasets")):
         with pytest.raises(NotImplementedError, match=item):
             s3.run(s3.build_argparser().parse_args(base + [flag]))
+    with pytest.raises(FileNotFoundError, match="not a directory"):
+        s3.run(s3.build_argparser().parse_args(
+            base + [f"--train_data_dir={tmp_path / 'missing'}"]))
     with pytest.raises(ValueError, match="output_dir"):
         s3.run(s3.build_argparser().parse_args(["--tiny", "--device", "cpu"]))
     assert not os.listdir(tmp_path)

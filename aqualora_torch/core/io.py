@@ -1,7 +1,7 @@
 """Artifact I/O: safetensors written by hand, the watermark-LoRA key layout,
 and strict loading of torch state dicts into modules.
 
-The port of `aqualora_tpu/core/io.py:32-42,160-250,311-336`.  The JAX
+The port of `aqualora_tpu/core/io.py:32-42,160-336`.  The JAX
 package reads and writes safetensors through the `safetensors` package;
 the port has its own reader and writer, so that a machine without that
 package runs it.  A file is an 8-byte little-endian header length, a JSON
@@ -17,7 +17,11 @@ follows a hash).
 `unet.<module>.processor.to_{q,k,v,out}_lora.{down,up}.weight`, a proj or
 ff site as `unet.<module>.lora.{down,up}.weight`.  The port's LoRA weights
 are already in torch layout (`LoRALinear.lora.{down,up}.weight` [out, in],
-`LoRAConv2d` OIHW), so export and import only map keys.
+`LoRAConv2d` OIHW), so export and import only map keys.  A text-encoder
+LoRA (`--train_text_encoder`) goes into the same file under
+`text_encoder.text_model.encoder.layers.<i>.`: its attention sites as
+`self_attn.to_{q,k,v,out}_lora.{down,up}.weight`, its MLP sites as
+`mlp.fc{1,2}.lora_linear_layer.{down,up}.weight` (`te_lora_torch_keys`).
 """
 
 from __future__ import annotations
@@ -262,6 +266,64 @@ def import_lora_safetensors(unet: nn.Module, config,
         if name not in own:
             raise KeyError(f"U-Net has no LoRA parameter {name}; build it "
                            f"with the LoRA enabled")
+        if tuple(state[tkey].shape) != tuple(own[name].shape):
+            raise ValueError(f"{tkey}: shape {tuple(state[tkey].shape)} vs "
+                             f"{tuple(own[name].shape)}")
+        pairs.append((own[name], state[tkey]))
+    with torch.no_grad():
+        for p, v in pairs:
+            p.copy_(v)
+
+
+# ---------------------------------------------------------------------------
+# the text-encoder LoRA
+# ---------------------------------------------------------------------------
+
+def te_lora_torch_keys(clip_config) -> Dict[str, str]:
+    """file key -> the CLIP module's parameter name, for every text-encoder
+    LoRA tensor (`te_lora_torch_keys`, `core/io.py:253-274`)."""
+    out: Dict[str, str] = {}
+    for i in range(clip_config.num_layers):
+        pre = f"text_encoder.text_model.encoder.layers.{i}"
+        for tname, name in (("to_q_lora", "q_proj"), ("to_k_lora", "k_proj"),
+                            ("to_v_lora", "v_proj"),
+                            ("to_out_lora", "out_proj")):
+            for which in ("down", "up"):
+                out[f"{pre}.self_attn.{tname}.{which}.weight"] = (
+                    f"layers.{i}.self_attn.{name}.lora.{which}.weight")
+        for fc in ("fc1", "fc2"):
+            for which in ("down", "up"):
+                out[f"{pre}.mlp.{fc}.lora_linear_layer.{which}.weight"] = (
+                    f"layers.{i}.mlp.{fc}.lora.{which}.weight")
+    return out
+
+
+def export_te_lora_safetensors(clip: nn.Module, clip_config
+                               ) -> Dict[str, torch.Tensor]:
+    """The CLIP LoRA weights in the reference's layout, in their own type
+    (`export_te_lora_safetensors`, `core/io.py:277-289`)."""
+    own = dict(clip.named_parameters())
+    out = {}
+    for tkey, name in te_lora_torch_keys(clip_config).items():
+        if name not in own:
+            raise KeyError(f"no text-encoder LoRA parameter {name}")
+        out[tkey] = own[name].detach()
+    return out
+
+
+def import_te_lora_safetensors(clip: nn.Module, clip_config,
+                               state: Mapping[str, torch.Tensor]) -> None:
+    """Copy the text-encoder LoRA keys of a reference-layout state into the
+    CLIP, in place, strictly (`import_te_lora_safetensors`,
+    `core/io.py:292-309`); U-Net keys are left alone."""
+    own = dict(clip.named_parameters())
+    pairs = []
+    for tkey, name in te_lora_torch_keys(clip_config).items():
+        if tkey not in state:
+            raise KeyError(f"text-encoder LoRA key {tkey} not in checkpoint")
+        if name not in own:
+            raise KeyError(f"CLIP has no LoRA parameter {name}; build it "
+                           "with clip.with_lora()")
         if tuple(state[tkey].shape) != tuple(own[name].shape):
             raise ValueError(f"{tkey}: shape {tuple(state[tkey].shape)} vs "
                              f"{tuple(own[name].shape)}")

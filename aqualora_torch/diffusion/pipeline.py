@@ -30,7 +30,9 @@ import torch.nn as nn
 from aqualora_torch.core.config import PipelineConfig
 from aqualora_torch.core.convert import jax_params_to_torch
 from aqualora_torch.core.io import (LORA_FILE, MAPPER_FILE, assign_state,
-                                    import_lora_safetensors, load_safetensors)
+                                    import_lora_safetensors,
+                                    import_te_lora_safetensors,
+                                    load_safetensors)
 from aqualora_torch.diffusion.samplers import Generators, batch_randn, sample
 from aqualora_torch.diffusion.schedule import NoiseSchedule
 from aqualora_torch.models.clip import CLIPTextModel
@@ -134,10 +136,16 @@ class StableDiffusionPipeline:
     def load_watermark_lora(self, directory: str) -> None:
         """Load the U-Net LoRA and the MapperNet that the PPFT trainer
         saved in `directory` (`pytorch_lora_weights.safetensors` and
-        `mapper.safetensors`), strictly, each tensor in its module's type."""
+        `mapper.safetensors`), strictly, each tensor in its module's type;
+        and the text-encoder LoRA when the file has its `text_encoder.`
+        keys and the CLIP carries LoRA (a pipeline built without it leaves
+        them, as the JAX pipeline does)."""
         state = load_safetensors(os.path.join(directory, LORA_FILE),
                                  self.device)
         import_lora_safetensors(self.unet, self.config.unet, state)
+        if lora_sites(self.clip) and any(k.startswith("text_encoder.")
+                                         for k in state):
+            import_te_lora_safetensors(self.clip, self.config.clip, state)
         assign_state(self.mapper,
                      load_safetensors(os.path.join(directory, MAPPER_FILE),
                                       self.device), what="mapper")

@@ -14,7 +14,7 @@ import torch.nn.functional as F
 
 from aqualora_torch.core.config import CLIPTextConfig
 from aqualora_torch.models.layers import merge_heads, split_heads
-from aqualora_torch.models.lora import LoRALinear
+from aqualora_torch.models.lora import LoRALinear, number_sites
 from aqualora_torch.ops.attention import dot_product_attention
 
 
@@ -85,6 +85,7 @@ class CLIPTextModel(nn.Module):
                                      for _ in range(cfg.num_layers)])
         self.final_layer_norm = nn.LayerNorm(cfg.hidden_size,
                                              eps=cfg.layer_norm_eps)
+        self.num_sites = number_sites(self)
 
     def forward(self, input_ids: torch.Tensor, lora_scale=None) -> torch.Tensor:
         t = input_ids.shape[1]

@@ -11,6 +11,14 @@ Traps the JAX side pinned, kept here:
   (torch's LayerNorm is two-pass);
 - `Transformer2DModel`'s GroupNorm uses eps 1e-6; `ResnetBlock2D` takes its
   eps from the caller (1e-5 in the U-Net, 1e-6 in the VAE).
+
+With `remat` (`UNetConfig.remat`, `--gradient_checkpointing`) each
+`BasicTransformerBlock` that runs with gradients runs under
+`torch.utils.checkpoint` (non-reentrant), as JAX's `nn.remat`
+(`aqualora_tpu/models/layers.py:275-277`): its activations are recomputed
+in the backward, the attention forward kernel included.  The recompute
+runs under the LoRA dropout draws that were active in the forward
+(`lora.active_dropout`), so its masks are the forward's.
 """
 
 from __future__ import annotations
@@ -21,9 +29,11 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from aqualora_torch.core.config import LoRAConfig
-from aqualora_torch.models.lora import DiagScale, LoRAConv2d, LoRALinear
+from aqualora_torch.models.lora import (DiagScale, LoRAConv2d, LoRALinear,
+                                        active_dropout, lora_dropout)
 from aqualora_torch.ops.attention import dot_product_attention
 
 
@@ -201,14 +211,20 @@ class BasicTransformerBlock(nn.Module):
         return x + self.ff(self.norm3(x), scale)
 
 
+def _run_block(block: BasicTransformerBlock, draws, x, context, scale):
+    with lora_dropout(draws):
+        return block(x, context, scale)
+
+
 class Transformer2DModel(nn.Module):
     """GroupNorm -> proj_in (1x1) -> transformer blocks -> proj_out (1x1),
     plus the residual."""
 
     def __init__(self, channels: int, heads: int, cross_attention_dim: int,
                  num_layers: int = 1, groups: int = 32,
-                 lora: Optional[LoRAConfig] = None):
+                 lora: Optional[LoRAConfig] = None, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.norm = nn.GroupNorm(groups, channels, eps=1e-6)
         self.proj_in = LoRAConv2d(channels, channels, 1, lora=lora)
         self.transformer_blocks = nn.ModuleList(
@@ -222,6 +238,11 @@ class Transformer2DModel(nn.Module):
         out = self.proj_in(self.norm(x), scale)
         out = out.permute(0, 2, 3, 1).reshape(b, h * w, c)
         for block in self.transformer_blocks:
-            out = block(out, context, scale)
+            if self.remat and torch.is_grad_enabled():
+                out = checkpoint(_run_block, block, active_dropout(), out,
+                                 context, scale, use_reentrant=False,
+                                 preserve_rng_state=False)
+            else:
+                out = block(out, context, scale)
         out = out.reshape(b, h, w, c).permute(0, 3, 1, 2)
         return self.proj_out(out, scale) + x

@@ -13,13 +13,31 @@ weights and the base weight take the activation's type at every call, as
 flax's `dtype=` casts the kernel to the compute type, so float32 trainable
 LoRA weights run under a bfloat16 U-Net (the PPFT trainer's mixed
 precision), and a float32 base weight that a bfloat16 pipeline keeps for
-the fold (`StableDiffusionPipeline.fold_diag`) runs in bfloat16.  The
-kohya dropouts are training-only and are not ported yet.
+the fold (`StableDiffusionPipeline.fold_diag`) runs in bfloat16.
+
+The kohya dropouts (`aqualora_tpu/models/lora.py:48-67`), training only:
+
+- elementwise dropout (`LoRAConfig.dropout`, `--lora_dropout`): a
+  Bernoulli(1 - p) mask on down(x), rescaled by 1 / (1 - p);
+- module dropout (`LoRAConfig.module_dropout`, `--module_dropout`): one
+  draw per site and step that removes the site's whole delta, with no
+  rescale.
+
+They act only inside `lora_dropout(draws)`, as JAX's act only when a
+`lora_dropout` rng is given.  JAX draws the masks with flax's `make_rng`,
+folded per module path, which torch cannot reproduce; here a step's
+`SiteDraws` hold every site's keep flag and the seed of its mask (sites are
+numbered by `number_sites`), so the masks are a function of the step's
+draws: a transformer block recomputed under remat
+(`layers.Transformer2DModel`) draws its masks again from the same seeds,
+where a draw from a shared generator would silently differ.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+import contextlib
+import dataclasses
+from typing import Dict, List, Optional, Union
 
 import torch
 import torch.nn as nn
@@ -53,6 +71,48 @@ def _scale_delta(h: torch.Tensor, scale: DiagScale) -> torch.Tensor:
     return h * scale
 
 
+@dataclasses.dataclass
+class SiteDraws:
+    """One pass's dropout numbers for the LoRA sites of a model: `keep`
+    [sites] bool on the device (module dropout) and `seeds` (one int a
+    site, elementwise dropout), each None when that dropout is off."""
+
+    keep: Optional[torch.Tensor] = None
+    seeds: Optional[List[int]] = None
+
+
+_ACTIVE: Optional[SiteDraws] = None
+
+
+@contextlib.contextmanager
+def lora_dropout(draws: Optional[SiteDraws]):
+    """The kohya dropouts act inside this context, with `draws`."""
+    global _ACTIVE
+    prev, _ACTIVE = _ACTIVE, draws
+    try:
+        yield
+    finally:
+        _ACTIVE = prev
+
+
+def active_dropout() -> Optional[SiteDraws]:
+    return _ACTIVE
+
+
+_GENERATORS: Dict[torch.device, torch.Generator] = {}
+
+
+def _dropout(h: torch.Tensor, p: float, seed: int) -> torch.Tensor:
+    """h * Bernoulli(1 - p) / (1 - p), the mask drawn from `seed` (one
+    generator a device, reseeded at each site)."""
+    gen = _GENERATORS.get(h.device)
+    if gen is None:
+        gen = _GENERATORS[h.device] = torch.Generator(device=h.device)
+    gen.manual_seed(seed)
+    mask = torch.empty_like(h).bernoulli_(1.0 - p, generator=gen)
+    return h * mask / (1.0 - p)
+
+
 class _LoRACore(nn.Module):
     """down/up linear pair over the last axis."""
 
@@ -61,8 +121,11 @@ class _LoRACore(nn.Module):
         self.down = nn.Linear(in_features, rank, bias=False)
         self.up = nn.Linear(rank, out_features, bias=False)
 
-    def forward(self, x: torch.Tensor, scale: DiagScale) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, scale: DiagScale,
+                seed: Optional[int] = None, p: float = 0.0) -> torch.Tensor:
         h = F.linear(x, self.down.weight.to(x.dtype))
+        if seed is not None:
+            h = _dropout(h, p, seed)
         if _is_diag(scale):
             h = _apply_diag(h, scale, -1)
         h = F.linear(h, self.up.weight.to(x.dtype))
@@ -79,9 +142,12 @@ class _LoRAConvCore(nn.Module):
                               bias=False)
         self.up = nn.Conv2d(rank, out_channels, 1, bias=False)
 
-    def forward(self, x: torch.Tensor, scale: DiagScale) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, scale: DiagScale,
+                seed: Optional[int] = None, p: float = 0.0) -> torch.Tensor:
         d = self.down
         h = F.conv2d(x, d.weight.to(x.dtype), None, d.stride, d.padding)
+        if seed is not None:
+            h = _dropout(h, p, seed)
         if _is_diag(scale):
             h = _apply_diag(h, scale, 1)
         h = F.conv2d(h, self.up.weight.to(x.dtype))
@@ -92,7 +158,30 @@ def _enabled(lora: Optional[LoRAConfig]) -> bool:
     return lora is not None and lora.enabled
 
 
-class LoRALinear(nn.Module):
+class _LoRASite(nn.Module):
+    """What a LoRA layer adds to its base output: the delta, with the
+    kohya dropouts when `lora_dropout` is active."""
+
+    def _init_lora(self, lora: Optional[LoRAConfig]) -> None:
+        on = _enabled(lora)
+        self.alpha_scale = lora.alpha_scale if on else 1.0
+        self.dropout = lora.dropout if on else 0.0
+        self.module_dropout = lora.module_dropout if on else 0.0
+        self.site = 0
+
+    def _delta(self, x: torch.Tensor, scale: DiagScale) -> torch.Tensor:
+        draws = _ACTIVE
+        seed = (draws.seeds[self.site] if draws is not None
+                and draws.seeds is not None and self.dropout > 0 else None)
+        delta = self.lora(x, scale, seed, self.dropout)
+        if (draws is not None and draws.keep is not None
+                and self.module_dropout > 0):
+            delta = torch.where(draws.keep[self.site], delta,
+                                torch.zeros_like(delta))
+        return self.alpha_scale * delta
+
+
+class LoRALinear(_LoRASite):
     """Linear layer (weight [out, in]) with an optional LoRA branch."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
@@ -105,16 +194,16 @@ class LoRALinear(nn.Module):
             nn.init.zeros_(self.bias)
         self.lora = (_LoRACore(in_features, out_features, lora.rank)
                      if _enabled(lora) else None)
-        self.alpha_scale = lora.alpha_scale if _enabled(lora) else 1.0
+        self._init_lora(lora)
 
     def forward(self, x: torch.Tensor, scale: DiagScale = None) -> torch.Tensor:
         y = F.linear(x, self.weight.to(x.dtype), self.bias)
         if self.lora is not None and scale is not None:
-            y = y + self.alpha_scale * self.lora(x, scale)
+            y = y + self._delta(x, scale)
         return y
 
 
-class LoRAConv2d(nn.Module):
+class LoRAConv2d(_LoRASite):
     """Conv layer (NCHW, weight OIHW) with an optional LoRA branch; the
     transformer blocks' proj_in / proj_out 1x1 convs."""
 
@@ -132,13 +221,13 @@ class LoRAConv2d(nn.Module):
         self.lora = (_LoRAConvCore(in_channels, out_channels, lora.rank,
                                    kernel_size, stride, padding)
                      if _enabled(lora) else None)
-        self.alpha_scale = lora.alpha_scale if _enabled(lora) else 1.0
+        self._init_lora(lora)
 
     def forward(self, x: torch.Tensor, scale: DiagScale = None) -> torch.Tensor:
         y = F.conv2d(x, self.weight.to(x.dtype), self.bias, self.stride,
                      self.padding)
         if self.lora is not None and scale is not None:
-            y = y + self.alpha_scale * self.lora(x, scale)
+            y = y + self._delta(x, scale)
         return y
 
 
@@ -146,6 +235,15 @@ def lora_sites(module: nn.Module):
     """The layers of `module` that carry a LoRA pair."""
     return [m for m in module.modules()
             if isinstance(m, (LoRALinear, LoRAConv2d)) and m.lora is not None]
+
+
+def number_sites(module: nn.Module) -> int:
+    """Number the LoRA sites of `module` 0, 1, ... in `lora_sites` order
+    (their index into `SiteDraws`); -> the count."""
+    sites = lora_sites(module)
+    for i, m in enumerate(sites):
+        m.site = i
+    return len(sites)
 
 
 @torch.no_grad()

@@ -14,7 +14,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from aqualora_torch.core.config import UNetConfig
-from aqualora_torch.models.lora import DiagScale
+from aqualora_torch.models.lora import DiagScale, number_sites
 from aqualora_torch.models.layers import (Downsample2D, ResnetBlock2D,
                                           TimestepEmbedding,
                                           Transformer2DModel, Upsample2D,
@@ -24,7 +24,8 @@ from aqualora_torch.models.layers import (Downsample2D, ResnetBlock2D,
 def _transformer(cfg: UNetConfig, channels: int) -> Transformer2DModel:
     return Transformer2DModel(channels, cfg.heads_for(channels),
                               cfg.cross_attention_dim,
-                              groups=cfg.norm_num_groups, lora=cfg.lora)
+                              groups=cfg.norm_num_groups, lora=cfg.lora,
+                              remat=cfg.remat)
 
 
 class DownBlock2D(nn.Module):
@@ -130,6 +131,7 @@ class UNet2DConditionModel(nn.Module):
             for i in range(n)])
         self.conv_norm_out = nn.GroupNorm(cfg.norm_num_groups, ch[0], eps=1e-5)
         self.conv_out = nn.Conv2d(ch[0], cfg.out_channels, 3, padding=1)
+        self.num_sites = number_sites(self)
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 encoder_hidden_states: torch.Tensor,

@@ -1,6 +1,6 @@
 """Stage 1, the latent watermark pretraining, in PyTorch.
 
-The port of `aqualora_tpu/train/latent_wm_pretrain.py:59-345,372-426`.  The
+The port of `aqualora_tpu/train/latent_wm_pretrain.py:59-426`.  The
 SecretEncoder and SecretDecoder are trained around a frozen VAE and a
 frozen LPIPS:
 
@@ -56,28 +56,47 @@ the JAX loader's rule: no crop, no flip), each epoch one pass over its
 permutation at `--seed` + epoch, decoded a batch ahead on a background
 thread (`data.prefetch`); without it, synthetic images.
 
-Not ported yet, and refused when asked for: checkpoints and resume
-(`--resume_from_ckpt`), the tracker (`--report_to` other than none),
-FSDP (`--fsdp`) and remat (`--remat_lpips`, `--remat_vae_decode`).  The
-per-epoch sample image is not written.
+At the end of each epoch (`latent_wm_pretrain.py:283-331`): one
+watermarked sample of the epoch's last batch is written to
+`<output_dir>/log_images/watermarked_<epoch>.png` (`eval/image_io.py`,
+no PIL), the eval's bit accuracy is logged, and a checkpoint of the
+encoder, the decoder with its BatchNorm statistics, the optimizer, the
+schedule, the epoch and the generator's state goes to
+`<output_dir>/checkpoints/<epoch>.pt` (`core/checkpoint.py`).
+`--resume_from_ckpt E` restores epoch E's checkpoint (the latest when E is
+not a number; JAX always takes the latest) and runs `--epochs` more
+epochs from E + 1, as JAX does (`:236-244`): without the warm-up, with the
+late loss weights and distortion probabilities.  `--report_to` adds
+TensorBoard or wandb (`utils/logging.Tracker`) under `<output_dir>/logs`,
+with JAX's scalar names (default none, where JAX's is tensorboard).
+
+`--remat_vae_decode` recomputes the watermarked VAE decode in the backward
+(`torch.utils.checkpoint`; its d = 512 attention forward then runs four
+times a step) and `--remat_lpips` the LPIPS call, each alone as in JAX
+(`:78-111`).  `--debug_nans` raises on a non-finite loss.  `--fsdp` is
+refused (ROADMAP A.9, the mesh).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import os
 import time
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from aqualora_torch.core.checkpoint import CheckpointManager
 from aqualora_torch.core.config import (EfficientNetConfig, VAEConfig,
                                         WatermarkConfig)
 from aqualora_torch.core.io import assign_state, load_safetensors
 from aqualora_torch.diffusion.pipeline import init_module_weights
 from aqualora_torch.distort.noiser import Noiser, NoiseDraw
+from aqualora_torch.eval.image_io import images_to_uint8, save_png
 from aqualora_torch.models.efficientnet import Masks
 from aqualora_torch.models.lpips import LPIPS
 from aqualora_torch.models.vae import AutoencoderKL
@@ -86,6 +105,7 @@ from aqualora_torch.train import data as data_lib
 from aqualora_torch.train.augment import base_augment, maybe_cornerfy
 from aqualora_torch.train.losses import bit_accuracy, message_bce, prvl_loss
 from aqualora_torch.train.ppft_train import adamw
+from aqualora_torch.utils.logging import Tracker
 
 EARLY_PROBS = (0.6, 0.0, 0.4, 0.0, 0.0, 0.0)
 LATE_PROBS = (0.4, 0.1, 0.2, 0.05, 0.1, 0.15)       # after epoch 12
@@ -217,10 +237,22 @@ def draw(models: Stage1Models, gen: torch.Generator, shape,
                  masks=models.sec_decoder.model.draw_masks(b, gen))
 
 
-def make_loss_fn(models: Stage1Models):
+def _remat(fn, on: bool):
+    """`fn`, recomputed in the backward when `on` (jax.checkpoint)."""
+    if not on:
+        return fn
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False,
+                                 preserve_rng_state=False)
+
+
+def make_loss_fn(models: Stage1Models, remat_vae_decode: bool = False,
+                 remat_lpips: bool = False):
     """-> loss_fn(images NCHW, draws, ctl) -> (loss, metrics)
-    (`latent_wm_pretrain.py:88-121`)."""
+    (`latent_wm_pretrain.py:78-121`); the two remat flags recompute the
+    watermarked decode and the LPIPS call in the backward."""
     vae = models.vae
+    wm_decode = _remat(vae.decode, remat_vae_decode)
+    lpips = _remat(models.lpips, remat_lpips)
 
     def loss_fn(images: torch.Tensor, draws: Draws, ctl: Control):
         with torch.no_grad():
@@ -233,8 +265,8 @@ def make_loss_fn(models: Stage1Models):
         wm_latents = latents + wm * ctl.wm_scale
         with torch.no_grad():
             clean = vae.decode(latents)
-        wm_img = vae.decode(wm_latents)
-        lp = models.lpips(clean, wm_img).float().mean()
+        wm_img = wm_decode(wm_latents)
+        lp = lpips(clean, wm_img).float().mean()
         pr = prvl_loss(clean, wm_img)
         noised = models.noiser(wm_img, draws.noise)
         with models.autocast():
@@ -262,10 +294,12 @@ def make_optimizer(models: Stage1Models, lr: float, steps_per_epoch: int):
                  weight_decay=1e-4)
 
 
-def make_train_step(models: Stage1Models, optimizer, scheduler):
+def make_train_step(models: Stage1Models, optimizer, scheduler,
+                    remat_vae_decode: bool = False,
+                    remat_lpips: bool = False):
     """-> train_step(pixels NHWC, draws, ctl) -> metrics: one update of
     the encoder and decoder (`latent_wm_pretrain.py:123-135`)."""
-    loss_fn = make_loss_fn(models)
+    loss_fn = make_loss_fn(models, remat_vae_decode, remat_lpips)
     dev = models.vae.quant_conv.weight.device
 
     def train_step(pixels, draws: Draws, ctl: Control) -> Dict[str, Any]:
@@ -310,19 +344,20 @@ def make_eval_step(models: Stage1Models):
 # ---------------------------------------------------------------------------
 
 def curriculum(rel_epoch: int, warmup: bool, fixinit: bool,
-               random_aug: bool) -> Control:
+               random_aug: bool, resumed: bool = False) -> Control:
     """The staged scale, loss weights and distortion probabilities of an
-    epoch (`latent_wm_pretrain.py:260-278`)."""
+    epoch (`latent_wm_pretrain.py:260-278`); a resumed run takes the late
+    ones."""
     if warmup:
         weights = (0.0, 1.0, 0.0)
-    elif rel_epoch > 10:
+    elif rel_epoch > 10 or resumed:
         weights = (5.0, 1.0, 1.5)
     elif rel_epoch > 6:
         weights = (1.0, 1.0, 0.0)
     else:
         weights = (0.0, 1.0, 0.0)
     return Control(wm_scale=0.03 if warmup else 1.0, loss_weights=weights,
-                   distort_probs=LATE_PROBS if rel_epoch > 12
+                   distort_probs=LATE_PROBS if rel_epoch > 12 or resumed
                    else EARLY_PROBS,
                    fixinit=fixinit, random_aug=random_aug)
 
@@ -342,19 +377,14 @@ class Trainer:
     steps_per_epoch: int
 
 
-def _refuse_unported(args: argparse.Namespace) -> None:
-    asked = {"--resume_from_ckpt": args.resume_from_ckpt is not None,
-             "--report_to": args.report_to != "none",
-             "--fsdp": args.fsdp, "--remat_lpips": args.remat_lpips,
-             "--remat_vae_decode": args.remat_vae_decode}
-    refused = [flag for flag, on in asked.items() if on]
-    if refused:
-        raise NotImplementedError(
-            f"{', '.join(refused)}: not ported to aqualora_torch yet")
+def refuse_unported(args: argparse.Namespace) -> None:
+    if args.fsdp:
+        raise NotImplementedError("--fsdp: not ported to aqualora_torch "
+                                  "(ROADMAP A.9, the mesh)")
 
 
 def build_trainer(args: argparse.Namespace) -> Trainer:
-    _refuse_unported(args)
+    refuse_unported(args)
     device = torch.device(args.device)
     torch.manual_seed(args.seed)
     if args.tiny:
@@ -373,7 +403,8 @@ def build_trainer(args: argparse.Namespace) -> Trainer:
     steps_per_epoch = max(1, len(dataset) // args.batch_size)
     optimizer, scheduler = make_optimizer(models, args.lr, steps_per_epoch)
     return Trainer(models, optimizer, scheduler,
-                   make_train_step(models, optimizer, scheduler),
+                   make_train_step(models, optimizer, scheduler,
+                                   args.remat_vae_decode, args.remat_lpips),
                    make_eval_step(models), dataset,
                    torch.Generator(device=device).manual_seed(args.seed + 1),
                    steps_per_epoch)
@@ -398,31 +429,81 @@ def save_artifact(models: Stage1Models, path: str) -> None:
                 "sec_decoder": models.sec_decoder.state_dict()}, path)
 
 
+def checkpoint_state(tr: Trainer, epoch: int) -> Dict[str, Any]:
+    """An epoch's checkpoint: the encoder, the decoder with its BatchNorm
+    statistics, the optimizer, the schedule, the epoch and the generator's
+    state."""
+    return {"sec_encoder": tr.models.sec_encoder.state_dict(),
+            "sec_decoder": tr.models.sec_decoder.state_dict(),
+            "optimizer": tr.optimizer.state_dict(),
+            "scheduler": tr.scheduler.state_dict(), "epoch": epoch,
+            "generator": tr.generator.get_state()}
+
+
+def resume(tr: Trainer, ckpt: CheckpointManager, which: str) -> int:
+    """Restore epoch `which`'s checkpoint (the latest when it is not a
+    number) -> the epoch to start from."""
+    state = ckpt.restore(int(which) if which.isdigit() else None)
+    assign_state(tr.models.sec_encoder, state["sec_encoder"],
+                 what="sec_encoder")
+    assign_state(tr.models.sec_decoder, state["sec_decoder"],
+                 what="sec_decoder")
+    tr.optimizer.load_state_dict(state["optimizer"])
+    tr.scheduler.load_state_dict(state["scheduler"])
+    tr.generator.set_state(state["generator"])
+    return int(state["epoch"]) + 1
+
+
+@torch.no_grad()
+def render_sample(tr: Trainer, image) -> torch.Tensor:
+    """One watermarked image of `image` [1, H, W, 3] with a fresh message
+    and posterior noise (`_render_sample`, `latent_wm_pretrain.py:
+    345-356`) -> [1, H, W, 3] in the VAE's range."""
+    m = tr.models
+    x = torch.as_tensor(image, device=tr.generator.device).permute(0, 3, 1, 2)
+    d = draw(m, tr.generator, tuple(x.shape), EARLY_PROBS)
+    latents = m.vae.sample_from_moments(*m.vae.encode_moments(x),
+                                        d.vae_noise)
+    with m.autocast():
+        wm_latents, _ = m.sec_encoder(latents, d.msg)
+    return m.vae.decode(wm_latents.to(latents.dtype)).permute(0, 2, 3, 1)
+
+
 def run(args: argparse.Namespace) -> Dict[str, Any]:
     """Train and write `<output_dir>/pretrained_latentwm.pt`; -> {"history":
     logged metrics, "seconds": each step's wall time (to its message loss
-    read back), "final_acc", "trainer"}."""
+    read back), "final_acc", "trainer", "start_epoch"}."""
     tr = build_trainer(args)
     models = tr.models
-    warmup = bool(args.warmup)
+    ckpt = CheckpointManager(os.path.join(args.output_dir, "checkpoints"))
+    resumed = args.resume_from_ckpt is not None
+    start_epoch = resume(tr, ckpt, args.resume_from_ckpt) if resumed else 0
+    tracker = Tracker(args.output_dir, args.report_to)
+    warmup = bool(args.warmup) and not resumed
     fixinit = bool(args.fixinit) and warmup
     msgloss_buf: list = []
     history, seconds = [], []
     step = 0
     acc = float("nan")
     t0 = time.time()
-    for epoch in range(args.epochs):
+    for epoch in range(start_epoch, start_epoch + args.epochs):
         batches = data_lib.prefetch(tr.dataset.batches(
             args.batch_size, seed=args.seed + epoch, epochs=1))
         try:
             t1 = time.perf_counter()
             for images, _ in batches:
-                ctl = curriculum(epoch, warmup, fixinit, bool(args.random_aug))
+                ctl = curriculum(epoch - start_epoch, warmup, fixinit,
+                                 bool(args.random_aug), resumed)
                 d = draw(models, tr.generator, (images.shape[0], 3,
                                                 *images.shape[1:3]),
                          ctl.distort_probs)
                 metrics = tr.train_step(images, d, ctl)
                 ml = float(metrics["msgloss"])
+                if args.debug_nans and not math.isfinite(
+                        float(metrics["loss"])):
+                    raise FloatingPointError(
+                        f"step {step + 1}: loss {float(metrics['loss'])} "
+                        "(--debug_nans)")
                 seconds.append(time.perf_counter() - t1)
                 msgloss_buf = (msgloss_buf + [ml])[-10:]
                 if (warmup and len(msgloss_buf) == 10
@@ -432,6 +513,10 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
                 if step % args.log_every == 0:
                     m = {k: float(v) for k, v in metrics.items()}
                     history.append(m)
+                    tracker.log({"Loss/train": m["loss"],
+                                 "Loss/lpips_loss": m["lpips_loss"],
+                                 "Loss/prvl_loss": m["prvl_loss"],
+                                 "Loss/msgloss": m["msgloss"]}, step)
                     print(f"epoch {epoch} step {step}: "
                           + " ".join(f"{k}={v:.4f}" for k, v in m.items()),
                           f"({(time.time() - t0) / step:.2f}s/step)",
@@ -441,19 +526,25 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
                 t1 = time.perf_counter()
         finally:
             batches.close()             # ends the prefetch thread
-        # the epoch's eval on its last batch with fresh noise and bits
-        # (`latent_wm_pretrain.py:312,325`)
+        # the epoch's sample image, eval on its last batch with fresh noise
+        # and bits, and checkpoint (`latent_wm_pretrain.py:283-331`)
+        img_dir = os.path.join(args.output_dir, "log_images")
+        os.makedirs(img_dir, exist_ok=True)
+        save_png(os.path.join(img_dir, f"watermarked_{epoch}.png"),
+                 images_to_uint8(render_sample(tr, images[:1]))[0])
         e = draw(models, tr.generator, (images.shape[0], 3,
                                         *images.shape[1:3]), ctl.distort_probs)
         acc = float(tr.eval_step(images, e.vae_noise, e.msg))
+        tracker.log({"Accuracy/train": acc}, epoch)
         print(f"epoch {epoch}: eval bit acc {acc:.4f}", flush=True)
+        ckpt.save(epoch, checkpoint_state(tr, epoch))
         if args.max_train_steps and step >= args.max_train_steps:
             break
-    os.makedirs(args.output_dir, exist_ok=True)
     save_artifact(models, os.path.join(args.output_dir,
                                        "pretrained_latentwm.pt"))
+    tracker.close()
     return {"history": history, "seconds": seconds, "final_acc": acc,
-            "trainer": tr}
+            "trainer": tr, "start_epoch": start_epoch}
 
 
 def _flag(s: str) -> bool:
@@ -461,6 +552,8 @@ def _flag(s: str) -> bool:
 
 
 def build_argparser() -> argparse.ArgumentParser:
+    """Every option of the JAX trainer's parser
+    (`latent_wm_pretrain.py:375-413`), with the port's `--device`."""
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("--pretrained_model_name_or_path", type=str, default=None,
@@ -469,7 +562,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--batch_size", type=int, default=5)
     p.add_argument("--bit_num", type=int, default=48)
     p.add_argument("--resume_from_ckpt", type=str, default=None,
-                   help="not ported yet: refused")
+                   help="an epoch saved under <output_dir>/checkpoints, or "
+                        "anything else for the latest")
     p.add_argument("--dataset", type=str, default=None,
                    help="a folder of JPEG and PNG files; synthetic images "
                         "without it")
@@ -485,13 +579,18 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--log_every", type=int, default=1)
     p.add_argument("--report_to", type=str, default="none",
                    choices=["tensorboard", "wandb", "all", "none"],
-                   help="only none is ported")
+                   help="none by default (JAX: tensorboard), as before this "
+                        "flag was ported: importing TensorBoard pulls in "
+                        "TensorFlow where it is installed")
+    p.add_argument("--debug_nans", action="store_true",
+                   help="raise on a non-finite loss")
     p.add_argument("--remat_lpips", action="store_true",
-                   help="not ported yet: refused")
+                   help="recompute the LPIPS call in the backward")
     p.add_argument("--fsdp", action="store_true",
-                   help="not ported yet: refused")
+                   help="refused: ROADMAP A.9 (the mesh)")
     p.add_argument("--remat_vae_decode", action="store_true",
-                   help="not ported yet: refused")
+                   help="recompute the watermarked VAE decode in the "
+                        "backward")
     p.add_argument("--mixed_precision", type=str, default="no",
                    choices=["no", "bf16"],
                    help="bf16: every module computes in bfloat16")

@@ -40,11 +40,13 @@ vae, text_encoder safetensors; the LoRA stays at its init);
 `--start_from_pretrain` reads stage 1's `pretrained_latentwm.pt` (this
 port's own torch file, where the JAX trainer reads its orbax tree): the
 SecretEncoder, and the SecretDecoder with its BatchNorm statistics;
-`--resume_from_lora` reads `pytorch_lora_weights.safetensors` and
-`mapper.safetensors` from a directory.
+`--resume_from_lora` reads `pytorch_lora_weights.safetensors` (and its
+`text_encoder.` keys with `--train_text_encoder`) and `mapper.safetensors`
+from a directory.
 
 Saving (`save_artifacts`, `:547-562`): with `--output_dir`, the end of the
-run writes `pytorch_lora_weights.safetensors` (the reference's key layout),
+run writes `pytorch_lora_weights.safetensors` (the reference's key layout,
+the text-encoder LoRA's keys too when it is trained),
 `mapper.safetensors` (`bit_embeddings.weight`, float32) and the decoder as
 `msgdecoder.pt`, a torch state dict (the JAX trainer writes an orbax
 directory `msgdecoder`).  Without `--output_dir` nothing is written.  With
@@ -77,16 +79,65 @@ Checkpoints and the tracker (`ppft_train.py:434-501`), with
 `--output_dir`: every `--checkpointing_steps` the LoRA and mapper, the
 optimizer, the schedule, the step and the step generator's state go to
 `<output_dir>/checkpoints/<step>.pt` (`core/checkpoint.py`; at most
-`--checkpoints_total_limit` kept); `--resume_from_checkpoint` ("latest" or
-a step) restores them and replays the skipped steps' batches and draws, so
-the resumed run sees the draws of an uninterrupted one.  `--report_to`
+`--checkpoints_total_limit` kept), with the text-encoder LoRA and the
+gradient accumulator (its running mean and micro-step) when there are;
+the 8-bit moments are the optimizer's state.  `--resume_from_checkpoint`
+("latest" or a step) restores them and replays the skipped steps' batches
+and draws, so the resumed run sees the draws of an uninterrupted one, in
+the middle of an accumulation window too.  `--report_to`
 adds TensorBoard or wandb logs under `<output_dir>/logs` where installed
 (`utils/logging.py`); the scalars are printed in any case.
 
-Not ported yet: periodic validation, gradient accumulation, the kohya
-dropouts, block LR, 8-bit Adam, the text-encoder LoRA, the int8 teacher
-and the scale-0 teacher (`--teacher_skip_lora 0`), remat, FSDP and the HF
-datasets.
+The trainer's other options (`ppft_train.py:87-274,380-420,480-519,565-613`
+of the JAX package):
+
+- `--validation_epochs` (1) and `--validation_steps` (0): every so many
+  epochs and steps, `validate` generates `--num_validation_images` images
+  of `--validation_prompt` ("a photo" without one) with random messages,
+  DPM-Solver++(2M) at `--validation_resolution` and
+  `--validation_num_inference_steps` (the sanity inference's values by
+  default), through the current LoRA (and text-encoder LoRA), decodes them
+  and logs the images under "validation" and the bit accuracy as
+  `validation_accuracy`.  It draws from a generator of its own, seeded
+  from the seed and the step, so that a run resumed after a validation
+  sees the draws of an uninterrupted one;
+- `--gradient_accumulation_steps k`: optax 0.2.6's `MultiSteps`
+  (`GradientAccumulator`): the running mean acc + (g - acc) / (n + 1), the
+  whole chain (clip, AdamW, block LR) on the mean at the k-th micro-step
+  and no update at the others; the schedule advances once per k.  As in
+  the JAX loop, the steps count micro-steps: `--max_train_steps`,
+  `--checkpointing_steps`, validation's due steps and the cosine's length,
+  and the logged `grad_norm` is the micro-batch's;
+- `--use_8bit_adam`: `train/adamw8bit.py` for both groups;
+- `--down_lr_weight`, `--mid_lr_weight`, `--up_lr_weight`,
+  `--block_lr_zero_threshold`: kohya's block-wise LR (`train/block_lr.py`)
+  on the U-Net LoRA, as one parameter group per weight;
+- `--lora_dropout`, `--module_dropout` (`models/lora.py`, on every LoRA
+  site, the text encoder's included when it is trained) and
+  `--rank_dropout` (folded into the diagonal scale); their numbers are
+  part of the step's `Draws`;
+- `--train_text_encoder`: a rank `--rank` LoRA on CLIP's 72 sites (12
+  layers: q, k, v, out, fc1, fc2), clipped and updated with the U-Net LoRA;
+  the context is computed once through it and fed to the teacher and the
+  student; saved into the same safetensors under `text_encoder.` and read
+  back by `--resume_from_lora` and the sanity inference;
+- `--teacher_skip_lora 0`: the teacher runs the 192 LoRA sites at a zero
+  diagonal, which gives the skipping teacher's output exactly;
+- `--gradient_checkpointing`: the U-Net's transformer blocks under
+  `torch.utils.checkpoint` (`models/layers.py`); the student's 32
+  attention forwards run again in the backward;
+- `--scale_lr` (times accumulation x batch; one process), `--debug_nans`
+  (raises on a non-finite loss or gradient norm), `--attention_impl auto`
+  or `flash` (the port's kernels; `sdpa` and `xla` are refused: the port
+  has one attention path); `--mixed_precision fp16` computes in float32,
+  as JAX does;
+- inert, as in JAX: `--lr_scheduler`, `--lr_power`, `--local_rank`,
+  `--allow_tf32`, `--enable_xformers_memory_efficient_attention`,
+  `--logging_dir`.
+
+Refused by name: `--teacher_int8` and `--int8_gen` (ROADMAP A.8, the w8a8
+port), `--fsdp` (A.9, the mesh), `--dataset_name` and
+`--dataset_config_name` (the HF datasets path).
 """
 
 from __future__ import annotations
@@ -96,24 +147,28 @@ import dataclasses
 import math
 import os
 import time
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
 
 from aqualora_torch.core.checkpoint import CheckpointManager
-from aqualora_torch.core.config import (EfficientNetConfig, PipelineConfig,
-                                        WatermarkConfig)
+from aqualora_torch.core.config import (EfficientNetConfig, LoRAConfig,
+                                        PipelineConfig, WatermarkConfig)
 from aqualora_torch.core.io import (LORA_FILE, MAPPER_FILE, assign_state,
-                                    export_lora_safetensors, load_safetensors,
-                                    save_safetensors)
+                                    export_lora_safetensors,
+                                    export_te_lora_safetensors,
+                                    load_safetensors, save_safetensors)
 from aqualora_torch.core.tokenizer import load_tokenizer
 from aqualora_torch.diffusion.pipeline import (StableDiffusionPipeline,
                                                init_module_weights)
 from aqualora_torch.eval.utils_eval import decode_bits
+from aqualora_torch.models.lora import SiteDraws, lora_dropout
 from aqualora_torch.models.watermark import SecretDecoder, SecretEncoder
 from aqualora_torch.ops.secret_inject import inject_from_params
+from aqualora_torch.train import block_lr
 from aqualora_torch.train import data as data_lib
+from aqualora_torch.train.adamw8bit import AdamW8bit
 from aqualora_torch.utils.logging import Tracker
 
 MSGDECODER_FILE = "msgdecoder.pt"
@@ -148,11 +203,14 @@ def cosine_with_warmup_lr_end(base_lr: float, warmup: int, total: int,
 
 
 def trainable_groups(pipe: StableDiffusionPipeline) -> Dict[str, List]:
-    """Make the U-Net's LoRA weights and the MapperNet trainable (the
-    pipeline keeps them float32); -> {"lora": [...], "mapper": [...]}."""
-    _, lora = split_lora(pipe.unet)
-    groups = {"lora": list(lora.values()),
+    """Make the U-Net's LoRA weights, the MapperNet and the text encoder's
+    LoRA, when the CLIP carries one, trainable (the pipeline keeps them
+    float32); -> {"lora": [...], "mapper": [...], "te_lora": [...]}."""
+    groups = {"lora": list(split_lora(pipe.unet)[1].values()),
               "mapper": list(pipe.mapper.parameters())}
+    te = split_lora(pipe.clip)[1]
+    if te:
+        groups["te_lora"] = list(te.values())
     for params in groups.values():
         for p in params:
             p.requires_grad_(True)
@@ -162,14 +220,26 @@ def trainable_groups(pipe: StableDiffusionPipeline) -> Dict[str, List]:
 def adamw(groups: Dict[str, List], lr: float,
           factor: Callable[[int], float],
           betas: Tuple[float, float] = (0.9, 0.999), eps: float = 1e-8,
-          weight_decay: float = 1e-2):
-    """`optax.adamw` over named parameter groups with the learning rate
-    lr * factor(update count), as (optimizer, scheduler): step the
-    scheduler after the optimizer (see the module docstring for why this
-    is optax's algebra)."""
-    optimizer = torch.optim.AdamW(
-        [{"params": params, "name": name} for name, params in groups.items()],
-        lr=lr, betas=betas, eps=eps, weight_decay=weight_decay)
+          weight_decay: float = 1e-2, eight_bit: bool = False,
+          lr_weights: Optional[Dict[int, float]] = None):
+    """`optax.adamw` (`AdamW8bit` with `eight_bit`) over named parameter
+    groups with the learning rate lr * factor(update count), as
+    (optimizer, scheduler): step the scheduler after the optimizer (see
+    the module docstring for why this is optax's algebra).  `lr_weights`
+    ({id(parameter): w}, block-wise LR) splits the "lora" group into one
+    group per weight at lr * w."""
+    param_groups = []
+    for name, params in groups.items():
+        by_weight: Dict[float, List] = {}
+        for p in params:
+            w = (lr_weights.get(id(p), 1.0)
+                 if lr_weights and name == "lora" else 1.0)
+            by_weight.setdefault(w, []).append(p)
+        param_groups += [{"params": ps, "name": name, "lr": lr * w}
+                         for w, ps in by_weight.items()]
+    cls = AdamW8bit if eight_bit else torch.optim.AdamW
+    optimizer = cls(param_groups, lr=lr, betas=betas, eps=eps,
+                    weight_decay=weight_decay)
     scheduler = torch.optim.lr_scheduler.LambdaLR(optimizer, factor)
     return optimizer, scheduler
 
@@ -177,17 +247,56 @@ def adamw(groups: Dict[str, List], lr: float,
 def make_optimizer(groups: Dict[str, List], lr: float, warmup: int,
                    total: int, lr_end: float = 0.0,
                    betas: Tuple[float, float] = (0.9, 0.999),
-                   eps: float = 1e-8, weight_decay: float = 1e-2):
-    """AdamW over the LoRA and mapper groups with the reference's cosine
-    schedule."""
+                   eps: float = 1e-8, weight_decay: float = 1e-2,
+                   eight_bit: bool = False,
+                   lr_weights: Optional[Dict[int, float]] = None):
+    """AdamW (or 8-bit AdamW) over the LoRA and mapper groups with the
+    reference's cosine schedule."""
     return adamw(groups, lr,
                  cosine_with_warmup_lr_end(1.0, warmup, total, lr_end),
-                 betas, eps, weight_decay)
+                 betas, eps, weight_decay, eight_bit, lr_weights)
 
 
 def _global_norm(params) -> torch.Tensor:
     grads = [p.grad.float() for p in params if p.grad is not None]
     return torch.sqrt(sum(torch.sum(g * g) for g in grads))
+
+
+class GradientAccumulator:
+    """`optax.MultiSteps(k)` (optax 0.2.6) around the update: `add()` folds
+    the parameters' gradients into the running mean acc + (g - acc) / (n +
+    1); at the k-th micro-step it puts the mean into `.grad`, restarts and
+    returns True (the caller then clips and steps), else False (no update,
+    the schedule does not advance)."""
+
+    def __init__(self, params: List[torch.Tensor], k: int):
+        self.params, self.k = params, k
+        self.mini_step = 0
+        self.acc = [torch.zeros_like(p) for p in params]
+
+    def add(self) -> bool:
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in self.params]
+        diff = torch._foreach_sub(grads, self.acc)
+        torch._foreach_div_(diff, self.mini_step + 1)
+        torch._foreach_add_(self.acc, diff)
+        self.mini_step += 1
+        if self.mini_step < self.k:
+            return False
+        for p, a in zip(self.params, self.acc):
+            p.grad = a
+        self.acc = [torch.zeros_like(a) for a in self.acc]
+        self.mini_step = 0
+        return True
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {"mini_step": self.mini_step, "acc": list(self.acc)}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        self.mini_step = int(state["mini_step"])
+        with torch.no_grad():
+            for a, v in zip(self.acc, state["acc"]):
+                a.copy_(v)
 
 
 # ---------------------------------------------------------------------------
@@ -197,20 +306,41 @@ def _global_norm(params) -> torch.Tensor:
 @dataclasses.dataclass
 class Draws:
     """One step's random numbers (NCHW): message bits [B, bits] float32,
-    the VAE posterior noise and the diffusion noise [B, C, h, w], and the
-    timesteps [B] int64."""
+    the VAE posterior noise and the diffusion noise [B, C, h, w], the
+    timesteps [B] int64; with the kohya dropouts on, the rank-dropout
+    mask [B, rank] and the U-Net's and the text encoder's `SiteDraws`."""
 
     msg: torch.Tensor
     vae_noise: torch.Tensor
     noise: torch.Tensor
     t: torch.Tensor
+    rank_mask: Optional[torch.Tensor] = None
+    unet_sites: Optional[SiteDraws] = None
+    te_sites: Optional[SiteDraws] = None
+
+
+def draw_sites(lora: Optional[LoRAConfig], n: int,
+               generator: torch.Generator) -> Optional[SiteDraws]:
+    """The dropout numbers of `n` LoRA sites under `lora`: each site's
+    keep flag (Bernoulli(1 - module_dropout)) and the seed of its
+    elementwise mask (read back to the host: one synchronisation a step
+    with `--lora_dropout`); None when both dropouts are off."""
+    if lora is None or not lora.enabled or (lora.dropout <= 0
+                                             and lora.module_dropout <= 0):
+        return None
+    dev = generator.device
+    keep = (torch.rand(n, generator=generator, device=dev)
+            < 1.0 - lora.module_dropout if lora.module_dropout > 0 else None)
+    seeds = (torch.randint(0, 2 ** 62, (n,), generator=generator,
+                           device=dev).tolist() if lora.dropout > 0 else None)
+    return SiteDraws(keep, seeds)
 
 
 def draw(pipe: StableDiffusionPipeline, generator: torch.Generator,
-         pixels, cached: bool = False) -> Draws:
+         pixels, cached: bool = False, rank_dropout: float = 0.0) -> Draws:
     """A step's `Draws` for a batch of NHWC `pixels` (with `cached`, of
     cached moments [B, h, w, 2C]), from `generator` (on the pipeline's
-    device)."""
+    device); the dropouts' numbers after the rest, when they are on."""
     cfg, dev = pipe.config, pipe.device
     b, h, w = pixels.shape[:3]
     down = 1 if cached else cfg.vae.downscale
@@ -222,19 +352,32 @@ def draw(pipe: StableDiffusionPipeline, generator: torch.Generator,
     noise = torch.randn(lat, generator=generator, device=dev)
     t = torch.randint(0, cfg.schedule.num_train_timesteps, (b,),
                       generator=generator, device=dev)
-    return Draws(msg, vae_noise, noise, t)
+    rank_mask = (torch.rand((b, cfg.watermark.lora_rank),
+                            generator=generator, device=dev)
+                 < 1.0 - rank_dropout if rank_dropout > 0 else None)
+    return Draws(msg, vae_noise, noise, t, rank_mask,
+                 draw_sites(cfg.unet.lora, pipe.unet.num_sites, generator),
+                 draw_sites(cfg.clip.lora, pipe.clip.num_sites, generator))
 
 
 def make_loss_fn(pipe: StableDiffusionPipeline, sec_encoder: SecretEncoder,
-                 cache_latents: bool = False):
-    """The PPFT objective (`make_loss_fn`, `ppft_train.py:107-203`) ->
+                 cache_latents: bool = False,
+                 train_text_encoder: bool = False, rank_dropout: float = 0.0,
+                 teacher_skip_lora: bool = True):
+    """The PPFT objective (`make_loss_fn`, `ppft_train.py:87-205`) ->
     loss_fn(pixels NHWC, input_ids, draws) -> (loss, metrics).  The draws
     are an argument, so a test can hand it the JAX trainer's.
 
     With `cache_latents`, `pixels` are cached posterior moments [B, h, w,
     2C] (`data.CachedMomentsDataset`): cast to the pipeline's type before
     the posterior sample, as JAX casts them (`:117-123`), since a float32
-    latent would promote the whole U-Net to float32."""
+    latent would promote the whole U-Net to float32.  `rank_dropout`
+    folds the draws' rank mask into the diagonal (`:112-115`);
+    `train_text_encoder` computes the context once through the CLIP LoRA
+    at scale 1.0, with its dropouts, and feeds it to both passes
+    (`:145-158`); `teacher_skip_lora=False` runs the teacher at a zero
+    diagonal (`:171`).  The student's LoRA dropouts act under the draws'
+    `unet_sites`; the teacher has none."""
     sched, cfg = pipe.schedule, pipe.config
     v_pred = cfg.unet.prediction_type == "v_prediction"
     scaling = cfg.vae.scaling_factor
@@ -243,6 +386,9 @@ def make_loss_fn(pipe: StableDiffusionPipeline, sec_encoder: SecretEncoder,
     def loss_fn(pixels, input_ids, draws: Draws):
         x = torch.as_tensor(pixels, device=pipe.device).permute(0, 3, 1, 2)
         diag = pipe.mapper(draws.msg)
+        if rank_dropout > 0:
+            diag = block_lr.rank_dropout_scale(diag, draws.rank_mask,
+                                               rank_dropout)
         with torch.no_grad():
             if cache_latents:
                 moments = x.to(pipe.vae.quant_conv.weight.dtype).chunk(2, 1)
@@ -259,11 +405,19 @@ def make_loss_fn(pipe: StableDiffusionPipeline, sec_encoder: SecretEncoder,
                                           draws.t)
             noisy_wm = sched.add_noise(injected * scaling, draws.noise,
                                        draws.t)
-            ctx = pipe.clip(pipe._ids(input_ids))
+            if not train_text_encoder:
+                ctx = pipe.clip(pipe._ids(input_ids))
+        if train_text_encoder:
+            with lora_dropout(draws.te_sites):
+                ctx = pipe.clip(pipe._ids(input_ids), 1.0)
+        with torch.no_grad():
             # scale=None skips the LoRA branches: exactly the reference's
             # scale=0 teacher without the rank-R products
-            teacher = pipe.unet(noisy_clean, draws.t, ctx, None)
-        student = pipe.unet(noisy_wm, draws.t, ctx, diag)
+            teacher = pipe.unet(noisy_clean, draws.t, ctx,
+                                None if teacher_skip_lora
+                                else torch.zeros_like(diag))
+        with lora_dropout(draws.unet_sites):
+            student = pipe.unet(noisy_wm, draws.t, ctx, diag)
         if v_pred:
             student = sched.velocity_to_epsilon(student, noisy_wm, draws.t)
             teacher = sched.velocity_to_epsilon(teacher, noisy_clean, draws.t)
@@ -273,29 +427,54 @@ def make_loss_fn(pipe: StableDiffusionPipeline, sec_encoder: SecretEncoder,
     return loss_fn
 
 
+def make_update(optimizer: torch.optim.Optimizer, scheduler,
+                max_grad_norm: float = 1.0,
+                accumulator: Optional[GradientAccumulator] = None):
+    """-> update(): the JAX trainer's chain on the parameters' `.grad`
+    (`ppft_train.py:398-420`): the accumulator's window (no update before
+    its k-th micro-step), then the LoRA groups (U-Net and text encoder)
+    clipped together by global norm, then the optimizer (its groups'
+    learning rates carry the block weights) and the schedule."""
+    clipped = [p for g in optimizer.param_groups if g["name"] != "mapper"
+               for p in g["params"]]
+
+    @torch.no_grad()
+    def update() -> None:
+        if accumulator is not None and not accumulator.add():
+            return
+        norm = _global_norm(clipped)
+        factor = torch.where(norm < max_grad_norm,
+                             torch.ones_like(norm), max_grad_norm / norm)
+        for p in clipped:
+            if p.grad is not None:
+                p.grad.mul_(factor)
+        optimizer.step()
+        scheduler.step()
+
+    return update
+
+
 def make_train_step(pipe: StableDiffusionPipeline, sec_encoder: SecretEncoder,
                     optimizer: torch.optim.Optimizer, scheduler,
-                    max_grad_norm: float = 1.0, cache_latents: bool = False):
-    """-> train_step(pixels NHWC, input_ids, draws) -> metrics: one update
-    of the LoRA and mapper groups of `optimizer` (see `make_optimizer`)."""
-    loss_fn = make_loss_fn(pipe, sec_encoder, cache_latents)
-    groups = {g["name"]: g["params"] for g in optimizer.param_groups}
+                    max_grad_norm: float = 1.0, cache_latents: bool = False,
+                    accumulator: Optional[GradientAccumulator] = None,
+                    **loss_options):
+    """-> train_step(pixels NHWC, input_ids, draws) -> metrics: one
+    micro-step, an update of the groups of `optimizer` (see
+    `make_optimizer`) unless `accumulator` holds it back.  The LoRA groups
+    (U-Net and text encoder) are clipped together, the mapper is not.
+    `loss_options` go to `make_loss_fn`."""
+    loss_fn = make_loss_fn(pipe, sec_encoder, cache_latents, **loss_options)
+    update = make_update(optimizer, scheduler, max_grad_norm, accumulator)
+    params = [p for g in optimizer.param_groups for p in g["params"]]
 
     def train_step(pixels, input_ids, draws: Draws) -> Dict[str, Any]:
         optimizer.zero_grad(set_to_none=True)
         loss, metrics = loss_fn(pixels, input_ids, draws)
         loss.backward()
         with torch.no_grad():
-            metrics["grad_norm"] = _global_norm(
-                [p for params in groups.values() for p in params])
-            norm = _global_norm(groups["lora"])
-            factor = torch.where(norm < max_grad_norm,
-                                 torch.ones_like(norm), max_grad_norm / norm)
-            for p in groups["lora"]:
-                if p.grad is not None:
-                    p.grad.mul_(factor)
-        optimizer.step()
-        scheduler.step()
+            metrics["grad_norm"] = _global_norm(params)
+        update()
         return metrics
 
     return train_step
@@ -307,24 +486,40 @@ def make_train_step(pipe: StableDiffusionPipeline, sec_encoder: SecretEncoder,
 
 def build_configs(args) -> Tuple[PipelineConfig, EfficientNetConfig, int]:
     """-> (pipeline config, SecretDecoder backbone, pixel resolution);
-    `--tiny` ignores `--resolution`, as in the JAX trainer."""
+    `--tiny` ignores `--resolution`, as in the JAX trainer.  Remat, the
+    text-encoder LoRA at `--rank` and the kohya dropouts (on the CLIP LoRA
+    too when it is trained) as `build_configs`, `ppft_train.py:240-273`."""
+    rep_ = dataclasses.replace
     if args.tiny:
         cfg = PipelineConfig.tiny()
         if args.mapper_std != 1.0:
-            cfg = dataclasses.replace(cfg, watermark=dataclasses.replace(
-                cfg.watermark, mapper_std=args.mapper_std))
-        return cfg, EfficientNetConfig.tiny(), 64
-    cfg = PipelineConfig.sd15(args.rank)
-    cfg = dataclasses.replace(cfg, watermark=WatermarkConfig(
-        msg_bits=args.msg_bits, lora_rank=args.rank,
-        mapper_std=args.mapper_std))
-    return cfg, EfficientNetConfig.b1(), args.resolution
+            cfg = rep_(cfg, watermark=rep_(cfg.watermark,
+                                           mapper_std=args.mapper_std))
+        backbone, res = EfficientNetConfig.tiny(), 64
+    else:
+        cfg = PipelineConfig.sd15(args.rank)
+        cfg = rep_(cfg, watermark=WatermarkConfig(
+            msg_bits=args.msg_bits, lora_rank=args.rank,
+            mapper_std=args.mapper_std))
+        backbone, res = EfficientNetConfig.b1(), args.resolution
+    if args.gradient_checkpointing:
+        cfg = rep_(cfg, unet=rep_(cfg.unet, remat=True))
+    if args.train_text_encoder:
+        cfg = rep_(cfg, clip=cfg.clip.with_lora(args.rank))
+    md, ld = args.module_dropout or 0.0, args.lora_dropout or 0.0
+    if md > 0.0 or ld > 0.0:
+        cfg = rep_(cfg, unet=rep_(cfg.unet, lora=rep_(
+            cfg.unet.lora, module_dropout=md, dropout=ld)))
+        if cfg.clip.lora and cfg.clip.lora.enabled:
+            cfg = rep_(cfg, clip=rep_(cfg.clip, lora=rep_(
+                cfg.clip.lora, module_dropout=md, dropout=ld)))
+    return cfg, backbone, res
 
 
 @torch.no_grad()
-def init_lora(unet: nn.Module, generator: torch.Generator) -> None:
+def init_lora(module: nn.Module, generator: torch.Generator) -> None:
     """The LoRA init of the JAX layers: down N(0, (1/rank)^2), up zero."""
-    for name, p in split_lora(unet)[1].items():
+    for name, p in split_lora(module)[1].items():
         if name.endswith("up.weight"):
             p.zero_()
         else:
@@ -339,7 +534,10 @@ class Trainer:
     the trainable groups, the LR schedule and the step, the data (a
     prefetching iterator of (pixels or cached moments, captions), which
     outlives `run` for a caller that takes more steps; `close()` ends its
-    thread) and the step's generator; `cached` with `--cache_latents`."""
+    thread) and the step's generator; `cached` with `--cache_latents`, the
+    micro-steps of an epoch, the gradient accumulator with
+    `--gradient_accumulation_steps` above 1, `--rank_dropout` and the
+    seed."""
 
     pipe: StableDiffusionPipeline
     sec_encoder: SecretEncoder
@@ -352,6 +550,10 @@ class Trainer:
     generator: torch.Generator
     max_steps: int
     cached: bool = False
+    steps_per_epoch: int = 1
+    accumulator: Optional[GradientAccumulator] = None
+    rank_dropout: float = 0.0
+    seed: int = 0
 
 
 def _load_sd_checkpoint(path: str, pipe: StableDiffusionPipeline) -> None:
@@ -373,7 +575,7 @@ def _load_sd_checkpoint(path: str, pipe: StableDiffusionPipeline) -> None:
                      else k: v for k, v in state.items()}
             state = {k.replace("embeddings.", "").replace("encoder.", ""): v
                      for k, v in state.items() if "position_ids" not in k}
-        skip = split_lora(module)[1] if name == "unet" else ()
+        skip = split_lora(module)[1] if name != "vae" else ()
         assign_state(module, state, skip=skip, what=name)
 
 
@@ -387,7 +589,37 @@ def load_pretrain(path: str, sec_encoder: SecretEncoder,
     assign_state(msgdecoder, art["sec_decoder"], what="sec_decoder")
 
 
+UNPORTED = {
+    "--teacher_int8": "ROADMAP A.8, the w8a8 port",
+    "--int8_gen": "ROADMAP A.8, the w8a8 port",
+    "--fsdp": "ROADMAP A.9, the mesh",
+    "--dataset_name": "the HF datasets path: no `datasets` package, no "
+                      "download; pass a folder with --train_data_dir",
+    "--dataset_config_name": "the HF datasets path: no `datasets` package, "
+                             "no download; pass a folder with "
+                             "--train_data_dir"}
+
+
+def refuse_unported(args: argparse.Namespace) -> None:
+    """Raise NotImplementedError naming every flag of `UNPORTED` that is
+    set, and ValueError for an attention implementation the port does not
+    have."""
+    asked = [f for f in UNPORTED
+             if getattr(args, f[2:]) not in (None, False)]
+    if asked:
+        raise NotImplementedError("; ".join(
+            f"{f}: not ported to aqualora_torch ({UNPORTED[f]})"
+            for f in asked))
+    if args.attention_impl not in ("auto", "flash"):
+        raise ValueError(
+            f"--attention_impl {args.attention_impl}: the port has one "
+            "attention path, the flash-attention kernels of "
+            "aqualora_torch/ops/flash_attention.py (auto and flash take "
+            "it); it has no library fallback")
+
+
 def build_trainer(args: argparse.Namespace) -> Trainer:
+    refuse_unported(args)
     device = torch.device(args.device)
     seed = args.seed or 0
     torch.manual_seed(seed)
@@ -400,6 +632,7 @@ def build_trainer(args: argparse.Namespace) -> Trainer:
     groups = trainable_groups(pipe)
     gen = torch.Generator(device=device).manual_seed(seed)
     init_lora(pipe.unet, gen)
+    init_lora(pipe.clip, gen)
     pipe.mapper.reset_parameters()
     latent_res = resolution // cfg.vae.downscale
     with device:
@@ -418,10 +651,6 @@ def build_trainer(args: argparse.Namespace) -> Trainer:
     if args.resume_from_lora:
         pipe.load_watermark_lora(args.resume_from_lora)
 
-    if args.dataset_config_name:
-        raise NotImplementedError(
-            "--dataset_config_name belongs to the HF datasets path, which "
-            "the port does not have; pass a folder with --train_data_dir")
     dataset = data_lib.make_dataset(
         args.train_data_dir, resolution, dataset_name=args.dataset_name,
         max_samples=args.max_train_samples, center_crop=args.center_crop,
@@ -432,19 +661,34 @@ def build_trainer(args: argparse.Namespace) -> Trainer:
     if args.cache_latents:
         dataset = build_latent_cache(args, pipe, dataset, seed)
     max_steps = args.max_train_steps or args.num_train_epochs * steps_per_epoch
+    k = args.gradient_accumulation_steps
+    lr = args.learning_rate
+    if args.scale_lr:               # one process: accumulation x batch
+        lr *= k * args.train_batch_size
+    weights = block_lr.lr_weights(
+        split_lora(pipe.unet)[1].items(), args.down_lr_weight,
+        args.mid_lr_weight, args.up_lr_weight, args.block_lr_zero_threshold)
     optimizer, scheduler = make_optimizer(
-        groups, args.learning_rate, args.lr_warmup_steps, max_steps,
-        args.lr_end, (args.adam_beta1, args.adam_beta2), args.adam_epsilon,
-        args.adam_weight_decay)
+        groups, lr, args.lr_warmup_steps, max_steps, args.lr_end,
+        (args.adam_beta1, args.adam_beta2), args.adam_epsilon,
+        args.adam_weight_decay, args.use_8bit_adam, weights)
+    accumulator = (GradientAccumulator(
+        [p for g in optimizer.param_groups for p in g["params"]], k)
+        if k > 1 else None)
     step = make_train_step(pipe, sec_encoder, optimizer, scheduler,
-                           args.max_grad_norm, args.cache_latents)
+                           args.max_grad_norm, args.cache_latents,
+                           accumulator,
+                           train_text_encoder=args.train_text_encoder,
+                           rank_dropout=args.rank_dropout,
+                           teacher_skip_lora=args.teacher_skip_lora != 0)
     return Trainer(pipe, sec_encoder, msgdecoder, groups, scheduler, step,
                    data_lib.prefetch(dataset.batches(args.train_batch_size,
                                                      seed=seed)),
                    load_tokenizer(args.tokenizer_vocab,
                                   vocab_size=cfg.clip.vocab_size),
                    torch.Generator(device=device).manual_seed(seed + 1),
-                   max_steps, args.cache_latents)
+                   max_steps, args.cache_latents, steps_per_epoch,
+                   accumulator, args.rank_dropout, seed)
 
 
 def build_latent_cache(args: argparse.Namespace,
@@ -476,12 +720,15 @@ def build_latent_cache(args: argparse.Namespace,
 def save_artifacts(output_dir: str, pipe: StableDiffusionPipeline,
                    msgdecoder: SecretDecoder) -> None:
     """The run's artifacts (`save_artifacts`, `ppft_train.py:547-562`):
-    the U-Net LoRA in the reference's layout, the MapperNet's
+    the U-Net LoRA in the reference's layout, with the text-encoder LoRA's
+    keys when the CLIP carries one, the MapperNet's
     `bit_embeddings.weight` in float32, and the decoder as a torch state
     dict (`msgdecoder.pt`; the JAX trainer writes an orbax directory)."""
     os.makedirs(output_dir, exist_ok=True)
-    export_lora_safetensors(pipe.unet, pipe.config.unet,
-                            os.path.join(output_dir, LORA_FILE))
+    state = export_lora_safetensors(pipe.unet, pipe.config.unet)
+    if split_lora(pipe.clip)[1]:
+        state.update(export_te_lora_safetensors(pipe.clip, pipe.config.clip))
+    save_safetensors(state, os.path.join(output_dir, LORA_FILE))
     save_safetensors({"bit_embeddings.weight":
                       pipe.mapper.bit_embeddings.weight.detach().float()},
                      os.path.join(output_dir, MAPPER_FILE))
@@ -516,15 +763,53 @@ def final_sanity_inference(tr: Trainer, args: argparse.Namespace,
     return float((bits == msg.long()).float().mean())
 
 
+@torch.no_grad()
+def validate(tr: Trainer, args: argparse.Namespace, step: int,
+             tracker: Tracker | None = None) -> float:
+    """Periodic validation (`validate`, `ppft_train.py:565-613`): generate
+    `--num_validation_images` (at least 1) images of `--validation_prompt`
+    ("a photo" without one) with random messages at LoRA multiplier 1,
+    DPM-Solver++(2M) at `--validation_resolution` and
+    `--validation_num_inference_steps` (64 px and 2 steps with `--tiny`,
+    else `--resolution` and 25), through the current LoRAs; log the images
+    under "validation"; -> the decoded bit accuracy.  Its numbers come
+    from a generator of its own, seeded from the seed and the step."""
+    pipe = tr.pipe
+    res = args.validation_resolution or (64 if args.tiny else args.resolution)
+    steps = args.validation_num_inference_steps or (2 if args.tiny else 25)
+    gen = torch.Generator(device=pipe.device).manual_seed(
+        (tr.seed << 32) + step)
+    generate = pipe.make_generate(num_steps=steps, sampler="dpms_m",
+                                  height=res, width=res)
+    n = max(1, args.num_validation_images)
+    msg = torch.bernoulli(torch.full((n, pipe.config.watermark.msg_bits), 0.5,
+                                     device=pipe.device), generator=gen)
+    images = generate(tr.tokenizer([args.validation_prompt or "a photo"] * n),
+                      tr.tokenizer([""] * n), 7.5,
+                      pipe.message_scale(msg, multiplier=1.0),
+                      generator=gen)
+    if tracker is not None:
+        tracker.log_images("validation", images.float().cpu().numpy(), step)
+    bits, _ = decode_bits(tr.msgdecoder, images)
+    return float((bits == msg.long()).float().mean())
+
+
 def checkpoint_state(tr: Trainer, step: int) -> Dict[str, Any]:
     """The state a checkpoint keeps: the trainables, the optimizer, the
-    schedule, the step and the step generator's state."""
-    return {"lora": {k: p.detach() for k, p in
-                     split_lora(tr.pipe.unet)[1].items()},
-            "mapper": tr.pipe.mapper.state_dict(),
-            "optimizer": tr.scheduler.optimizer.state_dict(),
-            "scheduler": tr.scheduler.state_dict(), "step": step,
-            "generator": tr.generator.get_state()}
+    schedule, the step, the step generator's state and, when there are,
+    the text-encoder LoRA and the gradient accumulator."""
+    state = {"lora": {k: p.detach() for k, p in
+                      split_lora(tr.pipe.unet)[1].items()},
+             "mapper": tr.pipe.mapper.state_dict(),
+             "optimizer": tr.scheduler.optimizer.state_dict(),
+             "scheduler": tr.scheduler.state_dict(), "step": step,
+             "generator": tr.generator.get_state()}
+    te = split_lora(tr.pipe.clip)[1]
+    if te:
+        state["te_lora"] = {k: p.detach() for k, p in te.items()}
+    if tr.accumulator is not None:
+        state["accumulator"] = tr.accumulator.state_dict()
+    return state
 
 
 def resume(tr: Trainer, ckpt: CheckpointManager, which: str) -> int:
@@ -535,12 +820,17 @@ def resume(tr: Trainer, ckpt: CheckpointManager, which: str) -> int:
     assign_state(tr.pipe.unet, state["lora"],
                  skip=split_lora(tr.pipe.unet)[0], what="lora")
     assign_state(tr.pipe.mapper, state["mapper"], what="mapper")
+    if "te_lora" in state:
+        assign_state(tr.pipe.clip, state["te_lora"],
+                     skip=split_lora(tr.pipe.clip)[0], what="te_lora")
+    if tr.accumulator is not None:
+        tr.accumulator.load_state_dict(state["accumulator"])
     tr.scheduler.optimizer.load_state_dict(state["optimizer"])
     tr.scheduler.load_state_dict(state["scheduler"])
     start = int(state["step"])
     for _ in range(start):
         pixels, _ = next(tr.batches)
-        draw(tr.pipe, tr.generator, pixels, tr.cached)
+        draw(tr.pipe, tr.generator, pixels, tr.cached, tr.rank_dropout)
     if not torch.equal(tr.generator.get_state(), state["generator"]):
         raise ValueError(f"checkpoint {start}: its draws are not this run's "
                          "(another --seed, --train_batch_size or --tiny?)")
@@ -550,8 +840,10 @@ def resume(tr: Trainer, ckpt: CheckpointManager, which: str) -> int:
 def run(args: argparse.Namespace) -> Dict[str, Any]:
     """Train, then save the artifacts and run the sanity inference when
     asked; -> {"history": logged metrics, "seconds": each step's wall time
-    (the loss read back when it is logged), "trainer", "start_step", and
-    "sanity_bit_accuracy" when the sanity inference ran}."""
+    (the loss read back when it is logged; a validation is not in it),
+    "validation": [{"step", "accuracy", "seconds"}], "trainer",
+    "start_step", and "sanity_bit_accuracy" when the sanity inference
+    ran}."""
     if args.resume_from_checkpoint and not args.output_dir:
         raise ValueError("--resume_from_checkpoint reads "
                          "<output_dir>/checkpoints: pass --output_dir")
@@ -562,14 +854,21 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
     start = (resume(tr, ckpt, args.resume_from_checkpoint)
              if args.resume_from_checkpoint else 0)
     tracker = Tracker(args.output_dir, args.report_to)
-    history, seconds = [], []
+    history, seconds, validations = [], [], []
     t0 = time.time()
     for global_step in range(start + 1, tr.max_steps + 1):
         t1 = time.perf_counter()
         pixels, captions = next(tr.batches)
         ids = tr.tokenizer(captions or [""] * len(pixels))
-        draws = draw(tr.pipe, tr.generator, pixels, tr.cached)
+        draws = draw(tr.pipe, tr.generator, pixels, tr.cached,
+                     tr.rank_dropout)
         metrics = tr.train_step(pixels, ids, draws)
+        if args.debug_nans and not all(
+                math.isfinite(float(metrics[k]))
+                for k in ("ppft_loss", "grad_norm")):
+            raise FloatingPointError(
+                f"step {global_step}: ppft_loss {float(metrics['ppft_loss'])}"
+                f", grad_norm {float(metrics['grad_norm'])} (--debug_nans)")
         if global_step % args.log_every == 0:
             m = {k: float(v) for k, v in metrics.items()}
             history.append(m)
@@ -582,8 +881,22 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
         if ckpt is not None and global_step % args.checkpointing_steps == 0:
             ckpt.save(global_step, checkpoint_state(tr, global_step))
         seconds.append(time.perf_counter() - t1)
+        # in micro-steps, as the JAX loop (`ppft_train.py:504-519`)
+        due_epoch = (args.validation_epochs and global_step % (
+            tr.steps_per_epoch * args.validation_epochs) == 0)
+        due_step = (args.validation_steps
+                    and global_step % args.validation_steps == 0)
+        if due_epoch or due_step:
+            t1 = time.perf_counter()
+            acc = validate(tr, args, global_step, tracker)
+            validations.append({"step": global_step, "accuracy": acc,
+                                "seconds": time.perf_counter() - t1})
+            tracker.log({"validation_accuracy": acc}, global_step)
+            print(f"epoch {global_step // tr.steps_per_epoch} step "
+                  f"{global_step}: validation_accuracy {acc:.4f} "
+                  f"({validations[-1]['seconds']:.2f}s)", flush=True)
     out = {"history": history, "seconds": seconds, "trainer": tr,
-           "start_step": start}
+           "validation": validations, "start_step": start}
     if args.output_dir:
         save_artifacts(args.output_dir, tr.pipe, tr.msgdecoder)
         if args.validation_prompt and args.num_validation_images > 0:
@@ -596,6 +909,9 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
 
 
 def build_argparser() -> argparse.ArgumentParser:
+    """Every option of the JAX trainer's parser (`ppft_train.py:697-836`),
+    with the port's `--device`; see the module docstring for what each
+    does, which are inert and which are refused."""
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("--tiny", action="store_true",
@@ -625,20 +941,32 @@ def build_argparser() -> argparse.ArgumentParser:
                         "and skip the VAE encoder in the step; "
                         "incompatible with --random_flip")
     p.add_argument("--num_train_epochs", type=int, default=1)
-    p.add_argument("--max_train_steps", type=int, default=None)
+    p.add_argument("--max_train_steps", type=int, default=None,
+                   help="micro-steps (batches), as every step count here")
+    p.add_argument("--gradient_accumulation_steps", type=int, default=1,
+                   help="optax.MultiSteps: one update a k micro-steps, on "
+                        "their mean gradient")
     p.add_argument("--learning_rate", type=float, default=5e-4)
+    p.add_argument("--scale_lr", action="store_true",
+                   help="lr x accumulation x batch (one process)")
     p.add_argument("--lr_warmup_steps", type=int, default=500)
     p.add_argument("--lr_end", type=float, default=0.0)
+    p.add_argument("--lr_scheduler", type=str, default="constant",
+                   help="inert, as in JAX and the reference: the schedule "
+                        "is always cosine with warmup and lr_end")
+    p.add_argument("--lr_power", type=float, default=1.0, help="inert")
     p.add_argument("--adam_beta1", type=float, default=0.9)
     p.add_argument("--adam_beta2", type=float, default=0.999)
     p.add_argument("--adam_weight_decay", type=float, default=1e-2)
     p.add_argument("--adam_epsilon", type=float, default=1e-8)
+    p.add_argument("--use_8bit_adam", action="store_true",
+                   help="int8 blockwise moments (train/adamw8bit.py)")
     p.add_argument("--max_grad_norm", type=float, default=1.0)
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--mixed_precision", type=str, default="no",
-                   choices=["no", "bf16"],
+                   choices=["no", "bf16", "fp16"],
                    help="bf16: frozen modules in bfloat16, trainables in "
-                        "float32")
+                        "float32; fp16 computes in float32, as JAX does")
     p.add_argument("--pretrained_model_name_or_path", type=str,
                    default=None,
                    help="a local diffusers directory (unet, vae, "
@@ -648,11 +976,14 @@ def build_argparser() -> argparse.ArgumentParser:
                         "and SecretDecoder)")
     p.add_argument("--resume_from_lora", type=str, default=None,
                    help="a directory with pytorch_lora_weights.safetensors "
-                        "and mapper.safetensors")
+                        "(its text-encoder keys too, when present) and "
+                        "mapper.safetensors")
     p.add_argument("--output_dir", type=str, default=None,
                    help="where the LoRA, mapper and msgdecoder are written "
                         "at the end, the checkpoints and the logs (nothing "
                         "is written without it)")
+    p.add_argument("--logging_dir", type=str, default="logs",
+                   help="inert: the logs go to <output_dir>/logs")
     p.add_argument("--checkpointing_steps", type=int, default=500)
     p.add_argument("--checkpoints_total_limit", type=int, default=None)
     p.add_argument("--resume_from_checkpoint", type=str, default=None,
@@ -661,11 +992,56 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--report_to", type=str, default="tensorboard",
                    choices=["tensorboard", "wandb", "all", "none"])
     p.add_argument("--validation_prompt", type=str, default=None,
-                   help="with --output_dir: the final sanity inference's "
-                        "prompt")
+                   help="validation's prompt (\"a photo\" without it); with "
+                        "--output_dir also the final sanity inference's")
     p.add_argument("--num_validation_images", type=int, default=1)
+    p.add_argument("--validation_epochs", type=int, default=1,
+                   help="validate every N epochs (0: never)")
+    p.add_argument("--validation_steps", type=int, default=0,
+                   help="also validate every N micro-steps (0: never)")
+    p.add_argument("--validation_resolution", type=int, default=None)
+    p.add_argument("--validation_num_inference_steps", type=int,
+                   default=None)
+    p.add_argument("--teacher_skip_lora", type=int, default=1,
+                   help="1: the teacher skips the LoRA branches; 0: it runs "
+                        "them at a zero diagonal (the same output)")
+    p.add_argument("--teacher_int8", action="store_true",
+                   help="refused: ROADMAP A.8 (the w8a8 port)")
+    p.add_argument("--int8_gen", action="store_true",
+                   help="refused: ROADMAP A.8 (the w8a8 port)")
+    p.add_argument("--fsdp", action="store_true",
+                   help="refused: ROADMAP A.9 (the mesh)")
+    p.add_argument("--local_rank", type=int, default=-1, help="inert")
+    p.add_argument("--rank_dropout", type=float, default=0.0,
+                   help="kohya rank dropout, folded into the diagonal")
+    p.add_argument("--module_dropout", type=float, default=0.0,
+                   help="kohya module dropout: drop a LoRA site's whole "
+                        "delta with probability p a step")
+    p.add_argument("--lora_dropout", type=float, default=0.0,
+                   help="kohya dropout on the LoRA down activations")
+    p.add_argument("--down_lr_weight", type=str, default=None,
+                   help="block-wise LR of the down blocks: a preset "
+                        "(cosine/sine/linear/reverse_linear/zeros[+base]) "
+                        "or 12 comma-separated floats")
+    p.add_argument("--mid_lr_weight", type=float, default=None)
+    p.add_argument("--up_lr_weight", type=str, default=None)
+    p.add_argument("--block_lr_zero_threshold", type=float, default=0.0)
+    p.add_argument("--allow_tf32", action="store_true", help="inert")
+    p.add_argument("--train_text_encoder", action="store_true",
+                   help="also train a LoRA on CLIP's attention and MLP")
+    p.add_argument("--gradient_checkpointing", action="store_true",
+                   help="recompute the U-Net's transformer blocks in the "
+                        "backward")
+    p.add_argument("--enable_xformers_memory_efficient_attention",
+                   action="store_true", help="inert")
     p.add_argument("--tokenizer_vocab", type=str, default=None)
     p.add_argument("--log_every", type=int, default=1)
+    p.add_argument("--debug_nans", action="store_true",
+                   help="raise on a non-finite loss or gradient norm")
+    p.add_argument("--attention_impl", type=str, default="auto",
+                   choices=["auto", "flash", "sdpa", "xla"],
+                   help="auto and flash: the port's kernels; sdpa and xla "
+                        "are refused")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (the kernels) or cpu (their plain versions)")
     return p

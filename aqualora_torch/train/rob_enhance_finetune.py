@@ -59,9 +59,11 @@ decoded a step ahead on a background thread (`data.prefetch`); its
 captions are the generation's prompts, and a folder without captions
 prompts with "".  Without it, synthetic captions.  As in the JAX trainer,
 the parser is PPFT's: `--center_crop`, `--random_flip` and
-`--cache_latents` are accepted and have no effect here.
+`--cache_latents` are accepted and have no effect here; of PPFT's other
+options only what `ppft_train.build_configs` reads reaches the pipeline.
 
-Refused, each naming its ROADMAP item: `--fsdp` (A.9), `--int8_gen` (A.8);
+Refused as PPFT refuses them (`ppft_train.refuse_unported`), each naming
+its ROADMAP item: `--fsdp` (A.9), `--int8_gen` and `--teacher_int8` (A.8);
 `--dataset_name` and `--dataset_config_name`, the HF datasets path (no
 `datasets` package, no download).
 """
@@ -179,15 +181,7 @@ class Trainer:
 
 
 def _refuse_unported(args: argparse.Namespace) -> None:
-    asked = {"--fsdp (ROADMAP A.9)": args.fsdp,
-             "--int8_gen (ROADMAP A.8)": args.int8_gen,
-             "--dataset_name (the HF datasets path)": args.dataset_name,
-             "--dataset_config_name (the HF datasets path)":
-                 args.dataset_config_name}
-    refused = [flag for flag, on in asked.items() if on]
-    if refused:
-        raise NotImplementedError(
-            f"{', '.join(refused)}: not ported to aqualora_torch yet")
+    ppft_train.refuse_unported(args)         # the shared parser's flags
     if not args.output_dir:
         raise ValueError("stage 3 writes its checkpoints, logs and "
                          "msgdecoder.pt under --output_dir: pass one")
@@ -342,10 +336,6 @@ def build_argparser() -> argparse.ArgumentParser:
     p = ppft_train.build_argparser()
     p.description = __doc__
     p.set_defaults(learning_rate=5e-6, msg_bits=48)
-    p.add_argument("--fsdp", action="store_true",
-                   help="not ported yet: refused (ROADMAP A.9)")
-    p.add_argument("--int8_gen", action="store_true",
-                   help="not ported yet: refused (ROADMAP A.8)")
     return p
 
 

@@ -12,6 +12,7 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py --phases 19     # the chain, then the robustness
                                           # benchmark
     python3 chip_smoke.py --phases 20     # training from a folder of JPEGs
+    python3 chip_smoke.py --phases 21     # the trainers' remaining options
 
 Phases (any failure raises, so the exit code is not 0):
   0. torch and CUDA versions, the card's name and power limit (nvidia-smi).
@@ -216,11 +217,47 @@ Phases (any failure raises, so the exit code is not 0):
      the folder's captions.  With the whole-step profiles, one profiled
      step of the folder-fed and of the synthetic PPFT trainer: the device's
      busy share of the step's own wall time and of the unprofiled median.
+     Stage 1's runs through `run` (here and in phase 15) launch the d = 512
+     forward 3 times a step and 4 times an epoch: the epoch's sample image
+     and its eval each encode and decode once.
+ 21. The trainers' remaining options at full width (SD-1.5, rank 320, 48
+     bits, 512^2, B8, bf16, seeded random weights and stage-1 file), each
+     through `ppft_train`'s and `latent_wm_pretrain`'s entry points: (a)
+     `--use_8bit_adam`: the state's bytes beside float32 moments', one
+     update's host time, samples/s beside phase 8's float32 AdamW; then
+     one update on the card and on the CPU from the same state and
+     gradients: the codes and scales bit for bit; with the whole-step
+     profiles, one update's device time and kernels; (b)
+     `--gradient_checkpointing` with lora, module and rank dropout 0.1: the
+     same draws give the loss (1e-4 relative) and every gradient (the bf16
+     tolerance of the card tests) of the trainer without remat; 97 forward,
+     32 dQ, 32 dK/dV and 1 injection launches a step; peak memory and
+     samples/s with and without remat at B8 and B16, lower with; (c)
+     `--gradient_accumulation_steps 2` at B4 against one B8 step over the
+     same samples and draws, in float32: the mean gradient and the update
+     agree (P21_ACC_*), the micro-steps' seconds; (d) `--train_text_encoder`
+     through `run` (3 steps, --output_dir, the sanity inference): samples/s,
+     528 tensors in the LoRA file (144 of the text encoder); a fresh
+     pipeline with CLIP LoRA loads them bit for bit and generates 2 images
+     through them (801 launches, finite, changed by the text-encoder LoRA);
+     (e) `--teacher_skip_lora 0`: the loss torch.equal to the skipping
+     teacher's, the step times of both; (f) `--validation_steps 2` in a
+     4-step `run`: validations at steps 2 and 4, their seconds, 4 x 65 + 2 x
+     801 forward launches; (g) with cuDNN's and torch's deterministic
+     algorithms: PPFT with 8-bit AdamW and accumulation 2 resumed from
+     micro-step 3 (mid-window) equals the uninterrupted 4-step run bit for
+     bit; stage 1 (B5 bf16, a folder of 5 PNGs, one step an epoch) resumed
+     from epoch 1's checkpoint equals the run resumed from epoch 0 at epoch
+     2; (h) stage 1's loss and backward at B5, bf16 and float32, with
+     neither, either and both of `--remat_vae_decode` and `--remat_lpips`:
+     peak memory (lower with the decode's remat), seconds, the d = 512
+     forward's launches (4 with `--remat_vae_decode`, else 3), the loss
+     torch.equal in all four.
 The timed phases run first (0-7, 12, 13, 14, 8, 15, 16, 18b-d, 19d, 17,
-18a, 19a-c, 19e, 20) and the profiled ones after them, so that the profiler
+18a, 19a-c, 19e, 20, 21) and the profiled ones after them, so that the profiler
 touches no timed phase: first the short sessions (6's profile, 9, 10, 12's
 profile, 18a's, 19e's), then the profiles of whole steps (8, 14, 18d's,
-20's) and of a generate call (11).  After
+20's, 21a's update) and of a generate call (11).  After
 a session of a whole step, short sessions in the same process have recorded
 some device events or none (PERF.md, section 7).  The line before the last
 names the card and its power limit; the last line is {"ok": true,
@@ -352,6 +389,14 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def is_kernel(e) -> bool:
+    """A profiler event of device work: on the CUDA timeline, and not a
+    user annotation (`Optimizer.step#AdamW.step` spans the optimizer's
+    kernels and the gaps between them)."""
+    return (e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False))
+
+
 def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     for _ in range(warmup):
         fn()
@@ -379,7 +424,7 @@ def device_ms(fn, iters: int = 10) -> float:
             fn()
         torch.cuda.synchronize()
     us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
+             if is_kernel(e))
     return us / 1e3 / iters if us > 0 else float("nan")
 
 
@@ -991,7 +1036,7 @@ def phase6_profile(smi: str) -> None:
         si.fused_secret_inject(*args, base_res=32)
         torch.cuda.synchronize()
     kernels = [e.name for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if is_kernel(e)]
     dev = device_ms(lambda: si.fused_secret_inject(*args, base_res=32),
                     iters=20)
     print(f"[6] one inject call B{TRAIN_BATCH} bf16 runs {len(kernels)} CUDA "
@@ -1081,7 +1126,7 @@ def profile_step(tr, step_s: float, smi: str) -> None:
         tr.train_step(pixels, ids, draws)
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
+              if is_kernel(e)
               and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     if not events:
@@ -1259,7 +1304,7 @@ def phase11(smi: str, run, call_s: float) -> None:
         run(3)
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
+              if is_kernel(e)
               and e.self_device_time_total > 0]
     if not events:
         print("[11] device time by kernel: not measured (the profiler saw "
@@ -1585,7 +1630,7 @@ def kernel_union_ms(prof) -> float:
     their summed time can exceed the wall time)."""
     spans = sorted((e.time_range.start, e.time_range.end) for e in
                    prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+                   if is_kernel(e))
     total, end = 0.0, -math.inf
     for start, stop in spans:
         if stop > end:
@@ -1621,7 +1666,7 @@ def phase14_profile(smi: str, kept: dict) -> None:
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  if is_kernel(e)
                   and e.self_device_time_total > 0]
         if not events:
             print(f"[14] {tag} device time by kernel: not measured (the "
@@ -1673,8 +1718,9 @@ def chain_stage1(tmp: str):
     res = s1.run(args)
     torch.cuda.synchronize()
     got = counts()
-    # each step 3 / 1 / 1, and the epoch's eval encodes and decodes once
-    want = {"fwd": 3 * CHAIN_STEPS + 2, "dq": CHAIN_STEPS, "dkv": CHAIN_STEPS,
+    # each step 3 / 1 / 1, and the epoch's sample image and eval each
+    # encode and decode once
+    want = {"fwd": 3 * CHAIN_STEPS + 4, "dq": CHAIN_STEPS, "dkv": CHAIN_STEPS,
             "inject": 0}
     print(f"[15] stage 1 bf16 512^2 B{S1_BATCH}, {CHAIN_STEPS} steps through "
           f"latent_wm_pretrain.run: step wall times "
@@ -2612,7 +2658,7 @@ def phase18_profile(smi: str, kept: list) -> None:
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  if is_kernel(e)
                   and e.self_device_time_total > 0]
         if not events:
             print(f"[18] {tag} {res}^2 device time by kernel: not measured "
@@ -3257,7 +3303,7 @@ def phase20(smi: str, tmp: str, step_rate: float | None) -> tuple:
         "--dataset", folder, "--output_dir", str(out)]))
     torch.cuda.synchronize()
     got1 = counts()
-    want1 = {"fwd": 3 * CHAIN_STEPS + 2, "dq": CHAIN_STEPS,
+    want1 = {"fwd": 3 * CHAIN_STEPS + 4, "dq": CHAIN_STEPS,
              "dkv": CHAIN_STEPS, "inject": 0}
     losses1 = [h["loss"] for h in r1["history"]]
     print(f"[20] stage 1 from the folder (--dataset, B{S1_BATCH} 512^2 "
@@ -3394,6 +3440,677 @@ def phase20_profile(smi: str, kept: tuple) -> None:
 
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the trainers' remaining options at full width
+# ---------------------------------------------------------------------------
+
+P21_STEPS = 4                  # 1 warm-up + 3 timed
+P21_DROPOUTS = ("--lora_dropout", "0.1", "--module_dropout", "0.1",
+                "--rank_dropout", "0.1")
+P21_S1_FILES = 5               # stage 1's resume folder: one B5 step an epoch
+# 2 x B4 accumulated against one B8 step, in float32 (TF32 off): the same
+# samples through other batch shapes sum in other orders, so the mean
+# gradient is held to 1e-3 of its norm, and Adam's first step (lr * sign(g)
+# where |g| >> eps) to 0.05 lr on 99.9% of the elements it moves (a
+# gradient within rounding of 0 may take the other sign).  In bf16 the
+# same comparison gave 3.1e-2 and 94.4% (NVIDIA H100 80GB HBM3, 700 W);
+# `p21c_bf16` splits that gap into the accumulation's share (its mean
+# against the mean of the two B4 gradients, held to the same 1e-3) and the
+# batch shape's (the B4 mean against the B8 gradient, printed).
+P21_ACC_GRAD_TOL = 1e-3
+P21_ACC_AGREE = 0.999
+# remat recomputes the student's 32 attention forwards in the backward
+FWD_PER_STEP_REMAT = FWD_PER_STEP + BWD_PER_STEP                # 97
+
+
+def p21_pretrain(tmp: str) -> str:
+    """A stage-1 file of seeded random SecretEncoder and SecretDecoder
+    weights at full width, so that the PPFT loss is not 0."""
+    from aqualora_torch.core.config import EfficientNetConfig
+    from aqualora_torch.diffusion.pipeline import init_module_weights
+    from aqualora_torch.models.watermark import SecretDecoder, SecretEncoder
+    gen = torch.Generator().manual_seed(21)
+    enc = SecretEncoder(48, 32, 64, 4)
+    dec = SecretDecoder(48, EfficientNetConfig.b1(), device="cpu")
+    init_module_weights(enc, gen)
+    init_module_weights(dec, gen)
+    path = str(Path(tmp) / "s1_random.pt")
+    torch.save({"sec_encoder": enc.state_dict(),
+                "sec_decoder": dec.state_dict()}, path)
+    return path
+
+
+def p21_argv(s1_file: str, *extra: str, batch: int = TRAIN_BATCH) -> list:
+    """PPFT at full width (SD-1.5, rank 320, 48 bits, 512^2, bf16, a
+    constant learning rate, no validation unless asked)."""
+    return ["--rank", "320", "--msg_bits", "48", "--resolution", "512",
+            "--train_batch_size", str(batch), "--mixed_precision", "bf16",
+            "--learning_rate", "1e-4", "--lr_warmup_steps", "0", "--seed",
+            "0", "--report_to", "none", "--validation_epochs", "0",
+            "--start_from_pretrain", s1_file, *extra]
+
+
+def p21_trainer(s1_file: str, *extra: str, batch: int = TRAIN_BATCH):
+    from aqualora_torch.train import ppft_train as pt
+    return pt.build_trainer(pt.build_argparser().parse_args(
+        p21_argv(s1_file, *extra, batch=batch)))
+
+
+def p21_inputs(tr, pixels=None, captions=None, rank_dropout: float = 0.0):
+    from aqualora_torch.train import ppft_train as pt
+    if pixels is None:
+        pixels, captions = next(tr.batches)
+    return (pixels, tr.tokenizer(captions),
+            pt.draw(tr.pipe, tr.generator, pixels, rank_dropout=rank_dropout))
+
+
+def p21_steps(tr, n: int = P21_STEPS, inputs=None) -> tuple:
+    """n train steps of `tr`, synchronised, counted -> (wall seconds of the
+    steps after the first, each step's launches, the last metrics)."""
+    times, launches, metrics = [], [], None
+    for i in range(n):
+        args = inputs() if inputs else p21_inputs(tr)
+        before = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = tr.train_step(*args)
+        torch.cuda.synchronize()
+        if i:
+            times.append(time.perf_counter() - t0)
+        launches.append({k: v - before[k] for k, v in counts().items()})
+    loss = float(metrics["ppft_loss"])
+    if not (math.isfinite(loss) and loss > 0):
+        raise AssertionError(f"loss {loss} not finite positive")
+    return times, launches, metrics
+
+
+def p21_trainables(tr) -> dict:
+    return {n: p for part in (tr.pipe.unet, tr.pipe.clip, tr.pipe.mapper)
+            for n, p in part.named_parameters() if p.requires_grad}
+
+
+def p21a(smi: str, s1_file: str, step_rate: float | None):
+    """8-bit AdamW: state bytes, the optimizer's host time, samples/s; one
+    update on the card and on the CPU from the same state and gradients
+    gives the same codes and scales.  Returns the optimizer, with its last
+    gradients, for `phase21_profile`."""
+    from aqualora_torch.train.adamw8bit import AdamW8bit
+    tr = p21_trainer(s1_file, "--use_8bit_adam")
+    opt = tr.scheduler.optimizer
+    params = [p for g in opt.param_groups for p in g["params"]]
+    f32_bytes = 2 * 4 * sum(p.numel() for p in params)
+    times, launches, _ = p21_steps(tr)
+    want = {"fwd": FWD_PER_STEP, "dq": BWD_PER_STEP, "dkv": BWD_PER_STEP,
+            "inject": 1}
+    if launches[-1] != want:
+        raise AssertionError(f"8-bit AdamW step launches {launches[-1]}")
+    med = statistics.median(times)
+    # the update alone on the last step's gradients (the parameters move:
+    # this trainer is dropped after)
+    host = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.step()
+        host.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    print(f"[21a] 8-bit AdamW over {sum(p.numel() for p in params)} "
+          f"parameters ({len(params)} tensors, "
+          f"{sum(len(opt.chunks(g)) for g in opt.param_groups)} chunks): "
+          f"state {opt.state_bytes() / 2 ** 30:.4f} GiB (float32 moments "
+          f"{f32_bytes / 2 ** 30:.4f} GiB); one update {1e3 * min(host):.2f} "
+          f"ms host (min of 3); PPFT step with it {TRAIN_BATCH / med:.4f} samples/s (median "
+          f"of {len(times)}: {', '.join(f'{x:.4f}' for x in times)} s), "
+          f"phase 8's float32 AdamW "
+          + (f"{step_rate:.4f}" if step_rate else "not run")
+          + f" | {smi}", flush=True)
+    # card against CPU: the same state and gradients, one update each
+    cpu_params = [torch.nn.Parameter(p.detach().cpu()) for p in params]
+    for p, c in zip(params, cpu_params):
+        c.grad = p.grad.detach().cpu()
+    groups, i = [], 0
+    for g in opt.param_groups:
+        n = len(g["params"])
+        groups.append({**{k: v for k, v in g.items() if k != "params"},
+                       "params": cpu_params[i:i + n]})
+        i += n
+    cpu_opt = AdamW8bit(groups)
+    cpu_opt.load_state_dict(opt.state_dict())
+    t0 = time.perf_counter()
+    cpu_opt.step()
+    cpu_s = time.perf_counter() - t0
+    opt.step()
+    torch.cuda.synchronize()
+    states = list(zip(opt.state.values(), cpu_opt.state.values()))
+    codes_equal = all(torch.equal(a[k].cpu(), b[k]) for a, b in states
+                      for k in ("m_code", "m_scale", "v_code", "v_scale"))
+    p_diff = max(float((p.detach().cpu() - c.detach()).abs().max())
+                 for p, c in zip(params, cpu_params))
+    print(f"[21a] one 8-bit update on the card and on the CPU ({cpu_s:.2f} "
+          f"s there) from the same state and gradients: codes and scales of "
+          f"{len(states)} chunks bit for bit {codes_equal}, parameters max "
+          f"|d| {p_diff:.3e}", flush=True)
+    if not codes_equal:
+        raise AssertionError("8-bit codes or scales differ card vs CPU")
+    tr.batches.close()
+    return opt
+
+
+def phase21_profile(smi: str, opt) -> None:
+    """One 8-bit update under torch.profiler (with the whole-step
+    profiles): its device time and kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        opt.step()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if is_kernel(e) and e.self_device_time_total > 0]
+    dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    print(f"[21a] one 8-bit update under torch.profiler: device "
+          + (f"{dev_ms:.2f} ms in {sum(e.count for e in kern)} kernels"
+             if kern else "not measured (no CUDA events)")
+          + f" | {smi}", flush=True)
+
+
+def p21_grads(tr, inputs, **loss_kw) -> tuple:
+    """The loss and every trainable's gradient for fixed inputs."""
+    from aqualora_torch.train import ppft_train as pt
+    ps = list(p21_trainables(tr).items())
+    for _, p in ps:
+        p.grad = None
+    loss, _ = pt.make_loss_fn(tr.pipe, tr.sec_encoder, **loss_kw)(*inputs)
+    loss.backward()
+    return loss.detach(), {n: p.grad.detach().clone() for n, p in ps}
+
+
+def p21_peak(tr, inputs) -> tuple:
+    """The peak memory above the resident of one train step, and its wall
+    seconds."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr.train_step(*inputs)
+    torch.cuda.synchronize()
+    return ((torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+            time.perf_counter() - t0)
+
+
+def p21b(smi: str, s1_file: str) -> None:
+    """--gradient_checkpointing with the three dropouts: the same draws
+    give the loss and gradients of the trainer without remat, 97 forward
+    launches a step; peak memory and samples/s at B8 and B16."""
+    plain = p21_trainer(s1_file, *P21_DROPOUTS)
+    remat = p21_trainer(s1_file, *P21_DROPOUTS, "--gradient_checkpointing")
+    pixels, captions = next(plain.batches)
+    inputs = p21_inputs(plain, pixels, captions, rank_dropout=0.1)
+    d = inputs[2]
+    kw = {"rank_dropout": 0.1}
+    la, ga = p21_grads(plain, inputs, **kw)
+    lb, gb = p21_grads(remat, inputs, **kw)
+    rel = abs(float(lb) - float(la)) / abs(float(la))
+    worst, bitwise = 0.0, torch.equal(la, lb)
+    for n, g in ga.items():
+        m = float(g.float().abs().max())
+        diff = float((gb[n].float() - g.float()).abs().max())
+        bitwise = bitwise and diff == 0.0
+        worst = max(worst, diff / (1e-4 * m + 1e-5 + 2.0 ** -7 * m))
+    print(f"[21b] remat against no remat, one B8 step's draws with lora, "
+          f"module and rank dropout 0.1 ({int((~d.unet_sites.keep).sum())} "
+          f"of {d.unet_sites.keep.numel()} sites dropped): loss "
+          f"{float(la):.6e} vs {float(lb):.6e} (rel {rel:.2e}, tol "
+          f"{TINY_LOSS_RTOL:g}), gradients of {len(ga)} tensors within "
+          f"{worst:.3f} of the bf16 tolerance (1e-4 max|g| + 1e-5 + 2^-7 "
+          f"max|g|); bit for bit {bitwise}", flush=True)
+    if not (rel <= TINY_LOSS_RTOL and worst <= 1.0):
+        raise AssertionError("remat changed the loss or a gradient")
+    del ga, gb
+    import numpy as np
+    rows = {}
+    for tag, tr in (("no remat", plain), ("remat", remat)):
+        times, launches, _ = p21_steps(
+            tr, inputs=lambda tr=tr: p21_inputs(tr, rank_dropout=0.1))
+        want = {"fwd": FWD_PER_STEP_REMAT if tr is remat else FWD_PER_STEP,
+                "dq": BWD_PER_STEP, "dkv": BWD_PER_STEP, "inject": 1}
+        if any(x != want for x in launches):
+            raise AssertionError(f"{tag}: launches {launches}, want {want}")
+        b8, _ = p21_peak(tr, p21_inputs(tr, rank_dropout=0.1))
+        p1, c1 = next(tr.batches)
+        p2, c2 = next(tr.batches)
+        pix16, cap16 = np.concatenate([p1, p2]), list(c1) + list(c2)
+        b16, s16 = p21_peak(tr, p21_inputs(tr, pix16, cap16, 0.1))
+        rows[tag] = (b8, b16)
+        med = statistics.median(times)
+        print(f"[21b] {tag}: {TRAIN_BATCH / med:.4f} samples/s at B8 (median "
+              f"of {len(times)}: {', '.join(f'{x:.4f}' for x in times)} s), "
+              f"{16 / s16:.4f} at B16 (one step, {s16:.4f} s); launches a "
+              f"step {launches[-1]}; peak memory above the resident "
+              f"{b8:.2f} GiB at B8, {b16:.2f} GiB at B16 | {smi}",
+              flush=True)
+    if not all(rows["remat"][i] < rows["no remat"][i] for i in (0, 1)):
+        raise AssertionError(f"remat did not lower the peak: {rows}")
+    plain.batches.close()
+    remat.batches.close()
+    del plain, remat
+    torch.cuda.empty_cache()
+
+
+def p21c(smi: str, s1_file: str) -> None:
+    """--gradient_accumulation_steps 2 at B4 against one B8 step over the
+    same 8 samples and draws: the updated parameters agree."""
+    from aqualora_torch.train import ppft_train as pt
+    f32 = ("--mixed_precision", "no")
+    acc = p21_trainer(s1_file, *f32, "--gradient_accumulation_steps", "2",
+                      batch=TRAIN_BATCH // 2)
+    one = p21_trainer(s1_file, *f32)
+    pixels, captions = next(one.batches)
+    ids = one.tokenizer(captions)
+    d = pt.draw(one.pipe, one.generator, pixels)
+    h = TRAIN_BATCH // 2
+    halves = [(pixels[s], ids[s], pt.Draws(d.msg[s], d.vae_noise[s],
+                                           d.noise[s], d.t[s]))
+              for s in (slice(0, h), slice(h, None))]
+    # warm both batch shapes up (cuDNN's first calls) outside the update
+    for tr, inp in ((acc, halves[0]), (one, (pixels, ids, d))):
+        p21_grads(tr, inp)
+    before = {n: p.detach().clone() for n, p in p21_trainables(one).items()}
+    secs = []
+    for inp in halves:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        acc.train_step(*inp)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one.train_step(pixels, ids, d)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    # the (clipped) mean gradient the update used, against the B8 step's
+    # (the same samples through other batch shapes: bf16 roundings differ)
+    lr, worst, agree, total, num, den = 1e-4, 0.0, 0, 0, 0.0, 0.0
+    a_params = p21_trainables(acc)
+    for n, p in p21_trainables(one).items():
+        ga, gb = a_params[n].grad.float(), p.grad.float()
+        num += float(((ga - gb) ** 2).sum())
+        den += float((gb ** 2).sum())
+        step_one = p.detach() - before[n]
+        step_acc = a_params[n].detach() - before[n]
+        diff = (step_one - step_acc).abs()
+        worst = max(worst, float(diff.max()))
+        moved = step_one.abs() > 0.5 * lr
+        agree += int((diff[moved] <= 0.05 * lr).sum())
+        total += int(moved.sum())
+    share, rel = agree / max(total, 1), (num / den) ** 0.5
+    print(f"[21c] accumulation 2 x B4 against one B8 step, float32, the same "
+          f"samples and draws: micro-steps {secs[0]:.4f} s (held) and {secs[1]:.4f} "
+          f"s (update), the B8 step {one_s:.4f} s; mean gradient against "
+          f"the B8 gradient |d| / |g| {rel:.3e} (tol {P21_ACC_GRAD_TOL:g}); "
+          f"updates max |d| {worst:.3e} (bound 2 lr (1 + wd) = "
+          f"{2 * lr * 1.01:.3e}), {agree} of {total} moved elements "
+          f"({100 * share:.3f}%) within 0.05 lr (tol "
+          f"{100 * P21_ACC_AGREE:g}%) | {smi}", flush=True)
+    if acc.accumulator.mini_step != 0 or not (
+            rel <= P21_ACC_GRAD_TOL and worst <= 2 * lr * 1.01
+            and share >= P21_ACC_AGREE):
+        raise AssertionError("accumulated update differs from the B8 step")
+    acc.batches.close()
+    one.batches.close()
+    del acc, one
+    torch.cuda.empty_cache()
+    p21c_bf16(smi, s1_file, pixels, captions)
+
+
+def _rel_gap(a: dict, b: dict) -> float:
+    """|a - b| / |b| over every tensor of two gradient dicts."""
+    num = sum(float(((a[n].float() - g.float()) ** 2).sum())
+              for n, g in b.items())
+    den = sum(float((g.float() ** 2).sum()) for g in b.values())
+    return (num / den) ** 0.5
+
+
+def p21c_bf16(smi: str, s1_file: str, pixels, captions) -> None:
+    """bf16, accumulation 2 at B4: the mean the accumulator hands the
+    update against the clipped mean of the two B4 gradients computed
+    directly (the accumulation's share), and that direct mean against the
+    B8 gradient on the same draws (the batch shape's share)."""
+    from aqualora_torch.train import ppft_train as pt
+    tr = p21_trainer(s1_file, "--gradient_accumulation_steps", "2",
+                     batch=TRAIN_BATCH // 2)
+    ids = tr.tokenizer(captions)
+    d = pt.draw(tr.pipe, tr.generator, pixels)
+    h = TRAIN_BATCH // 2
+    halves = [(pixels[s], ids[s], pt.Draws(d.msg[s], d.vae_noise[s],
+                                           d.noise[s], d.t[s]))
+              for s in (slice(0, h), slice(h, None))]
+    _, g8 = p21_grads(tr, (pixels, ids, d))
+    g1, g2 = (p21_grads(tr, inp)[1] for inp in halves)
+    mean = {n: (g1[n] + g2[n]) / 2 for n in g1}
+    del g1, g2
+    params = p21_trainables(tr)
+    lora_ids = {id(p) for g in tr.scheduler.optimizer.param_groups
+                if g["name"] != "mapper" for p in g["params"]}
+    clipped = {n for n, p in params.items() if id(p) in lora_ids}
+    norm = float(sum((mean[n] ** 2).sum() for n in clipped)) ** 0.5
+    factor = min(1.0, 1.0 / norm)          # --max_grad_norm 1.0
+    want = {n: g * factor if n in clipped else g for n, g in mean.items()}
+    for inp in halves:
+        tr.train_step(*inp)
+    torch.cuda.synchronize()
+    got = {n: p.grad for n, p in params.items()}
+    acc_gap, shape_gap = _rel_gap(got, want), _rel_gap(mean, g8)
+    print(f"[21c] bf16, accumulation 2 x B4: the accumulator's mean against "
+          f"the clipped mean of the two B4 gradients computed directly |d| / "
+          f"|g| {acc_gap:.3e} (tol {P21_ACC_GRAD_TOL:g}); that direct B4 mean "
+          f"against the B8 gradient on the same draws {shape_gap:.3e} "
+          f"(the batch shape in bf16, printed) | {smi}", flush=True)
+    if not acc_gap <= P21_ACC_GRAD_TOL:
+        raise AssertionError("bf16 accumulated mean differs from the direct")
+    tr.batches.close()
+    del tr, g8, mean, want, got
+    torch.cuda.empty_cache()
+
+
+def p21d(smi: str, s1_file: str, tmp: str) -> None:
+    """--train_text_encoder through `run`: two steps, save, the sanity
+    inference through the saved text-encoder LoRA; then a fresh pipeline
+    loads the file and generates through it."""
+    from aqualora_torch.core.config import PipelineConfig
+    from aqualora_torch.core import io as aio
+    from aqualora_torch.core.tokenizer import load_tokenizer
+    from aqualora_torch.diffusion import pipeline as pl
+    from aqualora_torch.train import ppft_train as pt
+    out = str(Path(tmp) / "te")
+    reset_counts()
+    res = pt.run(pt.build_argparser().parse_args(p21_argv(
+        s1_file, "--train_text_encoder", "--max_train_steps", "3",
+        "--output_dir", out, "--validation_prompt", "a photo")))
+    torch.cuda.synchronize()
+    got = counts()
+    tr = res["trainer"]
+    te = {n: p.detach().clone() for n, p in
+          pt.split_lora(tr.pipe.clip)[1].items()}
+    state = aio.load_safetensors(str(Path(out) / aio.LORA_FILE))
+    n_te = sum(k.startswith("text_encoder.") for k in state)
+    rate = TRAIN_BATCH / statistics.median(res["seconds"][1:])
+    print(f"[21d] --train_text_encoder (rank 320 on CLIP's 72 sites, "
+          f"{sum(p.numel() for p in te.values())} parameters): "
+          f"{rate:.4f} samples/s (median of {len(res['seconds']) - 1} steps "
+          f"after a warm-up: {', '.join(f'{x:.4f}' for x in res['seconds'])}"
+          f" s); the file holds {len(state)} tensors, {n_te} of the text "
+          f"encoder; sanity inference bit accuracy "
+          f"{res['sanity_bit_accuracy']:.4f} (random weights: printed); "
+          f"launches {got} | {smi}", flush=True)
+    if n_te != 144 or len(state) != CHAIN_LORA_TENSORS + 144:
+        raise AssertionError(f"text-encoder LoRA file: {len(state)} tensors")
+    tr.batches.close()
+    del res, tr
+    torch.cuda.empty_cache()
+    cfg = PipelineConfig.sd15(lora_rank=320)
+    import dataclasses
+    cfg = dataclasses.replace(cfg, clip=cfg.clip.with_lora(320))
+    pipe = pl.StableDiffusionPipeline(cfg, dtype=torch.bfloat16,
+                                      device="cuda")
+    pipe.init_params(seed=0)
+    pipe.load_watermark_lora(out)
+    loaded = pt.split_lora(pipe.clip)[1]
+    same = set(loaded) == set(te) and all(torch.equal(loaded[k], v)
+                                          for k, v in te.items())
+    tok = load_tokenizer(None, vocab_size=cfg.clip.vocab_size)
+    msg = torch.bernoulli(torch.full((2, 48), 0.5, device="cuda"),
+                          generator=torch.Generator(device="cuda")
+                          .manual_seed(3))
+    gen = pipe.make_generate(num_steps=25, sampler="dpms_m")
+    reset_counts()
+    with_te = gen(tok(["a photo"] * 2), tok([""] * 2), 7.5,
+                  pipe.message_scale(msg, 1.0),
+                  generator=torch.Generator(device="cuda").manual_seed(4))
+    launches = counts()
+    for p in loaded.values():
+        p.data.zero_()
+    without = gen(tok(["a photo"] * 2), tok([""] * 2), 7.5,
+                  pipe.message_scale(msg, 1.0),
+                  generator=torch.Generator(device="cuda").manual_seed(4))
+    torch.cuda.synchronize()
+    moved = float((with_te.float() - without.float()).abs().max())
+    print(f"[21d] a fresh pipeline with CLIP LoRA loads the file: text-"
+          f"encoder LoRA equal to the trained bit for bit {same}; 2 images "
+          f"512^2 dpms_m-25 through it: finite "
+          f"{bool(torch.isfinite(with_te).all())}, max |d| against the "
+          f"text-encoder LoRA zeroed {moved:.4f}, launches {launches}",
+          flush=True)
+    if not (same and torch.isfinite(with_te).all() and moved > 0
+            and launches["fwd"] == LAUNCHES_PER_GENERATE):
+        raise AssertionError("text-encoder LoRA did not load or act")
+    del pipe, gen
+    torch.cuda.empty_cache()
+
+
+def p21e(smi: str, s1_file: str) -> None:
+    """--teacher_skip_lora 0: the loss equals the skipping teacher's
+    (torch.equal); the step time of both."""
+    from aqualora_torch.train import ppft_train as pt
+    tr = p21_trainer(s1_file)
+    inputs = p21_inputs(tr)
+    with torch.no_grad():
+        skip, _ = pt.make_loss_fn(tr.pipe, tr.sec_encoder)(*inputs)
+        zero, _ = pt.make_loss_fn(tr.pipe, tr.sec_encoder,
+                                  teacher_skip_lora=False)(*inputs)
+    rates = {}
+    for tag, flag in (("skip", True), ("zero", False)):
+        tr.train_step = pt.make_train_step(
+            tr.pipe, tr.sec_encoder, tr.scheduler.optimizer, tr.scheduler,
+            teacher_skip_lora=flag)
+        times, _, _ = p21_steps(tr)
+        rates[tag] = statistics.median(times)
+    print(f"[21e] --teacher_skip_lora 0: loss {float(zero):.8e}, the "
+          f"skipping teacher's {float(skip):.8e}, torch.equal "
+          f"{torch.equal(zero, skip)}; step {rates['zero']:.4f} s against "
+          f"{rates['skip']:.4f} s (median of {P21_STEPS - 1} each) | {smi}",
+          flush=True)
+    if not torch.equal(zero, skip):
+        raise AssertionError("the scale-0 teacher's loss differs")
+    tr.batches.close()
+    del tr
+    torch.cuda.empty_cache()
+
+
+def p21f(smi: str, s1_file: str) -> None:
+    """--validation_steps 2 in a 4-step run: validations at steps 2 and 4."""
+    from aqualora_torch.train import ppft_train as pt
+    reset_counts()
+    res = pt.run(pt.build_argparser().parse_args(p21_argv(
+        s1_file, "--max_train_steps", "4", "--validation_steps", "2",
+        "--validation_prompt", "a photo")))
+    torch.cuda.synchronize()
+    got = counts()
+    v = res["validation"]
+    print(f"[21f] periodic validation (1 image, 512^2 dpms_m-25): at steps "
+          f"{[x['step'] for x in v]}, seconds "
+          + ", ".join(f"{x['seconds']:.4f}" for x in v) + ", bit accuracy "
+          + ", ".join(f"{x['accuracy']:.4f}" for x in v) + f" (random "
+          f"weights: printed); launches of the run {got} | {smi}",
+          flush=True)
+    want = {"fwd": 4 * FWD_PER_STEP + 2 * LAUNCHES_PER_GENERATE,
+            "dq": 4 * BWD_PER_STEP, "dkv": 4 * BWD_PER_STEP, "inject": 4}
+    if [x["step"] for x in v] != [2, 4] or got != want:
+        raise AssertionError(f"validation steps {v}, launches {got} (want "
+                             f"{want})")
+    res["trainer"].batches.close()
+    del res
+    torch.cuda.empty_cache()
+
+
+def p21g(smi: str, s1_file: str, tmp: str) -> None:
+    """Resume bit for bit: PPFT with 8-bit AdamW and accumulation 2
+    interrupted after micro-step 3 (mid-window); stage 1 resumed from an
+    epoch's checkpoint (cuDNN's deterministic algorithms on)."""
+    from aqualora_torch.eval.image_io import save_png
+    from aqualora_torch.train import latent_wm_pretrain as s1
+    from aqualora_torch.train import ppft_train as pt
+    # deterministic cuDNN, and the sort-based scatter_add of gather's
+    # backward (stage 1's crop and cornerfy) in place of atomics
+    deterministic = torch.backends.cudnn.deterministic
+    algorithms = (torch.are_deterministic_algorithms_enabled(),
+                  torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        out = str(Path(tmp) / "resume")
+        argv = p21_argv(s1_file, "--use_8bit_adam",
+                        "--gradient_accumulation_steps", "2",
+                        "--max_train_steps", "4", "--checkpointing_steps",
+                        "3", "--output_dir", out)
+        full = pt.run(pt.build_argparser().parse_args(argv))
+        want = {n: p.detach().clone()
+                for n, p in p21_trainables(full["trainer"]).items()}
+        full["trainer"].batches.close()
+        del full
+        t0 = time.perf_counter()
+        res = pt.run(pt.build_argparser().parse_args(
+            argv + ["--resume_from_checkpoint", "3"]))
+        resume_s = time.perf_counter() - t0
+        got = p21_trainables(res["trainer"])
+        same = all(torch.equal(got[n].detach(), v) for n, v in want.items())
+        ck = Path(out) / "checkpoints" / "3.pt"
+        print(f"[21g] PPFT 8-bit AdamW, accumulation 2, 4 micro-steps "
+              f"against a run resumed from micro-step 3 (mid-window; the "
+              f"checkpoint {ck.stat().st_size / 2 ** 30:.3f} GiB): "
+              f"{len(want)} trainables bit for bit {same}; the resumed run "
+              f"{resume_s:.2f} s | {smi}", flush=True)
+        res["trainer"].batches.close()
+        del res, got, want
+        torch.cuda.empty_cache()
+        if not same:
+            raise AssertionError("PPFT resume mid-window differs")
+        # stage 1: A trains epoch 0; B resumes it for epochs 1-2; C resumes
+        # epoch 1's checkpoint for epoch 2: C's epoch-2 state is B's
+        import numpy as np
+        folder = Path(tmp) / "s1_images"
+        folder.mkdir()
+        rng = np.random.default_rng(21)
+        for i in range(P21_S1_FILES):
+            save_png(str(folder / f"{i}.png"), rng.integers(
+                0, 256, (S1_RES, S1_RES, 3), dtype=np.uint8))
+
+        def stage1(out_dir, *extra):
+            return s1.run(s1.build_argparser().parse_args([
+                "--batch_size", str(S1_BATCH), "--mixed_precision", "bf16",
+                "--seed", "0", "--dataset", str(folder), "--output_dir",
+                out_dir, *extra]))
+        a, c = str(Path(tmp) / "s1a"), str(Path(tmp) / "s1c")
+        stage1(a, "--epochs", "1")
+        rb = stage1(a, "--epochs", "2", "--resume_from_ckpt", "latest")
+        os.makedirs(Path(c) / "checkpoints")
+        shutil.copy(Path(a) / "checkpoints" / "1.pt",
+                    Path(c) / "checkpoints" / "1.pt")
+        rc = stage1(c, "--epochs", "1", "--resume_from_ckpt", "1")
+        wa = torch.load(Path(a) / "checkpoints" / "2.pt", weights_only=True)
+        wc = torch.load(Path(c) / "checkpoints" / "2.pt", weights_only=True)
+        same = all(torch.equal(wa[part][k], wc[part][k])
+                   for part in ("sec_encoder", "sec_decoder")
+                   for k in wa[part]) and torch.equal(wa["generator"],
+                                                      wc["generator"])
+        print(f"[21g] stage 1 --resume_from_ckpt (512^2 B{S1_BATCH} bf16, "
+              f"one step an epoch): epoch 2 resumed from epoch 1's "
+              f"checkpoint against epochs 1-2 resumed from epoch 0's: "
+              f"encoder, decoder, BatchNorm statistics and generator bit "
+              f"for bit {same}; losses {rb['history'][-1]['loss']:.6e} and "
+              f"{rc['history'][-1]['loss']:.6e}", flush=True)
+        if not same or rb["history"][-1] != rc["history"][-1]:
+            raise AssertionError("stage-1 resume differs")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        torch.use_deterministic_algorithms(algorithms[0],
+                                           warn_only=algorithms[1])
+
+
+def p21h(smi: str) -> None:
+    """Stage 1's remat flags at B5, bf16 and float32: peak memory of the
+    loss and backward with and without each, the d = 512 forward's
+    launches (4 with --remat_vae_decode) and the loss unchanged."""
+    from aqualora_torch.ops import flash_attention as fa
+    from aqualora_torch.train import latent_wm_pretrain as s1
+    configs = (("none", {}), ("--remat_vae_decode",
+                              {"remat_vae_decode": True}),
+               ("--remat_lpips", {"remat_lpips": True}),
+               ("both", {"remat_vae_decode": True, "remat_lpips": True}))
+    for mp, dtype in (("bf16", torch.bfloat16), ("no", torch.float32)):
+        tag = DTYPE_NAMES[dtype]
+        tr = s1.build_trainer(s1.build_argparser().parse_args([
+            "--batch_size", str(S1_BATCH), "--mixed_precision", mp,
+            "--seed", "0"]))
+        m = tr.models
+        with torch.no_grad():
+            w = m.sec_encoder.conv_out.weight
+            w.copy_(0.1 * torch.randn(w.shape, device="cuda", generator=torch
+                                      .Generator(device="cuda").manual_seed(
+                                          21)))
+        ctl = s1.Control()
+        pixels, _ = next(tr.dataset.batches(S1_BATCH, seed=0))
+        x = torch.as_tensor(pixels, device="cuda").permute(0, 3, 1, 2)
+        d = s1.draw(m, tr.generator, tuple(x.shape), ctl.distort_probs)
+        stats = {k: v.clone() for k, v in m.sec_decoder.state_dict().items()}
+        rows, loss0 = {}, None
+        for name, kw in configs:
+            m.sec_decoder.load_state_dict(stats)
+            for part in (m.sec_encoder, m.sec_decoder):
+                part.zero_grad(set_to_none=True)
+            fn = s1.make_loss_fn(m, **kw)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            before = fa.launches.by_shape[S1_KEY]
+            t0 = time.perf_counter()
+            loss, _ = fn(x, d, ctl)
+            loss.backward()
+            torch.cuda.synchronize()
+            rows[name] = ((torch.cuda.max_memory_allocated() - base)
+                          / 2 ** 30, time.perf_counter() - t0,
+                          fa.launches.by_shape[S1_KEY] - before,
+                          float(loss.detach()))
+            loss0 = loss.detach() if loss0 is None else loss0
+            if not torch.equal(loss.detach(), loss0):
+                raise AssertionError(f"{tag} {name}: loss {float(loss)} "
+                                     f"against {float(loss0)}")
+        print(f"[21h] stage-1 loss and backward 512^2 B{S1_BATCH} {tag}, "
+              f"peak memory above the resident / seconds / d = 512 forward "
+              f"launches: "
+              + "; ".join(f"{n} {r[0]:.2f} GiB {r[1]:.4f} s {r[2]}"
+                          for n, r in rows.items())
+              + f"; loss {rows['none'][3]:.6e} equal in all | {smi}",
+              flush=True)
+        want = {"none": 3, "--remat_vae_decode": 4, "--remat_lpips": 3,
+                "both": 4}
+        if {n: r[2] for n, r in rows.items()} != want:
+            raise AssertionError(f"{tag}: d = 512 launches {rows}")
+        if not (rows["--remat_vae_decode"][0] < rows["none"][0]
+                and rows["both"][0] < rows["none"][0]):
+            raise AssertionError(f"{tag}: remat did not lower the peak")
+        del tr, m
+        torch.cuda.empty_cache()
+
+
+def phase21(smi: str, tmp: str, step_rate: float | None):
+    """The trainers' remaining options at full width (see the docstring);
+    returns 21a's optimizer for `phase21_profile`."""
+    t_phase = time.perf_counter()
+    s1_file = p21_pretrain(tmp)
+    opt = p21a(smi, s1_file, step_rate)
+    p21b(smi, s1_file)
+    p21c(smi, s1_file)
+    p21d(smi, s1_file, tmp)
+    p21e(smi, s1_file)
+    p21f(smi, s1_file)
+    p21g(smi, s1_file, tmp)
+    p21h(smi)
+    print(f"[21] phase 21 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return opt
+
+
 def kernels_line(rows, launches, bwd_rows, train_launches, inject_row,
                  inject_launches, s1_rows, s1_launches, proto_launches,
                  s3_rows, s3_launches, dist_launches, s21_rows) -> dict:
@@ -3470,7 +4187,7 @@ def main(argv=None):
                          "phase 0 always runs, and the kernels line needs "
                          "all of them)")
     args = ap.parse_args(argv)
-    every = set(range(21))
+    every = set(range(22))
     run_ = every if args.phases is None else \
         {0} | {int(x) for x in args.phases.split(",")}
     if 11 in run_:
@@ -3543,6 +4260,9 @@ def main(argv=None):
     if 20 in run_:
         p20_tmp = tempfile.TemporaryDirectory(prefix="aqualora_data_")
         p20_kept = phase20(smi, p20_tmp.name, step_rate)
+    if 21 in run_:
+        with tempfile.TemporaryDirectory(prefix="aqualora_flags_") as tmp:
+            p21_opt = phase21(smi, tmp, step_rate)
     # the profiled phases: the short sessions first, then the profiles of
     # whole steps and of the generate call (see the docstring)
     if 6 in run_:
@@ -3570,6 +4290,10 @@ def main(argv=None):
     if 20 in run_:
         phase20_profile(smi, p20_kept)
         p20_tmp.cleanup()
+    if 21 in run_:
+        phase21_profile(smi, p21_opt)
+        del p21_opt
+        torch.cuda.empty_cache()
     if 11 in run_:
         phase11(smi, serve, med_s)
     if run_ == every:

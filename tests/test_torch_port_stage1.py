@@ -822,10 +822,11 @@ def test_stage1_cli_runs_on_cpu(tmp_path, monkeypatch, capsys):
 
 
 def test_stage1_cli_defaults_and_refusals():
-    """`--device` defaults to cuda; the flags not ported are refused,
-    never ignored; a VAE directory that does not exist is refused (the
-    loader is held against JAX's in tests/test_torch_port_artifacts.py); a
-    dataset path that is not a directory raises rather than training on
+    """`--device` defaults to cuda; the one flag not ported (`--fsdp`) is
+    refused, never ignored, and the others build a trainer (they are held
+    in tests/test_torch_port_stage1_flags.py); a VAE directory that does
+    not exist is refused (the loader is held against JAX's in
+    tests/test_torch_port_artifacts.py); a dataset path that is not a directory raises rather than training on
     noise (the folder itself: tests/test_torch_port_data.py)."""
     from aqualora_torch.train import data
     from aqualora_torch.train import latent_wm_pretrain as tt
@@ -833,11 +834,13 @@ def test_stage1_cli_defaults_and_refusals():
     args = tt.build_argparser().parse_args([])
     assert args.device == "cuda" and args.batch_size == 5
     assert args.mixed_precision == "no"
-    for extra in (["--resume_from_ckpt", "x"], ["--fsdp"], ["--remat_lpips"],
+    with pytest.raises(NotImplementedError, match="--fsdp"):
+        tt.build_trainer(tt.build_argparser().parse_args(
+            ["--tiny", "--device", "cpu", "--fsdp"]))
+    for extra in (["--resume_from_ckpt", "x"], ["--remat_lpips"],
                   ["--remat_vae_decode"], ["--report_to", "tensorboard"]):
-        with pytest.raises(NotImplementedError):
-            tt.build_trainer(tt.build_argparser().parse_args(
-                ["--tiny", "--device", "cpu"] + extra))
+        tt.build_trainer(tt.build_argparser().parse_args(
+            ["--tiny", "--device", "cpu"] + extra))
     with pytest.raises(FileNotFoundError):
         tt.build_trainer(tt.build_argparser().parse_args(
             ["--tiny", "--device", "cpu", "--pretrained_model_name_or_path",

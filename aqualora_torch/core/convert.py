@@ -23,6 +23,14 @@ tree (one with `vgg/conv0`) is renamed into the lpips package's layout: the
 VGG16 convolutions `vgg/convI` become `net.sliceS.N` (N torchvision's
 feature index) and each lin weight [C, 1] becomes `linI.model.1.weight`
 [1, C, 1, 1].
+
+An InceptionV3 tree keeps torchvision's names as they stand
+(`Mixed_6b/branch7x7_1` is `Mixed_6b.branch7x7_1`, whose `_1` is no
+index).  A ViT tree (one with a `cls_token`) is renamed into DINO's layout:
+`patch_embed` becomes `patch_embed.proj`, a block's `qkv` and `proj`
+`attn.qkv` and `attn.proj`, its `fc1` and `fc2` `mlp.fc1` and `mlp.fc2`;
+the CLIP projection `proj` [dim, proj_dim] stays as it is.  These are the
+reverse of `tools/torch_import.py`'s readers.
 """
 
 from __future__ import annotations
@@ -40,6 +48,8 @@ Path = Tuple[str, ...]
 
 # names whose trailing _N is literal in diffusers (not a list index)
 _PROTECTED = {"linear_1", "linear_2", "norm_1", "norm_2", "conv_1", "conv_2"}
+# torchvision's InceptionV3 names, whose digits are no list index
+_INCEPTION_NAME = re.compile(r"^(Conv2d_\w+|Mixed_\w+|branch\w+)$")
 _STATS = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -56,7 +66,7 @@ def torch_key(path: Path) -> str:
     'down_blocks.0.attentions.1.to_out.0.weight'."""
     parts = []
     for p in path:
-        if p in _PROTECTED:
+        if p in _PROTECTED or _INCEPTION_NAME.match(p):
             parts.append(p)
         else:
             parts.append(re.sub(r"_(\d+)$", r".\1",
@@ -149,6 +159,28 @@ def _lpips_layout(out: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     return moved
 
 
+_VIT_BLOCK = re.compile(r"(blocks\.\d+\.)(qkv|proj|fc1|fc2)\.(weight|bias)$")
+_VIT_SUB = {"qkv": "attn.qkv", "proj": "attn.proj", "fc1": "mlp.fc1",
+            "fc2": "mlp.fc2"}
+
+
+def _vit_renames(keys) -> Dict[str, str]:
+    """Generic keys of every ViT in `keys` -> DINO's keys."""
+    out = {}
+    for cls_key in [k for k in keys if k.endswith("cls_token")]:
+        pre = cls_key[: -len("cls_token")]
+        for k in keys:
+            if not k.startswith(pre):
+                continue
+            rest = k[len(pre):]
+            m = _VIT_BLOCK.fullmatch(rest)
+            if m:
+                out[k] = f"{pre}{m[1]}{_VIT_SUB[m[2]]}.{m[3]}"
+            elif rest in ("patch_embed.weight", "patch_embed.bias"):
+                out[k] = f"{pre}patch_embed.proj.{rest.split('.')[-1]}"
+    return out
+
+
 def torch_layout(params: Mapping, batch_stats: Optional[Mapping] = None
                  ) -> Dict[str, np.ndarray]:
     """Torch keys and numpy arrays in torch layout (transposed views, no
@@ -161,7 +193,7 @@ def torch_layout(params: Mapping, batch_stats: Optional[Mapping] = None
         out[torch_key(path[:-1] + (_STATS[path[-1]],))] = np.asarray(v)
         out[torch_key(path[:-1] + ("num_batches_tracked",))] = np.zeros(
             (), np.int64)
-    renames = _efficientnet_renames(list(out))
+    renames = {**_efficientnet_renames(list(out)), **_vit_renames(list(out))}
     return _lpips_layout({renames.get(k, k): a for k, a in out.items()})
 
 

@@ -1,7 +1,8 @@
-"""Artifact I/O: safetensors written by hand, the watermark-LoRA key layout,
-and strict loading of torch state dicts into modules.
+"""Artifact I/O: safetensors written by hand, torch pickles, the
+watermark-LoRA key layout, and strict loading of torch state dicts into
+modules.
 
-The port of `aqualora_tpu/core/io.py:32-42,160-336`.  The JAX
+The port of `aqualora_tpu/core/io.py:32-66,160-336`.  The JAX
 package reads and writes safetensors through the `safetensors` package;
 the port has its own reader and writer, so that a machine without that
 package runs it.  A file is an 8-byte little-endian header length, a JSON
@@ -155,6 +156,25 @@ def load_safetensors(path: str, device: str | torch.device = "cpu"
                     dtype).reshape(shape)
             out[name] = t.to(device)
     return out
+
+
+# ---------------------------------------------------------------------------
+# torch pickles
+# ---------------------------------------------------------------------------
+
+def load_torch_pickle(path: str) -> Dict[str, object]:
+    """A torch .pt/.pth checkpoint -> its state dict, tensors kept as torch
+    tensors on the CPU (`aqualora_tpu/core/io.py:44-66`).  Read
+    with `weights_only=True`; a full DINO training checkpoint stores an
+    `argparse.Namespace` under `args`, which the safe unpickler refuses, so
+    the retry allows exactly that type (a pickled module stays refused)."""
+    try:
+        obj = torch.load(path, map_location="cpu", weights_only=True)
+    except Exception:
+        import argparse
+        with torch.serialization.safe_globals([argparse.Namespace]):
+            obj = torch.load(path, map_location="cpu", weights_only=True)
+    return dict(obj)
 
 
 # ---------------------------------------------------------------------------

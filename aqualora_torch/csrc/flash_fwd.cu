@@ -25,9 +25,9 @@
 //   decodes at full width): `flash_fwd_d512_tc_kernel<float>`, TF32
 //   tensor-core products split three ways (3xTF32), which keep the float32
 //   limit (1e-4) where one TF32 product would not.
-// - float32 at d <= 160 (no full-width path runs it; the card-vs-CPU checks
-//   of the tiny configurations do): `flash_fwd_kernel`, float32 FMAs on the
-//   CUDA cores.
+// - float32 at d <= 160 (stage 3 in float32 at 512^2 and 768^2; DreamSim's
+//   ViTs at d = 64 and 80, T = 50-257; the card-vs-CPU checks of the tiny
+//   configurations): `flash_fwd_kernel`, float32 FMAs on the CUDA cores.
 //
 // Tensor-core design (bfloat16, d <= 160).
 // - Products: `mma.sync.aligned.m16n8k16` bf16 x bf16 -> float32 with

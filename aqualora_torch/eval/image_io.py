@@ -17,7 +17,9 @@ itself, bit for bit:
   ignored, as the stripped alpha), grey at 1, 2 or 4 bits scaled to 8
   (`png_set_expand_gray_1_2_4_to_8`), 16-bit samples cut to their high
   byte (`png_set_strip_16`), grey replicated and alpha dropped, Adam7
-  interlacing, any number of IDAT chunks and all five row filters.  That
+  interlacing, any number of IDAT chunks and all five row filters (undone
+  in host C++, `csrc/png_unfilter.cpp`; `_unfilter_plain` in Python is its
+  plain version).  That
   is PIL's `convert("RGB")` too, but for 16-bit grey, which PIL opens as
   `I;16` and clips to 255: `pil=True` takes PIL's rule;
 - `resize_bicubic_pil`: Pillow's `Image.resize(size, BICUBIC)` on RGB, as
@@ -30,7 +32,9 @@ into an HWC (or HW grey) uint8 array, PIL images included.
 
 from __future__ import annotations
 
+import ctypes
 import struct
+import threading
 import zlib
 from typing import Sequence, Tuple
 
@@ -104,15 +108,18 @@ def _average_row(filt: bytes, prior: bytes, bpp: int) -> bytearray:
     return out
 
 
-def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
-    """Undo the five PNG row filters of `h` rows of `stride` bytes -> [h,
-    stride] uint8; `bpp` is the filters' byte distance (bytes a pixel, at
-    least 1).  None, Sub and Up run on whole rows in numpy; Average and
-    Paeth, whose bytes depend on their left neighbour's result, byte by
-    byte."""
+def _check_length(raw: bytes, h: int, stride: int) -> None:
     if len(raw) < h * (stride + 1):
         raise ValueError(f"PNG image data has {len(raw)} bytes, want "
                          f"{h * (stride + 1)}")
+
+
+def _unfilter_plain(raw: bytes, h: int, stride: int,
+                    bpp: int) -> np.ndarray:
+    """`_unfilter` in Python, its plain version: None, Sub and Up on whole
+    rows in numpy; Average and Paeth, whose bytes depend on their left
+    neighbour's result, byte by byte."""
+    _check_length(raw, h, stride)
     data = np.frombuffer(raw, np.uint8)[:h * (stride + 1)].reshape(
         h, stride + 1)
     out = np.empty((h, stride), np.uint8)
@@ -136,6 +143,31 @@ def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
             raise ValueError(f"PNG row {y} has filter type {kind}")
         out[y] = row
         prior = out[y]
+    return out
+
+
+_ERR = 256
+_unfilter_fn = []
+_unfilter_lock = threading.Lock()
+
+
+def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
+    """Undo the five PNG row filters of `h` rows of `stride` bytes -> [h,
+    stride] uint8; `bpp` is the filters' byte distance (bytes a pixel, at
+    least 1).  Runs `csrc/png_unfilter.cpp` (g++, built on first use; the
+    GIL released for the call); `_unfilter_plain` is its plain version."""
+    _check_length(raw, h, stride)
+    with _unfilter_lock:
+        if not _unfilter_fn:
+            from aqualora_torch.ops import _build
+            _unfilter_fn.append(_build.bind(
+                _build.build("png_unfilter"), "png_unfilter",
+                [ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int]))
+    out = np.empty((h, stride), np.uint8)
+    err = ctypes.create_string_buffer(_ERR)
+    if _unfilter_fn[0](raw, h, stride, bpp, out.ctypes.data, err, _ERR):
+        raise ValueError(err.value.decode(errors="replace"))
     return out
 
 

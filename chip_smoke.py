@@ -13,13 +13,16 @@ Run from the repository root on a machine with one CUDA card:
                                           # benchmark
     python3 chip_smoke.py --phases 20     # training from a folder of JPEGs
     python3 chip_smoke.py --phases 21     # the trainers' remaining options
+    python3 chip_smoke.py --phases 22     # the chain, then the fidelity
+                                          # benchmarks (FID, DreamSim)
 
 Phases (any failure raises, so the exit code is not 0):
   0. torch and CUDA versions, the card's name and power limit (nvidia-smi).
      Without a CUDA card the script stops here with an error.
   1. Build the three kernel sources of aqualora_torch/csrc (flash_fwd,
      flash_bwd, secret_inject), one nvcc each, and the host JPEG decoder
-     (jpeg_decode.cpp, g++), all started together, and
+     and PNG unfilter (jpeg_decode.cpp, png_unfilter.cpp, g++), all
+     started together, and
      count the tensor-core instructions (HMMA, HGMMA) of every attention
      kernel in the built libraries with cuobjdump: each bfloat16 forward,
      dQ and dK/dV instance (`*_tc_kernel`) and the float32 d = 512
@@ -253,15 +256,40 @@ Phases (any failure raises, so the exit code is not 0):
      peak memory (lower with the decode's remat), seconds, the d = 512
      forward's launches (4 with `--remat_vae_decode`, else 3), the loss
      torch.equal in all four.
-The timed phases run first (0-7, 12, 13, 14, 8, 15, 16, 18b-d, 19d, 17,
-18a, 19a-c, 19e, 20, 21) and the profiled ones after them, so that the profiler
-touches no timed phase: first the short sessions (6's profile, 9, 10, 12's
-profile, 18a's, 19e's), then the profiles of whole steps (8, 14, 18d's,
-20's, 21a's update) and of a generate call (11).  After
-a session of a whole step, short sessions in the same process have recorded
-some device events or none (PERF.md, section 7).  The line before the last
-names the card and its power limit; the last line is {"ok": true,
-"device": {...}}.
+ 22. The fidelity benchmarks (`--phases 22` runs phase 15 too), every
+     network in float32 with seeded random weights: (a) the float32 forward
+     (the CUDA-core instance at d <= 80) at the ViTs' shapes, B4 and B8:
+     ViT-B/16 (12 heads, T = 197, d = 64: the ensemble's three backbones),
+     ViT-B/32 (T = 50), MAE ViT-L/16 (16 heads, T = 197) and ViT-H/14 (16
+     heads, T = 257, d = 80), O and lse against the plain version, two
+     calls bit-identical, kernel_ms, plain_ms, SDPA's float32 time (a
+     yardstick only) and the bound at the CUDA cores' float32 rate, and
+     after the timed phases the same as device time (with the short
+     sessions); (b) InceptionV3 at full width on the card against the CPU
+     on 16 images (1e-4 of the largest feature + 1e-5) with TF32 allowed
+     around the call (the extractor turns it off for itself and gives the
+     flags back), the 8 realistic JPEGs of tests/torch_port_images (mixed
+     sizes) through `fid.py --save-stats` against the CPU's statistics, the
+     extractor's images/s at 299^2 B32 over 512 images; (c) the DreamSim
+     ensemble on the card against the CPU on 8 pairs (distances within
+     1e-5), 72 forward launches a call, pairs/s at B4, mae_vith14 once (64
+     launches at T = 257, d = 80); (d) `run_fid.main` on phase 15's
+     artifacts: 16 captions, 512^2, dpms_m 50 steps (the protocol's), CFG
+     7.5, bf16, B4, the folder against itself (|FID| < 1e-3), 1601 forward
+     launches a generate call, the seconds of the generation, PNG write and
+     read, features and the host's Frechet distance; (e) `run_dreamsim.main`
+     on the same artifacts: 8 prompts, dpms_m 25, B4, with and without the
+     LoRA: 801 launches a generate call, 72 a DreamSim call, the mean
+     distance (printed: random weights).
+The timed phases run first (0-7, 12, 13, 14, 8, 15, 16, 18b-d, 19d, 22d-e,
+17, 18a, 19a-c, 19e, 20, 21, 22a-c) and the profiled ones after them, so
+that the profiler touches no timed phase: first the short sessions (6's
+profile, 9, 10, 12's profile, 18a's, 19e's, 22a's), then the profiles of
+whole steps (8, 14, 18d's, 20's, 21a's update) and of a generate call
+(11).  After a session of a whole step, short sessions in the same process
+have recorded some device events or none (PERF.md, section 7).  The line
+before the last names the card and its power limit; the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -323,8 +351,8 @@ SD21_SHAPES = [
 ]
 SOURCES = ("flash_fwd", "flash_bwd", "secret_inject")
 # host code built with g++ beside the kernels: the training data's JPEG
-# decoder
-HOST_SOURCES = ("jpeg_decode",)
+# decoder and PNG's row filters
+HOST_SOURCES = ("jpeg_decode", "png_unfilter")
 # the differentiated attentions of one PPFT step at 512 px: name, heads,
 # Tq, Tk, head dim, student launches per step (each also runs once in the
 # teacher, forward only).  16 transformer blocks, self + cross each.
@@ -3181,13 +3209,22 @@ def p20_decoder(smi: str, folder: str) -> None:
     rows = np.random.default_rng(0).integers(0, 256, (h, 3 * w),
                                              dtype=np.uint8)
     raw = np.concatenate([np.full((h, 1), 4, np.uint8), rows], 1).tobytes()
-    t0 = time.perf_counter()
-    image_io._unfilter(raw, h, 3 * w, 3)
-    paeth_s = time.perf_counter() - t0
-    print(f"[20] decode_batch PNG -> {FOLDER_RES}^2 (zlib and numpy "
-          f"in Python, one thread): {png_rate:.2f} images/s for rows of "
+    image_io._unfilter(raw[:3 * w + 1], 1, 3 * w, 3)    # built, bound
+    paeth = {}
+    for kind, fn in (("C++", image_io._unfilter),
+                     ("Python", image_io._unfilter_plain)):
+        t0 = time.perf_counter()
+        paeth[kind] = (fn(raw, h, 3 * w, 3), time.perf_counter() - t0)
+    same = np.array_equal(paeth["C++"][0], paeth["Python"][0])
+    print(f"[20] decode_batch PNG -> {FOLDER_RES}^2 (zlib, the row filters "
+          f"in C++, one thread): {png_rate:.2f} images/s for rows of "
           f"filter None; a {w}x{h} RGB image whose rows are all Paeth "
-          f"spends {paeth_s:.3f} s unfiltering | {smi}", flush=True)
+          f"spends {paeth['C++'][1]:.4f} s unfiltering in C++ "
+          f"(png_unfilter.cpp), {paeth['Python'][1]:.4f} s in the Python "
+          f"rows (its plain version); the same bytes: {same} | {smi}",
+          flush=True)
+    if not same:
+        raise AssertionError("png_unfilter disagrees with the Python rows")
 
 
 def p20_folder(tmp: str) -> tuple:
@@ -4111,9 +4148,422 @@ def phase21(smi: str, tmp: str, step_rate: float | None):
     return opt
 
 
+# ---------------------------------------------------------------------------
+# phase 22, the fidelity benchmarks: FID (InceptionV3) and DreamSim (the ViT
+# ensemble) through run_fid and run_dreamsim
+# ---------------------------------------------------------------------------
+
+# the ViTs' float32 attention, the CUDA-core forward at d <= 80 (d = 64
+# with 16 of the instance's 80 columns masked; every length ragged): name,
+# heads, T, head dim
+VIT_SHAPES = [("vitb16", 12, 197, 64),    # the ensemble's three, mae_vitb16
+              ("vitb32", 12, 50, 64),     # clip_vitb32, open_clip_vitb32
+              ("mae_vitl16", 16, 197, 64),
+              ("mae_vith14", 16, 257, 80)]
+VIT_BATCHES = (4, 8)
+ENSEMBLE_BLOCKS = 3 * 12           # forward launches of one embed call
+VITH_BLOCKS = 32
+FID_IMAGES, FID_STEPS = 16, 50     # run_fid: the protocol's step count
+DS_PROMPTS = 8
+LAUNCHES_PER_GENERATE_50 = 32 * FID_STEPS + 1                # 1601
+RATE_IMAGES, RATE_BATCH = 512, 32  # the extractor's images/s at 299^2
+CHECK_IMAGES, CHECK_PAIRS = 16, 8
+DIST_TOL = 1e-5                    # DreamSim distances, card vs CPU
+
+
+def feature_tol(ref) -> float:
+    """float32 features through about 95 convolutions (or 12 blocks)
+    summed in other orders on the card and the CPU: 1e-4 of the largest
+    plus 1e-5, the CPU tests' limit against JAX."""
+    return 1e-4 * float(abs(ref).max()) + 1e-5
+
+
+class tf32_on:
+    """TF32 allowed for cuDNN and matrix products, as PyTorch's default
+    leaves cuDNN: the metrics' extractors must turn it off themselves
+    (`utils/precision.full_float32`) and give the flags back."""
+
+    def __enter__(self):
+        self.saved = (torch.backends.cudnn.allow_tf32,
+                      torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        return self
+
+    def __exit__(self, *exc):
+        self.after = (torch.backends.cudnn.allow_tf32,
+                      torch.backends.cuda.matmul.allow_tf32)
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = self.saved
+        if exc[0] is None and self.after != (True, True):
+            raise AssertionError(f"an extractor left the TF32 flags at "
+                                 f"{self.after}")
+
+
+def vit_shapes():
+    """(key, heads, T, d, batch) of 22a."""
+    return [(f"dreamsim_{name}_b{b}", h, t, d, b)
+            for name, h, t, d in VIT_SHAPES for b in VIT_BATCHES]
+
+
+def phase22a(smi: str) -> dict:
+    """The float32 forward at the ViTs' shapes, B4 and B8, against its
+    plain version (O and lse), two calls bit-identical; kernel_ms, plain_ms,
+    SDPA's float32 time (a yardstick only) and the bound at the CUDA cores'
+    float32 rate."""
+    from aqualora_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(220)
+    rows = {}
+    for key, h, t, d, b in vit_shapes():
+        scale = d ** -0.5
+        q, k, v = (torch.randn(b, h, t, d, device="cuda", generator=gen)
+                   for _ in range(3))
+        first, again = (fa.flash_attention_fwd(q, k, v, scale)
+                        for _ in range(2))
+        if not all(torch.equal(x, y) for x, y in zip(first, again)):
+            raise AssertionError(f"{key}: two forward calls differ")
+        err = check_fwd(f"[22] {key} float32", q, k, v, scale, out=first)
+        kernel_ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, scale))
+        plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, scale),
+                           iters=3, warmup=1)
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, scale=scale))
+        bound_ms, bound_by = attention_bound(b, h, t, t, d, elem_bytes=4,
+                                             peak=PEAK_F32_FLOPS)
+        print(f"[22] {key} (B{b} H{h} T{t} d{d}) float32, two calls "
+              f"bit-identical: kernel_ms {kernel_ms:.4f} plain_ms "
+              f"{plain_ms:.4f} library_ms(sdpa float32) {library_ms:.4f} = "
+              f"{kernel_ms / library_ms:.2f}x, bound_ms {bound_ms:.4f} "
+              f"({bound_by}, float32 at {PEAK_F32_FLOPS / 1e12:g} TFLOP/s) "
+              f"| {smi}", flush=True)
+        rows[key] = {"max_abs_err": err, "ms": kernel_ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": library_ms}
+        del q, k, v, first, again
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase22a_profile(smi: str, rows: dict) -> None:
+    """22a's forward and SDPA's float32 forward as device time."""
+    from aqualora_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(221)
+    for key, h, t, d, b in vit_shapes():
+        scale = d ** -0.5
+        q, k, v = (torch.randn(b, h, t, d, device="cuda", generator=gen)
+                   for _ in range(3))
+        kernel_dev = device_ms(lambda: fa.flash_attention_fwd(q, k, v, scale))
+        library_dev = device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, scale=scale))
+        print(f"[22] {key} float32: forward device time {kernel_dev:.4f} ms, "
+              f"sdpa float32 forward {library_dev:.4f} = "
+              f"{kernel_dev / library_dev:.2f}x, bound "
+              f"{rows[key]['bound_ms']:.4f} ({rows[key]['bound_by']}), "
+              f"kernel_ms {rows[key]['ms']:.4f} | {smi}", flush=True)
+        del q, k, v
+    torch.cuda.empty_cache()
+
+
+def phase22b(smi: str, tmp: str) -> None:
+    """InceptionV3 on the card: seeded random weights, full width; 16
+    images card vs CPU with TF32 allowed around the call; the 8 realistic
+    JPEGs (mixed sizes) through `fid.py --save-stats` card vs CPU; the
+    extractor's images/s at 299^2, B32."""
+    import numpy as np
+
+    from aqualora_torch.eval import fid
+    from aqualora_torch.utils.precision import full_float32
+    rng = np.random.default_rng(22)
+    card = fid.InceptionExtractor(device="cuda")
+    host = fid.InceptionExtractor(device="cpu")
+    imgs = rng.random((CHECK_IMAGES, 256, 256, 3), dtype=np.float32)
+    with tf32_on() as flags:
+        f_card = card(imgs, batch_size=CHECK_IMAGES)
+    f_host = host(imgs, batch_size=CHECK_IMAGES)
+    err, tol = float(abs(f_card - f_host).max()), feature_tol(f_host)
+    print(f"[22] InceptionV3 (seeded random weights) on {CHECK_IMAGES} "
+          f"images 256^2 -> 299^2, card vs CPU: max|df| {err:.3e} (tol "
+          f"{tol:.3e}, max|f| {float(abs(f_host).max()):.3e}); TF32 flags "
+          f"after the call {flags.after}", flush=True)
+    if not (np.isfinite(f_card).all() and err <= tol):
+        raise AssertionError(f"Inception card vs CPU: {err} > {tol}")
+
+    folder = str(FIXTURES / "realistic")
+    sizes = sorted({im.shape[:2] for im in fid._load_images(folder)})
+    npz = str(Path(tmp) / "realistic_stats.npz")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with tf32_on():
+        mu, sigma = fid.main([folder, npz, "--save-stats",
+                              "--allow-random-weights", "--batch-size", "8",
+                              "--device", "cuda"])
+    stats_s = time.perf_counter() - t0
+    f_ref = host(fid._load_images(folder), 8)
+    ref_mu, ref_sigma = fid.activation_statistics(f_ref)
+    tol_f = feature_tol(f_ref)
+    # a covariance term moves by at most about 2 max|f| df
+    tol_s = 2 * float(abs(f_ref).max()) * tol_f + tol_f ** 2
+    err_mu = float(abs(mu - ref_mu).max())
+    err_s = float(abs(sigma - ref_sigma).max())
+    with np.load(npz) as f:
+        saved_ok = (np.array_equal(f["mu"], mu)
+                    and np.array_equal(f["sigma"], sigma))
+    print(f"[22] fid.py --save-stats on the 8 realistic JPEGs ({len(sizes)} "
+          f"sizes, {sizes[0]} to {sizes[-1]}) on the card in {stats_s:.4f} "
+          f"s: mu vs CPU max|d| {err_mu:.3e} (tol {tol_f:.3e}), sigma "
+          f"max|d| {err_s:.3e} (tol {tol_s:.3e}); the .npz as returned: "
+          f"{saved_ok}", flush=True)
+    if not (err_mu <= tol_f and err_s <= tol_s and saved_ok
+            and len(sizes) > 1):
+        raise AssertionError("fid --save-stats: card vs CPU disagree")
+
+    many = rng.random((RATE_IMAGES, 299, 299, 3), dtype=np.float32)
+    card(many[:RATE_BATCH], batch_size=RATE_BATCH)            # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feats = card(many, batch_size=RATE_BATCH)
+    end_s = time.perf_counter() - t0
+    x = torch.from_numpy(many[:RATE_BATCH]).to("cuda").permute(0, 3, 1, 2)
+    with full_float32(), torch.no_grad():
+        model_ms = time_ms(lambda: card.model(x * 2 - 1), iters=5)
+    print(f"[22] InceptionExtractor at 299^2 B{RATE_BATCH}, float32, "
+          f"{RATE_IMAGES} seeded images from host memory: "
+          f"{RATE_IMAGES / end_s:.2f} images/s end to end ({end_s:.4f} s); "
+          f"the network alone {model_ms:.4f} ms a batch = "
+          f"{RATE_BATCH / model_ms * 1e3:.2f} images/s | {smi}", flush=True)
+    if feats.shape != (RATE_IMAGES, 2048) or not np.isfinite(feats).all():
+        raise AssertionError("the extractor's features at B32")
+    del many, x
+    torch.cuda.empty_cache()
+
+
+def phase22c(smi: str) -> None:
+    """DreamSim on the card: the ensemble (seeded random weights) vs the
+    CPU on 8 pairs at 512^2, TF32 allowed around the call, 72 forward
+    launches a call; pairs/s at B4; mae_vith14 once (T = 257, d = 80)."""
+    import numpy as np
+
+    from aqualora_torch.eval.dreamsim import DreamSim
+    from aqualora_torch.ops import flash_attention as fa
+    rng = np.random.default_rng(222)
+    a = rng.random((CHECK_PAIRS, RES, RES, 3), dtype=np.float32)
+    b = np.clip(a + 0.1 * rng.standard_normal(a.shape), 0, 1).astype(
+        np.float32)
+    card = DreamSim(device="cuda")
+    host = DreamSim(device="cpu")
+    torch.cuda.synchronize()
+    reset_counts()
+    with tf32_on():
+        d_card = card(a, b)
+    torch.cuda.synchronize()
+    got, by_shape = counts(), dict(fa.launches.by_shape)
+    d_host = host(a, b)
+    err = float(abs(d_card - d_host).max())
+    want = {"fwd": 2 * ENSEMBLE_BLOCKS, **NO_TRAINING}
+    print(f"[22] DreamSim ensemble (seeded random weights) on {CHECK_PAIRS} "
+          f"pairs 512^2 -> 224^2, card vs CPU: max|d dist| {err:.3e} (tol "
+          f"{DIST_TOL:g}), distances "
+          f"{[round(float(x), 5) for x in d_card]}; "
+          f"launches {got} by shape {by_shape}", flush=True)
+    if not (err <= DIST_TOL and got == want and np.isfinite(d_card).all()
+            and by_shape == {(12, 197, 197, 64): 2 * ENSEMBLE_BLOCKS}):
+        raise AssertionError(f"DreamSim card vs CPU: {err}, launches {got}")
+    ms = time_ms(lambda: card(a[:PROTOCOL_IMAGES], b[:PROTOCOL_IMAGES]),
+                 iters=5, warmup=1)
+    print(f"[22] DreamSim ensemble at B{PROTOCOL_IMAGES} from host memory: "
+          f"{ms:.4f} ms a call = {PROTOCOL_IMAGES / ms * 1e3:.2f} pairs/s "
+          f"| {smi}", flush=True)
+    del host, card
+    vith = DreamSim(dreamsim_type="mae_vith14", device="cuda")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    d = vith(a[:PROTOCOL_IMAGES], b[:PROTOCOL_IMAGES])
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    got, by_shape = counts(), dict(fa.launches.by_shape)
+    same = vith(a[:2], a[:2])
+    print(f"[22] mae_vith14 (32 blocks, 1280 wide) at B{PROTOCOL_IMAGES}: "
+          f"{sec:.4f} s (first call), distances "
+          f"{[round(float(x), 5) for x in d]}, "
+          f"self {float(abs(same).max()):.2e}; launches {by_shape} "
+          f"| {smi}", flush=True)
+    if not (np.isfinite(d).all() and abs(same).max() < 1e-5
+            and by_shape == {(16, 257, 257, 80): 2 * VITH_BLOCKS}):
+        raise AssertionError(f"mae_vith14: {d}, launches {by_shape}")
+    del vith
+    torch.cuda.empty_cache()
+
+
+class FidelityParts:
+    """Times the parts of run_fid and run_dreamsim by wrapping what they
+    call (each wrapper synchronizes the card before it stops its clock) and
+    counts the forward launches of each generate call and each DreamSim
+    call.  `install()` / `remove()`."""
+
+    def __init__(self):
+        from aqualora_torch.diffusion import pipeline as pl
+        from aqualora_torch.eval import dreamsim, fid
+        from aqualora_torch.eval import utils_eval as ue
+        from aqualora_torch.train import image_decode
+        self.targets = [(pl.StableDiffusionPipeline, "make_generate"),
+                        (ue, "save_png"), (image_decode, "decode_file"),
+                        (fid.InceptionExtractor, "__call__"),
+                        (fid, "frechet_distance"),
+                        (dreamsim.DreamSim, "__call__")]
+        self.saved = {}
+        self.seconds = {"generate": 0.0, "png_write": 0.0, "png_read": 0.0,
+                        "features": 0.0, "frechet": 0.0, "dreamsim": 0.0}
+        self.generate, self.dreamsim = [], []
+
+    def _timed(self, part, fn, record=None):
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            before, t0 = counts(), time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            self.seconds[part] += time.perf_counter() - t0
+            if record is not None:
+                after = counts()
+                record.append({c: after[c] - before[c] for c in after})
+            return out
+        return wrapper
+
+    def install(self):
+        self.saved = {(o, n): getattr(o, n) for o, n in self.targets}
+        (pl_cls, _), (ue, _), (dec, _), (ex_cls, _), (fid, _), \
+            (ds_cls, _) = self.targets
+        make = self.saved[(pl_cls, "make_generate")]
+
+        def counted_make(pipe, *a, **k):
+            return self._timed("generate", make(pipe, *a, **k),
+                               self.generate)
+        pl_cls.make_generate = counted_make
+        ue.save_png = self._timed("png_write", self.saved[(ue, "save_png")])
+        dec.decode_file = self._timed("png_read",
+                                      self.saved[(dec, "decode_file")])
+        ex_cls.__call__ = self._timed("features",
+                                      self.saved[(ex_cls, "__call__")])
+        fid.frechet_distance = self._timed(
+            "frechet", self.saved[(fid, "frechet_distance")])
+        ds_cls.__call__ = self._timed("dreamsim",
+                                      self.saved[(ds_cls, "__call__")],
+                                      self.dreamsim)
+
+    def remove(self):
+        for (obj, name), fn in self.saved.items():
+            setattr(obj, name, fn)
+
+
+def run_counted(main, argv) -> tuple:
+    """One runner `main(argv)` with its parts timed and the counts set to
+    0 before it and read after it -> (result, wall seconds, parts, counts,
+    launches by shape)."""
+    from aqualora_torch.ops import flash_attention as fa
+    parts = FidelityParts()
+    parts.install()
+    try:
+        torch.cuda.synchronize()
+        reset_counts()                          # counts start here
+        t0 = time.perf_counter()
+        result = main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got, by_shape = counts(), dict(fa.launches.by_shape)
+    finally:
+        parts.remove()
+    return result, wall, parts, got, by_shape
+
+
+def phase22d(smi: str, out_dir: str, tmp: str) -> dict:
+    """run_fid at full width on phase 15's artifacts: 16 captions, 512^2,
+    dpms_m 50 steps, CFG 7.5, bf16, B4, seeded random Inception, the FID of
+    the folder against itself.  Returns the forward launches by shape."""
+    from aqualora_torch.eval import run_fid
+    meta = Path(tmp) / "fid_captions.json"
+    meta.write_text(json.dumps({"annotations": [
+        {"caption": f"{p}, view {i}"} for i in range(2) for p in PROMPTS]}))
+    out = Path(tmp) / "run_fid"
+    gen = out / "images"
+    argv = ["--meta_data", str(meta), "--gt_dir", str(gen), "--train_folder",
+            out_dir, "--output_dir", str(out), "--num_images",
+            str(FID_IMAGES), "--batch_size", str(PROTOCOL_IMAGES),
+            "--num_inference_steps", str(FID_STEPS), "--resolution",
+            str(RES), "--sampler", "dpms_m", "--msg_bits",
+            str(EVAL_MSG_BITS), "--allow_random_inception", "--device",
+            "cuda"]
+    result, wall, parts, got, by_shape = run_counted(run_fid.main, argv)
+    pngs = sorted(p.name for p in gen.glob("*.png"))
+    calls = FID_IMAGES // PROTOCOL_IMAGES
+    want_call = {"fwd": LAUNCHES_PER_GENERATE_50, **NO_TRAINING}
+    s = parts.seconds
+    features = s["features"] - s["png_read"]
+    rest = wall - s["generate"] - s["png_write"] - s["features"] \
+        - s["frechet"]
+    print(f"[22] run_fid: {FID_IMAGES} images at 512^2 dpms_m-{FID_STEPS} "
+          f"CFG 7.5 bf16 B{PROTOCOL_IMAGES}, FID against themselves "
+          f"{result['fid']:.3e} in {wall:.4f} s = "
+          f"{wall / FID_IMAGES:.4f} s an image end to end; seconds: "
+          f"generate {s['generate']:.4f} ({s['generate'] / FID_IMAGES:.4f} "
+          f"an image), PNG write {s['png_write']:.4f}, PNG read "
+          f"{s['png_read']:.4f}, features {features:.4f} (both folders), "
+          f"Frechet (host sqrtm) {s['frechet']:.4f}, the rest {rest:.4f}; "
+          f"launches {got}, per generate call {parts.generate} | {smi}",
+          flush=True)
+    if not (abs(result["fid"]) < 1e-3 and result["n_images"] == FID_IMAGES
+            and result["random_inception"] is True
+            and json.loads((out / "fid.json").read_text()) == result
+            and len(pngs) == FID_IMAGES and len(parts.generate) == calls
+            and all(c == want_call for c in parts.generate)
+            and got == {"fwd": calls * LAUNCHES_PER_GENERATE_50,
+                        **NO_TRAINING}):
+        raise AssertionError(f"run_fid failed a check: {result}, {pngs}, "
+                             f"launches {got}, calls {parts.generate}")
+    return by_shape
+
+
+def phase22e(smi: str, out_dir: str) -> dict:
+    """run_dreamsim at full width on phase 15's artifacts: 8 prompts,
+    512^2, dpms_m 25, CFG 7.5, bf16, B4, with and without the LoRA, the
+    seeded random ensemble.  Returns the forward launches by shape."""
+    import numpy as np
+
+    from aqualora_torch.eval import run_dreamsim
+    argv = ["--train_folder", out_dir, "--num_prompts", str(DS_PROMPTS),
+            "--batch_size", str(PROTOCOL_IMAGES), "--steps", str(STEPS),
+            "--resolution", str(RES), "--msg_bits", str(EVAL_MSG_BITS),
+            "--allow_random_weights", "--device", "cuda"]
+    dists, wall, parts, got, by_shape = run_counted(run_dreamsim.main, argv)
+    n_gen = 2 * DS_PROMPTS // PROTOCOL_IMAGES
+    n_ds = DS_PROMPTS // PROTOCOL_IMAGES
+    want_gen = {"fwd": LAUNCHES_PER_GENERATE, **NO_TRAINING}
+    want_ds = {"fwd": 2 * ENSEMBLE_BLOCKS, **NO_TRAINING}
+    s = parts.seconds
+    print(f"[22] run_dreamsim: {DS_PROMPTS} pairs at 512^2 dpms_m-{STEPS} "
+          f"CFG 7.5 bf16 B{PROTOCOL_IMAGES} in {wall:.4f} s = "
+          f"{DS_PROMPTS / wall:.4f} pairs/s end to end; mean DreamSim "
+          f"distance {float(np.mean(dists)):.6f} (random weights: printed); "
+          f"seconds: generate {s['generate']:.4f}, DreamSim "
+          f"{s['dreamsim']:.4f}, the rest "
+          f"{wall - s['generate'] - s['dreamsim']:.4f}; launches {got}, per "
+          f"generate call {parts.generate}, per DreamSim call "
+          f"{parts.dreamsim} | {smi}", flush=True)
+    if not (len(dists) == DS_PROMPTS and np.isfinite(dists).all()
+            and len(parts.generate) == n_gen and len(parts.dreamsim) == n_ds
+            and all(c == want_gen for c in parts.generate)
+            and all(c == want_ds for c in parts.dreamsim)
+            and got == {"fwd": n_gen * LAUNCHES_PER_GENERATE
+                        + n_ds * 2 * ENSEMBLE_BLOCKS, **NO_TRAINING}):
+        raise AssertionError(f"run_dreamsim failed a check: {dists}, "
+                             f"launches {got}, generate {parts.generate}, "
+                             f"DreamSim {parts.dreamsim}")
+    return by_shape
+
+
 def kernels_line(rows, launches, bwd_rows, train_launches, inject_row,
                  inject_launches, s1_rows, s1_launches, proto_launches,
-                 s3_rows, s3_launches, dist_launches, s21_rows) -> dict:
+                 s3_rows, s3_launches, dist_launches, s21_rows, fid_launches,
+                 vit_rows, ds_launches) -> dict:
     kernels = []
     for name, *_ in SHAPES:
         kernels.append({
@@ -4151,6 +4601,23 @@ def kernels_line(rows, launches, bwd_rows, train_launches, inject_row,
             "replaces": "aqualora_tpu/ops/flash_attention.py:147",
             "launches": dist_launches.get((h, tq, tk, d), 0),
             **s21_rows[key]})
+    # the fidelity benchmarks (phase 22): run_fid's 50-step generate calls
+    # at the protocol's shapes (phase 2's rows), run_dreamsim's ViT shapes
+    # (22a's rows) that its DreamSim calls launched
+    for key, name, h, tq, tk, d, _ in protocol_shapes():
+        kernels.append({
+            "name": f"flash_attention_fwd/run_fid/{name}", "route": "cuda",
+            "source": "aqualora_torch/csrc/flash_fwd.cu",
+            "replaces": "aqualora_tpu/ops/flash_attention.py:147",
+            "launches": fid_launches.get((h, tq, tk, d), 0), **rows[key]})
+    for key, h, t, d, _ in vit_shapes():
+        if ds_launches.get((h, t, t, d), 0) and key.endswith(
+                f"_b{PROTOCOL_IMAGES}"):
+            kernels.append({
+                "name": f"flash_attention_fwd/{key}", "route": "cuda",
+                "source": "aqualora_torch/csrc/flash_fwd.cu",
+                "replaces": "aqualora_tpu/ops/flash_attention.py:147",
+                "launches": ds_launches[(h, t, t, d)], **vit_rows[key]})
     for kern, line in (("dq", 239), ("dkv", 269)):
         for name, *_ in TRAIN_SHAPES:
             kernels.append({
@@ -4187,13 +4654,13 @@ def main(argv=None):
                          "phase 0 always runs, and the kernels line needs "
                          "all of them)")
     args = ap.parse_args(argv)
-    every = set(range(22))
+    every = set(range(23))
     run_ = every if args.phases is None else \
         {0} | {int(x) for x in args.phases.split(",")}
     if 11 in run_:
         run_.add(3)          # phase 11 profiles phase 3's generate call
-    if run_ & {16, 18, 19}:
-        run_.add(15)         # phases 16, 18 and 19 read phase 15's artifacts
+    if run_ & {16, 18, 19, 22}:
+        run_.add(15)         # phases 16, 18, 19, 22 read phase 15's artifacts
     smi = phase0()
     rows, launches, med_s, serve = {}, {}, 0.0, None
     bwd_rows, inject_row, train_launches, inject_launches = {}, {}, {}, 0
@@ -4233,6 +4700,7 @@ def main(argv=None):
         step_rate = TRAIN_BATCH / ppft_kept[1]
     proto_launches, s3_rows, s3_launches, s3_kept = {}, {}, {}, []
     dist_launches, s21_rows, f32_rows = {}, {}, {}
+    fid_launches, ds_launches, vit_rows = {}, {}, {}
     if 15 in run_:
         with tempfile.TemporaryDirectory(prefix="aqualora_chain_") as tmp:
             out_dir, dpms_s, s1_file, image = phase15(
@@ -4248,6 +4716,10 @@ def main(argv=None):
             if 19 in run_:
                 torch.cuda.empty_cache()
                 dist_launches = phase19d(smi, out_dir, tmp)
+            if 22 in run_:
+                torch.cuda.empty_cache()
+                fid_launches = phase22d(smi, out_dir, tmp)
+                ds_launches = phase22e(smi, out_dir)
     if 17 in run_:
         phase17(smi)
     if 18 in run_:
@@ -4263,6 +4735,11 @@ def main(argv=None):
     if 21 in run_:
         with tempfile.TemporaryDirectory(prefix="aqualora_flags_") as tmp:
             p21_opt = phase21(smi, tmp, step_rate)
+    if 22 in run_:
+        vit_rows = phase22a(smi)
+        with tempfile.TemporaryDirectory(prefix="aqualora_fid_") as tmp:
+            phase22b(smi, tmp)
+        phase22c(smi)
     # the profiled phases: the short sessions first, then the profiles of
     # whole steps and of the generate call (see the docstring)
     if 6 in run_:
@@ -4277,6 +4754,8 @@ def main(argv=None):
         phase18a_profile(smi, s3_rows)
     if 19 in run_:
         phase19e_profile(smi, f32_rows)
+    if 22 in run_:
+        phase22a_profile(smi, vit_rows)
     if 8 in run_:
         profile_step(*ppft_kept, smi)
         del ppft_kept
@@ -4301,7 +4780,8 @@ def main(argv=None):
                                       train_launches, inject_row,
                                       inject_launches, s1_rows, s1_launches,
                                       proto_launches, s3_rows, s3_launches,
-                                      dist_launches, s21_rows)))
+                                      dist_launches, s21_rows, fid_launches,
+                                      vit_rows, ds_launches)))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,8 @@
 """The port's kernel builds: a library is named by the content of its
 source and of the csrc headers the source includes, so an edit to either
 is rebuilt and never loads a stale library.  Host code (`csrc/*.cpp`, the
-JPEG decoder) takes the same route with g++, which this host has, so its
-build runs here."""
+JPEG decoder and PNG's row filters) takes the same route with g++, which
+this host has, so its build runs here."""
 
 import shutil
 import subprocess
@@ -11,7 +11,8 @@ import pytest
 
 from aqualora_torch.ops import _build
 
-SOURCES = ("flash_fwd", "flash_bwd", "secret_inject", "jpeg_decode")
+SOURCES = ("flash_fwd", "flash_bwd", "secret_inject", "jpeg_decode",
+           "png_unfilter")
 
 
 @pytest.fixture
@@ -41,6 +42,7 @@ def test_attention_sources_include_the_shared_header(csrc):
     ("flash_bwd.cu", {"flash_bwd"}),
     ("secret_inject.cu", {"secret_inject"}),
     ("jpeg_decode.cpp", {"jpeg_decode"}),
+    ("png_unfilter.cpp", {"png_unfilter"}),
 ])
 def test_edit_renames_exactly_the_libraries_built_from_it(csrc, edited,
                                                           renamed):

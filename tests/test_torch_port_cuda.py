@@ -438,3 +438,53 @@ def test_img2img_tiny_card_matches_cpu_and_launches():
             launched = fa.launches.count - before
         assert launched == 2 + eff * per_eval, (strength, launched)
         assert (out["cuda"] - out["cpu"]).abs().max().item() <= 2e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,t,d", [
+    (4, 12, 197, 64),     # DreamSim's ViT-B/16 ensemble, d = 64 masked
+    (8, 12, 50, 64),      # ViT-B/32, one ragged tile
+    (4, 16, 197, 64),     # MAE ViT-L/16
+    (4, 16, 257, 80),     # MAE ViT-H/14
+])
+def test_flash_kernel_float32_at_the_vit_shapes(b, h, t, d):
+    """The float32 CUDA-core forward at DreamSim's shapes: O and lse
+    against the plain version, two calls bit-identical."""
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(t * d)
+    q, k, v = (torch.randn(b, h, t, d, device="cuda", generator=gen)
+               for _ in range(3))
+    o, lse = fa.flash_attention_fwd(q, k, v, d ** -0.5)
+    again = fa.flash_attention_fwd(q, k, v, d ** -0.5)
+    o_ref, lse_ref = fa.flash_attention_plain(q, k, v, d ** -0.5)
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+    assert (o - o_ref).abs().max().item() <= TOL_F32
+    assert (lse - lse_ref).abs().max().item() <= TOL_LSE
+
+
+@pytest.mark.cuda
+def test_fidelity_extractors_card_match_cpu():
+    """InceptionV3 and a narrow DreamSim ensemble (seeded random weights)
+    on the card against the CPU, with TF32 allowed around the calls: the
+    extractors compute in float32 themselves and give the flags back."""
+    import numpy as np
+
+    from aqualora_torch.eval.dreamsim import DreamSim
+    from aqualora_torch.eval.fid import InceptionExtractor
+
+    _need_cuda()
+    rng = np.random.default_rng(0)
+    imgs = rng.random((3, 96, 80, 3), dtype=np.float32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    card = InceptionExtractor(device="cuda")(imgs, batch_size=2)
+    ref = InceptionExtractor(device="cpu")(imgs, batch_size=2)
+    assert np.abs(card - ref).max() <= 1e-4 * np.abs(ref).max() + 1e-5
+    over = {"dim": 64, "depth": 2, "heads": 2}
+    before = fa.launches.count
+    d_card = DreamSim(vit_overrides=over, device="cuda")(imgs, imgs[::-1])
+    assert fa.launches.count == before + 2 * 3 * 2
+    d_cpu = DreamSim(vit_overrides=over, device="cpu")(imgs, imgs[::-1])
+    assert np.abs(d_card - d_cpu).max() <= 1e-5
+    assert torch.backends.cudnn.allow_tf32
+    assert torch.backends.cuda.matmul.allow_tf32

@@ -897,8 +897,9 @@ def test_simple_sample_properties(art):
 
 
 def test_eval_modules_import_no_jax():
-    """The eval slice's modules, the robustness benchmark's included,
-    import neither jax nor aqualora_tpu, nor PIL."""
+    """The eval slice's modules, the robustness and fidelity benchmarks'
+    included, import neither jax nor aqualora_tpu, nor PIL, nor
+    transformers."""
     mods = ["aqualora_torch.eval.run_eval_base",
             "aqualora_torch.eval.utils_eval", "aqualora_torch.eval.image_io",
             "aqualora_torch.eval.prompts",
@@ -906,10 +907,16 @@ def test_eval_modules_import_no_jax():
             "aqualora_torch.eval.distortions", "aqualora_torch.eval.jpeg",
             "aqualora_torch.diffusion.pipeline",
             "aqualora_torch.tools.create_wm_lora",
-            "aqualora_torch.diffusion.samplers"]
+            "aqualora_torch.diffusion.samplers",
+            "aqualora_torch.models.inception", "aqualora_torch.models.vit",
+            "aqualora_torch.eval.fid", "aqualora_torch.eval.dreamsim",
+            "aqualora_torch.eval.run_fid", "aqualora_torch.eval.run_dreamsim",
+            "aqualora_torch.tools.torch_import",
+            "aqualora_torch.utils.precision"]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
-            + "bad = [m for m in sys.modules if m in ('jax', 'PIL') or "
-              "m.startswith(('jax.', 'aqualora_tpu', 'PIL.'))]\n"
+            + "bad = [m for m in sys.modules if m in ('jax', 'PIL', "
+              "'transformers') or m.startswith(('jax.', 'aqualora_tpu', "
+              "'PIL.', 'transformers.'))]\n"
               "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)

@@ -250,20 +250,25 @@ def number_sites(module: nn.Module) -> int:
 def fold_lora_tree(module: nn.Module, diag: torch.Tensor,
                    multiplier: float = 1.0, alpha_scale: float = 1.0) -> None:
     """Fold one message's diagonal into every LoRA layer's base weight, in
-    place: W += alpha * down . diag(s) . up, computed in float32 and written
+    place: W += alpha * down . diag(s) . up, added in float32 and written
     in W's type, so the denoise loop can run the plain layers (scale=None).
-    diag: [rank].  The LoRA weights stay; call
+    diag: [rank].  The delta's sum over the rank runs in float64 and is
+    rounded to float32 once, so it does not depend on the device's or the
+    library's order of summation: `tools/merge_lora.py` computes the same
+    float32 delta on the host, and a single file merged there gives the
+    folded weights bit for bit.  The LoRA weights stay; call
     `strip_lora_params` to free them.  In place rather than a copy: a copy
     of the SD-1.5 U-Net would double its memory for no use."""
     for m in lora_sites(module):
-        s = (diag.float() * (multiplier * alpha_scale)).to(m.weight.device)
-        down = m.lora.down.weight.float()
-        up = m.lora.up.weight.float()
+        s = (diag.float() * (multiplier * alpha_scale)).to(
+            m.weight.device).double()
+        down = m.lora.down.weight.double()
+        up = m.lora.up.weight.double()
         if isinstance(m, LoRALinear):   # [out, r] . diag . [r, in]
             delta = (up * s) @ down
         else:                           # sum_r up[o, r] s[r] down[r, i, h, w]
             delta = torch.einsum("or,rihw->oihw", up[:, :, 0, 0] * s, down)
-        m.weight.copy_((m.weight.float() + delta).to(m.weight.dtype))
+        m.weight.copy_((m.weight.float() + delta.float()).to(m.weight.dtype))
 
 
 def strip_lora_params(module: nn.Module) -> None:

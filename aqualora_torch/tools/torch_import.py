@@ -1,14 +1,28 @@
-"""Read the published torch weights of the fidelity metrics into the port.
+"""Read the reference's published torch weights into the port.
 
-The port of the FID and DreamSim readers of
-`aqualora_tpu/tools/torch_import.py:184-430`.  The port's modules carry the
-published key names (torchvision's InceptionV3 in `models/inception.py`,
-DINO's ViT in `models/vit.py`), so a reader only unwraps a checkpoint,
-picks the keys the module has, folds adapters and casts to float32; the
-consumer (`eval/fid.InceptionExtractor`, `eval/dreamsim.DreamSim`) loads
-the state dict with `load_state_dict(strict=True)`.  No transposes, and no
-`transformers`: the MAE mapping works on a plain state dict.
+The port of `aqualora_tpu/tools/torch_import.py`.  The port's modules carry
+the published key names (torchvision's EfficientNet-B1 in
+`models/efficientnet.py`, lpips' VGG16 in `models/lpips.py`, torchvision's
+InceptionV3 in `models/inception.py`, DINO's ViT in `models/vit.py`), so a
+reader only unwraps a checkpoint, renames what the release names otherwise,
+folds adapters and casts to float32; the consumer loads the state dict with
+`load_state_dict(strict=True)` or `core.io.assign_state`.  No transposes,
+and no `transformers`: the MAE mapping works on a plain state dict.
 
+  - `efficientnet_b1_from_torch`, `secret_decoder_from_torch`: the
+    release's `msgdecoder.pt` (torchvision's `efficientnet_b1` layout, with
+    or without the SecretDecoder's `model.` prefix, with or without
+    BatchNorm's `num_batches_tracked`, which is filled with zeros: eval
+    never reads it);
+  - `secret_encoder_from_torch`: the reference's SecretEncoder
+    (`secret_scaler.0` the Linear, `secret_scaler.5` the zero conv) ->
+    `secret_dense` / `conv_out`;
+  - `mapper_from_torch`, `latentwm_from_torch`: `mapper.pt` and
+    `pretrained_latentwm.pth` ({'sec_encoder', 'sec_decoder'}), the latter
+    in the format `train.ppft_train.load_pretrain` reads;
+  - `lpips_from_torch`: the lpips package's VGG16 (`net.sliceK.N`), or
+    torchvision's `features.N` / `net.features.N`, with the
+    `lin{i}.model.1.weight` or `lins.{i}.model.1.weight` heads;
   - `inception_from_torch`: the FID weights (`pt_inception-2015-12-05`,
     torchvision's `inception_v3` layout), `fc.`, `AuxLogits.` and
     `num_batches_tracked` dropped;
@@ -19,9 +33,6 @@ the state dict with `load_state_dict(strict=True)`.  No transposes, and no
     the MAE backbones (HF ViTMAEModel's layout for ViT-B/16, DINO's under
     `model` for ViT-L/16 and ViT-H/14);
   - `dreamsim_from_torch`: the unzipped DreamSim checkpoint directory.
-
-The module's other readers (EfficientNet-B1 `msgdecoder.pt`,
-`pretrained_latentwm.pth`, `mapper.pt`, LPIPS) are ROADMAP A.7.
 """
 
 from __future__ import annotations
@@ -33,6 +44,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from aqualora_torch.core.config import EfficientNetConfig
 from aqualora_torch.core.io import load_safetensors, load_torch_pickle
 
 State = Dict[str, torch.Tensor]
@@ -40,6 +52,100 @@ State = Dict[str, torch.Tensor]
 
 def _f32(v) -> torch.Tensor:
     return torch.as_tensor(v).detach().to(torch.float32).contiguous()
+
+
+def _state(path_or_state) -> dict:
+    return (load_torch_pickle(path_or_state)
+            if isinstance(path_or_state, str) else path_or_state)
+
+
+# -- SecretDecoder (EfficientNet-B1), SecretEncoder, MapperNet -------------
+
+def efficientnet_b1_from_torch(state, cfg: Optional[EfficientNetConfig] = None,
+                               prefix: str = "model.") -> State:
+    """A torchvision efficientnet_b1 state dict -> the state dict of the
+    port's `EfficientNet(cfg)` (B1 by default).  `prefix` (the
+    SecretDecoder's `model.`) is stripped where a key has it.  Every
+    parameter and running statistic of the module must be present; a
+    missing `num_batches_tracked` becomes 0, and keys the module does not
+    have are left out."""
+    from aqualora_torch.models.efficientnet import EfficientNet
+    st = {k[len(prefix):] if k.startswith(prefix) else k: v
+          for k, v in state.items()}
+    with torch.device("meta"):
+        model = EfficientNet(cfg or EfficientNetConfig.b1())
+    out: State = {}
+    for k in model.state_dict():
+        if k.endswith("num_batches_tracked"):
+            out[k] = (torch.as_tensor(st[k]).to(torch.int64) if k in st
+                      else torch.zeros((), dtype=torch.int64))
+        else:
+            out[k] = _f32(st[k])
+    return out
+
+
+def secret_decoder_from_torch(path_or_state, bitnum: int = 48,
+                              cfg: Optional[EfficientNetConfig] = None
+                              ) -> State:
+    """msgdecoder.pt, or its state dict -> the state dict of the port's
+    `SecretDecoder` (its backbone under `model.`).  `bitnum` is the JAX
+    reader's argument, unused there too: the head's shape is the file's."""
+    del bitnum
+    backbone = efficientnet_b1_from_torch(_state(path_or_state), cfg)
+    return {f"model.{k}": v for k, v in backbone.items()}
+
+
+def secret_encoder_from_torch(path_or_state) -> State:
+    """The reference's SecretEncoder state dict (utils/models.py:51-64):
+    secret_scaler.0 = Linear(bits -> 32*32), secret_scaler.5 = the zero
+    conv -> the port's `secret_dense` / `conv_out`."""
+    st = _state(path_or_state)
+    return {f"{dst}.{leaf}": _f32(st[f"secret_scaler.{src}.{leaf}"])
+            for src, dst in ((0, "secret_dense"), (5, "conv_out"))
+            for leaf in ("weight", "bias")}
+
+
+def mapper_from_torch(path_or_state) -> State:
+    """mapper.pt -> the port's MapperNet state dict."""
+    return {"bit_embeddings.weight":
+            _f32(_state(path_or_state)["bit_embeddings.weight"])}
+
+
+def latentwm_from_torch(path: str,
+                        cfg: Optional[EfficientNetConfig] = None) -> dict:
+    """pretrained_latentwm.pth {'sec_encoder', 'sec_decoder'} (the stage-1
+    artifact, latent_wm_pretrain.py:246-249) -> the same dict of the port's
+    state dicts, which `train.ppft_train.load_pretrain` reads."""
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    return {"sec_encoder": secret_encoder_from_torch(obj["sec_encoder"]),
+            "sec_decoder": secret_decoder_from_torch(obj["sec_decoder"],
+                                                     cfg=cfg)}
+
+
+# -- LPIPS VGG16 -------------------------------------------------------------
+
+def lpips_from_torch(path_or_state) -> State:
+    """The lpips package's checkpoint (`net.sliceK.N`, `lin{i}`), or a dict
+    with torchvision's `features.N` / `net.features.N` VGG16 keys and the
+    `lin{i}.model.1.weight` or `lins.{i}.model.1.weight` heads -> the state
+    dict of the port's `LPIPS`."""
+    from aqualora_torch.models.lpips import vgg16_conv_indices
+    st = _state(path_or_state)
+    out: State = {}
+    for si, stage in enumerate(vgg16_conv_indices()):
+        for n in stage:
+            ours = f"net.slice{si + 1}.{n}"
+            src = next((key for key in (f"features.{n}", f"net.features.{n}")
+                        if f"{key}.weight" in st), ours)
+            for leaf in ("weight", "bias"):
+                out[f"{ours}.{leaf}"] = _f32(st[f"{src}.{leaf}"])
+    for i in range(len(vgg16_conv_indices())):
+        key = next((k for k in (f"lin{i}.model.1.weight",
+                                f"lins.{i}.model.1.weight") if k in st), None)
+        if key is None:
+            raise KeyError(f"lin{i}")
+        out[f"lin{i}.model.1.weight"] = _f32(st[key])
+    return out
 
 
 # -- FID InceptionV3 -------------------------------------------------------

@@ -15,6 +15,8 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py --phases 21     # the trainers' remaining options
     python3 chip_smoke.py --phases 22     # the chain, then the fidelity
                                           # benchmarks (FID, DreamSim)
+    python3 chip_smoke.py --phases 23     # the reference release: the
+                                          # golden gate and run_parity
 
 Phases (any failure raises, so the exit code is not 0):
   0. torch and CUDA versions, the card's name and power limit (nvidia-smi).
@@ -281,10 +283,32 @@ Phases (any failure raises, so the exit code is not 0):
      on the same artifacts: 8 prompts, dpms_m 25, B4, with and without the
      LoRA: 801 launches a generate call, 72 a DreamSim call, the mean
      distance (printed: random weights).
+ 23. The reference release (synthetic release files, seeded random weights,
+     needs no other phase): (a) the forward at every shape of an SD-2.1
+     generate at its native 768^2, B2 under CFG (d = 64 at the four U-Net
+     levels, 96^2 to 12^2, on the DP = 80 instance with 16 columns masked,
+     and the VAE's mid-block at d = 512), bf16 at its batch: two calls
+     bit-identical, against the plain version, the tiling, kernel_ms,
+     plain_ms, SDPA's time and the bound, and after the timed phases the
+     same as device time (with the short sessions); (b) `run_parity.run`
+     at SD-1.5 512^2 (`--synthetic --skip_int8`, 4 gate prompts and 4
+     eval_base prompts x 1 seed, B2, the merge leg on): the LoRA file holds
+     384 tensors, the ported files load strictly, the ported msgdecoder.pt
+     gives the CPU's logits on the card (float32, 1e-4 of the largest),
+     801 forward launches a generate call, merge_img_diff < 4/255,
+     PARITY.json with its gate and eval_base entries; the seconds of each
+     part (synthesis, port, fold, each generate, merge, LDM write and read,
+     reload, the FID smoke, eval_base), the LDM file's GB, images/s and the
+     fold and merge paths' decoded-bit agreement; (c) `golden_gate.run` at
+     SD-2.1 768^2 (`--synthetic --model sd21 --via_merge`, 2 prompts, B2):
+     the v2 single file found to be v2 on reload, merge_img_diff < 4/255,
+     801 launches a call, images/s and the peak device memory.  Each leg's
+     LDM file (4-5 GB) is deleted when the leg ends.
 The timed phases run first (0-7, 12, 13, 14, 8, 15, 16, 18b-d, 19d, 22d-e,
-17, 18a, 19a-c, 19e, 20, 21, 22a-c) and the profiled ones after them, so
-that the profiler touches no timed phase: first the short sessions (6's
-profile, 9, 10, 12's profile, 18a's, 19e's, 22a's), then the profiles of
+17, 18a, 19a-c, 19e, 20, 21, 22a-c, 23a-c) and the profiled ones after
+them, so that the profiler touches no timed phase: first the short
+sessions (6's profile, 9, 10, 12's profile, 18a's, 19e's, 22a's, 23a's),
+then the profiles of
 whole steps (8, 14, 18d's, 20's, 21a's update) and of a generate call
 (11).  After a session of a whole step, short sessions in the same process
 have recorded some device events or none (PERF.md, section 7).  The line
@@ -4560,10 +4584,329 @@ def phase22e(smi: str, out_dir: str) -> dict:
     return by_shape
 
 
+# SD-2.1 at its native 768^2 under CFG at B2 (the golden gate's batch): the
+# forward's shapes, d = 64 at every U-Net level (the DP = 80 instance with
+# 16 columns masked) and the VAE's mid-block at d = 512.  name, heads, Tq,
+# Tk, head dim, batch, launches a 25-step generate call
+SD21_768_SHAPES = [
+    ("unet96_self", 5, 9216, 9216, 64, 4, 125),
+    ("unet96_cross", 5, 9216, 77, 64, 4, 125),
+    ("unet48_self", 10, 2304, 2304, 64, 4, 125),
+    ("unet48_cross", 10, 2304, 77, 64, 4, 125),
+    ("unet24_self", 20, 576, 576, 64, 4, 125),
+    ("unet24_cross", 20, 576, 77, 64, 4, 125),
+    ("unet12_self", 20, 144, 144, 64, 4, 25),
+    ("unet12_cross", 20, 144, 77, 64, 4, 25),
+    ("vae_mid", 1, 9216, 9216, 512, 2, 1),
+]
+GATE_LORA_TENSORS = 384
+GATE_PROMPTS = {"sd15": 4, "sd21": 2}
+GATE_BATCH = 2
+GATE_MERGE_TOL = 4.0                 # mean |d| of the uint8 images, /255
+LDM_FILE = "watermark_SDmodel.safetensors"
+DECODER_LOGIT_RTOL = 1e-4
+
+
+def sd21_768_shapes():
+    """(key, heads, Tq, Tk, d, batch, launches a call)."""
+    return [(f"sd21_768/{name}", *rest) for name, *rest in SD21_768_SHAPES]
+
+
+def phase23a(smi: str) -> dict:
+    """Every forward shape of an SD-2.1 generate at 768^2 B2, bf16 at its
+    batch: two calls bit-identical, against the plain version, the tiling,
+    kernel, plain, SDPA and bound times (as phase 2)."""
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    return {key: check_serving_shape(key, h, tq, tk, d, b, gen, smi,
+                                     at_b2=False, phase=23,
+                                     plain=plain_by_batch)
+            for key, h, tq, tk, d, b, _ in sd21_768_shapes()}
+
+
+def phase23a_profile(smi: str, rows: dict) -> None:
+    """23a's forward and SDPA's forward as device time (as phase 10)."""
+    from aqualora_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(231)
+    for key, h, tq, tk, d, b, _ in sd21_768_shapes():
+        scale = d ** -0.5
+        q, k, v = (torch.randn(b, h, t, d, device="cuda", generator=gen)
+                   .to(torch.bfloat16) for t in (tq, tk, tk))
+        kernel_dev = device_ms(lambda: fa.flash_attention_fwd(q, k, v, scale))
+        library_dev = device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, scale=scale))
+        row = rows[key]
+        print(f"[23] {key} B{b} bf16: forward device time {kernel_dev:.4f} "
+              f"ms, sdpa forward {library_dev:.4f} = "
+              f"{kernel_dev / library_dev:.2f}x, bound {row['bound_ms']:.4f} "
+              f"({row['bound_by']}), kernel_ms {row['ms']:.4f}, plain_ms "
+              f"{row['plain_ms']:.4f}, max|dO| {row['max_abs_err']:.3e} | "
+              f"{smi}", flush=True)
+        row.update(device_ms=kernel_dev, library_device_ms=library_dev)
+        del q, k, v
+        torch.cuda.empty_cache()
+
+
+class GateParts:
+    """Times the parts of the golden gate and the parity runbook by
+    wrapping what they call (each wrapper synchronizes the card before it
+    stops its clock), counts the forward launches of each generate call,
+    and keeps what the checks read: the bits of each `simple_decode` call
+    and whether each single file read back was found to be v2.
+    `install()` / `remove()`."""
+
+    def __init__(self):
+        from aqualora_torch.diffusion import pipeline as pl
+        from aqualora_torch.eval import fid, run_eval_base
+        from aqualora_torch.eval import utils_eval as ue
+        from aqualora_torch.tools import (create_wm_lora, golden_gate,
+                                          ldm_convert, merge_lora,
+                                          port_reference_artifacts,
+                                          synthetic_artifacts)
+        self.ldm = ldm_convert
+        self.targets = [
+            (synthetic_artifacts, "synthesize_reference_artifacts",
+             "synthesis"),
+            (port_reference_artifacts, "port", "port"),
+            (create_wm_lora, "create_watermark_lora", "fold"),
+            (golden_gate, "base_params", "base weights"),
+            (ue, "simple_sample", "sample (pipeline build + generate)"),
+            (ue, "simple_decode", "decode"),
+            (merge_lora, "merge_lora_into_states", "merge"),
+            (ldm_convert, "diffusers_to_ldm", "to LDM keys"),
+            (golden_gate, "save_safetensors", "write"),
+            (golden_gate, "load_safetensors", "read"),
+            (ldm_convert, "ldm_to_diffusers", "reload (LDM -> diffusers)"),
+            (fid.InceptionExtractor, "__call__", "FID smoke features"),
+            (fid, "frechet_distance", "FID smoke Frechet (host sqrtm)"),
+            (run_eval_base, "main", "eval_base"),
+            (pl.StableDiffusionPipeline, "make_generate", None)]
+        self.saved = {}
+        self.calls = []            # (part, label, seconds)
+        self.generate = []         # (seconds, launches) of each call
+        self.decoded, self.v2 = [], []
+
+    def _timed(self, part, fn):
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            label = ""
+            if part in ("write", "read"):
+                label = os.path.basename(a[1] if part == "write" else a[0])
+            self.calls.append((part, label, time.perf_counter() - t0))
+            if part == "decode":
+                self.decoded.append(out[2])
+            return out
+        return wrapper
+
+    def install(self):
+        self.saved = {(o, n): getattr(o, n) for o, n, _ in self.targets}
+        for obj, name, part in self.targets[:-1]:
+            setattr(obj, name, self._timed(part, self.saved[(obj, name)]))
+        reload = getattr(self.ldm, "ldm_to_diffusers")
+        detect = self.ldm.detect_v2
+
+        def reload_detected(state, *a, **k):
+            self.v2.append(detect(state))
+            return reload(state, *a, **k)
+        self.ldm.ldm_to_diffusers = reload_detected
+        pl_cls = self.targets[-1][0]
+        make = self.saved[(pl_cls, "make_generate")]
+
+        def counted_make(pipe, *a, **k):
+            generate = make(pipe, *a, **k)
+
+            def counted(*ga, **gk):
+                torch.cuda.synchronize()
+                before, t0 = counts(), time.perf_counter()
+                out = generate(*ga, **gk)
+                torch.cuda.synchronize()
+                after = counts()
+                self.generate.append((time.perf_counter() - t0, {
+                    c: after[c] - before[c] for c in after}))
+                return out
+            return counted
+        pl_cls.make_generate = counted_make
+
+    def remove(self):
+        for (obj, name), fn in self.saved.items():
+            setattr(obj, name, fn)
+
+    def seconds(self) -> str:
+        return ", ".join(f"{part}{f' {label}' if label else ''} {s:.4f}"
+                         for part, label, s in self.calls)
+
+    def run(self, fn, *a):
+        """fn(*a) with the parts timed and the counts set to 0 before it
+        and read after it -> (result, wall seconds, counts, launches by
+        shape)."""
+        from aqualora_torch.ops import flash_attention as fa
+        self.install()
+        try:
+            torch.cuda.synchronize()
+            reset_counts()                      # counts start here
+            t0 = time.perf_counter()
+            result = fn(*a)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got, by_shape = counts(), dict(fa.launches.by_shape)
+        finally:
+            self.remove()
+        return result, wall, got, by_shape
+
+
+def check_gate_calls(tag: str, parts: GateParts, n_calls: int,
+                     got: dict) -> None:
+    """Every generate call launched the forward 801 times (and no training
+    kernel), and the run's counts are the sum of its calls."""
+    want = {"fwd": LAUNCHES_PER_GENERATE, **NO_TRAINING}
+    if (len(parts.generate) != n_calls
+            or any(c != want for _, c in parts.generate)
+            or got != {"fwd": n_calls * LAUNCHES_PER_GENERATE,
+                       **NO_TRAINING}):
+        raise AssertionError(f"{tag}: launches {got}, per generate call "
+                             f"{[c for _, c in parts.generate]}; want "
+                             f"{n_calls} calls of {want}")
+
+
+def check_ported_files(out: Path, smi: str) -> None:
+    """The ported release files at full width load strictly into the
+    port's modules; the ported msgdecoder.pt gives the same logits on the
+    card as on the CPU, float32, to 1e-4 of the largest."""
+    from aqualora_torch.core.config import EfficientNetConfig
+    from aqualora_torch.core.io import assign_state, load_safetensors
+    from aqualora_torch.eval.utils_eval import load_msgdecoder
+    from aqualora_torch.models.watermark import (MapperNet, SecretDecoder,
+                                                 SecretEncoder)
+    from aqualora_torch.train.ppft_train import load_pretrain
+    backbone = EfficientNetConfig.b1(num_classes=2 * EVAL_MSG_BITS)
+    with torch.device("cuda"):
+        encoder = SecretEncoder(EVAL_MSG_BITS)
+        mapper = MapperNet(EVAL_MSG_BITS, 320)
+    load_pretrain(str(out / "pretrained_latentwm.pt"), encoder,
+                  SecretDecoder(EVAL_MSG_BITS, backbone, device="cuda"))
+    assign_state(mapper, load_safetensors(str(out / "mapper.safetensors")))
+    gen = torch.Generator().manual_seed(232)
+    x = torch.rand(PROTOCOL_IMAGES, 3, RES, RES, generator=gen) * 2 - 1
+    logits = {}
+    for device in ("cpu", "cuda"):
+        dec = load_msgdecoder(str(out / "msgdecoder.pt"), EVAL_MSG_BITS,
+                              backbone, device=device)
+        with torch.no_grad():
+            logits[device] = dec(x.to(device)).float().cpu()
+    err = (logits["cuda"] - logits["cpu"]).abs().max().item()
+    tol = DECODER_LOGIT_RTOL * logits["cpu"].abs().max().item()
+    print(f"[23] ported files load strictly (stage-1 file, mapper, "
+          f"decoder); the ported msgdecoder.pt at B{PROTOCOL_IMAGES} {RES}^2 "
+          f"float32, card vs CPU: max|d logit| {err:.3e} (tol {tol:.3e}) | "
+          f"{smi}", flush=True)
+    if not err <= tol:
+        raise AssertionError(f"ported decoder: card vs CPU {err} > {tol}")
+
+
+def gate_summary(tag: str, parts: GateParts, res: int, n_images: int,
+                 wall: float, ldm_bytes: int, smi: str) -> None:
+    """Print the gate's seconds, images/s and the fold and merge paths'
+    decoded-bit agreement."""
+    fold_s = sum(s for s, _ in parts.generate[: n_images // GATE_BATCH])
+    fold, merged = parts.decoded[:2]
+    agree = sum(a == b for x, y in zip(fold, merged)
+                for a, b in zip(x, y)) / sum(len(x) for x in fold)
+    print(f"[23] {tag}: {wall:.4f} s end to end; {n_images} images at "
+          f"{res}^2 dpms_m-{STEPS} CFG 7.5 bf16 B{GATE_BATCH} in "
+          f"{fold_s:.4f} s of generate calls = {n_images / fold_s:.4f} "
+          f"images/s (fold path); generate calls (s) "
+          f"{[round(s, 4) for s, _ in parts.generate]}; the LDM file "
+          f"{ldm_bytes / 1e9:.4f} GB; the fold and merge paths' decoded "
+          f"bits agree on {agree:.4f} of {sum(len(x) for x in fold)}; "
+          f"seconds: {parts.seconds()} | {smi}", flush=True)
+
+
+def phase23b(smi: str) -> None:
+    """`run_parity.run` at SD-1.5 512^2 on synthetic release files: the
+    gate (synthesis, port, fold, generate, decode, the merge workflow, the
+    FID smoke) and run_eval_base on its ported files, B2."""
+    from aqualora_torch.core.io import read_safetensors_header
+    from aqualora_torch.tools import run_parity
+    n = GATE_PROMPTS["sd15"]
+    with tempfile.TemporaryDirectory(prefix="aqualora_gate15_") as tmp:
+        out = Path(tmp)
+        args = run_parity.build_argparser().parse_args(
+            ["--out", tmp, "--synthetic", "--skip_int8",
+             "--gate_num_prompts", str(n), "--batch_size", str(GATE_BATCH),
+             "--eval_num_prompts", str(n), "--eval_num_seeds", "1",
+             "--device", "cuda"])
+        parts = GateParts()
+        parity, wall, got, _ = parts.run(run_parity.run, args)
+        ldm = out / "gate" / LDM_FILE
+        ldm_bytes = ldm.stat().st_size
+        ldm.unlink()
+        check_gate_calls("[23] run_parity", parts, 3 * n // GATE_BATCH, got)
+        lora = (out / "gate" / "reference_release" / "ppft_trained"
+                / "pytorch_lora_weights.safetensors")
+        n_lora = len(read_safetensors_header(str(lora))[0])
+        gate, ev = parity["gate"], parity["eval_base"]
+        print(f"[23] run_parity SD-1.5: message {gate['message']}, gate bit "
+              f"accuracy {gate['bit_acc']:.4f} (random weights: printed), "
+              f"merge_img_diff {gate['merge_img_diff']:.4f}/255, eval_base "
+              f"{ev['n_images']} images bit accuracy {ev['bit_acc']:.4f}; "
+              f"the LoRA file holds {n_lora} tensors; launches {got} | "
+              f"{smi}", flush=True)
+        gate_summary("run_parity SD-1.5 512^2", parts, RES, n, wall,
+                     ldm_bytes, smi)
+        written = json.loads((out / "PARITY.json").read_text())
+        if not (n_lora == GATE_LORA_TENSORS
+                and gate["merge_img_diff"] < GATE_MERGE_TOL
+                and written == parity and written["gate"] == gate
+                and ev["n_images"] == n and len(parts.decoded) == 3
+                and parts.v2 == [False]):
+            raise AssertionError(f"run_parity failed a check: {parity}, "
+                                 f"LoRA tensors {n_lora}, v2 {parts.v2}")
+        check_ported_files(out / "gate" / "ported", smi)
+
+
+def phase23c(smi: str) -> dict:
+    """`golden_gate.run` at SD-2.1 768^2 on synthetic release files, with
+    the merge workflow's v2 single file.  Returns the forward launches by
+    shape."""
+    from aqualora_torch.tools import golden_gate
+    n = GATE_PROMPTS["sd21"]
+    with tempfile.TemporaryDirectory(prefix="aqualora_gate21_") as tmp:
+        args = golden_gate.build_argparser().parse_args(
+            ["--out", tmp, "--synthetic", "--model", "sd21", "--resolution",
+             "768", "--via_merge", "--num_prompts", str(n), "--batch_size",
+             str(GATE_BATCH), "--device", "cuda"])
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        parts = GateParts()
+        result, wall, got, by_shape = parts.run(golden_gate.run, args)
+        peak = torch.cuda.max_memory_allocated()
+        ldm = Path(tmp) / LDM_FILE
+        ldm_bytes = ldm.stat().st_size
+        ldm.unlink()
+        check_gate_calls("[23] golden_gate sd21", parts, 2 * n // GATE_BATCH,
+                         got)
+        print(f"[23] golden_gate SD-2.1 768^2: message {result['message']}, "
+              f"bit accuracy {result['bit_acc']:.4f} (random weights: "
+              f"printed), merge_img_diff {result['merge_img_diff']:.4f}/255, "
+              f"the single file read back as v2: {parts.v2}; peak device "
+              f"memory {peak / 2 ** 30:.4f} GiB; launches {got} | {smi}",
+              flush=True)
+        gate_summary("golden_gate SD-2.1 768^2", parts, 768, n, wall,
+                     ldm_bytes, smi)
+        if not (result["merge_img_diff"] < GATE_MERGE_TOL
+                and parts.v2 == [True] and result["model"] == "sd21"):
+            raise AssertionError(f"golden_gate sd21 failed a check: "
+                                 f"{result}, v2 {parts.v2}")
+    return by_shape
+
+
 def kernels_line(rows, launches, bwd_rows, train_launches, inject_row,
                  inject_launches, s1_rows, s1_launches, proto_launches,
                  s3_rows, s3_launches, dist_launches, s21_rows, fid_launches,
-                 vit_rows, ds_launches) -> dict:
+                 vit_rows, ds_launches, sd21_768_rows,
+                 sd21_768_launches) -> dict:
     kernels = []
     for name, *_ in SHAPES:
         kernels.append({
@@ -4618,6 +4961,14 @@ def kernels_line(rows, launches, bwd_rows, train_launches, inject_row,
                 "source": "aqualora_torch/csrc/flash_fwd.cu",
                 "replaces": "aqualora_tpu/ops/flash_attention.py:147",
                 "launches": ds_launches[(h, t, t, d)], **vit_rows[key]})
+    # SD-2.1 at 768^2 (phase 23): 23a's numbers, 23c's launches
+    for key, h, tq, tk, d, *_ in sd21_768_shapes():
+        kernels.append({
+            "name": f"flash_attention_fwd/{key}", "route": "cuda",
+            "source": "aqualora_torch/csrc/flash_fwd.cu",
+            "replaces": "aqualora_tpu/ops/flash_attention.py:147",
+            "launches": sd21_768_launches.get((h, tq, tk, d), 0),
+            **sd21_768_rows[key]})
     for kern, line in (("dq", 239), ("dkv", 269)):
         for name, *_ in TRAIN_SHAPES:
             kernels.append({
@@ -4654,7 +5005,8 @@ def main(argv=None):
                          "phase 0 always runs, and the kernels line needs "
                          "all of them)")
     args = ap.parse_args(argv)
-    every = set(range(23))
+    t_start = time.perf_counter()
+    every = set(range(24))
     run_ = every if args.phases is None else \
         {0} | {int(x) for x in args.phases.split(",")}
     if 11 in run_:
@@ -4740,6 +5092,13 @@ def main(argv=None):
         with tempfile.TemporaryDirectory(prefix="aqualora_fid_") as tmp:
             phase22b(smi, tmp)
         phase22c(smi)
+    sd21_768_rows, sd21_768_launches = {}, {}
+    if 23 in run_:
+        torch.cuda.empty_cache()
+        sd21_768_rows = phase23a(smi)
+        phase23b(smi)
+        sd21_768_launches = phase23c(smi)
+        torch.cuda.empty_cache()
     # the profiled phases: the short sessions first, then the profiles of
     # whole steps and of the generate call (see the docstring)
     if 6 in run_:
@@ -4756,6 +5115,8 @@ def main(argv=None):
         phase19e_profile(smi, f32_rows)
     if 22 in run_:
         phase22a_profile(smi, vit_rows)
+    if 23 in run_:
+        phase23a_profile(smi, sd21_768_rows)
     if 8 in run_:
         profile_step(*ppft_kept, smi)
         del ppft_kept
@@ -4775,13 +5136,17 @@ def main(argv=None):
         torch.cuda.empty_cache()
     if 11 in run_:
         phase11(smi, serve, med_s)
+    print(f"[end] phases {sorted(run_)} took "
+          f"{time.perf_counter() - t_start:.1f} s of the script's run | "
+          f"{smi}", flush=True)
     if run_ == every:
         print(json.dumps(kernels_line(rows, launches, bwd_rows,
                                       train_launches, inject_row,
                                       inject_launches, s1_rows, s1_launches,
                                       proto_launches, s3_rows, s3_launches,
                                       dist_launches, s21_rows, fid_launches,
-                                      vit_rows, ds_launches)))
+                                      vit_rows, ds_launches, sd21_768_rows,
+                                      sd21_768_launches)))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,7 +10,9 @@ gives the state dict that the port's module of the same name loads with
   `down_blocks.0`, except the diffusers names whose `_N` is literal
   (`linear_1`, `conv_1`, ...);
 - Dense kernels (in, out) become Linear weights (out, in); Conv kernels HWIO
-  become OIHW; norm `scale` and `embedding` leaves become `weight`; the
+  become OIHW, int8 codes included, and an int8 site's `kernel_scale`
+  becomes `weight_scale` (`ops/quant.py`); norm `scale` and `embedding`
+  leaves become `weight`; the
   MapperNet's `bit_embeddings` table becomes `bit_embeddings.weight` (the
   reference's mapper.pt layout).
 
@@ -80,6 +82,8 @@ def _leaf(path: Path, a: np.ndarray) -> Tuple[Path, np.ndarray]:
         if a.ndim == 4:
             return head + ("weight",), np.transpose(a, (3, 2, 0, 1))
         return head + ("weight",), np.transpose(a, (1, 0))
+    if leaf == "kernel_scale":          # an int8 site's scale (ops/quant.py)
+        return head + ("weight_scale",), a
     if leaf in ("scale", "embedding"):
         return head + ("weight",), a
     if leaf == "bit_embeddings":

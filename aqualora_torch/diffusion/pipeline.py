@@ -21,7 +21,7 @@ images come back in [-1, 1].
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -40,6 +40,7 @@ from aqualora_torch.models.lora import fold_lora_tree, lora_sites
 from aqualora_torch.models.unet import UNet2DConditionModel
 from aqualora_torch.models.vae import AutoencoderKL
 from aqualora_torch.models.watermark import MapperNet
+from aqualora_torch.ops import quant
 
 _NORMS = (nn.GroupNorm, nn.LayerNorm, nn.BatchNorm2d)
 
@@ -77,10 +78,12 @@ class StableDiffusionPipeline:
     """CLIP + U-Net + VAE + MapperNet on one device."""
 
     def __init__(self, config: PipelineConfig, dtype=torch.float32,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", int8=None):
         self.config = config
         self.dtype = dtype
         self.device = torch.device(device)
+        # the int8 mode's tokens (`quant.parse_mode`; empty: no int8)
+        self.int8 = quant.parse_mode(int8)
         with self.device:
             self.clip = CLIPTextModel(config.clip)
             self.unet = UNet2DConditionModel(config.unet)
@@ -97,7 +100,10 @@ class StableDiffusionPipeline:
         # weights of the U-Net's LoRA sites, cast at each call until a
         # message is folded into them (`fold_diag`), so that the fold rounds
         # once, as JAX's float32 fold cast at use.  Everything else is
-        # stored in `dtype`, which is JAX's cast at use done once.
+        # stored in `dtype`, which is JAX's cast at use done once.  With an
+        # int8 mode, the weights of the layers it quantizes stay float32
+        # until `quantize_int8` (or `int8_twin`), as JAX quantizes its
+        # float32 parameters.
         keep = {id(p) for p in self._float32_parameters()}
         with torch.no_grad():
             for m in self.modules():
@@ -117,6 +123,36 @@ class StableDiffusionPipeline:
             yield m.weight
         yield from self.unet.conv_out.parameters()
         yield from self.vae.decoder.conv_out.parameters()
+        for m in self._int8_layers():
+            yield m.weight
+
+    def _int8_layers(self) -> List[nn.Module]:
+        """The layers the int8 mode quantizes (none without one)."""
+        return [m for _, m in quant.mode_layers(self.int8, self.unet,
+                                                 self.vae)]
+
+    def quantize_int8(self) -> List[str]:
+        """Quantize the int8 mode's layers in place, from their float32
+        weights (after any fold): `simple_sample`'s int8 modes
+        (`aqualora_tpu/eval/utils_eval.py:260-278`) and stage 3's
+        `--int8_gen`.  Returns the weight keys quantized."""
+        return quant.apply_mode(self.int8, self.unet, self.vae)
+
+    def int8_twin(self) -> nn.Module:
+        """The PPFT teacher of `--teacher_int8`: a twin of the U-Net whose
+        int8-mode layers hold the codes of their float32 weights and which
+        shares every other tensor with it; the U-Net's own weights are then
+        cast to the compute type, as the other frozen weights are."""
+        t = self.int8
+        twin = quant.quantized_copy(
+            self.unet, include_convs=bool(t & {"conv", "all"}),
+            include_dense=bool(t & {"dense", "all"}))
+        lora_ids = {id(m) for m in lora_sites(self.unet)}
+        with torch.no_grad():
+            for m in self._int8_layers():
+                if id(m) not in lora_ids:
+                    m.weight.data = m.weight.data.to(self.dtype)
+        return twin
 
     # -- weights -------------------------------------------------------------
     def init_params(self, seed: int = 0) -> None:
@@ -204,8 +240,10 @@ class StableDiffusionPipeline:
         weights."""
         fold_lora_tree(self.unet, diag,
                        alpha_scale=self.config.unet.lora.alpha_scale)
+        int8 = {id(m) for m in self._int8_layers()}
         for m in lora_sites(self.unet):
-            m.weight.data = m.weight.data.to(self.dtype)
+            if id(m) not in int8:       # quantized from float32 instead
+                m.weight.data = m.weight.data.to(self.dtype)
 
     # -- the generator -----------------------------------------------------------
     def make_generate(self, num_steps: int = 25, sampler: str = "dpms_m",

@@ -12,7 +12,8 @@ The DreamSim weights are resolved before the generation passes: without
 them the runner stops at once (`--allow_random_weights` runs seeded random
 ones, whose distance is meaningless).  `--device` defaults to cuda; `--tiny
 --device cpu` runs the tiny configs at 32 px and at most 2 steps, and
-ViTs of width 32, depth 1 and 2 heads.  `--int8` is refused (ROADMAP A.8).
+ViTs of width 32, depth 1 and 2 heads.  `--int8 [MODE]` generates both
+sets with w8a8 serving (`ops/quant.py`).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import numpy as np
 from aqualora_torch.eval import utils_eval
 from aqualora_torch.eval.dreamsim import MODEL_CONFIGS, DreamSim
 from aqualora_torch.eval.prompts import load_prompts
+from aqualora_torch.ops import quant
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -63,7 +65,10 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--tiny", action="store_true",
                    help="tiny test config (CI/smoke)")
     p.add_argument("--int8", nargs="?", const="conv", default=False,
-                   help="not ported (ROADMAP A.8): refused")
+                   choices=quant.MODE_CHOICES,
+                   help="generate both image sets with int8 serving "
+                        "(ops/quant.py; bare --int8 = conv-only); default "
+                        "bf16, the reference protocol")
     p.add_argument("--device", type=str, default="cuda")
     return p
 
@@ -92,8 +97,6 @@ def resolve_params(args):
 def main(argv=None) -> np.ndarray:
     """-> the distance of each pair."""
     args = build_argparser().parse_args(argv)
-    if args.int8:
-        raise SystemExit("--int8: int8 serving is not ported (ROADMAP A.8)")
     cfg = vit_overrides = None
     if args.tiny:
         from aqualora_torch.core.config import PipelineConfig
@@ -113,7 +116,7 @@ def main(argv=None) -> np.ndarray:
     common = dict(seeds=[0], num_inference_steps=args.num_inference_steps,
                   guidance_scale=args.guidance_scale,
                   batch_size=args.batch_size, resolution=args.resolution,
-                  config=cfg, device=args.device)
+                  config=cfg, int8=args.int8, device=args.device)
     imgs_wm = utils_eval.simple_sample(args.model_path, args.sampler,
                                        prompts, lora=lora, **common)
     imgs_clean = utils_eval.simple_sample(args.model_path, args.sampler,

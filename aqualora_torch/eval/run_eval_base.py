@@ -12,7 +12,8 @@ report bit accuracy and TPR (`eval_base.json`).
         --msg_gt 0101... --msgdecoder_path DIR/msgdecoder.pt
 
 `--device` defaults to cuda; `--device cpu --tiny` runs the tiny configs
-at 32 px and at most 2 steps.
+at 32 px and at most 2 steps.  `--int8 [MODE]` generates with w8a8 serving
+(`ops/quant.py`; bare `--int8` is conv) and records the mode in the result.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import os
 
 from aqualora_torch.eval import utils_eval
 from aqualora_torch.eval.prompts import load_prompts
+from aqualora_torch.ops import quant
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -62,15 +64,16 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--tiny", action="store_true",
                    help="tiny test config (CI/smoke)")
     p.add_argument("--int8", nargs="?", const="conv", default=False,
-                   help="not ported (ROADMAP A.8): refused")
+                   choices=quant.MODE_CHOICES,
+                   help="generate with int8 serving (ops/quant.py; bare "
+                        "--int8 = conv-only); default bf16, the reference "
+                        "protocol")
     p.add_argument("--device", type=str, default="cuda")
     return p
 
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    if args.int8:
-        raise SystemExit("--int8: int8 serving is not ported (ROADMAP A.8)")
     cfg = backbone = None
     if args.tiny:
         from aqualora_torch.core.config import (EfficientNetConfig,
@@ -103,7 +106,7 @@ def main(argv=None):
         num_inference_steps=args.num_inference_steps,
         guidance_scale=args.guidance_scale,
         batch_size=args.batch_size, resolution=args.resolution,
-        config=cfg, device=args.device)
+        config=cfg, int8=args.int8, device=args.device)
 
     images = sorted(glob.glob(os.path.join(gen_dir, "*.png")))
     if args.msgdecoder_path is None:
@@ -111,7 +114,7 @@ def main(argv=None):
               "decode skipped, reference parity)")
         result = {"bit_acc": None, "tpr": None, "n_images": len(images),
                   "message": bitstring, "sampler": args.sampler,
-                  "int8": None}
+                  "int8": args.int8 or None}
         # a generation-only run still leaves the result file that
         # downstream tooling reads
         with open(os.path.join(args.output_dir, "eval_base.json"),
@@ -126,7 +129,8 @@ def main(argv=None):
           f"({len(images)} images)")
     result = {"bit_acc": float(bitacc), "tpr": float(tpr),
               "n_images": len(images), "message": bitstring,
-              "sampler": args.sampler, "fpr": args.fpr, "int8": None}
+              "sampler": args.sampler, "fpr": args.fpr,
+              "int8": args.int8 or None}
     with open(os.path.join(args.output_dir, "eval_base.json"), "w") as f:
         json.dump(result, f, indent=1)
     return result

@@ -14,7 +14,8 @@ report its bit accuracy and TPR.
 bfloat16 (float32 on the CPU); `--device cpu --tiny` runs the tiny configs
 at 32 px and at most 2 steps.  The attacks' SD-1.5 and SD-2.1 weights come
 from --model_path and --sd2_model_path (diffusers-layout directories), else
-seeded random ones.  `main` returns {kind: (bit accuracy, TPR)}.
+seeded random ones.  `--int8 [MODE]` generates the clean set with w8a8
+serving (`ops/quant.py`).  `main` returns {kind: (bit accuracy, TPR)}.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from aqualora_torch.eval import distortions as dist
 from aqualora_torch.eval import utils_eval
 from aqualora_torch.eval.image_io import load_png, save_png
 from aqualora_torch.eval.prompts import load_prompts
+from aqualora_torch.ops import quant
 
 # every kind but the SDEdit attacks, which their own flags add
 DEFAULT_DISTORTIONS = ",".join(dist.DISTORTION_TYPES[:7])
@@ -66,7 +68,10 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--tiny", action="store_true",
                    help="tiny test config (CI/smoke)")
     p.add_argument("--int8", nargs="?", const="conv", default=False,
-                   help="not ported (ROADMAP A.8): refused")
+                   choices=quant.MODE_CHOICES,
+                   help="generate the clean set with int8 serving "
+                        "(ops/quant.py; bare --int8 = conv-only); default "
+                        "bf16, the reference protocol")
     p.add_argument("--distortions", type=str, default=DEFAULT_DISTORTIONS)
     p.add_argument("--with_sdedit", action="store_true",
                    help="include the SDEdit regeneration attack (SD-1.5 "
@@ -100,8 +105,6 @@ def build_attack(cfg, seed: int, model_path, version: int, args, device,
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    if args.int8:
-        raise SystemExit("--int8: int8 serving is not ported (ROADMAP A.8)")
     from aqualora_torch.core.config import EfficientNetConfig, PipelineConfig
     cfg = backbone = None
     if args.tiny:
@@ -135,7 +138,8 @@ def main(argv=None):
         args.model_path, args.sampler, prompts, lora=lora, seeds=[0],
         output_dir=gen_dir, num_inference_steps=args.num_inference_steps,
         guidance_scale=args.guidance_scale, batch_size=args.batch_size,
-        resolution=args.resolution, config=cfg, device=device)
+        resolution=args.resolution, config=cfg, int8=args.int8,
+        device=device)
     paths = sorted(glob.glob(os.path.join(gen_dir, "*.png")))
     clean = np.stack([load_png(p) for p in paths])
     imgs01 = torch.from_numpy(clean).to(device).permute(0, 3, 1, 2).float() \

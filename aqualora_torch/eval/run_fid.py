@@ -14,7 +14,8 @@ The Inception weights are resolved before the generation pass: without
 them the runner stops at once (`--allow_random_inception` runs seeded
 random ones, whose FID is meaningless).  `--device` defaults to cuda;
 `--tiny --device cpu` runs the tiny configs at 32 px and at most 2 steps,
-with the full InceptionV3.  `--int8` is refused (ROADMAP A.8).
+with the full InceptionV3.  `--int8 [MODE]` generates with w8a8 serving
+(`ops/quant.py`).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import numpy as np
 
 from aqualora_torch.eval import utils_eval
 from aqualora_torch.eval.fid import InceptionExtractor, fid_given_paths
+from aqualora_torch.ops import quant
 
 
 def load_captions(meta_path: str, n: int, start: int = 0):
@@ -95,7 +97,10 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--tiny", action="store_true",
                    help="tiny test config (CI/smoke)")
     p.add_argument("--int8", nargs="?", const="conv", default=False,
-                   help="not ported (ROADMAP A.8): refused")
+                   choices=quant.MODE_CHOICES,
+                   help="generate with int8 serving (ops/quant.py; bare "
+                        "--int8 = conv-only); default bf16, the reference "
+                        "protocol")
     p.add_argument("--device", type=str, default="cuda")
     return p
 
@@ -122,8 +127,6 @@ def resolve_extractor(args) -> InceptionExtractor:
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    if args.int8:
-        raise SystemExit("--int8: int8 serving is not ported (ROADMAP A.8)")
     cfg = None
     if args.tiny:
         from aqualora_torch.core.config import PipelineConfig
@@ -161,7 +164,8 @@ def main(argv=None):
         seeds=[args.gen_seed], output_dir=gen_dir,
         num_inference_steps=args.num_inference_steps,
         guidance_scale=args.guidance_scale, batch_size=args.batch_size,
-        resolution=args.resolution, config=cfg, device=args.device)
+        resolution=args.resolution, config=cfg, int8=args.int8,
+        device=args.device)
 
     fid = fid_given_paths(gen_dir, args.gt_dir, extractor=extractor)
     print(f"FID: {fid:.4f}")
@@ -169,7 +173,7 @@ def main(argv=None):
               "random_inception": bool(args.allow_random_inception
                                        and not args.inception_params
                                        and not args.inception_torch_weights),
-              "int8": None}
+              "int8": args.int8 or None}
     with open(os.path.join(args.output_dir, "fid.json"), "w") as f:
         json.dump(result, f, indent=1)
     return result

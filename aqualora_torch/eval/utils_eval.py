@@ -17,7 +17,8 @@ The port of `aqualora_tpu/eval/utils_eval.py`:
 
 Generation runs on `device` ("cuda" unless the caller asks for the CPU), in
 bfloat16 on the card and float32 on the CPU, as the JAX package picks bf16
-on the TPU.  There is no int8 path (ROADMAP A.8) and no mesh (A.9).
+on the TPU; `int8` quantizes the U-Net and the VAE decoder for w8a8
+serving (`ops/quant.py`).  There is no mesh (ROADMAP A.9).
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from aqualora_torch.core.config import EfficientNetConfig, PipelineConfig
 from aqualora_torch.core.io import (LORA_FILE, import_lora_safetensors,
                                     load_safetensors)
 from aqualora_torch.eval.image_io import images_to_uint8, preprocess, save_png
+from aqualora_torch.ops import quant
 
 SAMPLER_NAMES = ("ddim", "euler", "heun", "lms", "pndm", "dpms_s",
                  "dpms_sde", "dpms_m", "kdpm2", "kdpm2a", "unipc")
@@ -206,7 +208,15 @@ def simple_sample(model_path: Optional[str], sampler: str,
     `model_path`'s), as torch state dicts by module: {"text_encoder",
     "unet", "vae", "mapper"}.
     `dtype`: bfloat16 on a CUDA device, float32 on the CPU by default.
-    `int8`: not ported (ROADMAP A.8); anything truthy raises."""
+    `int8`: w8a8 serving (`ops/quant.py`), False / True or a mode string:
+    "conv" (the U-Net's resnet, resample and proj_in / proj_out
+    convolutions; True maps here), "dense" (its attention and feed-forward
+    dense layers), "all" (both), each with an optional "+vae" (the VAE
+    decoder's convolutions), or "vae" alone; ValueError on any other.  The
+    layers are quantized from their float32 weights after the fold, as
+    JAX's are (`aqualora_tpu/eval/utils_eval.py:260-278`); on the card
+    they run `csrc/int8_quant.cu` and `csrc/int8_conv.cu`, on the CPU the
+    plain versions."""
     from aqualora_torch.core.tokenizer import load_tokenizer
     from aqualora_torch.diffusion.pipeline import StableDiffusionPipeline
     from aqualora_torch.models.lora import strip_lora_params
@@ -215,8 +225,7 @@ def simple_sample(model_path: Optional[str], sampler: str,
 
     if sampler not in SAMPLER_NAMES:
         raise ValueError(f"unknown sampler {sampler}; have {SAMPLER_NAMES}")
-    if int8:
-        raise NotImplementedError("int8 serving is not ported (ROADMAP A.8)")
+    quant.parse_mode(int8)
     device = torch.device(device)
     lora_unfolded = mapper_state = None
     if messages is not None:
@@ -236,7 +245,8 @@ def simple_sample(model_path: Optional[str], sampler: str,
         lora if lora is not None else lora_unfolded))
     if dtype is None:
         dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-    pipe = StableDiffusionPipeline(cfg, dtype=dtype, device=device)
+    pipe = StableDiffusionPipeline(cfg, dtype=dtype, device=device,
+                                   int8=int8)
     if params is not None:
         for name, module in (("text_encoder", pipe.clip),
                              ("unet", pipe.unet), ("vae", pipe.vae),
@@ -263,6 +273,7 @@ def simple_sample(model_path: Optional[str], sampler: str,
         bits = np.array([[int(c) for c in m] for m in messages], np.float32)
         # the fold path's mapper forward x inference scale -> [N, rank]
         diag_all = mapper_diag_from_state(mapper_state, bits) * message_scale
+    pipe.quantize_int8()
 
     tok = load_tokenizer(tokenizer_vocab, vocab_size=cfg.clip.vocab_size)
     gen = pipe.make_generate(num_inference_steps, sampler, resolution,

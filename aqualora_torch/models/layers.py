@@ -34,6 +34,7 @@ from torch.utils.checkpoint import checkpoint
 from aqualora_torch.core.config import LoRAConfig
 from aqualora_torch.models.lora import (DiagScale, LoRAConv2d, LoRALinear,
                                         active_dropout, lora_dropout)
+from aqualora_torch.ops import quant
 from aqualora_torch.ops.attention import dot_product_attention
 
 
@@ -67,6 +68,21 @@ class TimestepEmbedding(nn.Module):
         return self.linear_2(F.silu(self.linear_1(t_emb)))
 
 
+class Conv2d(quant.Int8Site, nn.Conv2d):
+    """nn.Conv2d (the same keys, shapes and init) that takes the w8a8 path
+    when its weight holds int8 codes with a float32 `weight_scale`
+    (`ops/quant.py`; set by `quant.quantize_layer_`): the counterpart of the
+    JAX `layers.Conv2D` (`aqualora_tpu/models/layers.py:42-70`).  A float
+    layer loads a float state dict strictly, a quantized one a quantized
+    state dict."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.weight.dtype == torch.int8:
+            return quant.int8_conv(x, self.weight, self.weight_scale,
+                                   self.bias, self.stride[0], self.padding[0])
+        return super().forward(x)
+
+
 class ResnetBlock2D(nn.Module):
     """GroupNorm-SiLU-Conv x2 with additive time embedding and 1x1 shortcut."""
 
@@ -74,12 +90,12 @@ class ResnetBlock2D(nn.Module):
                  eps: float = 1e-5, temb_dim: Optional[int] = None):
         super().__init__()
         self.norm1 = nn.GroupNorm(groups, in_channels, eps=eps)
-        self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
+        self.conv1 = Conv2d(in_channels, out_channels, 3, padding=1)
         self.time_emb_proj = (nn.Linear(temb_dim, out_channels)
                               if temb_dim else None)
         self.norm2 = nn.GroupNorm(groups, out_channels, eps=eps)
-        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
-        self.conv_shortcut = (nn.Conv2d(in_channels, out_channels, 1)
+        self.conv2 = Conv2d(out_channels, out_channels, 3, padding=1)
+        self.conv_shortcut = (Conv2d(in_channels, out_channels, 1)
                               if in_channels != out_channels else None)
 
     def forward(self, x: torch.Tensor,
@@ -105,8 +121,8 @@ class Downsample2D(nn.Module):
         (top, bottom), (left, right) = pad
         symmetric = top == bottom == left == right
         self.pad = None if symmetric else (left, right, top, bottom)
-        self.conv = nn.Conv2d(channels, out_channels, 3, stride=2,
-                              padding=top if symmetric else 0)
+        self.conv = Conv2d(channels, out_channels, 3, stride=2,
+                           padding=top if symmetric else 0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.pad is not None:
@@ -119,7 +135,7 @@ class Upsample2D(nn.Module):
 
     def __init__(self, channels: int, out_channels: int):
         super().__init__()
-        self.conv = nn.Conv2d(channels, out_channels, 3, padding=1)
+        self.conv = Conv2d(channels, out_channels, 3, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))

@@ -44,6 +44,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from aqualora_torch.core.config import LoRAConfig
+from aqualora_torch.ops import quant
 
 DiagScale = Union[None, float, torch.Tensor]
 
@@ -158,9 +159,13 @@ def _enabled(lora: Optional[LoRAConfig]) -> bool:
     return lora is not None and lora.enabled
 
 
-class _LoRASite(nn.Module):
+class _LoRASite(quant.Int8Site):
     """What a LoRA layer adds to its base output: the delta, with the
-    kohya dropouts when `lora_dropout` is active."""
+    kohya dropouts when `lora_dropout` is active.  The base output takes
+    the w8a8 path when the weight holds int8 codes with a `weight_scale`
+    (`ops/quant.py`); the delta is added on top in the activation's type,
+    as JAX's LoRADense and LoRAConv add it after `module_int8_apply`
+    (`aqualora_tpu/models/lora.py:109-125,181-190`)."""
 
     def _init_lora(self, lora: Optional[LoRAConfig]) -> None:
         on = _enabled(lora)
@@ -197,7 +202,10 @@ class LoRALinear(_LoRASite):
         self._init_lora(lora)
 
     def forward(self, x: torch.Tensor, scale: DiagScale = None) -> torch.Tensor:
-        y = F.linear(x, self.weight.to(x.dtype), self.bias)
+        if self.weight.dtype == torch.int8:
+            y = quant.int8_dense(x, self.weight, self.weight_scale, self.bias)
+        else:
+            y = F.linear(x, self.weight.to(x.dtype), self.bias)
         if self.lora is not None and scale is not None:
             y = y + self._delta(x, scale)
         return y
@@ -224,8 +232,12 @@ class LoRAConv2d(_LoRASite):
         self._init_lora(lora)
 
     def forward(self, x: torch.Tensor, scale: DiagScale = None) -> torch.Tensor:
-        y = F.conv2d(x, self.weight.to(x.dtype), self.bias, self.stride,
-                     self.padding)
+        if self.weight.dtype == torch.int8:
+            y = quant.int8_conv(x, self.weight, self.weight_scale, self.bias,
+                                self.stride, self.padding)
+        else:
+            y = F.conv2d(x, self.weight.to(x.dtype), self.bias, self.stride,
+                         self.padding)
         if self.lora is not None and scale is not None:
             y = y + self._delta(x, scale)
         return y

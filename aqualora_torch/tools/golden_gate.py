@@ -18,12 +18,23 @@ the folded LoRA in the webui layout, merged into the SD weights, written
 as a single-file LDM checkpoint, read back and generated from with the
 LoRA branch off; its images must match the fold path's.
 
+`--int8 [MODE]` also generates with w8a8 serving (`ops/quant.py`; bare
+`--int8` is conv) from the same weights and seeds and reports the mean
+bf16 <-> int8 image difference, the decoded-bit agreement and the logit
+margins' change (asserted against `--min_int8_agreement`, 0 to disable);
+`--train_decoder_steps N` also trains a tiny stage-1 decoder for N steps
+(`train.latent_wm_pretrain --tiny --device cpu`, in a subprocess) and
+reads both image sets through it, beside JPEG-50 and JPEG-95 controls at
+full resolution (`eval/jpeg.py`).
+
 Generation and decoding run on `--device` (cuda unless asked for the CPU);
-the merge, the conversions and the file I/O run on the host.  The w8a8
-legs (`--int8`, `--train_decoder_steps`) are not ported (ROADMAP A.8).
+the merge, the conversions and the file I/O run on the host.
 
     python -m aqualora_torch.tools.golden_gate --synthetic --tiny \\
         --via_merge --device cpu --out /tmp/gate
+    python -m aqualora_torch.tools.golden_gate --synthetic --tiny \\
+        --int8 conv --min_int8_agreement 0 --train_decoder_steps 4 \\
+        --device cpu --out /tmp/gate8
     python -m aqualora_torch.tools.golden_gate --sd_model SD15_DIR \\
         --latentwm pretrained_latentwm.pth --train_folder ppft_trained \\
         --out gate_out --min_bit_acc 0.99
@@ -35,6 +46,8 @@ import argparse
 import dataclasses
 import json
 import os
+import subprocess
+import sys
 from typing import Dict, Optional
 
 import numpy as np
@@ -42,16 +55,16 @@ import torch
 
 from aqualora_torch.core.config import EfficientNetConfig, PipelineConfig
 from aqualora_torch.core.io import load_safetensors, save_safetensors
+from aqualora_torch.eval import distortions
 from aqualora_torch.eval import fid as fid_mod
 from aqualora_torch.eval import utils_eval
 from aqualora_torch.eval.prompts import load_prompts
+from aqualora_torch.ops import quant
 from aqualora_torch.tools import (create_wm_lora, ldm_convert, lora_layouts,
                                   merge_lora, port_reference_artifacts,
                                   synthetic_artifacts)
 
 Params = Dict[str, Dict[str, torch.Tensor]]
-
-UNPORTED = "int8 serving is not ported (ROADMAP A.8)"
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -88,11 +101,20 @@ def build_argparser() -> argparse.ArgumentParser:
                         "generate; asserts that the merged model "
                         "reproduces the fold path's images")
     p.add_argument("--int8", nargs="?", const="conv", default=False,
-                   help="not ported (ROADMAP A.8): refused")
+                   choices=quant.MODE_CHOICES,
+                   help="also generate with int8 serving (ops/quant.py; "
+                        "bare --int8 = conv) and report the bf16 <-> int8 "
+                        "image difference and decoded-bit agreement")
     p.add_argument("--min_int8_agreement", type=float, default=0.98,
-                   help="the --int8 leg's bound (ROADMAP A.8)")
+                   help="asserted lower bound on the bf16 <-> int8 "
+                        "decoded-bit agreement whenever --int8 runs "
+                        "(synthetic included); 0 disables")
     p.add_argument("--train_decoder_steps", type=int, default=0,
-                   help="not ported (ROADMAP A.8): refused")
+                   help="also train a tiny stage-1 decoder for N steps "
+                        "(latent_wm_pretrain --tiny, CPU subprocess) and "
+                        "measure the bf16 <-> int8 agreement through it, "
+                        "against JPEG-50 and JPEG-95 controls; needs "
+                        "--int8")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", type=str, default="cuda")
     return p
@@ -165,12 +187,187 @@ def _mean_abs_diff(images, others) -> float:
                           for a, b in zip(images, others)]))
 
 
-def run(args) -> dict:
-    if args.int8:
-        raise SystemExit(f"--int8: {UNPORTED}")
+def _agreement(a, b) -> float:
+    """Mean over images of the share of equal bits of two decode lists."""
+    return float(np.mean([np.mean([x == y for x, y in zip(d, dq)])
+                          for d, dq in zip(a, b)]))
+
+
+def _logit_sensitivity(marg_bf16: np.ndarray, marg_q: np.ndarray,
+                       decoded) -> dict:
+    """How far the int8 path moves the decoder's logit margins, against
+    the smallest margin and the spread across images
+    (`scripts/golden_gate.py:300-335`)."""
+    delta = np.abs(marg_bf16 - marg_q)
+    spread = np.abs(marg_bf16 - marg_bf16.mean(axis=0, keepdims=True))
+    min_margin = float(np.abs(marg_bf16).min())
+    spread_mean = float(spread.mean())
+    return {
+        "mean_abs_margin": float(np.abs(marg_bf16).mean()),
+        "min_abs_margin": min_margin,
+        "int8_margin_delta_mean": float(delta.mean()),
+        "int8_margin_delta_max": float(delta.max()),
+        "cross_image_spread_mean": spread_mean,
+        "max_delta_over_min_margin":
+            float(delta.max() / max(min_margin, 1e-12)),
+        # zero spread (one image, or a margin-constant decoder) leaves the
+        # ratio undefined
+        "mean_delta_over_spread":
+            float(delta.mean() / spread_mean) if spread_mean > 0 else None,
+        "release_decoder_bit_constant": bool(len(set(decoded)) == 1)}
+
+
+def _jpeg_full_res(images, quality: int, device) -> list:
+    """The protocol's JPEG at generation size (then the decoder's own
+    resize): `distortions.jpeg_compress` on the images / 255, back to
+    uint8 as the JAX gate does."""
+    x01 = torch.from_numpy(np.stack([np.asarray(im, np.float32) / 255.0
+                                     for im in images])).to(device)
+    out = distortions.jpeg_compress(x01.permute(0, 3, 1, 2), None, quality)
+    return list((out.permute(0, 2, 3, 1).cpu().numpy() * 255).clip(
+        0, 255).astype(np.uint8))
+
+
+def train_tiny_decoder(steps: int, out_dir: str) -> tuple:
+    """Stage 1 at the tiny config for `steps` steps on the CPU, in a
+    subprocess (`latent_wm_pretrain --tiny --warmup 0`, batch 8, epochs
+    sized so the steps run); -> (its SecretDecoder's state-dict file, its
+    final bit accuracy)."""
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "msgdecoder.pt")
+    acc_json = os.path.join(out_dir, "train_result.json")
+    steps_per_epoch = max(1, 256 // 8)   # the 256-sample synthetic set
+    epochs = max(1, -(-steps // steps_per_epoch))
+    argv = ["--tiny", "--epochs", str(epochs), "--batch_size", "8",
+            "--warmup", "0", "--max_train_steps", str(steps),
+            "--output_dir", out_dir, "--log_every", str(max(1, steps // 4)),
+            "--device", "cpu"]
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    script = (
+        f"import sys, json, torch; sys.path.insert(0, {root!r})\n"
+        "from aqualora_torch.train import latent_wm_pretrain as s1\n"
+        f"res = s1.run(s1.build_argparser().parse_args({argv!r}))\n"
+        "torch.save(res['trainer'].models.sec_decoder.state_dict(), "
+        f"{path!r})\n"
+        f"json.dump({{'final_acc': res['final_acc']}}, open({acc_json!r}, "
+        "'w'))\n")
+    subprocess.run([sys.executable, "-c", script], check=True)
+    with open(acc_json) as f:
+        return path, float(json.load(f)["final_acc"])
+
+
+def trained_decoder_leg(args, images, images_q) -> dict:
+    """The bf16 <-> int8 agreement through a trained tiny decoder, against
+    the protocol's JPEG-50 distortion and a JPEG-95 control
+    (`scripts/golden_gate.py:360-488`)."""
+    from aqualora_torch.core.config import WatermarkConfig
+    path, final_acc = train_tiny_decoder(
+        args.train_decoder_steps,
+        os.path.join(args.out, "trained_tiny_decoder"))
+    bits = WatermarkConfig.tiny().msg_bits
+    backbone = EfficientNetConfig.tiny(num_classes=bits * 2)
+
+    def decode(imgs):
+        _, _, decoded, marg = utils_eval.simple_decode(
+            bits, path, imgs, msg_gt=None,
+            resolution=backbone.decoder_resolution, backbone=backbone,
+            return_margins=True, device=args.device)
+        return decoded, marg
+
+    dec_t, marg_t = decode(images)
+    dec_q, marg_q = decode(images_q)
+    dec_50, marg_50 = decode(_jpeg_full_res(images, 50, args.device))
+    dec_95, marg_95 = decode(_jpeg_full_res(images, 95, args.device))
+    d_i8 = float(np.abs(marg_t - marg_q).mean())
+    d_50 = float(np.abs(marg_t - marg_50).mean())
+    d_95 = float(np.abs(marg_t - marg_95).mean())
+    report = {"stage1_steps": args.train_decoder_steps,
+              "stage1_final_acc": final_acc,
+              "decode_agreement_vs_bf16": _agreement(dec_t, dec_q),
+              "jpeg50_control_agreement": _agreement(dec_t, dec_50),
+              "jpeg95_control_agreement": _agreement(dec_t, dec_95),
+              "margin_delta_int8": d_i8, "margin_delta_jpeg50": d_50,
+              "margin_delta_jpeg95": d_95,
+              "int8_delta_over_jpeg50": float(d_i8 / max(d_50, 1e-12)),
+              # recorded, not asserted: a default-setting decision
+              "demotion_rule_met": bool(d_i8 > d_50)}
+    print(f"int8[{args.int8}] trained-decoder leg: decoded-bit agreement "
+          f"vs bf16 {report['decode_agreement_vs_bf16']:.4f} over "
+          f"{len(images)} images (JPEG-q50 control "
+          f"{report['jpeg50_control_agreement']:.4f}, q95 "
+          f"{report['jpeg95_control_agreement']:.4f}; stage-1 "
+          f"{args.train_decoder_steps} steps, train acc {final_acc:.3f}); "
+          f"logit deltas int8 {d_i8:.4g}, JPEG-q50 {d_50:.4g}, q95 "
+          f"{d_95:.4g}")
+    return report
+
+
+def int8_leg(args, prompts, lora, params, images, decoded, marg_bf16,
+             bit_acc, msgdecoder, sample_kw, decode_kw) -> dict:
+    """Generate with int8 serving from the same weights and seeds and
+    compare with the bf16 images (`scripts/golden_gate.py:280-360`)."""
+    images_q = utils_eval.simple_sample(
+        args.sd_model if params is None else None, args.sampler, prompts,
+        lora=lora, output_dir=os.path.join(args.out,
+                                           f"images_int8_{args.int8}"),
+        params=params, int8=args.int8, **sample_kw)
+    img_diff = _mean_abs_diff(images, images_q)
+    acc_q, tpr_q, decoded_q, marg_q = utils_eval.simple_decode(
+        args.msg_bits, msgdecoder, images_q, return_margins=True,
+        **decode_kw)
+    agree = _agreement(decoded, decoded_q)
+    sens = _logit_sensitivity(marg_bf16, marg_q, decoded)
+    report = {"mode": args.int8, "img_diff": img_diff,
+              "bit_acc": float(acc_q), "tpr": float(tpr_q),
+              "n_images": len(images), "decode_agreement_vs_bf16": agree,
+              "logit_sensitivity": sens}
+    ds = sens["mean_delta_over_spread"]
+    print(f"int8[{args.int8}] serving: mean image diff {img_diff:.3f}/255, "
+          f"decoded-bit agreement vs bf16 {agree:.4f} over {len(images)} "
+          f"images, bit accuracy {acc_q:.4f} (bf16 {bit_acc:.4f}); margin "
+          f"delta mean {sens['int8_margin_delta_mean']:.4g} / max "
+          f"{sens['int8_margin_delta_max']:.4g} vs min margin "
+          f"{sens['min_abs_margin']:.4g}, delta/spread "
+          f"{f'{ds:.3f}' if ds is not None else 'n/a (zero spread)'}")
     if args.train_decoder_steps:
-        raise SystemExit(f"--train_decoder_steps: the trained-decoder leg "
-                         f"measures the int8 agreement; {UNPORTED}")
+        report["trained_decoder"] = trained_decoder_leg(args, images,
+                                                        images_q)
+    if not args.synthetic and not acc_q >= args.min_bit_acc:
+        raise AssertionError(f"int8 bit accuracy {acc_q:.4f} < "
+                             f"{args.min_bit_acc}")
+    return report
+
+
+def check_int8(args, report: dict) -> None:
+    """The promotion gate (`scripts/golden_gate.py:515-544`), after the
+    JSON is written: the release decoder's agreement against
+    --min_int8_agreement, a trained decoder's against its JPEG-50
+    control."""
+    if report is None or args.min_int8_agreement <= 0:
+        return
+    a = report["decode_agreement_vs_bf16"]
+    if not a >= args.min_int8_agreement:
+        raise AssertionError(f"int8[{args.int8}] decode agreement {a:.4f} < "
+                             f"{args.min_int8_agreement}: int8 serving "
+                             "stays opt-in")
+    td = report.get("trained_decoder")
+    if td and not (td["decode_agreement_vs_bf16"]
+                   >= td["jpeg50_control_agreement"] - 0.005):
+        raise AssertionError(
+            f"int8[{args.int8}] trained-decoder agreement "
+            f"{td['decode_agreement_vs_bf16']:.4f} is below its JPEG-q50 "
+            f"control {td['jpeg50_control_agreement']:.4f}: int8 serving "
+            "stays opt-in")
+
+
+def run(args) -> dict:
+    if args.train_decoder_steps and not args.int8:
+        # the trained-decoder leg measures the int8 agreement; without
+        # --int8 it would never run
+        raise SystemExit("--train_decoder_steps measures bf16 <-> int8 "
+                         "decode agreement and requires --int8 (e.g. "
+                         "--int8 conv)")
     if args.tiny:
         cfg = PipelineConfig.tiny()
         backbone = EfficientNetConfig.tiny(num_classes=args.msg_bits * 2)
@@ -224,8 +421,8 @@ def run(args) -> dict:
         lora=lora, output_dir=os.path.join(args.out, "images"),
         params=params, **sample_kw)
     print(f"generated {len(images)} images at {args.resolution}^2")
-    bit_acc, tpr, decoded = utils_eval.simple_decode(
-        args.msg_bits, msgdecoder, images, **decode_kw)
+    bit_acc, tpr, decoded, marg_bf16 = utils_eval.simple_decode(
+        args.msg_bits, msgdecoder, images, return_margins=True, **decode_kw)
     print(f"bit accuracy: {bit_acc:.4f}  TPR@FPR{args.fpr:g}: {tpr:.4f}")
 
     merge_img_diff = None
@@ -237,7 +434,6 @@ def run(args) -> dict:
         merged = merged_params_via_ldm(
             params, lora, args.out,
             v2=not args.tiny and args.model == "sd21")
-        del params
         images_m = utils_eval.simple_sample(
             None, args.sampler, prompts, lora=None,
             output_dir=os.path.join(args.out, "images_merged"),
@@ -252,6 +448,13 @@ def run(args) -> dict:
                                                images_m, **decode_kw)
         print(f"merge workflow: mean image diff {merge_img_diff:.3f}/255, "
               f"bit accuracy {acc_m:.4f} (fold path {bit_acc:.4f}) OK")
+
+    int8_report = None
+    if args.int8:
+        int8_report = int8_leg(args, prompts, lora, params, images, decoded,
+                               marg_bf16, bit_acc, msgdecoder, sample_kw,
+                               decode_kw)
+    del params
 
     # the FID protocol's smoke: pool3 statistics of the generated set
     # (seeded random Inception weights)
@@ -270,9 +473,10 @@ def run(args) -> dict:
               "message": bitstring, "decoded": decoded,
               "synthetic": bool(args.synthetic),
               "model": "tiny" if args.tiny else args.model,
-              "merge_img_diff": merge_img_diff, "int8": None}
+              "merge_img_diff": merge_img_diff, "int8": int8_report}
     with open(os.path.join(args.out, "golden_gate.json"), "w") as f:
         json.dump(result, f, indent=1)
+    check_int8(args, int8_report)
     if not args.synthetic:
         if not bit_acc >= args.min_bit_acc:
             raise AssertionError(f"bit accuracy {bit_acc:.4f} < "

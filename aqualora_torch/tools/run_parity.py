@@ -7,8 +7,8 @@ ppft_trained/{pytorch_lora_weights.safetensors, mapper.pt,
 msgdecoder.pt}), it chains the acceptance protocol:
 
   1. port + golden gate (`tools/golden_gate.py`: fold -> generate ->
-     decode, the --via_merge merged-LDM leg; bit accuracy >= --min_bit_acc
-     asserted);
+     decode, the --via_merge merged-LDM leg, the --int8 conv leg unless
+     --skip_int8; bit accuracy >= --min_bit_acc asserted);
   2. run_eval_base (the reference's evaluation/run_eval_base.py:15-54
      protocol: N prompts x num_seeds, DPM-Solver++ 25, CFG 7.5, 512^2,
      FPR 1e-6);
@@ -17,11 +17,11 @@ msgdecoder.pt}), it chains the acceptance protocol:
   -> <out>/PARITY.json with every leg's numbers.
 
 With --synthetic the chain runs on random-weight artifacts in the
-reference's formats (accuracies reported, not asserted).  The gate's int8
-leg is not ported (ROADMAP A.8): pass --skip_int8, or the run stops before
-it starts.  Every leg runs on --device (cuda unless asked for the CPU).
+reference's formats (accuracies reported, not asserted; the int8 leg's
+agreement bound off, as in JAX).  Every leg runs on --device (cuda unless
+asked for the CPU).
 
-    python -m aqualora_torch.tools.run_parity --out parity_out --skip_int8 \\
+    python -m aqualora_torch.tools.run_parity --out parity_out \\
         --sd_model SD15_DIR --latentwm pretrained_latentwm.pth \\
         --train_folder ppft_trained [--fid_meta meta_data.json \\
         --fid_gt_dir coco_gt/ --inception_torch_weights pt_inception.pth]
@@ -60,8 +60,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--skip_merge", action="store_true",
                    help="skip the gate's merged-LDM leg")
     p.add_argument("--skip_int8", action="store_true",
-                   help="skip the gate's int8-conv leg (required until "
-                        "ROADMAP A.8)")
+                   help="skip the gate's int8-conv leg")
     p.add_argument("--eval_num_prompts", type=int, default=100)
     p.add_argument("--eval_num_seeds", type=int, default=10)
     p.add_argument("--fid_meta", type=str, default=None,
@@ -82,11 +81,6 @@ def run(args) -> dict:
         raise SystemExit("--fid_meta and --fid_gt_dir must be given "
                          "together (the FID leg needs captions and the "
                          "ground-truth images or statistics)")
-    if not args.skip_int8:
-        # the JAX runbook runs the gate's int8-conv leg here; skipping it
-        # without being asked would return a PARITY.json missing a leg
-        raise SystemExit(f"the gate's int8-conv leg: "
-                         f"{golden_gate.UNPORTED}; pass --skip_int8")
     os.makedirs(args.out, exist_ok=True)
     # the tiny bit count from the config, so the gate leg and the eval
     # runners' --tiny configs cannot drift apart
@@ -113,6 +107,12 @@ def run(args) -> dict:
         gate_argv += ["--tiny"]
     if not args.skip_merge:
         gate_argv += ["--via_merge"]
+    if not args.skip_int8:
+        gate_argv += ["--int8", "conv"]
+        if args.synthetic:
+            # random weights sit at near-zero decoder margins: the
+            # agreement bound is evidence only on the released weights
+            gate_argv += ["--min_int8_agreement", "0"]
     gate_result = golden_gate.main(gate_argv)
     ported = os.path.join(gate_out, "ported")
 

@@ -135,8 +135,16 @@ of the JAX package):
   `--allow_tf32`, `--enable_xformers_memory_efficient_attention`,
   `--logging_dir`.
 
-Refused by name: `--teacher_int8` and `--int8_gen` (ROADMAP A.8, the w8a8
-port), `--fsdp` (A.9, the mesh), `--dataset_name` and
+`--teacher_int8`: the no-grad teacher pass runs the U-Net's 96 conv sites
+in w8a8 (`ops/quant.py`; JAX `ppft_train.py:175-188`).  JAX quantizes them
+in the graph at every step from the frozen float32 base weights; here they
+are quantized once at setup, from the same float32 weights, into a teacher
+twin of the U-Net that shares every other tensor with it
+(`StableDiffusionPipeline.int8_twin`), so the codes are the same at every
+step.  `--int8_gen` is stage 3's (`rob_enhance_finetune.py`); PPFT takes no
+notice of it, as JAX's does not.
+
+Refused by name: `--fsdp` (ROADMAP A.9, the mesh), `--dataset_name` and
 `--dataset_config_name` (the HF datasets path).
 """
 
@@ -363,7 +371,8 @@ def draw(pipe: StableDiffusionPipeline, generator: torch.Generator,
 def make_loss_fn(pipe: StableDiffusionPipeline, sec_encoder: SecretEncoder,
                  cache_latents: bool = False,
                  train_text_encoder: bool = False, rank_dropout: float = 0.0,
-                 teacher_skip_lora: bool = True):
+                 teacher_skip_lora: bool = True,
+                 teacher_unet: Optional[nn.Module] = None):
     """The PPFT objective (`make_loss_fn`, `ppft_train.py:87-205`) ->
     loss_fn(pixels NHWC, input_ids, draws) -> (loss, metrics).  The draws
     are an argument, so a test can hand it the JAX trainer's.
@@ -377,7 +386,9 @@ def make_loss_fn(pipe: StableDiffusionPipeline, sec_encoder: SecretEncoder,
     at scale 1.0, with its dropouts, and feeds it to both passes
     (`:145-158`); `teacher_skip_lora=False` runs the teacher at a zero
     diagonal (`:171`).  The student's LoRA dropouts act under the draws'
-    `unet_sites`; the teacher has none."""
+    `unet_sites`; the teacher has none.  `teacher_unet` is the teacher's
+    U-Net when it is not the student's (`--teacher_int8`: the int8 twin)."""
+    teacher_unet = teacher_unet or pipe.unet
     sched, cfg = pipe.schedule, pipe.config
     v_pred = cfg.unet.prediction_type == "v_prediction"
     scaling = cfg.vae.scaling_factor
@@ -413,7 +424,7 @@ def make_loss_fn(pipe: StableDiffusionPipeline, sec_encoder: SecretEncoder,
         with torch.no_grad():
             # scale=None skips the LoRA branches: exactly the reference's
             # scale=0 teacher without the rank-R products
-            teacher = pipe.unet(noisy_clean, draws.t, ctx,
+            teacher = teacher_unet(noisy_clean, draws.t, ctx,
                                 None if teacher_skip_lora
                                 else torch.zeros_like(diag))
         with lora_dropout(draws.unet_sites):
@@ -590,8 +601,6 @@ def load_pretrain(path: str, sec_encoder: SecretEncoder,
 
 
 UNPORTED = {
-    "--teacher_int8": "ROADMAP A.8, the w8a8 port",
-    "--int8_gen": "ROADMAP A.8, the w8a8 port",
     "--fsdp": "ROADMAP A.9, the mesh",
     "--dataset_name": "the HF datasets path: no `datasets` package, no "
                       "download; pass a folder with --train_data_dir",
@@ -625,7 +634,10 @@ def build_trainer(args: argparse.Namespace) -> Trainer:
     torch.manual_seed(seed)
     cfg, backbone, resolution = build_configs(args)
     dtype = torch.bfloat16 if args.mixed_precision == "bf16" else torch.float32
-    pipe = StableDiffusionPipeline(cfg, dtype=dtype, device=device)
+    # --teacher_int8 keeps the conv sites' weights float32 until the int8
+    # twin is quantized from them, below
+    pipe = StableDiffusionPipeline(cfg, dtype=dtype, device=device,
+                                   int8="conv" if args.teacher_int8 else None)
     pipe.init_params(seed)
     if args.pretrained_model_name_or_path:
         _load_sd_checkpoint(args.pretrained_model_name_or_path, pipe)
@@ -650,6 +662,7 @@ def build_trainer(args: argparse.Namespace) -> Trainer:
         load_pretrain(args.start_from_pretrain, sec_encoder, msgdecoder)
     if args.resume_from_lora:
         pipe.load_watermark_lora(args.resume_from_lora)
+    teacher_unet = pipe.int8_twin() if args.teacher_int8 else None
 
     dataset = data_lib.make_dataset(
         args.train_data_dir, resolution, dataset_name=args.dataset_name,
@@ -680,7 +693,8 @@ def build_trainer(args: argparse.Namespace) -> Trainer:
                            accumulator,
                            train_text_encoder=args.train_text_encoder,
                            rank_dropout=args.rank_dropout,
-                           teacher_skip_lora=args.teacher_skip_lora != 0)
+                           teacher_skip_lora=args.teacher_skip_lora != 0,
+                           teacher_unet=teacher_unet)
     return Trainer(pipe, sec_encoder, msgdecoder, groups, scheduler, step,
                    data_lib.prefetch(dataset.batches(args.train_batch_size,
                                                      seed=seed)),
@@ -1006,9 +1020,14 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="1: the teacher skips the LoRA branches; 0: it runs "
                         "them at a zero diagonal (the same output)")
     p.add_argument("--teacher_int8", action="store_true",
-                   help="refused: ROADMAP A.8 (the w8a8 port)")
+                   help="run the no-grad teacher pass with int8 convs "
+                        "(ops/quant.py w8a8, quantized once from the frozen "
+                        "float32 weights); changes the objective by the "
+                        "teacher's quantization error")
     p.add_argument("--int8_gen", action="store_true",
-                   help="refused: ROADMAP A.8 (the w8a8 port)")
+                   help="stage 3 only: quantize the frozen U-Net's conv "
+                        "sites to int8 once after setup, so the no-grad "
+                        "generation runs w8a8 (ops/quant.py)")
     p.add_argument("--fsdp", action="store_true",
                    help="refused: ROADMAP A.9 (the mesh)")
     p.add_argument("--local_rank", type=int, default=-1, help="inert")

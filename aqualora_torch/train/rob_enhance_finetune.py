@@ -62,10 +62,13 @@ the parser is PPFT's: `--center_crop`, `--random_flip` and
 `--cache_latents` are accepted and have no effect here; of PPFT's other
 options only what `ppft_train.build_configs` reads reaches the pipeline.
 
-Refused as PPFT refuses them (`ppft_train.refuse_unported`), each naming
-its ROADMAP item: `--fsdp` (A.9), `--int8_gen` and `--teacher_int8` (A.8);
-`--dataset_name` and `--dataset_config_name`, the HF datasets path (no
-`datasets` package, no download).
+`--int8_gen` (JAX `:130-142`): the U-Net's 96 conv sites are quantized
+once after setup, from their float32 weights (`ops/quant.py`), so every
+generator runs them in w8a8, with the message LoRA added on top of the
+int8 proj_in / proj_out; `--teacher_int8` is PPFT's and has no effect here,
+as in JAX.  Refused as PPFT refuses them (`ppft_train.refuse_unported`):
+`--fsdp` (ROADMAP A.9); `--dataset_name` and `--dataset_config_name`, the
+HF datasets path (no `datasets` package, no download).
 """
 
 from __future__ import annotations
@@ -201,7 +204,8 @@ def build_trainer(args: argparse.Namespace) -> Trainer:
     torch.manual_seed(seed)
     cfg, backbone, base_res = ppft_train.build_configs(args)
     dtype = torch.bfloat16 if args.mixed_precision == "bf16" else torch.float32
-    pipe = StableDiffusionPipeline(cfg, dtype=dtype, device=device)
+    pipe = StableDiffusionPipeline(cfg, dtype=dtype, device=device,
+                                   int8="conv" if args.int8_gen else None)
     pipe.init_params(seed)
     if args.pretrained_model_name_or_path:
         ppft_train._load_sd_checkpoint(args.pretrained_model_name_or_path,
@@ -215,6 +219,7 @@ def build_trainer(args: argparse.Namespace) -> Trainer:
     decoder.requires_grad_(True)
     if args.resume_from_lora:
         pipe.load_watermark_lora(args.resume_from_lora)
+    pipe.quantize_int8()                     # --int8_gen, else nothing
 
     tiny = args.tiny
     resolutions = TINY_RESOLUTIONS if tiny else RESOLUTIONS

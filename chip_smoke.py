@@ -17,14 +17,18 @@ Run from the repository root on a machine with one CUDA card:
                                           # benchmarks (FID, DreamSim)
     python3 chip_smoke.py --phases 23     # the reference release: the
                                           # golden gate and run_parity
+    python3 chip_smoke.py --phases 24     # int8 w8a8 serving: the int8
+                                          # kernels, a generate call, the
+                                          # gate's int8 leg
 
 Phases (any failure raises, so the exit code is not 0):
   0. torch and CUDA versions, the card's name and power limit (nvidia-smi).
      Without a CUDA card the script stops here with an error.
-  1. Build the three kernel sources of aqualora_torch/csrc (flash_fwd,
-     flash_bwd, secret_inject), one nvcc each, and the host JPEG decoder
-     and PNG unfilter (jpeg_decode.cpp, png_unfilter.cpp, g++), all
-     started together, and
+  1. Build the five kernel sources of aqualora_torch/csrc (flash_fwd,
+     flash_bwd, secret_inject, int8_quant, int8_conv), one nvcc each, and
+     the host JPEG decoder and PNG unfilter (jpeg_decode.cpp,
+     png_unfilter.cpp, g++), all started together, check that every
+     instance of the int8 convolution holds IMMA instructions, and
      count the tensor-core instructions (HMMA, HGMMA) of every attention
      kernel in the built libraries with cuobjdump: each bfloat16 forward,
      dQ and dK/dV instance (`*_tc_kernel`) and the float32 d = 512
@@ -304,13 +308,34 @@ Phases (any failure raises, so the exit code is not 0):
      the v2 single file found to be v2 on reload, merge_img_diff < 4/255,
      801 launches a call, images/s and the peak device memory.  Each leg's
      LDM file (4-5 GB) is deleted when the leg ends.
+ 24. int8 w8a8 serving (`ops/quant.py`, needs no other phase): (b) SD-1.5
+     512^2 B8 DDIM-25 bf16, then the same weights and message with
+     int8="conv" (the U-Net's 96 conv sites quantized after the fold from
+     their float32 weights): each call launches the forward 801 times, the
+     int8 one the quantizer and the convolution 2400 times each; images/s
+     (median of 3), peak memory, the bf16 <-> int8 mean image difference
+     and decoded-bit agreement; then the VAE decoder quantized too and one
+     B8 decode (33 int8 convolutions); (a) at every convolution shape those
+     launched (the U-Net's at B16, the VAE decoder's at B8), bf16 input:
+     the quantizer kernel against its plain version (codes and scales bit
+     for bit) and the convolution kernel against its plain version (bit for
+     bit, with the bias), each one's time, the plain version's, the bound
+     (int8 operations at 1979 TOPS or bytes at 3.35 TB/s), torch._int_mm's
+     time at 1x1 (the same int32 product) and cuDNN's bf16 convolution's at
+     3x3 (another function), and after the timed phases each as device
+     time (with the short sessions); (c) `golden_gate.run --int8 conv
+     --min_int8_agreement 0` on synthetic release files at SD-1.5 512^2
+     and SD-2.1 768^2, one prompt: the image difference, agreement and
+     logit margins (random weights: printed), the launches; (d) PPFT with
+     --teacher_int8 (B8, 3 steps: 96 int8 convolutions a step, the
+     teacher's) and stage 3 with --int8_gen (B4 at 512^2, 2 steps: 1920 a
+     step, the generation's) at full width, through `build_trainer`.
 The timed phases run first (0-7, 12, 13, 14, 8, 15, 16, 18b-d, 19d, 22d-e,
-17, 18a, 19a-c, 19e, 20, 21, 22a-c, 23a-c) and the profiled ones after
-them, so that the profiler touches no timed phase: first the short
-sessions (6's profile, 9, 10, 12's profile, 18a's, 19e's, 22a's, 23a's),
-then the profiles of
-whole steps (8, 14, 18d's, 20's, 21a's update) and of a generate call
-(11).  After a session of a whole step, short sessions in the same process
+17, 18a, 19a-c, 19e, 20, 21, 22a-c, 23a-c, 24b, 24a, 24c, 24d) and the
+profiled ones after them, so that the profiler touches no timed phase:
+first the short sessions (6's profile, 9, 10, 12's profile, 18a's, 19e's,
+22a's, 23a's, 24a's), then the profiles of whole steps (8, 14, 18d's,
+20's, 21a's update) and of a generate call (11).  After a session of a whole step, short sessions in the same process
 have recorded some device events or none (PERF.md, section 7).  The line
 before the last names the card and its power limit; the last line is
 {"ok": true, "device": {...}}.
@@ -373,7 +398,8 @@ SD21_SHAPES = [
     ("sd21_8_self", 20, 64, 64, 64, 16),
     ("sd21_8_cross", 20, 64, 77, 64, 16),
 ]
-SOURCES = ("flash_fwd", "flash_bwd", "secret_inject")
+SOURCES = ("flash_fwd", "flash_bwd", "secret_inject", "int8_quant",
+           "int8_conv")
 # host code built with g++ beside the kernels: the training data's JPEG
 # decoder and PNG's row filters
 HOST_SOURCES = ("jpeg_decode", "png_unfilter")
@@ -548,9 +574,10 @@ def phase0() -> str:
     return smi
 
 
-def tensor_core_counts(name: str) -> dict:
-    """{kernel symbol: (HMMA, HGMMA)} of the built csrc/<name>.cu, from
-    cuobjdump -sass of the toolkit that built it."""
+def tensor_core_counts(name: str, ops=("HMMA", "HGMMA")) -> dict:
+    """{kernel symbol: (lines holding each SASS opcode of `ops`)} of the
+    built csrc/<name>.cu, from cuobjdump -sass of the toolkit that built
+    it."""
     from aqualora_torch.ops import _build
     tool = Path(_build.nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(tool), "-sass", str(_build.library_path(name))],
@@ -560,10 +587,10 @@ def tensor_core_counts(name: str) -> dict:
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1)
-            counts[fn] = [0, 0]
+            counts[fn] = [0] * len(ops)
         elif fn is not None:
-            counts[fn][1] += "HGMMA" in line
-            counts[fn][0] += "HMMA" in line and "HGMMA" not in line
+            for i, op in enumerate(ops):
+                counts[fn][i] += op in line
     return {f: tuple(c) for f, c in counts.items()}
 
 
@@ -601,6 +628,13 @@ def phase1():
         if len(f32) != n_f32 or any(sum(c) for c in f32.values()):
             raise AssertionError(f"{name}: CUDA-core float32 instances with "
                                  f"tensor-core instructions: {f32}")
+    # the int8 convolution: float32 and bf16 output, cp.async and byte-load
+    # staging, each on the int8 tensor cores (IMMA)
+    imma = {fn: c[0] for fn, c in tensor_core_counts(
+        "int8_conv", ("IMMA",)).items() if "int8_conv_kernel" in fn}
+    print(f"[1] int8_conv SASS IMMA by instance: {imma}", flush=True)
+    if len(imma) != 4 or not all(imma.values()):
+        raise AssertionError(f"int8_conv instances without IMMA: {imma}")
 
 
 def counters() -> dict:
@@ -741,10 +775,13 @@ PROMPTS = ["a photograph of an astronaut riding a horse",
            "a cat reading a newspaper"]
 
 
-def serving_setup():
+def serving_setup(int8=None, phase: int = 3):
     """SD-1.5 at full width with seeded random bf16 weights, the rank-320
-    LoRA with one folded message, the SecretDecoder, 8 prompts; returns
-    (run, decoder, msg_bits), run(seed) being one generate call."""
+    LoRA with one folded message, the SecretDecoder, 8 prompts; with an
+    `int8` mode, its layers quantized after the fold from their float32
+    weights (`StableDiffusionPipeline.quantize_int8`, as simple_sample
+    does).  Returns (run, decoder, msg_bits), run(seed) being one generate
+    call and run.pipe the pipeline."""
     from aqualora_torch.core.config import EfficientNetConfig, PipelineConfig
     from aqualora_torch.core.tokenizer import FallbackTokenizer
     from aqualora_torch.diffusion.pipeline import (StableDiffusionPipeline,
@@ -753,7 +790,8 @@ def serving_setup():
 
     cfg = PipelineConfig.sd15(lora_rank=320)
     t0 = time.perf_counter()
-    pipe = StableDiffusionPipeline(cfg, dtype=torch.bfloat16, device="cuda")
+    pipe = StableDiffusionPipeline(cfg, dtype=torch.bfloat16, device="cuda",
+                                   int8=int8)
     pipe.init_params(seed=0)
     decoder = SecretDecoder(cfg.watermark.msg_bits, EfficientNetConfig.b1(),
                             dtype=torch.bfloat16).eval()
@@ -761,13 +799,15 @@ def serving_setup():
     msg = torch.bernoulli(torch.full((cfg.watermark.msg_bits,), 0.5),
                           generator=torch.Generator().manual_seed(2))
     pipe.fold_message(msg)
+    quantized = pipe.quantize_int8()
     tok = FallbackTokenizer(cfg.clip.vocab_size)
     ids, neg = tok(PROMPTS), tok([""] * N_IMG)
     generate = pipe.make_generate(num_steps=STEPS, sampler="ddim",
                                   height=RES, width=RES)
     torch.cuda.synchronize()
-    print(f"[3] SD-1.5 bf16 weights ready in "
-          f"{time.perf_counter() - t0:.1f} s (rank-320 LoRA folded)",
+    print(f"[{phase}] SD-1.5 bf16 weights ready in "
+          f"{time.perf_counter() - t0:.1f} s (rank-320 LoRA folded"
+          f"{f'; int8 {int8}: {len(quantized)} layers' if int8 else ''})",
           flush=True)
 
     def run(seed):
@@ -775,6 +815,7 @@ def serving_setup():
                         generator=torch.Generator(device="cuda")
                         .manual_seed(seed))
 
+    run.pipe = pipe
     return run, decoder, cfg.watermark.msg_bits
 
 
@@ -4902,11 +4943,376 @@ def phase23c(smi: str) -> dict:
     return by_shape
 
 
+# ---------------------------------------------------------------------------
+# phase 24: int8 w8a8 serving (ops/quant.py)
+# ---------------------------------------------------------------------------
+
+# H100 SXM data sheet: dense int8 tensor-core rate
+PEAK_INT8_OPS = 1979e12
+# the U-Net's 96 conv sites, each once per U-Net evaluation of the CFG
+# batch: 25 DDIM steps give 2400 int8 convolutions and 2400 quantizer calls
+INT8_CONV_SITES = 96
+INT8_PER_GENERATE = INT8_CONV_SITES * STEPS
+VAE_DECODER_SITES = 33
+P24_MODE = "conv"
+# the golden gate's int8 leg: one prompt (two would add the FID smoke's
+# host sqrtm, about 11-18 s), its model and resolution
+P24_GATES = (("sd15", 512), ("sd21", 768))
+
+
+def int8_counts() -> dict:
+    from aqualora_torch.ops import quant
+    return {"int8_quant": quant.quant_launches.count,
+            "int8_conv": quant.conv_launches.count}
+
+
+def reset_int8_counts() -> None:
+    from aqualora_torch.ops import quant
+    quant.quant_launches.reset()
+    quant.conv_launches.reset()
+
+
+def int8_key(shape) -> str:
+    """(B, Cin, H, W, Cout, k, stride) -> a row name."""
+    b, cin, h, w, cout, k, stride = shape
+    return f"b{b}_{h}x{w}_{k}x{k}s{stride}_{cin}to{cout}"
+
+
+def phase24b(smi: str) -> dict:
+    """Serving at SD-1.5 512^2, B8, DDIM-25: the bf16 pipeline, then the
+    same weights and message with int8="conv" (phase 3's setup).  Each: a
+    counted call (the int8 one must launch 2400 int8 convolutions, 2400
+    quantizer calls and the forward 801 times, the bf16 one no int8
+    kernel), images/s as the median of 3 calls, peak device memory; then
+    the bf16 <-> int8 mean image difference and decoded-bit agreement
+    (random weights: printed).  Then the VAE decoder of the int8 pipeline
+    quantized too (the "+vae" modes) and one B8 decode counted.  Returns the
+    int8 launches by shape and the summary."""
+    import numpy as np
+
+    from aqualora_torch.eval.image_io import images_to_uint8
+    from aqualora_torch.eval.utils_eval import decode_bits
+    from aqualora_torch.ops import quant
+    res = {}
+    for mode in (None, P24_MODE):
+        run, decoder, msg_bits = serving_setup(int8=mode, phase=24)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()                          # counts start here
+        reset_int8_counts()
+        images = run(3)
+        torch.cuda.synchronize()
+        got = {**counts(), **int8_counts()}
+        by_shape = dict(quant.conv_launches.by_shape)
+        n8 = INT8_PER_GENERATE if mode else 0
+        want = {"fwd": LAUNCHES_PER_GENERATE, **NO_TRAINING,
+                "int8_quant": n8, "int8_conv": n8}
+        if got != want:
+            raise AssertionError(f"[24] {mode or 'bf16'}: launches {got}, "
+                                 f"want {want}")
+        if not (tuple(images.shape) == (N_IMG, RES, RES, 3)
+                and torch.isfinite(images).all()):
+            raise AssertionError(f"[24] {mode or 'bf16'}: images "
+                                 f"{tuple(images.shape)} not finite")
+        times = []
+        for i in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(10 + i)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        bits = decode_bits(decoder, images)[0].cpu()
+        res[mode] = {"images": images_to_uint8(images), "bits": bits,
+                     "rate": N_IMG / statistics.median(times)}
+        print(f"[24] generate 8 x 512^2 DDIM-25 CFG 7.5 bf16"
+              f"{f' int8={mode}' if mode else ''}: "
+              f"{res[mode]['rate']:.4f} imgs/s (median of 3: "
+              f"{', '.join(f'{t:.4f}' for t in times)} s), peak memory "
+              f"{peak:.4f} GiB; launches a call {got} | {smi}", flush=True)
+        if mode:
+            pipe = run.pipe
+        del run, decoder, images
+        torch.cuda.empty_cache()
+    diff = float(np.mean(np.abs(res[None]["images"].astype(np.int16)
+                                - res[P24_MODE]["images"].astype(np.int16))))
+    agree = (res[None]["bits"] == res[P24_MODE]["bits"]).float().mean()
+    print(f"[24] bf16 <-> int8={P24_MODE}: mean image diff {diff:.4f}/255, "
+          f"decoded-bit agreement {agree.item():.4f} over {N_IMG} x "
+          f"{res[None]['bits'].shape[1]} bits (random weights: printed); "
+          f"images/s int8/bf16 = "
+          f"{res[P24_MODE]['rate'] / res[None]['rate']:.4f} | {smi}",
+          flush=True)
+
+    keys = quant.quantize_vae_decoder_int8(pipe.vae)
+    z = torch.randn(N_IMG, RES // 8, RES // 8, 4, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(24))
+    reset_int8_counts()
+    img = pipe.decode_latents(z)
+    torch.cuda.synchronize()
+    vae_shapes = dict(quant.conv_launches.by_shape)
+    if not (len(keys) == VAE_DECODER_SITES == quant.conv_launches.count
+            and torch.isfinite(img).all()):
+        raise AssertionError(f"[24] int8 VAE decode: {len(keys)} layers, "
+                             f"{quant.conv_launches.count} launches")
+    print(f"[24] VAE decoder int8 ({len(keys)} convolutions): one B{N_IMG} "
+          f"decode launched {int8_counts()}, finite", flush=True)
+    del pipe, img, z
+    torch.cuda.empty_cache()
+    return {"unet": by_shape, "vae": vae_shapes}
+
+
+def int8_bounds(shape) -> dict:
+    """Least times at the H100's int8 rate and HBM rate: the convolution's
+    2 M N K operations against its bytes (codes in, weights, bf16 out,
+    bias, scales); the quantizer's bytes (bf16 in, codes out, scales)."""
+    b, cin, h, w, cout, k, stride = shape
+    ho = (h + 2 * (k // 2) - k) // stride + 1
+    wo = (w + 2 * (k // 2) - k) // stride + 1
+    m, kk = b * ho * wo, k * k * cin
+    conv = bound(2.0 * m * cout * kk,
+                 b * h * w * cin + cout * kk + 2 * m * cout + 2 * cout
+                 + 4 * (b + cout), PEAK_INT8_OPS)
+    quant_ = bound(0.0, 3 * b * cin * h * w + 4 * b)
+    return {"conv": conv, "quant": quant_, "m": m, "k": kk}
+
+
+def check_int8_shape(shape, gen, smi: str) -> tuple:
+    """One convolution shape of the int8 path, bf16: the quantizer kernel
+    against its plain version (codes and scales bit for bit), the
+    convolution kernel against its plain version (bit for bit, with the
+    bias), then each kernel's time, the plain versions', the bound, and the
+    yardsticks: torch._int_mm for the same int32 product at 1x1 (the
+    library call of the same function) and cuDNN's bf16 convolution at 3x3
+    (another function: what int8 serving has to beat).  -> (quantizer row,
+    convolution row)."""
+    from aqualora_torch.ops import quant
+    b, cin, h, w, cout, k, stride = shape
+    pad = k // 2
+    x = torch.randn(b, cin, h, w, device="cuda",
+                    generator=gen).to(torch.bfloat16)
+    wf = torch.randn(cout, cin, k, k, device="cuda", generator=gen) \
+        * (k * k * cin) ** -0.5
+    wq, ws = quant.quantize_weight(wf)
+    bias = (0.1 * torch.randn(cout, device="cuda", generator=gen)).to(
+        torch.bfloat16)
+    codes, xs = quant.quantize_activations(x)
+    pcodes, pxs = quant.quantize_activations_plain(x)
+    if not (torch.equal(codes, pcodes) and torch.equal(xs, pxs)):
+        raise AssertionError(f"[24] {int8_key(shape)}: quantizer kernel != "
+                             "plain")
+    del pcodes, pxs
+    out = quant.conv_codes(codes, xs, wq, ws, bias, stride, pad,
+                           torch.bfloat16)
+    ref = quant.conv_codes_plain(codes, xs, wq, ws, bias, stride, pad,
+                                 torch.bfloat16)
+    err = (out.float() - ref.float()).abs().max().item()
+    if not torch.equal(out, ref):
+        raise AssertionError(f"[24] {int8_key(shape)}: conv kernel != plain "
+                             f"(max |d| {err})")
+    del out, ref
+    q_ms = time_ms(lambda: quant.quantize_activations(x))
+    q_plain = time_ms(lambda: quant.quantize_activations_plain(x), iters=3,
+                      warmup=1)
+    c_ms = time_ms(lambda: quant.conv_codes(codes, xs, wq, ws, bias, stride,
+                                            pad, torch.bfloat16))
+    c_plain = time_ms(lambda: quant.conv_codes_plain(
+        codes, xs, wq, ws, bias, stride, pad, torch.bfloat16), iters=3,
+        warmup=1)
+    bounds = int8_bounds(shape)
+    int_mm = cudnn = None
+    if k == 1:
+        a = codes.permute(0, 2, 3, 1).reshape(-1, cin)
+        wt = wq.reshape(cout, cin).t()
+        int_mm = time_ms(lambda: torch._int_mm(a, wt))
+    else:
+        wb = wf.to(torch.bfloat16)
+        cudnn = time_ms(lambda: F.conv2d(x, wb, bias, stride, pad))
+    (cb, cby), (qb, qby) = bounds["conv"], bounds["quant"]
+    print(f"[24] {int8_key(shape)} (M {bounds['m']}, K {bounds['k']}): "
+          f"quantizer {q_ms:.4f} ms (plain {q_plain:.4f}, bound {qb:.4f} "
+          f"{qby}), codes and scales bit for bit; conv {c_ms:.4f} ms (plain "
+          f"{c_plain:.4f}, bound {cb:.4f} {cby}, "
+          f"{2.0 * bounds['m'] * cout * bounds['k'] / c_ms / 1e9:.1f} "
+          f"TOPS), bit for bit; "
+          + (f"torch._int_mm {int_mm:.4f} ms (the int32 product alone)"
+             if k == 1 else f"cuDNN bf16 conv {cudnn:.4f} ms (another "
+             f"function) = {c_ms / cudnn:.2f}x")
+          + f" | {smi}", flush=True)
+    del x, codes, xs, wq, ws, wf, bias
+    return ({"max_abs_err": 0.0, "ms": q_ms, "plain_ms": q_plain,
+             "bound_ms": qb, "bound_by": qby, "library_ms": None},
+            {"max_abs_err": err, "ms": c_ms, "plain_ms": c_plain,
+             "bound_ms": cb, "bound_by": cby, "library_ms": int_mm,
+             "cudnn_bf16_ms": cudnn})
+
+
+def phase24a(smi: str, shapes: dict) -> dict:
+    """Both int8 kernels against their plain versions at every convolution
+    shape phase 24b launched: the U-Net's at the CFG batch B16, the VAE
+    decoder's at B8.  -> {("quant" | "conv", shape): row}."""
+    gen = torch.Generator(device="cuda").manual_seed(240)
+    rows = {}
+    every = sorted(set(shapes["unet"]) | set(shapes["vae"]))
+    print(f"[24] {len(every)} convolution shapes: {len(shapes['unet'])} of "
+          f"the U-Net ({len({(s[1], s[4], s[5]) for s in shapes['unet']})} "
+          f"distinct (Cin, Cout, k)), {len(shapes['vae'])} of the VAE "
+          "decoder", flush=True)
+    for shape in every:
+        rows[("quant", shape)], rows[("conv", shape)] = check_int8_shape(
+            shape, gen, smi)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase24c(smi: str) -> None:
+    """`golden_gate.run --int8 conv --min_int8_agreement 0` on synthetic
+    release files, one prompt, B1: SD-1.5 at 512^2, then SD-2.1 at 768^2.
+    Each: the int8 call launches the forward 801 times and the int8
+    kernels 2400 times each, the bf16 call no int8 kernel; the report's
+    image difference, agreement and margins (random weights: printed)."""
+    from aqualora_torch.tools import golden_gate
+    for model, res in P24_GATES:
+        with tempfile.TemporaryDirectory(prefix="aqualora_gate8_") as tmp:
+            args = golden_gate.build_argparser().parse_args(
+                ["--out", tmp, "--synthetic", "--model", model,
+                 "--resolution", str(res), "--int8", P24_MODE,
+                 "--min_int8_agreement", "0", "--num_prompts", "1",
+                 "--batch_size", "1", "--device", "cuda"])
+            torch.cuda.synchronize()
+            reset_counts()
+            reset_int8_counts()
+            t0 = time.perf_counter()
+            result = golden_gate.run(args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = {**counts(), **int8_counts()}
+        rep = result["int8"]
+        want = {"fwd": 2 * LAUNCHES_PER_GENERATE, **NO_TRAINING,
+                "int8_quant": INT8_PER_GENERATE,
+                "int8_conv": INT8_PER_GENERATE}
+        sens = rep["logit_sensitivity"]
+        print(f"[24] golden_gate --int8 {P24_MODE} {model} {res}^2 B1: "
+              f"{wall:.4f} s; mean image diff {rep['img_diff']:.4f}/255, "
+              f"decoded-bit agreement {rep['decode_agreement_vs_bf16']:.4f}"
+              f", bit accuracy int8 {rep['bit_acc']:.4f} bf16 "
+              f"{result['bit_acc']:.4f}, margin delta mean "
+              f"{sens['int8_margin_delta_mean']:.4g} max "
+              f"{sens['int8_margin_delta_max']:.4g} (min margin "
+              f"{sens['min_abs_margin']:.4g}) (random weights: printed); "
+              f"launches {got} | {smi}", flush=True)
+        if got != want or rep["mode"] != P24_MODE:
+            raise AssertionError(f"[24] gate {model}: launches {got}, want "
+                                 f"{want}")
+
+
+def phase24d(smi: str, tmp: str) -> None:
+    """The int8 training flags at full width, through their trainers'
+    `build_trainer` and step functions: PPFT with --teacher_int8 (SD-1.5,
+    rank 320, 48 bits, 512^2, B8, bf16, phase 21's random stage-1 file): 3
+    steps, each launching the teacher's 96 int8 convolutions and quantizer
+    calls beside the step's 65 forward, 32 dQ, 32 dK/dV and 1 injection
+    kernels, the loss finite and positive; then stage 3 with --int8_gen
+    (B4 at 512^2, seeded random LoRA): 2 steps, each generation's 20
+    DPM-Solver++ steps launching 96 int8 convolutions apiece (1920) beside
+    the forward's 641, the loss finite."""
+    from aqualora_torch.train import rob_enhance_finetune as s3
+    s1 = p21_pretrain(tmp)
+    tr = p21_trainer(s1, "--teacher_int8")
+    reset_int8_counts()
+    times, launches, metrics = p21_steps(tr, 3)
+    got = int8_counts()
+    want = {"fwd": FWD_PER_STEP, "dq": BWD_PER_STEP, "dkv": BWD_PER_STEP,
+            "inject": 1}
+    if got != {"int8_quant": 3 * INT8_CONV_SITES,
+               "int8_conv": 3 * INT8_CONV_SITES} or any(
+                   step != want for step in launches):
+        raise AssertionError(f"[24] PPFT --teacher_int8: int8 launches "
+                             f"{got}, per step {launches}")
+    print(f"[24] PPFT --teacher_int8 512^2 B{TRAIN_BATCH} bf16: "
+          f"{TRAIN_BATCH / statistics.median(times):.4f} samples/s (steps "
+          f"2-3: {', '.join(f'{t:.4f}' for t in times)} s), loss "
+          f"{float(metrics['ppft_loss']):.6e}; int8 launches {got} over 3 "
+          f"steps, the rest {launches[-1]} a step | {smi}", flush=True)
+    del tr
+    torch.cuda.empty_cache()
+
+    args = s3.build_argparser().parse_args(
+        ["--rank", "320", "--msg_bits", "48", "--resolution", str(RES),
+         "--train_batch_size", str(STAGE3_BATCH), "--mixed_precision",
+         "bf16", "--seed", str(STAGE3_SEED), "--start_from_pretrain", s1,
+         "--output_dir", str(Path(tmp) / "s3_int8"), "--int8_gen",
+         "--max_train_steps", "2", "--report_to", "none"])
+    tr = s3.build_trainer(args)
+    times = []
+    for _ in range(2):
+        _, captions = next(tr.batches)
+        d = s3.draw(tr.pipe, tr.decoder, tr.noiser, tr.generator,
+                    tr.batch_size, RES)
+        before = {**counts(), **int8_counts()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        images = s3.generate_images(tr, RES, captions, d)
+        metrics = tr.decoder_step(images, d.msg, d.noise, d.masks)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        got = {k: v - before[k] for k, v in {**counts(),
+                                             **int8_counts()}.items()}
+        n8 = INT8_CONV_SITES * STAGE3_GEN_STEPS
+        if got != {"fwd": STAGE3_PER_STEP, **NO_TRAINING, "int8_quant": n8,
+                   "int8_conv": n8} or not math.isfinite(
+                       float(metrics["loss"])):
+            raise AssertionError(f"[24] stage 3 --int8_gen: launches {got}")
+    print(f"[24] stage 3 --int8_gen {RES}^2 B{STAGE3_BATCH} bf16: steps "
+          f"{', '.join(f'{t:.4f}' for t in times)} s (the first with its "
+          f"warm-up), loss {float(metrics['loss']):.6e}; launches a step "
+          f"{got} | {smi}", flush=True)
+    del tr, images
+    torch.cuda.empty_cache()
+
+
+def phase24a_profile(smi: str, rows: dict, shapes: dict) -> None:
+    """The int8 kernels' device time under torch.profiler at the U-Net's
+    shapes (the short sessions), beside cuDNN's bf16 convolution at 3x3
+    and torch._int_mm at 1x1."""
+    from aqualora_torch.ops import quant
+    gen = torch.Generator(device="cuda").manual_seed(241)
+    for shape in sorted(shapes["unet"]):
+        b, cin, h, w, cout, k, stride = shape
+        pad = k // 2
+        x = torch.randn(b, cin, h, w, device="cuda",
+                        generator=gen).to(torch.bfloat16)
+        wf = torch.randn(cout, cin, k, k, device="cuda", generator=gen)
+        wq, ws = quant.quantize_weight(wf)
+        codes, xs = quant.quantize_activations(x)
+        q_dev = device_ms(lambda: quant.quantize_activations(x), iters=5)
+        c_dev = device_ms(lambda: quant.conv_codes(
+            codes, xs, wq, ws, None, stride, pad, torch.bfloat16), iters=5)
+        if k == 1:
+            a = codes.permute(0, 2, 3, 1).reshape(-1, cin)
+            wt = wq.reshape(cout, cin).t()
+            lib = device_ms(lambda: torch._int_mm(a, wt), iters=5)
+        else:
+            wb = wf.to(torch.bfloat16)
+            lib = device_ms(lambda: F.conv2d(x, wb, None, stride, pad),
+                            iters=5)
+        crow, qrow = rows[("conv", shape)], rows[("quant", shape)]
+        print(f"[24] {int8_key(shape)} device time: quantizer {q_dev:.4f} "
+              f"ms (bound {qrow['bound_ms']:.4f}), conv {c_dev:.4f} ms "
+              f"(bound {crow['bound_ms']:.4f} {crow['bound_by']}), "
+              f"{'torch._int_mm' if k == 1 else 'cuDNN bf16 conv'} "
+              f"{lib:.4f} ms | {smi}", flush=True)
+        crow.update(device_ms=c_dev, library_device_ms=lib)
+        qrow.update(device_ms=q_dev)
+        del x, wf, wq, ws, codes, xs
+    torch.cuda.empty_cache()
+
+
 def kernels_line(rows, launches, bwd_rows, train_launches, inject_row,
                  inject_launches, s1_rows, s1_launches, proto_launches,
                  s3_rows, s3_launches, dist_launches, s21_rows, fid_launches,
-                 vit_rows, ds_launches, sd21_768_rows,
-                 sd21_768_launches) -> dict:
+                 vit_rows, ds_launches, sd21_768_rows, sd21_768_launches,
+                 p24_rows, p24_shapes) -> dict:
     kernels = []
     for name, *_ in SHAPES:
         kernels.append({
@@ -4992,6 +5398,18 @@ def kernels_line(rows, launches, bwd_rows, train_launches, inject_row,
                 "source": f"aqualora_torch/csrc/{src}.cu",
                 "replaces": f"aqualora_tpu/ops/flash_attention.py:{line}",
                 "launches": s1_launches[tag][kern], **s1_rows[(kern, tag)]})
+    # the int8 path (phase 24): every convolution shape, its launches in
+    # 24b's int8 generate call (the U-Net) and its int8 VAE decode.  They
+    # replace no TPU kernel: JAX computes the quantizer
+    # (`_quantize_activations`) and the int8 convolution in XLA ops.
+    for shape in sorted(set(p24_shapes["unet"]) | set(p24_shapes["vae"])):
+        n = p24_shapes["unet"].get(shape, 0) + p24_shapes["vae"].get(shape, 0)
+        for kern, line in (("quant", 54), ("conv", 74)):
+            kernels.append({
+                "name": f"int8_{kern}/{int8_key(shape)}", "route": "cuda",
+                "source": f"aqualora_torch/csrc/int8_{kern}.cu",
+                "replaces": f"aqualora_tpu/ops/quant.py:{line}",
+                "launches": n, **p24_rows[(kern, shape)]})
     # a device time the profiler did not measure is null, not NaN
     return {"kernels": [{k: None if isinstance(x, float) and math.isnan(x)
                          else x for k, x in kern.items()}
@@ -5006,7 +5424,7 @@ def main(argv=None):
                          "all of them)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
-    every = set(range(24))
+    every = set(range(25))
     run_ = every if args.phases is None else \
         {0} | {int(x) for x in args.phases.split(",")}
     if 11 in run_:
@@ -5099,6 +5517,17 @@ def main(argv=None):
         phase23b(smi)
         sd21_768_launches = phase23c(smi)
         torch.cuda.empty_cache()
+    p24_rows, p24_shapes = {}, {}
+    if 24 in run_:
+        t24 = time.perf_counter()
+        p24_shapes = phase24b(smi)
+        p24_rows = phase24a(smi, p24_shapes)
+        phase24c(smi)
+        with tempfile.TemporaryDirectory(prefix="aqualora_int8_") as tmp:
+            phase24d(smi, tmp)
+        torch.cuda.empty_cache()
+        print(f"[24] phase 24 (timed part) took "
+              f"{time.perf_counter() - t24:.1f} s | {smi}", flush=True)
     # the profiled phases: the short sessions first, then the profiles of
     # whole steps and of the generate call (see the docstring)
     if 6 in run_:
@@ -5117,6 +5546,8 @@ def main(argv=None):
         phase22a_profile(smi, vit_rows)
     if 23 in run_:
         phase23a_profile(smi, sd21_768_rows)
+    if 24 in run_:
+        phase24a_profile(smi, p24_rows, p24_shapes)
     if 8 in run_:
         profile_step(*ppft_kept, smi)
         del ppft_kept
@@ -5146,7 +5577,8 @@ def main(argv=None):
                                       proto_launches, s3_rows, s3_launches,
                                       dist_launches, s21_rows, fid_launches,
                                       vit_rows, ds_launches, sd21_768_rows,
-                                      sd21_768_launches)))
+                                      sd21_768_launches, p24_rows,
+                                      p24_shapes)))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,8 +11,8 @@ import pytest
 
 from aqualora_torch.ops import _build
 
-SOURCES = ("flash_fwd", "flash_bwd", "secret_inject", "jpeg_decode",
-           "png_unfilter")
+SOURCES = ("flash_fwd", "flash_bwd", "secret_inject", "int8_quant",
+           "int8_conv", "jpeg_decode", "png_unfilter")
 
 
 @pytest.fixture
@@ -29,18 +29,20 @@ def _names():
 
 
 def test_attention_sources_include_the_shared_header(csrc):
-    for name in ("flash_fwd", "flash_bwd"):
+    for name in ("flash_fwd", "flash_bwd", "int8_conv"):
         assert [p.name for p in _build.source_files(name)] == [
             f"{name}.cu", "tensor_core.cuh"]
-    assert [p.name for p in _build.source_files("secret_inject")] == [
-        "secret_inject.cu"]
+    for name in ("secret_inject", "int8_quant"):
+        assert [p.name for p in _build.source_files(name)] == [f"{name}.cu"]
 
 
 @pytest.mark.parametrize("edited,renamed", [
-    ("tensor_core.cuh", {"flash_fwd", "flash_bwd"}),
+    ("tensor_core.cuh", {"flash_fwd", "flash_bwd", "int8_conv"}),
     ("flash_fwd.cu", {"flash_fwd"}),
     ("flash_bwd.cu", {"flash_bwd"}),
     ("secret_inject.cu", {"secret_inject"}),
+    ("int8_quant.cu", {"int8_quant"}),
+    ("int8_conv.cu", {"int8_conv"}),
     ("jpeg_decode.cpp", {"jpeg_decode"}),
     ("png_unfilter.cpp", {"png_unfilter"}),
 ])

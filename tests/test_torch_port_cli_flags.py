@@ -45,14 +45,14 @@ def _pretrain_file(path):
 def test_every_jax_option_parses_and_only_five_are_refused():
     """Every option string of JAX's PPFT parser parses in the port's, with
     a value of its type; `refuse_unported` then raises NotImplementedError
-    naming the flag for --teacher_int8, --int8_gen, --fsdp, --dataset_name
-    and --dataset_config_name only.  `--attention_impl` sdpa and xla are
+    naming the flag for the three flags still refused, --fsdp,
+    --dataset_name and --dataset_config_name, only (--teacher_int8 and
+    --int8_gen pass since the w8a8 port).  `--attention_impl` sdpa and xla are
     refused as the one attention path's; auto and flash pass."""
     from aqualora_torch.train import ppft_train as pt
     from aqualora_tpu.train import ppft_train as jt
 
-    refused = {"--teacher_int8", "--int8_gen", "--fsdp", "--dataset_name",
-               "--dataset_config_name"}
+    refused = {"--fsdp", "--dataset_name", "--dataset_config_name"}
     port = pt.build_argparser()
     seen = set()
     for action in jt.build_argparser()._actions:

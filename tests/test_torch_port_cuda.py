@@ -488,3 +488,86 @@ def test_fidelity_extractors_card_match_cpu():
     assert np.abs(d_card - d_cpu).max() <= 1e-5
     assert torch.backends.cudnn.allow_tf32
     assert torch.backends.cuda.matmul.allow_tf32
+
+
+# the int8 path (ops/quant.py): the quantizer and the implicit-GEMM
+# convolution against their plain versions, bit for bit (exact arithmetic on
+# both sides).  Shapes: the U-Net's 3x3 stride 1 and 2 and 1x1, ragged
+# sides, M, N and K (Cin 24 and 3 take the byte-load path), a dense layer's
+# rows; float32 and bfloat16 activations.
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,cin,h,w,cout,k,stride", [
+    (2, 64, 17, 13, 40, 3, 1), (3, 32, 16, 16, 136, 3, 2),
+    (2, 48, 9, 11, 24, 1, 1), (2, 24, 7, 9, 20, 3, 1),
+    (1, 3, 5, 6, 7, 3, 2), (2, 320, 8, 8, 320, 3, 1)])
+def test_int8_kernels_match_plain(dtype, b, cin, h, w, cout, k, stride):
+    from aqualora_torch.ops import quant
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(b * cin + cout)
+    x = torch.randn(b, cin, h, w, device="cuda", generator=gen).to(dtype)
+    wq, ws = quant.quantize_weight(torch.randn(
+        cout, cin, k, k, device="cuda", generator=gen))
+    bias = torch.randn(cout, device="cuda", generator=gen).to(dtype)
+    pad = 1 if k == 3 else 0
+    before = quant.conv_launches.count
+    codes, xs = quant.quantize_activations(x)
+    ref_codes, ref_xs = quant.quantize_activations_plain(x)
+    torch.cuda.synchronize()
+    assert torch.equal(codes, ref_codes) and torch.equal(xs, ref_xs)
+    for bias_ in (None, bias):
+        out = quant.conv_codes(codes, xs, wq, ws, bias_, stride, pad, dtype)
+        ref = quant.conv_codes_plain(codes, xs, wq, ws, bias_, stride, pad,
+                                     dtype)
+        torch.cuda.synchronize()
+        assert out.dtype == dtype and torch.equal(out, ref)
+    assert quant.conv_launches.count == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_dense_kernel_matches_plain(dtype):
+    from aqualora_torch.ops import quant
+    _need_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(2, 77, 320, device="cuda", generator=gen).to(dtype)
+    wq, ws = quant.quantize_weight(torch.randn(
+        640, 320, device="cuda", generator=gen))
+    out = quant.int8_dense(x, wq, ws)
+    xq, xs = quant.quantize_activations_plain(x.reshape(-1, 320))
+    ref = quant.conv_codes_plain(xq.reshape(-1, 320, 1, 1), xs,
+                                 wq.reshape(640, 320, 1, 1), ws,
+                                 out_dtype=dtype).reshape(2, 77, 640)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+def test_int8_unet_card_matches_cpu():
+    """The tiny U-Net quantized (convs and dense layers), card (kernels)
+    against CPU (plain), float32 with TF32 off: the same weights and
+    inputs; every conv and dense site launches the kernels.  The
+    activations' float32 arithmetic before each quantizer differs in its
+    last bits between the card and the CPU, which can flip a code: the
+    outputs are held to 5e-2 of their largest (one flip's cascade in the
+    tiny network, tests/test_torch_port_quant.py)."""
+    from aqualora_torch.core.config import PipelineConfig
+    from aqualora_torch.diffusion.pipeline import init_module_weights
+    from aqualora_torch.models.unet import UNet2DConditionModel
+    from aqualora_torch.ops import quant
+    _need_cuda()
+    cfg = PipelineConfig.tiny().unet
+    unet = UNet2DConditionModel(cfg).eval()
+    init_module_weights(unet, torch.Generator().manual_seed(0))
+    keys = quant.quantize_unet_int8(unet)
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 4, 8, 8, generator=gen)
+    ctx = torch.randn(2, 77, cfg.cross_attention_dim, generator=gen)
+    t = torch.tensor([981.0, 21.0])
+    with torch.no_grad():
+        cpu = unet(x, t, ctx)
+        unet.cuda()
+        before = quant.conv_launches.count
+        card = unet(x.cuda(), t.cuda(), ctx.cuda()).cpu()
+    assert quant.conv_launches.count - before == len(keys)
+    assert (card - cpu).abs().max() <= 5e-2 * cpu.abs().max()

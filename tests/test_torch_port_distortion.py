@@ -425,11 +425,12 @@ def test_run_eval_distortion_tiny_matches_jax(dist_runs, kind):
 
 
 def test_run_eval_distortion_refusals(art, tmp_path):
-    """--int8 (ROADMAP A.8), --lora without --msg_gt and an unknown
-    distortion all exit before anything is generated; a non-square
-    --height/--width is refused; --device defaults to cuda.  The units
-    refuse an unknown kind and an SDEdit attack without a pipeline, with
-    JAX's messages."""
+    """--lora without --msg_gt and an unknown distortion all exit before
+    anything is generated; a non-square --height/--width is refused;
+    --device defaults to cuda.  The units refuse an unknown kind and an
+    SDEdit attack without a pipeline, with JAX's messages.  Bare --int8
+    runs: the clean set generated with int8 convs (the plain path on the
+    CPU), then the distortions."""
     from aqualora_torch.eval import run_eval_distortion as tr
     from aqualora_tpu.eval import distortions as jd
 
@@ -437,7 +438,6 @@ def test_run_eval_distortion_refusals(art, tmp_path):
     base = ["--msgdecoder_path", art["tdec"], "--device", "cpu", "--tiny",
             "--output_dir", str(out)]
     for argv, err, match in (
-            (["--train_folder", art["wm"], "--int8"], SystemExit, "A.8"),
             (["--lora", str(art["wm"]) + "/pytorch_lora_weights.safetensors"],
              SystemExit, "msg_gt"),
             (["--train_folder", art["wm"], "--distortions", "blur,warp"],
@@ -449,6 +449,12 @@ def test_run_eval_distortion_refusals(art, tmp_path):
     assert not out.exists()
     assert tr.build_argparser().parse_args(
         ["--msgdecoder_path", "d"]).device == "cuda"
+    out8 = tmp_path / "int8"
+    res = tr.main(base[:-1] + [str(out8), "--train_folder", art["wm"],
+                               "--int8", "--num_prompts", "2",
+                               "--batch_size", "2", "--distortions", "blur"])
+    assert set(res) == {"blur"}
+    assert len(os.listdir(out8 / "clean")) == 2
     x = torch.zeros(1, 3, 8, 8)
     for kind, match in (("warp", "unknown distortion warp"),
                         ("SDEdit", "SDEdit attack requires a pipeline"),

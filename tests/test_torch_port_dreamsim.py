@@ -401,9 +401,13 @@ def test_run_dreamsim_tiny_matches_jax(wm_folder, tmp_path, monkeypatch,
     assert dists.min() > 0
 
 
+class _Generated(Exception):
+    """Raised by a stub where the runner would start generating."""
+
+
 def test_run_dreamsim_guards(wm_folder, monkeypatch):
-    """No weights, --int8, and both LoRA sources stop before any
-    generation."""
+    """No weights and both LoRA sources stop before any generation; --int8
+    reaches it, with its mode (conv when bare)."""
     from aqualora_torch.eval import run_dreamsim
 
     def no_generation(*a, **k):
@@ -413,8 +417,19 @@ def test_run_dreamsim_guards(wm_folder, monkeypatch):
     base = ["--train_folder", wm_folder, "--tiny", "--device", "cpu"]
     with pytest.raises(SystemExit, match="no DreamSim weights"):
         run_dreamsim.main(base)
-    with pytest.raises(SystemExit, match="A.8"):
-        run_dreamsim.main(base + ["--int8", "--allow_random_weights"])
+    seen = []
+
+    def record(*a, **k):
+        seen.append(k["int8"])
+        raise _Generated
+    monkeypatch.setattr(run_dreamsim.utils_eval, "simple_sample", record)
+    for flag, mode in ((["--int8"], "conv"), (["--int8", "all+vae"],
+                                               "all+vae")):
+        with pytest.raises(_Generated):
+            run_dreamsim.main(base + flag + ["--allow_random_weights"])
+        assert seen.pop() == mode
+    monkeypatch.setattr(run_dreamsim.utils_eval, "simple_sample",
+                        no_generation)
     with pytest.raises(SystemExit, match="exactly one"):
         run_dreamsim.main(base + ["--lora", "x.safetensors",
                                   "--allow_random_weights"])

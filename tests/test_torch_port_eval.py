@@ -626,8 +626,10 @@ def test_run_eval_base_flag_validation(art, tmp_path):
     `test_run_eval_base_lora_without_msg_gt_fails_before_generation` of
     tests/test_eval_runners.py for the port: no LoRA source, a non-square
     --height/--width, --lora_scale or --msg_gt with --train_folder and
-    --lora without --msg_gt all exit before generating; --int8 is refused
-    (ROADMAP A.8); --device defaults to cuda."""
+    --lora without --msg_gt all exit before generating, and so does an
+    --int8 mode that is not one; --device defaults to cuda.  Bare --int8
+    runs (conv, the plain int8 path on the CPU) and records its mode in
+    eval_base.json."""
     from aqualora_torch.eval import run_eval_base as tr
     from aqualora_torch.tools.create_wm_lora import create_watermark_lora
 
@@ -640,7 +642,7 @@ def test_run_eval_base_flag_validation(art, tmp_path):
             (["--train_folder", art["wm"], "--lora_scale", "1.2"],
              "lora_scale"),
             (["--train_folder", art["wm"], "--msg_gt", HIDINFO], "msg_gt"),
-            (["--train_folder", art["wm"], "--int8"], "A.8")):
+            (["--train_folder", art["wm"], "--int8", "fast"], "2")):
         with pytest.raises(SystemExit, match=match):
             tr.main(["--output_dir", out] + argv + dec)
     folder = tmp_path / "h"
@@ -652,6 +654,12 @@ def test_run_eval_base_flag_validation(art, tmp_path):
                  "1"] + dec)
     assert not os.path.isdir(os.path.join(out, "images"))
     assert tr.build_argparser().parse_args([]).device == "cuda"
+    out8 = tmp_path / "int8"
+    res = tr.main(["--output_dir", str(out8), "--train_folder", art["wm"],
+                   "--int8", "--num_prompts", "2", "--num_seeds", "1",
+                   "--batch_size", "2", "--fpr", "1e-2"] + dec)
+    assert res["int8"] == "conv" and res["n_images"] == 2
+    assert json.load(open(out8 / "eval_base.json")) == res
 
 
 # ---------------------------------------------------------------------------
@@ -843,8 +851,8 @@ def test_simple_sample_per_image_messages_match_jax(art, tmp_path):
                          config=tcfg.PipelineConfig.tiny(), resolution=32)
     with pytest.raises(ValueError, match="unknown sampler"):
         tu.simple_sample(None, "ddpm", prompts, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.8"):
-        tu.simple_sample(None, "dpms_m", prompts, int8=True, device="cpu")
+    with pytest.raises(ValueError, match="int8 mode 'int4'"):
+        tu.simple_sample(None, "dpms_m", prompts, int8="int4", device="cpu")
 
 
 def _port_sample(art, prompts, batch_size, **kw):

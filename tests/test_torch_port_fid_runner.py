@@ -67,9 +67,13 @@ def art(tmp_path_factory):
             "weights": weights, "root": root}
 
 
+class _Generated(Exception):
+    """Raised by a stub where the runner would start generating."""
+
+
 def test_run_fid_guards(art, tmp_path, monkeypatch):
-    """No Inception weights, --int8 and both LoRA sources stop before any
-    generation."""
+    """No Inception weights and both LoRA sources stop before any
+    generation; --int8 reaches it, with its mode (conv when bare)."""
     def no_generation(*a, **k):
         raise AssertionError("generation ran")
     monkeypatch.setattr(run_fid.utils_eval, "simple_sample", no_generation)
@@ -78,8 +82,18 @@ def test_run_fid_guards(art, tmp_path, monkeypatch):
             "--tiny", "--device", "cpu"]
     with pytest.raises(SystemExit, match="no Inception weights"):
         run_fid.main(base)
-    with pytest.raises(SystemExit, match="A.8"):
+    seen = []
+
+    def record(*a, **k):
+        seen.append(k["int8"])
+        raise _Generated
+    monkeypatch.setattr(run_fid.utils_eval, "simple_sample", record)
+    # the seeded random Inception the run would build first is not needed
+    monkeypatch.setattr(run_fid, "resolve_extractor", lambda args: None)
+    with pytest.raises(_Generated):
         run_fid.main(base + ["--int8", "--allow_random_inception"])
+    assert seen == ["conv"]
+    monkeypatch.setattr(run_fid.utils_eval, "simple_sample", no_generation)
     with pytest.raises(SystemExit, match="exactly one"):
         run_fid.main(base + ["--lora", str(tmp_path / "x.safetensors"),
                              "--allow_random_inception"])

@@ -548,11 +548,12 @@ def test_stage3_cli_writes_a_msgdecoder_the_auditor_reads(tmp_path, capsys):
 
 def test_stage3_cli_defaults_and_refusals(tmp_path):
     """The parser has JAX's stage-3 defaults (PPFT's parser, lr 5e-6, 48
-    bits) and PPFT's checkpoint flags with JAX's defaults; `--fsdp` and
-    `--int8_gen` are refused, each naming its ROADMAP item, and
-    `--dataset_name` and `--dataset_config_name` naming the HF datasets
-    path; a `--train_data_dir` that is not a directory raises; a run
-    needs `--output_dir`."""
+    bits) and PPFT's checkpoint flags with JAX's defaults; `--fsdp` is
+    refused naming its ROADMAP item, and `--dataset_name` and
+    `--dataset_config_name` naming the HF datasets path; a
+    `--train_data_dir` that is not a directory raises; a run needs
+    `--output_dir`.  `--int8_gen` runs: every conv site of the U-Net holds
+    int8 codes before the first step, the LoRA sites keep their LoRA."""
     from aqualora_torch.train import rob_enhance_finetune as s3
 
     args = s3.build_argparser().parse_args([])
@@ -564,7 +565,7 @@ def test_stage3_cli_defaults_and_refusals(tmp_path):
         "cuda", "no", 500)
     assert "--output_dir is required" in s3.build_argparser().format_help()
     base = ["--tiny", "--device", "cpu", "--output_dir", str(tmp_path)]
-    for flag, item in (("--fsdp", "A.9"), ("--int8_gen", "A.8"),
+    for flag, item in (("--fsdp", "A.9"),
                        ("--dataset_name=n", "HF datasets"),
                        ("--dataset_config_name=c", "HF datasets")):
         with pytest.raises(NotImplementedError, match=item):
@@ -575,6 +576,19 @@ def test_stage3_cli_defaults_and_refusals(tmp_path):
     with pytest.raises(ValueError, match="output_dir"):
         s3.run(s3.build_argparser().parse_args(["--tiny", "--device", "cpu"]))
     assert not os.listdir(tmp_path)
+    from aqualora_torch.ops import quant
+    args = s3.build_argparser().parse_args(
+        _s3_argv(tmp_path / "int8", 1, "--int8_gen"))
+    tr = s3.build_trainer(args)
+    sites = quant.int8_sites(tr.pipe.unet, include_dense=False)
+    assert sites and all(m.weight.dtype == torch.int8
+                         and m.weight_scale.dtype == torch.float32
+                         for _, m in sites)
+    assert not any(m.weight.dtype == torch.int8 for _, m in quant.int8_sites(
+        tr.pipe.unet, include_convs=False))
+    assert any(getattr(m, "lora", None) is not None for _, m in sites)
+    res = s3.run(args)
+    assert len(res["history"]) == 1
 
 
 def test_stage3_modules_import_no_jax():

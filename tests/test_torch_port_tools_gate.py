@@ -9,9 +9,10 @@ latents (`tests/test_torch_port_eval.py`'s helpers), so both denoise the
 same numbers: the same message and decoded bits, images within the eval
 tests' tolerance on the fold and the merge path, both merge differences
 under 4/255, and the merged U-Net, VAE and text encoder equal to JAX's
-merged tree.  Then the refusals (the w8a8 legs, run_parity without
---skip_int8, a release folder with none of the files) and run_parity's
-PARITY.json.
+merged tree.  Then the w8a8 legs (`--int8`, `--train_decoder_steps`)
+and run_parity's int8 leg on the CPU, the refusals (a trained-decoder
+leg without --int8, a release folder with none of the files) and
+run_parity's PARITY.json.
 """
 
 import importlib.util
@@ -157,12 +158,61 @@ def test_gate_merged_states_match_jax(gates):
                                sd[f"{mk}.weight"]), mk
 
 
-@pytest.mark.parametrize("flag", [["--int8"], ["--int8", "conv"],
-                                  ["--train_decoder_steps", "2"]])
-def test_gate_refuses_the_w8a8_legs(tmp_path, flag):
-    with pytest.raises(SystemExit, match="ROADMAP A.8"):
-        tgate.main(GATE_ARGS + flag + ["--device", "cpu", "--out",
-                                       str(tmp_path)])
+# the int8 report's keys, as `scripts/golden_gate.py:332-360,470-488`
+# writes them
+INT8_KEYS = {"mode", "img_diff", "bit_acc", "tpr", "n_images",
+             "decode_agreement_vs_bf16", "logit_sensitivity"}
+SENSITIVITY_KEYS = {"mean_abs_margin", "min_abs_margin",
+                    "int8_margin_delta_mean", "int8_margin_delta_max",
+                    "cross_image_spread_mean", "max_delta_over_min_margin",
+                    "mean_delta_over_spread", "release_decoder_bit_constant"}
+TRAINED_KEYS = {"stage1_steps", "stage1_final_acc",
+                "decode_agreement_vs_bf16", "jpeg50_control_agreement",
+                "jpeg95_control_agreement", "margin_delta_int8",
+                "margin_delta_jpeg50", "margin_delta_jpeg95",
+                "int8_delta_over_jpeg50", "demotion_rule_met"}
+
+
+@pytest.mark.parametrize("flag", [
+    ["--int8"], ["--int8", "all+vae"],
+    ["--int8", "conv", "--train_decoder_steps", "2"]])
+def test_gate_runs_the_w8a8_legs(tmp_path, flag):
+    """The gate's int8 leg on the CPU (the plain int8 path): the int8
+    image written beside the bf16 one, JAX's report keys, agreements in
+    [0, 1], the image changed by the quantization; the default agreement
+    bound of 0.98 is asserted (the tiny synthetic decoder reads the same
+    bits from both).  One prompt: two would run the FID smoke's 2048^2
+    sqrtm.  With --train_decoder_steps the tiny stage-1 decoder
+    is trained in a subprocess and read against its JPEG controls."""
+    res = tgate.main(["--synthetic", "--tiny", "--num_prompts", "1",
+                      "--batch_size", "1"] + flag
+                     + ["--device", "cpu", "--out", str(tmp_path)])
+    rep = res["int8"]
+    mode = flag[1] if len(flag) > 1 else "conv"
+    assert set(rep) - {"trained_decoder"} == INT8_KEYS
+    assert set(rep["logit_sensitivity"]) == SENSITIVITY_KEYS
+    assert rep["mode"] == mode and rep["n_images"] == 1
+    assert 0.0 <= rep["decode_agreement_vs_bf16"] <= 1.0
+    assert rep["img_diff"] > 0.0
+    assert os.listdir(tmp_path / f"images_int8_{mode}") == ["0_0.png"]
+    assert json.loads((tmp_path / "golden_gate.json").read_text()) == res
+    if "--train_decoder_steps" in flag:
+        td = rep["trained_decoder"]
+        assert set(td) == TRAINED_KEYS and td["stage1_steps"] == 2
+        assert (tmp_path / "trained_tiny_decoder" / "msgdecoder.pt").exists()
+        for key in ("decode_agreement_vs_bf16", "jpeg50_control_agreement",
+                    "jpeg95_control_agreement"):
+            assert 0.0 <= td[key] <= 1.0
+    else:
+        assert "trained_decoder" not in rep
+
+
+def test_gate_refuses_a_trained_decoder_leg_without_int8(tmp_path):
+    """As JAX's gate: --train_decoder_steps only measures the int8
+    agreement, so without --int8 it stops before anything runs."""
+    with pytest.raises(SystemExit, match="requires --int8"):
+        tgate.main(GATE_ARGS + ["--train_decoder_steps", "2", "--device",
+                                "cpu", "--out", str(tmp_path)])
     assert not (tmp_path / "reference_release").exists()
 
 
@@ -193,12 +243,25 @@ def test_run_parity_tiny_writes_parity_json(tmp_path):
     assert parity["fid"] is None and parity["synthetic"] is True
 
 
+def test_run_parity_tiny_runs_the_int8_leg(tmp_path):
+    """Without --skip_int8 the gate runs its int8-conv leg, its agreement
+    bound off on synthetic weights (`scripts/run_parity.py:135-140`)."""
+    out = tmp_path / "parity"
+    res = tparity.main(["--synthetic", "--tiny", "--skip_merge", "--device",
+                        "cpu", "--out", str(out), "--gate_num_prompts", "1",
+                        "--batch_size", "1", "--eval_num_prompts", "1",
+                        "--eval_num_seeds", "1"])
+    rep = res["gate"]["int8"]
+    assert rep["mode"] == "conv" and rep["n_images"] == 1
+    assert set(rep) == INT8_KEYS
+    assert json.loads((out / "PARITY.json").read_text()) == res
+    assert (out / "gate" / "images_int8_conv" / "0_0.png").exists()
+
+
 @pytest.mark.parametrize("argv", [
-    ["--synthetic", "--tiny"],
     ["--synthetic", "--tiny", "--skip_int8", "--fid_meta", "x.json"]])
 def test_run_parity_refusals(tmp_path, argv):
-    """Without --skip_int8 the runbook stops (the int8 leg is A.8's); a
-    --fid_meta without --fid_gt_dir stops too; neither starts a leg."""
+    """A --fid_meta without --fid_gt_dir stops before any leg starts."""
     with pytest.raises(SystemExit):
         tparity.main(argv + ["--device", "cpu", "--out",
                              str(tmp_path / "p")])

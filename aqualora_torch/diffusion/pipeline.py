@@ -1,9 +1,10 @@
 """Text -> watermarked image pipeline in PyTorch.
 
-The port of `aqualora_tpu/diffusion/pipeline.py:33-286` for the serving
-path and img2img (`make_img2img`, the SDEdit attack): CLIP encode, the CFG
-denoise loop of the U-Net under DPM-Solver++(2M) (`dpms_m`, the default,
-as in the JAX package) or DDIM, VAE decode.  The
+The port of `aqualora_tpu/diffusion/pipeline.py`: the serving path,
+img2img (`make_img2img`, the SDEdit attack) and regional generation
+(`make_regional_generate`, one message or LoRA per image region): CLIP
+encode, the CFG denoise loop of the U-Net under DPM-Solver++(2M)
+(`dpms_m`, the default, as in the JAX package) or DDIM, VAE decode.  The
 PPFT trainer (`train/ppft_train.py`) drives the same modules, the VAE
 encoder included.  The watermark enters through the MapperNet diagonal:
 `fold_message(msg)` folds `mapper(msg) * 1.03` into the U-Net's LoRA sites
@@ -21,11 +22,13 @@ images come back in [-1, 1].
 from __future__ import annotations
 
 import os
-from typing import List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
+from torch.func import functional_call
 
 from aqualora_torch.core.config import PipelineConfig
 from aqualora_torch.core.convert import jax_params_to_torch
@@ -36,7 +39,8 @@ from aqualora_torch.core.io import (LORA_FILE, MAPPER_FILE, assign_state,
 from aqualora_torch.diffusion.samplers import Generators, batch_randn, sample
 from aqualora_torch.diffusion.schedule import NoiseSchedule
 from aqualora_torch.models.clip import CLIPTextModel
-from aqualora_torch.models.lora import fold_lora_tree, lora_sites
+from aqualora_torch.models.lora import (fold_lora_tree, folded_weight,
+                                        lora_sites)
 from aqualora_torch.models.unet import UNet2DConditionModel
 from aqualora_torch.models.vae import AutoencoderKL
 from aqualora_torch.models.watermark import MapperNet
@@ -245,6 +249,41 @@ class StableDiffusionPipeline:
             if id(m) not in int8:       # quantized from float32 instead
                 m.weight.data = m.weight.data.to(self.dtype)
 
+    @torch.no_grad()
+    def fold_region_weights(self, msg: torch.Tensor,
+                            multiplier: float | None = None
+                            ) -> Dict[str, torch.Tensor]:
+        """One region's U-Net weights for `make_regional_generate`: the
+        weights of the U-Net's LoRA sites (192 in SD-1.5) with `msg` folded
+        in, keyed by their state-dict names; the only tensors a fold
+        changes.  Computed as `fold_diag` computes them (float32 from the
+        float32 base weights, the delta summed in float64, one cast to the
+        compute type), without touching the pipeline: its U-Net stays
+        unfolded, so any number of regions fold from it.  msg: [bits] or
+        [1, bits]."""
+        if self.int8:
+            raise ValueError("regional weights fold float weights; build "
+                             "the pipeline without an int8 mode")
+        diag = self.message_scale(torch.as_tensor(msg).reshape(1, -1),
+                                  multiplier)[0]
+        alpha = self.config.unet.lora.alpha_scale
+        sites = {id(m) for m in lora_sites(self.unet)}
+        return {f"{name}.weight": folded_weight(
+                    m, diag, alpha_scale=alpha).to(self.dtype)
+                for name, m in self.unet.named_modules() if id(m) in sites}
+
+    def _guided_eps(self, out: torch.Tensor, x2: torch.Tensor,
+                    tb: torch.Tensor, guidance_scale: float) -> torch.Tensor:
+        """The U-Net's output on the CFG batch [uncond, cond] -> guided eps:
+        a v-prediction (SD-2.1) converted to eps first, then
+        eps_u + g (eps_c - eps_u)."""
+        cfg = self.config
+        if cfg.unet.prediction_type == "v_prediction":
+            ti = tb.long().clamp(0, cfg.schedule.num_train_timesteps - 1)
+            out = self.schedule.velocity_to_epsilon(out, x2.float(), ti)
+        eps_u, eps_c = out.chunk(2, dim=0)
+        return eps_u + guidance_scale * (eps_c - eps_u)
+
     # -- the generator -----------------------------------------------------------
     def make_generate(self, num_steps: int = 25, sampler: str = "dpms_m",
                       height: int = 512, width: int = 512):
@@ -258,7 +297,6 @@ class StableDiffusionPipeline:
         lora_scale: None (folded or no LoRA) or a [B, rank] diagonal."""
         cfg = self.config
         lh, lw = height // cfg.vae.downscale, width // cfg.vae.downscale
-        v_pred = cfg.unet.prediction_type == "v_prediction"
 
         @torch.no_grad()
         def generate(prompt_ids, neg_ids, guidance_scale: float = 7.5,
@@ -279,14 +317,8 @@ class StableDiffusionPipeline:
             def denoise(x, t):
                 x2 = torch.cat([x, x], dim=0).to(self.dtype)
                 tb = t.expand(2 * b)
-                out = self.unet(x2, tb, context, scale2)
-                if v_pred:
-                    ti = tb.long().clamp(0, cfg.schedule.num_train_timesteps
-                                         - 1)
-                    out = self.schedule.velocity_to_epsilon(out, x2.float(),
-                                                            ti)
-                eps_u, eps_c = out.chunk(2, dim=0)
-                return eps_u + guidance_scale * (eps_c - eps_u)
+                return self._guided_eps(self.unet(x2, tb, context, scale2),
+                                        x2, tb, guidance_scale)
 
             latents = sample(sampler, self.schedule, denoise, x.contiguous(),
                              num_steps, generator=generator)
@@ -318,7 +350,6 @@ class StableDiffusionPipeline:
         alpha, sigma = np.sqrt(acp), np.sqrt(1 - acp)
         alpha_n = np.concatenate([alpha[1:], [1.0]]).astype(np.float32)
         sigma_n = np.concatenate([sigma[1:], [0.0]]).astype(np.float32)
-        v_pred = cfg.unet.prediction_type == "v_prediction"
 
         @torch.no_grad()
         def img2img(images, prompt_ids, neg_ids, guidance_scale: float = 7.5,
@@ -346,17 +377,118 @@ class StableDiffusionPipeline:
             for i, t in enumerate(ts):
                 x2 = torch.cat([x, x], dim=0).to(self.dtype)
                 tb = torch.full((2 * b,), float(t), device=self.device)
-                out = self.unet(x2, tb, context, None)
-                if v_pred:
-                    ti = tb.long().clamp(0, cfg.schedule.num_train_timesteps
-                                         - 1)
-                    out = schedule.velocity_to_epsilon(out, x2.float(), ti)
                 # the guidance in the U-Net's type, as JAX's; the step in
                 # float32
-                eps_u, eps_c = out.chunk(2, dim=0)
-                eps = (eps_u + guidance_scale * (eps_c - eps_u)).float()
+                eps = self._guided_eps(self.unet(x2, tb, context, None), x2,
+                                       tb, guidance_scale).float()
                 x0 = (x - float(sigma[i]) * eps) / float(alpha[i])
                 x = float(alpha_n[i]) * x0 + float(sigma_n[i]) * eps
             return self._decode(x).permute(0, 2, 3, 1)
 
         return img2img
+
+    # -- regional multi-message generation ---------------------------------
+    def make_regional_generate(self, num_steps: int = 25,
+                               sampler: str = "dpms_m", height: int = 512,
+                               width: int = 512):
+        """Regional generation (`aqualora_tpu/diffusion/pipeline.py:288-394`):
+        S regions, each with its own folded weights (a watermark message or
+        a LoRA), its own sub-prompt and a spatial mask, compose one image.
+        Each denoising step runs the U-Net once per region at the CFG batch
+        2B and merges the guided eps predictions with normalized masks, in
+        float32:
+
+            eps = sum_s  m_s * eps_s,   m_s = mask_s / (sum_t mask_t + 1e-4)
+
+        Returns regional(region_weights, masks, prompt_ids, neg_ids,
+        guidance_scale=7.5, z=None, generator=None) -> images NHWC in
+        [-1, 1], where
+            region_weights: S dicts of U-Net weights by state-dict name
+                (`fold_region_weights`, or `stack_region_params` of state
+                dicts); each region's U-Net call takes them in place of the
+                module's own (`torch.func.functional_call`), every other
+                tensor comes from the module;
+            masks: [S, H, W] non-negative weight maps at image resolution,
+                resized to the latent's (`resize_masks`);
+            prompt_ids: [S, B, 77] one sub-prompt batch per region;
+            neg_ids: [B, 77] the negative prompt all regions share;
+            z, generator: the initial latent, as `make_generate` takes them.
+
+        The regions run in a Python loop, not under `torch.vmap`: the
+        attention kernel's autograd function has no vmap rule, and the loop
+        at batch 2B does the work of JAX's vmap (S x 32 forward launches a
+        step in SD-1.5)."""
+        cfg = self.config
+        lh, lw = height // cfg.vae.downscale, width // cfg.vae.downscale
+
+        @torch.no_grad()
+        def regional(region_weights: Sequence[Dict[str, torch.Tensor]],
+                     masks, prompt_ids, neg_ids, guidance_scale: float = 7.5,
+                     z: Optional[torch.Tensor] = None,
+                     generator: Generators = None):
+            n_regions = len(prompt_ids)
+            masks = torch.as_tensor(masks)
+            if masks.shape[0] != n_regions or len(region_weights) != n_regions:
+                # a count mismatch would otherwise pair masks, prompts and
+                # weights of different regions
+                raise ValueError(
+                    f"{masks.shape[0]} masks and {len(region_weights)} region "
+                    f"weights for the {n_regions} regions of prompt_ids")
+            ctx_u = self.encode_prompt(neg_ids)
+            contexts = [torch.cat([ctx_u, self.encode_prompt(ids)], dim=0)
+                        for ids in prompt_ids]
+            b = len(neg_ids)
+            m = resize_masks(masks.to(self.device), lh, lw)
+            m_hat = (m / (m.sum(dim=0, keepdim=True) + 1e-4))[:, None, None]
+            if z is None:
+                z = batch_randn((b, lh, lw, cfg.unet.in_channels), generator,
+                                self.device)
+            x = z.to(self.device, torch.float32).permute(0, 3, 1, 2)
+
+            def denoise(x, t):
+                x2 = torch.cat([x, x], dim=0).to(self.dtype)
+                tb = t.expand(2 * b)
+                eps = None
+                for weights, context, w in zip(region_weights, contexts,
+                                               m_hat):
+                    out = functional_call(self.unet, weights,
+                                          (x2, tb, context, None))
+                    e = self._guided_eps(out, x2, tb, guidance_scale)
+                    e = e.float() * w
+                    eps = e if eps is None else eps + e
+                return eps
+
+            latents = sample(sampler, self.schedule, denoise, x.contiguous(),
+                             num_steps, generator=generator)
+            return self._decode(latents).permute(0, 2, 3, 1)
+
+        return regional
+
+
+def resize_masks(masks: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """Region masks [S, H, W] -> float32 [S, height, width] as
+    `jax.image.resize(..., method="bilinear")` computes them: a triangle
+    filter with half-pixel centres, widened by the scale when it shrinks
+    (antialiased), which torch's antialiased bilinear interpolation is."""
+    return F.interpolate(masks.float()[None], size=(height, width),
+                         mode="bilinear", align_corners=False,
+                         antialias=True)[0]
+
+
+def stack_region_params(states: Sequence[Dict[str, torch.Tensor]],
+                        keep_lora: bool = False
+                        ) -> List[Dict[str, torch.Tensor]]:
+    """Per-region U-Net state dicts, whole or partial (e.g. `state_dict()`
+    of a pipeline folded with each region's message) -> the list
+    `make_regional_generate` takes.  The regional U-Net runs with scale
+    None, so the LoRA down and up weights a fold keeps are never read: they
+    are dropped unless `keep_lora`.  Every region must name the same
+    tensors.  (JAX stacks the trees on a leading axis for its vmap; the
+    port's regions run in a loop and stay separate.)"""
+    if not keep_lora:
+        states = [{k: v for k, v in s.items() if ".lora." not in k}
+                  for s in states]
+    keys = [set(s) for s in states]
+    if any(k != keys[0] for k in keys[1:]):
+        raise ValueError("the regions' weights name different tensors")
+    return list(states)

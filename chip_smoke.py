@@ -20,6 +20,9 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py --phases 24     # int8 w8a8 serving: the int8
                                           # kernels, a generate call, the
                                           # gate's int8 leg
+    python3 chip_smoke.py --phases 25     # the chain, then regional
+                                          # generation, the demo and a
+                                          # traced regional call
 
 Phases (any failure raises, so the exit code is not 0):
   0. torch and CUDA versions, the card's name and power limit (nvidia-smi).
@@ -330,12 +333,32 @@ Phases (any failure raises, so the exit code is not 0):
      --teacher_int8 (B8, 3 steps: 96 int8 convolutions a step, the
      teacher's) and stage 3 with --int8_gen (B4 at 512^2, 2 steps: 1920 a
      step, the generation's) at full width, through `build_trainer`.
+ 25. Regional generation (`make_regional_generate`; `--phases 25` runs
+     phase 15 too): phase 3's SD-1.5 512^2 bf16 pipeline with seeded random
+     weights, unfolded, two 48-bit messages folded into two regions'
+     weights (`fold_region_weights`, the LoRA sites' weights alone), two
+     sub-prompts (one a region) for each image, left and right masks, dpms_m-25 at CFG 7.5, B4:
+     (a) a call launches the forward 1601 times (2 regions x 25 steps x 32
+     + the VAE), images/s (median of 3) and peak memory beside a plain B4
+     generate of the pipeline folded with region A's message, the regions'
+     bytes; (d) the forward kernel against its plain version on the inputs
+     the regional call gave it, at each shape (the U-Net at the CFG batch
+     8, the VAE at 4); (b) a one-hot mask (1e6, 0) gives that plain
+     generate bit for bit; (c) two identical regions under a non-uniform
+     split against one region, within phase 3's plain-swap limits; (e)
+     `run_demo.process` on phase 15's artifacts at 512^2 DDIM-25: a blank
+     secret (B1) and two comma-separated secrets (B2), 801 launches a
+     call, the decoded bits (printed: random weights); (f) last of all, one
+     regional call under `utils/profiling.trace`: the Chrome trace holds
+     the forward kernel's events, the device time by kernel read from the
+     file, `device_memory_stats()`; then a short session of one forward
+     launch, its events counted.
 The timed phases run first (0-7, 12, 13, 14, 8, 15, 16, 18b-d, 19d, 22d-e,
-17, 18a, 19a-c, 19e, 20, 21, 22a-c, 23a-c, 24b, 24a, 24c, 24d) and the
-profiled ones after them, so that the profiler touches no timed phase:
-first the short sessions (6's profile, 9, 10, 12's profile, 18a's, 19e's,
-22a's, 23a's, 24a's), then the profiles of whole steps (8, 14, 18d's,
-20's, 21a's update) and of a generate call (11).  After a session of a whole step, short sessions in the same process
+25e, 17, 18a, 19a-c, 19e, 20, 21, 22a-c, 23a-c, 24b, 24a, 24c, 24d, 25a-d)
+and the profiled ones after them, so that the profiler touches no timed
+phase: first the short sessions (6's profile, 9, 10, 12's profile, 18a's,
+19e's, 22a's, 23a's, 24a's), then the profiles of whole steps (8, 14,
+18d's, 20's, 21a's update) and of a generate call (11), then 25f.  After a session of a whole step, short sessions in the same process
 have recorded some device events or none (PERF.md, section 7).  The line
 before the last names the card and its power limit; the last line is
 {"ok": true, "device": {...}}.
@@ -5308,11 +5331,367 @@ def phase24a_profile(smi: str, rows: dict, shapes: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# phase 25, regional generation: SD-1.5 512^2 bf16 (phase 3's pipeline,
+# unfolded), dpms_m-25 at CFG 7.5, S = 2 regions (two messages, two
+# sub-prompts, left and right halves) at B4, so the U-Net runs twice a step
+# at the CFG batch 2 x 4 (the protocol's shapes); then the demo on phase
+# 15's artifacts and one traced regional call
+REGIONS, REGIONAL_B = 2, 4
+REGIONAL_LAUNCHES = REGIONS * (LAUNCHES_PER_GENERATE - 1) + 1    # 1601
+DEMO_PROMPT = "a watercolor of a lighthouse at dusk"
+
+
+class Regional:
+    """Phase 25's pipeline, region weights, sub-prompts and masks; call(seed,
+    ...) is one regional call from per-image generators."""
+
+    def __init__(self):
+        from aqualora_torch.core.config import PipelineConfig
+        from aqualora_torch.core.tokenizer import FallbackTokenizer
+        from aqualora_torch.diffusion.pipeline import StableDiffusionPipeline
+
+        cfg = PipelineConfig.sd15(lora_rank=320)
+        t0 = time.perf_counter()
+        self.pipe = StableDiffusionPipeline(cfg, dtype=torch.bfloat16,
+                                            device="cuda")
+        self.pipe.init_params(seed=0)
+        bits = cfg.watermark.msg_bits
+        self.msgs = [torch.bernoulli(torch.full((bits,), 0.5),
+                                     generator=torch.Generator()
+                                     .manual_seed(250 + i))
+                     for i in range(REGIONS)]
+        t1 = time.perf_counter()
+        self.weights = [self.pipe.fold_region_weights(m) for m in self.msgs]
+        torch.cuda.synchronize()
+        self.fold_s = time.perf_counter() - t1
+        tok = FallbackTokenizer(cfg.clip.vocab_size)
+        # region A's sub-prompts are the first four prompts, B's the last
+        self.ids = [tok(PROMPTS[r * REGIONAL_B:(r + 1) * REGIONAL_B])
+                    for r in range(REGIONS)]
+        self.neg = tok([""] * REGIONAL_B)
+        self.masks = torch.zeros(REGIONS, RES, RES)
+        self.masks[0, :, :RES // 2] = 1.0
+        self.masks[1, :, RES // 2:] = 1.0
+        self.regional = self.pipe.make_regional_generate(STEPS, "dpms_m",
+                                                         RES, RES)
+        self.build_s = t1 - t0
+
+    @staticmethod
+    def gens(seed):
+        return [torch.Generator(device="cuda").manual_seed(seed + i)
+                for i in range(REGIONAL_B)]
+
+    def call(self, seed, weights=None, masks=None, ids=None):
+        return self.regional(self.weights if weights is None else weights,
+                             self.masks if masks is None else masks,
+                             self.ids if ids is None else ids, self.neg,
+                             7.5, generator=self.gens(seed))
+
+    def weight_bytes(self) -> int:
+        return sum(v.numel() * v.element_size()
+                   for w in self.weights for v in w.values())
+
+
+def capture_forward_inputs(fn) -> dict:
+    """Run `fn` with the forward kernel's wrapper recording the first
+    inputs it gets at each shape: {(B, H, Tq, Tk, d): (q, k, v, scale)}."""
+    from aqualora_torch.ops import flash_attention as fa
+    kernel, seen = fa.flash_attention_fwd, {}
+
+    def recording(q, k, v, scale):
+        key = (*q.shape[:3], k.shape[2], q.shape[3])
+        if key not in seen:
+            seen[key] = (q.clone(), k.clone(), v.clone(), scale)
+        return kernel(q, k, v, scale)
+
+    fa.flash_attention_fwd = recording
+    try:
+        fn()
+    finally:
+        fa.flash_attention_fwd = kernel
+    return seen
+
+
+def phase25(smi: str) -> tuple:
+    """Regional generation at full width: (a) the launches and time of an
+    S = 2 dpms_m-25 B4 call beside a plain B4 generate, peak memory and the
+    region weights' bytes; (d) the forward kernel against its plain version
+    on the inputs the regional call gave it at each shape; (b) a one-hot
+    mask against the plain generate of the pipeline folded with region A's
+    message, bit for bit; (c) two identical regions under a non-uniform
+    split against one region.  Returns (the regional setup, which the
+    traced call reuses; launches by shape; max|dO| by shape; the median
+    call in seconds)."""
+    from aqualora_torch.ops import flash_attention as fa
+
+    t_phase = time.perf_counter()
+    reg = Regional()
+    unet_gib = sum(p.numel() * p.element_size()
+                   for p in reg.pipe.unet.parameters()) / 2 ** 30
+    print(f"[25] SD-1.5 bf16 pipeline built in {reg.build_s:.1f} s; "
+          f"{REGIONS} regions folded in {reg.fold_s:.4f} s: the weights of "
+          f"{len(reg.weights[0])} LoRA sites each, "
+          f"{reg.weight_bytes() / 2 ** 30:.4f} GiB for both (the U-Net "
+          f"{unet_gib:.4f} GiB, its float32 sites and LoRA included) | "
+          f"{smi}", flush=True)
+
+    # (d)'s inputs, recorded in the warm-up call
+    seen = capture_forward_inputs(lambda: reg.call(2500))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()                              # counts start here
+    images = reg.call(2501)
+    torch.cuda.synchronize()
+    got, by_shape = counts(), dict(fa.launches.by_shape)
+    peak_regional = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    want = {"fwd": REGIONAL_LAUNCHES, **NO_TRAINING}
+    launches = {}
+    for name, h, tq, tk, d, _, per_call in SHAPES:
+        per = per_call if name == "vae_mid" else REGIONS * per_call
+        launches[name] = by_shape.get((h, tq, tk, d), 0)
+        if launches[name] != per:
+            raise AssertionError(f"[25] {name}: {launches[name]} launches, "
+                                 f"want {per}")
+    if got != want:
+        raise AssertionError(f"[25] regional call launches {got}, want {want}")
+    if not (tuple(images.shape) == (REGIONAL_B, RES, RES, 3)
+            and torch.isfinite(images).all()
+            and -1 <= images.min() and images.max() <= 1):
+        raise AssertionError(f"[25] regional images {tuple(images.shape)} "
+                             f"not finite in [-1, 1]")
+    times = []
+    for i in range(3):
+        before = fa.launches.count
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reg.call(2510 + i)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if fa.launches.count - before != REGIONAL_LAUNCHES:
+            raise AssertionError("[25] launch count changed between calls")
+    med = statistics.median(times)
+
+    # the plain B4 generate of the pipeline folded with region A's message
+    reg.pipe.fold_message(reg.msgs[0])
+    generate = reg.pipe.make_generate(STEPS, "dpms_m", RES, RES)
+    torch.cuda.synchronize()
+    base_plain = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    plain = generate(reg.ids[0], reg.neg, 7.5, generator=reg.gens(2520))
+    torch.cuda.synchronize()
+    peak_plain = (torch.cuda.max_memory_allocated() - base_plain) / 2 ** 30
+    if counts() != {"fwd": LAUNCHES_PER_GENERATE, **NO_TRAINING}:
+        raise AssertionError(f"[25] plain generate launches {counts()}")
+    plain_times = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        generate(reg.ids[0], reg.neg, 7.5, generator=reg.gens(2530 + i))
+        torch.cuda.synchronize()
+        plain_times.append(time.perf_counter() - t0)
+    plain_med = statistics.median(plain_times)
+    print(f"[25] regional {REGIONS} x B{REGIONAL_B} {RES}^2 dpms_m-{STEPS} CFG "
+          f"7.5 bf16: {REGIONAL_B / med:.4f} images/s (median of 3: "
+          f"{', '.join(f'{t:.4f}' for t in times)} s); launches a call "
+          f"{got} (want {REGIONAL_LAUNCHES} forward); peak memory "
+          f"{peak_regional:.4f} GiB above the {base / 2 ** 30:.4f} GiB "
+          f"resident (the regions' weights included); a plain B"
+          f"{REGIONAL_B} dpms_m-{STEPS} generate in the same run "
+          f"{REGIONAL_B / plain_med:.4f} images/s (median of 3: "
+          f"{', '.join(f'{t:.4f}' for t in plain_times)} s), peak "
+          f"{peak_plain:.4f} GiB above its {base_plain / 2 ** 30:.4f} GiB "
+          f"resident; regional / plain time {med / plain_med:.4f} | {smi}",
+          flush=True)
+
+    # (d) the forward kernel at the regional call's 2B batch, on the inputs
+    # the call gave it, against its plain version
+    errs = {}
+    for name, h, tq, tk, d, _, _ in SHAPES:
+        b = REGIONAL_B if name == "vae_mid" else 2 * REGIONAL_B
+        q, k, v, scale = seen.pop((b, h, tq, tk, d))
+        errs[name] = check_fwd(f"[25] regional {name}", q, k, v, scale,
+                               plain=plain_by_batch)
+        del q, k, v
+    if seen:
+        raise AssertionError(f"[25] forward shapes beyond SHAPES: {list(seen)}")
+    torch.cuda.empty_cache()
+
+    # (b) a one-hot mask: region A's weight 1e6 / (1e6 + 1e-4) = 1 exactly
+    # in float32, region B's 0
+    one_hot = torch.stack([torch.full((RES, RES), 1e6),
+                           torch.zeros(RES, RES)])
+    out = reg.call(2520, masks=one_hot)
+    diff = (out - plain).abs()
+    same = torch.equal(out, plain)
+    print(f"[25] one-hot mask (1e6, 0) against the plain generate of the "
+          f"pipeline folded with region A's message, same generators: "
+          f"bit-identical {same}, max|d| {diff.max().item():.4e}, mean "
+          f"{diff.mean().item():.4e} | {smi}", flush=True)
+    if not same:
+        raise AssertionError("[25] the one-hot regional call is not the "
+                             "folded generate")
+
+    # (c) two identical regions under a non-uniform split against one
+    col = torch.linspace(0.25, 0.75, RES)[None, :].expand(RES, RES) * 1e6
+    two = reg.call(2540, weights=[reg.weights[0]] * 2,
+                   masks=torch.stack([col, 1e6 - col]), ids=[reg.ids[0]] * 2)
+    one = reg.call(2540, weights=reg.weights[:1],
+                   masks=torch.full((1, RES, RES), 1e6), ids=reg.ids[:1])
+    diff = (two - one).abs()
+    print(f"[25] two identical regions (split 0.25-0.75 across the width) "
+          f"against one: bit-identical {torch.equal(two, one)}, max|d| "
+          f"{diff.max().item():.4e} (tol {PLAIN_SWAP_MAX_TOL:g}), mean "
+          f"{diff.mean().item():.4e} (tol {PLAIN_SWAP_MEAN_TOL:g}) | {smi}",
+          flush=True)
+    if not (diff.max().item() <= PLAIN_SWAP_MAX_TOL
+            and diff.mean().item() <= PLAIN_SWAP_MEAN_TOL):
+        raise AssertionError("[25] identical regions do not collapse")
+    del images, plain, out, two, one, diff
+    torch.cuda.empty_cache()
+    print(f"[25] phase 25 (timed part) took "
+          f"{time.perf_counter() - t_phase:.1f} s | {smi}", flush=True)
+    return reg, launches, errs, med
+
+
+def phase25_demo(smi: str, out_dir: str, tmp: str) -> None:
+    """(e) `run_demo.process` on phase 15's artifacts at 512^2 (DDIM-25,
+    CFG 7.5, bf16): a blank secret (B1), then two comma-separated secrets
+    in one call (B2); each call launches the forward 801 times and its
+    images decode with the folder's msgdecoder.pt."""
+    import numpy as np
+
+    from aqualora_torch import run_demo
+
+    t_demo = time.perf_counter()
+    rng = np.random.default_rng(25)
+    two = ",".join("".join(map(str, rng.integers(0, 2, EVAL_MSG_BITS)))
+                   for _ in range(2))
+    for tag, secret, n in (("blank secret", "", 1),
+                           ("two secrets", two, 2)):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        images, bitstring, decoded = run_demo.process(
+            None, out_dir, secret, DEMO_PROMPT, steps=STEPS, seed=25,
+            msg_bits=EVAL_MSG_BITS, resolution=RES,
+            output_dir=str(Path(tmp) / f"demo_{n}"), device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = counts()
+        gts = bitstring if isinstance(bitstring, list) else [bitstring]
+        if not (got == {"fwd": LAUNCHES_PER_GENERATE, **NO_TRAINING}
+                and len(images) == n and decoded is not None
+                and len(decoded) == n and len(gts) == n
+                and all(len(d) == EVAL_MSG_BITS for d in decoded)
+                and all(im.shape == (RES, RES, 3) for im in images)):
+            raise AssertionError(f"[25] demo ({tag}): launches {got}, "
+                                 f"{len(images)} images, decoded {decoded}")
+        accs = [sum(a == b for a, b in zip(d, g)) / EVAL_MSG_BITS
+                for d, g in zip(decoded, gts)]
+        print(f"[25] demo, {tag} (B{n}, DDIM-{STEPS} {RES}^2): {wall:.4f} s "
+              f"end to end (pipeline build, fold, generate, decoder), "
+              f"launches {got}; embedded {gts}; decoded {decoded}; bit "
+              f"accuracy {', '.join(f'{a:.4f}' for a in accs)} (random "
+              f"weights: printed, not checked) | {smi}", flush=True)
+        del images
+        torch.cuda.empty_cache()
+    print(f"[25] the demo took {time.perf_counter() - t_demo:.1f} s | {smi}",
+          flush=True)
+
+
+def trace_events(path: Path) -> tuple:
+    """The events of a Chrome trace `profiling.trace` wrote: (all of them,
+    the device kernels, the kernels' busy ms: the union of their
+    intervals)."""
+    events = json.loads(path.read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    total, end = 0.0, -math.inf
+    for start, stop in sorted((e["ts"], e["ts"] + e["dur"]) for e in kernels):
+        if stop > end:
+            total += stop - max(start, end)
+            end = stop
+    return events, kernels, total / 1e3
+
+
+def short_session(tag: str, smi: str) -> None:
+    """One forward launch (64^2 self at the regional CFG batch) under
+    `profiling.trace`: print the kernel events its trace recorded (the
+    lost events of PERF.md section 7)."""
+    from aqualora_torch.ops import flash_attention as fa
+    from aqualora_torch.utils import profiling
+
+    q = torch.randn(2 * REGIONAL_B, 8, 4096, 40, device="cuda",
+                    dtype=torch.bfloat16)
+    with tempfile.TemporaryDirectory(prefix="aqualora_trace_") as tmp:
+        with profiling.trace(tmp):
+            fa.flash_attention_fwd(q, q, q, 40 ** -0.5)
+            torch.cuda.synchronize()
+        _, kernels, _ = trace_events(next(Path(tmp).glob("*.json")))
+    print(f"[25] a short session {tag} (one forward launch, "
+          f"profiling.trace, acc_events on): "
+          f"{sum('flash_fwd' in e['name'] for e in kernels)} flash_fwd "
+          f"event(s), {len(kernels)} kernel event(s) (printed) | {smi}",
+          flush=True)
+
+
+def phase25_profile(smi: str, reg: Regional, call_s: float) -> None:
+    """(f) one regional call under `profiling.trace` into a temporary
+    directory, after every other profiled phase: the trace file holds the
+    forward kernel's events; the device time by kernel from the file, and
+    `device_memory_stats()`.  A short session (one forward launch) before
+    it and one after it count their events: whole-step sessions have
+    taken later short sessions' events (PERF.md section 7)."""
+    from aqualora_torch.utils import profiling
+
+    t_profile = time.perf_counter()
+    short_session("before the traced call", smi)
+    with tempfile.TemporaryDirectory(prefix="aqualora_trace_") as tmp:
+        torch.cuda.synchronize()
+        reset_counts()
+        with profiling.trace(tmp):
+            with profiling.annotate("regional_call"):
+                reg.call(2550)
+                torch.cuda.synchronize()
+        launched = counts()["fwd"]
+        files = sorted(Path(tmp).glob("*.json"))
+        if len(files) != 1:
+            raise AssertionError(f"[25] trace files {files}")
+        mib = files[0].stat().st_size / 2 ** 20
+        events, kernels, busy_ms = trace_events(files[0])
+    flash = [e for e in kernels if "flash_fwd" in e["name"]]
+    if not flash:
+        raise AssertionError("[25] the trace holds no flash_fwd event")
+    calls = [e["dur"] for e in events
+             if e.get("name") == "regional_call" and e.get("dur")]
+    wall_ms = max(calls) / 1e3 if calls else math.nan
+    by_name = {}
+    for e in kernels:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"] / 1e3
+    flash_ms = sum(e["dur"] for e in flash) / 1e3
+    print(f"[25] traced regional call ({mib:.1f} MiB of trace): "
+          f"{len(flash)} flash_fwd kernel events of {launched} launches; "
+          f"device busy {busy_ms:.1f} ms of the call's {wall_ms:.1f} ms "
+          f"traced wall ({100 * busy_ms / wall_ms:.1f}%; the unprofiled "
+          f"median {call_s * 1e3:.1f} ms); the forward kernel "
+          f"{flash_ms:.1f} ms ({100 * flash_ms / busy_ms:.1f}% of device "
+          f"time) | {smi}", flush=True)
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"[25]   {ms:9.2f} ms  {name[:100]}", flush=True)
+    print(f"[25] device_memory_stats(): "
+          f"{profiling.device_memory_stats()} | {smi}", flush=True)
+    del events, kernels, flash
+    short_session("after the traced call", smi)
+    print(f"[25] phase 25's profiled part took "
+          f"{time.perf_counter() - t_profile:.1f} s | {smi}", flush=True)
+
+
 def kernels_line(rows, launches, bwd_rows, train_launches, inject_row,
                  inject_launches, s1_rows, s1_launches, proto_launches,
                  s3_rows, s3_launches, dist_launches, s21_rows, fid_launches,
                  vit_rows, ds_launches, sd21_768_rows, sd21_768_launches,
-                 p24_rows, p24_shapes) -> dict:
+                 p24_rows, p24_shapes, p25_launches, p25_errs) -> dict:
     kernels = []
     for name, *_ in SHAPES:
         kernels.append({
@@ -5375,6 +5754,16 @@ def kernels_line(rows, launches, bwd_rows, train_launches, inject_row,
             "replaces": "aqualora_tpu/ops/flash_attention.py:147",
             "launches": sd21_768_launches.get((h, tq, tk, d), 0),
             **sd21_768_rows[key]})
+    # regional generation (phase 25): an S = 2 call at B4 runs the U-Net at
+    # the protocol's CFG batch of 8, the VAE at 4 (phase 2's rows), the
+    # error on the inputs the call gave the kernel (25d)
+    for key, name, *_ in protocol_shapes():
+        kernels.append({
+            "name": f"flash_attention_fwd/regional/{name}", "route": "cuda",
+            "source": "aqualora_torch/csrc/flash_fwd.cu",
+            "replaces": "aqualora_tpu/ops/flash_attention.py:147",
+            "launches": p25_launches[name],
+            **rows[key], "max_abs_err": p25_errs[name]})
     for kern, line in (("dq", 239), ("dkv", 269)):
         for name, *_ in TRAIN_SHAPES:
             kernels.append({
@@ -5424,13 +5813,14 @@ def main(argv=None):
                          "all of them)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
-    every = set(range(25))
+    every = set(range(26))
     run_ = every if args.phases is None else \
         {0} | {int(x) for x in args.phases.split(",")}
     if 11 in run_:
         run_.add(3)          # phase 11 profiles phase 3's generate call
-    if run_ & {16, 18, 19, 22}:
-        run_.add(15)         # phases 16, 18, 19, 22 read phase 15's artifacts
+    if run_ & {16, 18, 19, 22, 25}:
+        run_.add(15)         # phases 16, 18, 19, 22, 25 read phase 15's
+        #                      artifacts
     smi = phase0()
     rows, launches, med_s, serve = {}, {}, 0.0, None
     bwd_rows, inject_row, train_launches, inject_launches = {}, {}, {}, 0
@@ -5490,6 +5880,9 @@ def main(argv=None):
                 torch.cuda.empty_cache()
                 fid_launches = phase22d(smi, out_dir, tmp)
                 ds_launches = phase22e(smi, out_dir)
+            if 25 in run_:
+                torch.cuda.empty_cache()
+                phase25_demo(smi, out_dir, tmp)
     if 17 in run_:
         phase17(smi)
     if 18 in run_:
@@ -5528,6 +5921,10 @@ def main(argv=None):
         torch.cuda.empty_cache()
         print(f"[24] phase 24 (timed part) took "
               f"{time.perf_counter() - t24:.1f} s | {smi}", flush=True)
+    p25, p25_launches, p25_errs = None, {}, {}
+    if 25 in run_:
+        torch.cuda.empty_cache()
+        p25, p25_launches, p25_errs, p25_s = phase25(smi)
     # the profiled phases: the short sessions first, then the profiles of
     # whole steps and of the generate call (see the docstring)
     if 6 in run_:
@@ -5567,6 +5964,10 @@ def main(argv=None):
         torch.cuda.empty_cache()
     if 11 in run_:
         phase11(smi, serve, med_s)
+    if 25 in run_:
+        phase25_profile(smi, p25, p25_s)
+        del p25
+        torch.cuda.empty_cache()
     print(f"[end] phases {sorted(run_)} took "
           f"{time.perf_counter() - t_start:.1f} s of the script's run | "
           f"{smi}", flush=True)
@@ -5578,7 +5979,7 @@ def main(argv=None):
                                       dist_launches, s21_rows, fid_launches,
                                       vit_rows, ds_launches, sd21_768_rows,
                                       sd21_768_launches, p24_rows,
-                                      p24_shapes)))
+                                      p24_shapes, p25_launches, p25_errs)))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

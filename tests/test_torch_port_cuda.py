@@ -441,6 +441,66 @@ def test_img2img_tiny_card_matches_cpu_and_launches():
 
 
 @pytest.mark.cuda
+def test_regional_tiny_card_matches_cpu_and_launches():
+    """The tiny regional call (two messages, two sub-prompts, left and
+    right masks, DDIM 2 steps at 32^2) on the card (kernels) against the
+    CPU (plain versions), float32, the same weights and initial latent:
+    images within 2e-3, and the forward kernel launched a U-Net
+    evaluation's worth for each region at each step, plus the VAE's."""
+    import numpy as np
+
+    from aqualora_torch.core.config import PipelineConfig
+    from aqualora_torch.core.tokenizer import load_tokenizer
+    from aqualora_torch.diffusion.pipeline import StableDiffusionPipeline
+
+    _need_cuda()
+    cfg = PipelineConfig.tiny()
+    pipes = {dev: StableDiffusionPipeline(cfg, device=dev)
+             for dev in ("cpu", "cuda")}
+    pipes["cpu"].init_params(25)
+    pipes["cuda"].load_state_from(pipes["cpu"])
+    tok = load_tokenizer(None, vocab_size=cfg.clip.vocab_size)
+    prompt_ids = [tok(["a red fox", "a cat"]), tok(["snow", "a harbour"])]
+    neg = tok([""] * 2)
+    gen = torch.Generator().manual_seed(25)
+    msgs = torch.randint(0, 2, (2, cfg.watermark.msg_bits), generator=gen)
+    z = torch.randn(2, 16, 16, 4, generator=gen)
+    masks = np.zeros((2, 32, 32), np.float32)
+    masks[0, :, :16], masks[1, :, 16:] = 1.0, 1.0
+    before = fa.launches.count
+    pipes["cuda"].make_generate(1, "ddim", 32, 32)(prompt_ids[0], neg, z=z)
+    per_eval = fa.launches.count - before - 1
+    assert per_eval > 0
+    out = {}
+    for dev, pipe in pipes.items():
+        weights = [pipe.fold_region_weights(m.float()) for m in msgs]
+        before = fa.launches.count
+        out[dev] = pipe.make_regional_generate(2, "ddim", 32, 32)(
+            weights, masks, prompt_ids, neg, z=z).cpu()
+        launched = fa.launches.count - before
+        if dev == "cuda":
+            assert launched == 2 * 2 * per_eval + 1, launched
+    assert torch.isfinite(out["cuda"]).all()
+    assert (out["cuda"] - out["cpu"]).abs().max().item() <= 2e-3
+
+
+@pytest.mark.cuda
+def test_device_memory_stats_on_the_card():
+    """device_memory_stats() counts the caching allocator's bytes, under
+    JAX's keys, one entry per visible card."""
+    from aqualora_torch.utils.profiling import device_memory_stats
+
+    _need_cuda()
+    x = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    stats = device_memory_stats()
+    assert set(stats) == {f"cuda:{i}"
+                          for i in range(torch.cuda.device_count())}
+    now = stats[f"cuda:{x.device.index}"]
+    assert set(now) == {"bytes_in_use", "peak_bytes_in_use"}
+    assert now["peak_bytes_in_use"] >= now["bytes_in_use"] >= x.numel()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b,h,t,d", [
     (4, 12, 197, 64),     # DreamSim's ViT-B/16 ensemble, d = 64 masked
     (8, 12, 50, 64),      # ViT-B/32, one ragged tile

@@ -15,6 +15,18 @@ from aqualora_torch.core.convert import jax_params_to_torch, torch_layout
 KEY = jax.random.PRNGKey(0)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch's CPU ops on one thread in this module: the tier-1 run puts
+    several test workers on one host, and a thread pool as wide as the host
+    in each of them oversubscribes the cores (the tiny torch ops here then
+    run one to two orders of magnitude slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 

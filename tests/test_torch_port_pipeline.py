@@ -23,6 +23,18 @@ import aqualora_tpu.core.config as jcfg
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KEY = jax.random.PRNGKey(0)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch's CPU ops on one thread in this module: the tier-1 run puts
+    several test workers on one host, and a thread pool as wide as the host
+    in each of them oversubscribes the cores (the tiny torch ops here then
+    run one to two orders of magnitude slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 PRESETS = {
     "clip_sd15": lambda c: c.CLIPTextConfig.sd15(),
     "clip_sd2": lambda c: c.CLIPTextConfig.sd2(),

@@ -164,6 +164,15 @@ class NoiseDraw:
     index: int
     params: Params
 
+    def shard(self, batch: int, rank: int, n: int) -> "NoiseDraw":
+        """Data rank `rank` of `n`'s rows of the per-sample numbers
+        (leading axis the global `batch`); the scalars stay."""
+        from aqualora_torch.core.sharding import shard_batch
+
+        return NoiseDraw(self.index, {
+            k: shard_batch(v, rank, n) if v.dim() and v.shape[0] == batch
+            else v for k, v in self.params.items()})
+
 
 class Noiser:
     """draw(generator, shape, probs) -> NoiseDraw; noiser(x, draw) -> the

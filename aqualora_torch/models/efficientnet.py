@@ -20,14 +20,17 @@ argument, drawn by `draw_masks` from the caller's generator.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
+from aqualora_torch.core import sharding as sh
 from aqualora_torch.core.config import EfficientNetConfig
 
 # (expand_ratio, channels, repeats, stride, kernel) - the EfficientNet-B0 base
@@ -58,26 +61,66 @@ STOCHASTIC_DEPTH_PROB = 0.2
 BN_MOMENTUM = 0.9          # flax's convention: r = 0.9 r + 0.1 batch
 
 
+_BN_GROUP = None
+
+
+@contextlib.contextmanager
+def global_batch_norm(group):
+    """Train-mode BatchNorm inside the context normalises over the global
+    batch of the data-parallel `group` (None, or a group of 1: each
+    process's own batch, as before)."""
+    global _BN_GROUP
+    prev, _BN_GROUP = _BN_GROUP, group
+    try:
+        yield
+    finally:
+        _BN_GROUP = prev
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """torch's BatchNorm2d in the call's mode, with flax's training update:
     the running variance takes the biased batch variance (see the module
-    docstring)."""
+    docstring).  Under data parallelism (`global_batch_norm`) train mode
+    takes the global batch's mean and biased variance, as JAX's GSPMD step
+    does over its sharded batch: the per-channel sum and then the sum of
+    squared deviations are all-reduced over the group (two passes, as
+    `var_mean`), so every rank normalises alike and updates the running
+    statistics alike.  `nn.SyncBatchNorm` is not used: it refuses CPU
+    tensors."""
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if not train:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
+        group = _BN_GROUP
+        if group is not None and dist.get_world_size(group) > 1:
+            return self._global_forward(x, group)
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                          self.eps)
         with torch.no_grad():
             var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
                                        unbiased=False)
-            for run, batch in ((self.running_mean, mean),
-                               (self.running_var, var)):
-                run.copy_(BN_MOMENTUM * run.float()
-                          + (1 - BN_MOMENTUM) * batch)
-            self.num_batches_tracked.add_(1)
+            self._track(mean, var)
         return y
+
+    @torch.no_grad()
+    def _track(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        for run, batch in ((self.running_mean, mean),
+                           (self.running_var, var)):
+            run.copy_(BN_MOMENTUM * run.float() + (1 - BN_MOMENTUM) * batch)
+        self.num_batches_tracked.add_(1)
+
+    def _global_forward(self, x: torch.Tensor, group) -> torch.Tensor:
+        xf = x.float()
+        n = x.shape[0] * x.shape[2] * x.shape[3] * dist.get_world_size(group)
+        mean = sh.sum_over(xf.sum(dim=(0, 2, 3)), group) / n
+        centred = xf - mean[None, :, None, None]
+        var = sh.sum_over((centred * centred).sum(dim=(0, 2, 3)), group) / n
+        self._track(mean.detach(), var.detach())
+        y = centred * torch.rsqrt(var + self.eps)[None, :, None, None]
+        y = y * self.weight.float()[None, :, None, None] \
+            + self.bias.float()[None, :, None, None]
+        return y.to(x.dtype)
 
 
 class ConvBNAct(nn.Sequential):
@@ -147,6 +190,13 @@ class Masks:
 
     depth: List[torch.Tensor]
     dropout: Optional[torch.Tensor]
+
+    def shard(self, rank: int, n: int) -> "Masks":
+        """Data rank `rank` of `n`'s rows of the global batch's masks."""
+        from aqualora_torch.core.sharding import shard_batch
+
+        return Masks([shard_batch(m, rank, n) for m in self.depth],
+                     shard_batch(self.dropout, rank, n))
 
 
 class EfficientNet(nn.Module):

@@ -171,8 +171,10 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
                 scale: DiagScale = None) -> torch.Tensor:
         ctx = x if context is None else context
-        head_dim = x.shape[-1] // self.heads
-        q = split_heads(self.to_q(x, scale), self.heads)
+        q = self.to_q(x, scale)
+        # from q's width: under tensor parallelism `heads` are this rank's
+        head_dim = q.shape[-1] // self.heads
+        q = split_heads(q, self.heads)
         k = split_heads(self.to_k(ctx, scale), self.heads)
         v = split_heads(self.to_v(ctx, scale), self.heads)
         out = dot_product_attention(q, k, v, scale=head_dim ** -0.5)

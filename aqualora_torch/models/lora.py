@@ -37,7 +37,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Dict, List, Optional, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -76,10 +76,14 @@ def _scale_delta(h: torch.Tensor, scale: DiagScale) -> torch.Tensor:
 class SiteDraws:
     """One pass's dropout numbers for the LoRA sites of a model: `keep`
     [sites] bool on the device (module dropout) and `seeds` (one int a
-    site, elementwise dropout), each None when that dropout is off."""
+    site, elementwise dropout), each None when that dropout is off.  Under
+    data parallelism `part` is (this rank's first row, the global batch):
+    each mask is drawn for the global batch and this rank's rows taken, so
+    the masks act on the elements they act on in the unsharded step."""
 
     keep: Optional[torch.Tensor] = None
     seeds: Optional[List[int]] = None
+    part: Optional[Tuple[int, int]] = None
 
 
 _ACTIVE: Optional[SiteDraws] = None
@@ -103,14 +107,25 @@ def active_dropout() -> Optional[SiteDraws]:
 _GENERATORS: Dict[torch.device, torch.Generator] = {}
 
 
-def _dropout(h: torch.Tensor, p: float, seed: int) -> torch.Tensor:
+def _dropout(h: torch.Tensor, p: float, seed: int,
+             part: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """h * Bernoulli(1 - p) / (1 - p), the mask drawn from `seed` (one
-    generator a device, reseeded at each site)."""
+    generator a device, reseeded at each site); with `part` (first row,
+    global batch) drawn for the global batch, this slice's rows taken.
+    The mask is filled in memory order, so the global batch's is laid out
+    as `empty_like` lays out h (a convolution's h is channels-last)."""
     gen = _GENERATORS.get(h.device)
     if gen is None:
         gen = _GENERATORS[h.device] = torch.Generator(device=h.device)
     gen.manual_seed(seed)
-    mask = torch.empty_like(h).bernoulli_(1.0 - p, generator=gen)
+    if part is None:
+        mask = torch.empty_like(h).bernoulli_(1.0 - p, generator=gen)
+    else:
+        start, total = part
+        order = sorted(range(h.dim()), key=h.stride, reverse=True)
+        full = h.new_empty([total if d == 0 else h.shape[d] for d in order])
+        mask = full.permute([order.index(d) for d in range(h.dim())]) \
+            .bernoulli_(1.0 - p, generator=gen)[start:start + h.shape[0]]
     return h * mask / (1.0 - p)
 
 
@@ -123,10 +138,11 @@ class _LoRACore(nn.Module):
         self.up = nn.Linear(rank, out_features, bias=False)
 
     def forward(self, x: torch.Tensor, scale: DiagScale,
-                seed: Optional[int] = None, p: float = 0.0) -> torch.Tensor:
+                seed: Optional[int] = None, p: float = 0.0,
+                part: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         h = F.linear(x, self.down.weight.to(x.dtype))
         if seed is not None:
-            h = _dropout(h, p, seed)
+            h = _dropout(h, p, seed, part)
         if _is_diag(scale):
             h = _apply_diag(h, scale, -1)
         h = F.linear(h, self.up.weight.to(x.dtype))
@@ -144,11 +160,12 @@ class _LoRAConvCore(nn.Module):
         self.up = nn.Conv2d(rank, out_channels, 1, bias=False)
 
     def forward(self, x: torch.Tensor, scale: DiagScale,
-                seed: Optional[int] = None, p: float = 0.0) -> torch.Tensor:
+                seed: Optional[int] = None, p: float = 0.0,
+                part: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         d = self.down
         h = F.conv2d(x, d.weight.to(x.dtype), None, d.stride, d.padding)
         if seed is not None:
-            h = _dropout(h, p, seed)
+            h = _dropout(h, p, seed, part)
         if _is_diag(scale):
             h = _apply_diag(h, scale, 1)
         h = F.conv2d(h, self.up.weight.to(x.dtype))
@@ -173,12 +190,14 @@ class _LoRASite(quant.Int8Site):
         self.dropout = lora.dropout if on else 0.0
         self.module_dropout = lora.module_dropout if on else 0.0
         self.site = 0
+        self.tp_site = None      # set by parallel.partition's styles
 
     def _delta(self, x: torch.Tensor, scale: DiagScale) -> torch.Tensor:
         draws = _ACTIVE
         seed = (draws.seeds[self.site] if draws is not None
                 and draws.seeds is not None and self.dropout > 0 else None)
-        delta = self.lora(x, scale, seed, self.dropout)
+        delta = self.lora(x, scale, seed, self.dropout,
+                          None if draws is None else draws.part)
         if (draws is not None and draws.keep is not None
                 and self.module_dropout > 0):
             delta = torch.where(draws.keep[self.site], delta,
@@ -202,6 +221,8 @@ class LoRALinear(_LoRASite):
         self._init_lora(lora)
 
     def forward(self, x: torch.Tensor, scale: DiagScale = None) -> torch.Tensor:
+        if self.tp_site is not None:         # tensor-parallel (partition.py)
+            return self.tp_site(self, x, scale)
         if self.weight.dtype == torch.int8:
             y = quant.int8_dense(x, self.weight, self.weight_scale, self.bias)
         else:

@@ -98,8 +98,12 @@ class UpBlock2D(nn.Module):
 
     def forward(self, x, res_samples: List[torch.Tensor], temb, context,
                 scale: DiagScale):
+        """`res_samples`: this block's skips, one a resnet, consumed from
+        the last (the list is not changed: a caller's hook, FSDP's, may
+        hand the block a copy)."""
         for i, resnet in enumerate(self.resnets):
-            x = resnet(torch.cat([x, res_samples.pop()], dim=1), temb)
+            skip = res_samples[len(res_samples) - 1 - i]
+            x = resnet(torch.cat([x, skip], dim=1), temb)
             if self.attentions is not None:
                 x = self.attentions[i](x, context, scale)
         if self.upsamplers is not None:
@@ -152,7 +156,9 @@ class UNet2DConditionModel(nn.Module):
             res_samples.extend(res)
         x = self.mid_block(x, temb, context, scale)
         for block in self.up_blocks:
-            x = block(x, res_samples, temb, context, scale)
+            n = len(block.resnets)
+            skips, res_samples = res_samples[-n:], res_samples[:-n]
+            x = block(x, skips, temb, context, scale)
         x = F.silu(self.conv_norm_out(x))
         # the output conv runs in float32, like the JAX model's
         return F.conv2d(x.float(), self.conv_out.weight.float(),

@@ -24,7 +24,9 @@ The port of `aqualora_tpu/train/data.py` (numpy only; no PIL, no jax):
 - `CachedMomentsDataset` (`--cache_latents`): one pass encodes every
   sample to VAE posterior moments held as float16 on the host.
 - `make_dataset`: the factory the trainers call; `prefetch`: a bounded
-  background thread ahead of the step.
+  background thread ahead of the step.  Each dataset's `batches` takes a
+  `part` (rank, n): a data-parallel rank's contiguous slice of every
+  global batch (the image folder decodes only that slice's files).
 
 The HF `datasets` path (`HFDataset`) needs that package and a download: a
 `dataset_name` is refused.
@@ -42,6 +44,7 @@ from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from aqualora_torch.core import sharding as sh
 from aqualora_torch.eval.image_io import resize_bicubic_pil
 from aqualora_torch.train import image_decode
 
@@ -106,31 +109,38 @@ class ImageFolderDataset:
     def __len__(self):
         return len(self.files)
 
-    def _load_batch(self, idx, rng: np.random.Generator) -> np.ndarray:
-        paths = [self.files[j] for j in idx]
+    def _load_batch(self, idx, rng: np.random.Generator,
+                    rows: slice = slice(None)) -> np.ndarray:
+        """The batch `idx`'s `rows` (a data-parallel rank's), decoded; the
+        flips are drawn for the whole batch, one a sample, so that each
+        sample takes the draw it takes in the whole batch."""
+        flips = rng.random(len(idx)) < 0.5 if self.random_flip else None
+        paths = [self.files[j] for j in idx[rows]]
         if not self.center_crop:
             imgs = image_decode.decode_batch(paths, self.resolution,
                                              nthreads=self.num_threads)
-            if self.random_flip:
-                flips = rng.random(len(imgs)) < 0.5
-                imgs[flips] = imgs[flips, :, ::-1]
+            if flips is not None:
+                mine = flips[rows]
+                imgs[mine] = imgs[mine, :, ::-1]
             return imgs
         out = []
-        for p in paths:
+        for p, flip in zip(paths, flips[rows] if flips is not None
+                           else [False] * len(paths)):
             arr = _transform_pil(image_decode.decode_file(p, pil=True),
                                 self.resolution)
-            if self.random_flip and rng.random() < 0.5:
-                arr = arr[:, ::-1]
-            out.append(arr)
+            out.append(arr[:, ::-1] if flip else arr)
         return np.stack(out)
 
     def batches(self, batch_size: int, seed: int = 0,
                 process_index: int = 0, process_count: int = 1,
-                epochs: Optional[int] = None, drop_last: bool = True
+                epochs: Optional[int] = None, drop_last: bool = True,
+                part: Tuple[int, int] = (0, 1)
                 ) -> Iterator[Tuple[np.ndarray, Optional[List[str]]]]:
         """Shuffled, host-sharded epochs of (images NHWC float32,
         captions or None); drop-last by default, and with
-        `drop_last=False` the tail as a smaller last batch."""
+        `drop_last=False` the tail as a smaller last batch.  `part` (rank,
+        n): data rank `rank` of `n`'s contiguous slice of each batch,
+        decoding only its own files."""
         if drop_last:
             _check_shard(_shard_len(len(self.files), process_index,
                                     process_count), batch_size, self.root)
@@ -143,8 +153,9 @@ class ImageFolderDataset:
             stop = (len(shard) - batch_size + 1) if drop_last else len(shard)
             for i in range(0, stop, batch_size):
                 idx = shard[i:i + batch_size]
-                imgs = self._load_batch(idx, rng)
-                caps = ([self.captions[j] for j in idx]
+                rows = sh.batch_slice(len(idx), *part)
+                imgs = self._load_batch(idx, rng, rows)
+                caps = ([self.captions[j] for j in idx[rows]]
                         if self.captions is not None else None)
                 yield imgs, caps
             epoch += 1
@@ -162,10 +173,11 @@ class SyntheticDataset:
 
     def batches(self, batch_size: int, seed: int = 0, process_index: int = 0,
                 process_count: int = 1, epochs: Optional[int] = None,
-                drop_last: bool = True):
+                drop_last: bool = True, part: Tuple[int, int] = (0, 1)):
         """(images [n, res, res, 3] float32 in [-1, 1], captions); each
         epoch covers the shard's nominal size from its own generator,
-        drop-last (at least one batch) or with the tail."""
+        drop-last (at least one batch) or with the tail; `part` (rank, n)
+        yields that data rank's slice of each batch."""
         shard_n = max(1, self.size // process_count)
         if drop_last:           # generated data: always at least one batch
             sizes = [batch_size] * max(1, shard_n // batch_size)
@@ -181,7 +193,7 @@ class SyntheticDataset:
                                            self.resolution, 3)).astype(np.float32)
                 caps = [f"synthetic caption {int(x)}"
                         for x in rng.integers(0, 1000, n)]
-                yield imgs, caps
+                yield sh.shard_batch((imgs, caps), *part)
             epoch += 1
 
 
@@ -232,10 +244,12 @@ class CachedMomentsDataset:
         return len(self.moments)
 
     def batches(self, batch_size: int, seed: int = 0, process_index: int = 0,
-                process_count: int = 1, epochs: Optional[int] = None
+                process_count: int = 1, epochs: Optional[int] = None,
+                part: Tuple[int, int] = (0, 1)
                 ) -> Iterator[Tuple[np.ndarray, Optional[List[str]]]]:
         """Drop-last epochs shuffled within the shard (sharded at build
-        time: the process arguments are accepted and ignored)."""
+        time: the process arguments are accepted and ignored); `part`
+        (rank, n) yields that data rank's slice of each batch."""
         del process_index, process_count
         n = len(self.moments)
         _check_shard(n, batch_size, "cached latents")
@@ -245,6 +259,7 @@ class CachedMomentsDataset:
                 seed + epoch + 1000 * self.process_index).permutation(n)
             for i in range(0, n - batch_size + 1, batch_size):
                 idx = order[i:i + batch_size]
+                idx = idx[sh.batch_slice(len(idx), *part)]
                 caps = ([self.captions[j] for j in idx]
                         if self.captions is not None else None)
                 yield self.moments[idx].astype(np.float32), caps

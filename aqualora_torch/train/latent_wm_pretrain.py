@@ -73,8 +73,19 @@ with JAX's scalar names (default none, where JAX's is tensorboard).
 `--remat_vae_decode` recomputes the watermarked VAE decode in the backward
 (`torch.utils.checkpoint`; its d = 512 attention forward then runs four
 times a step) and `--remat_lpips` the LPIPS call, each alone as in JAX
-(`:78-111`).  `--debug_nans` raises on a non-finite loss.  `--fsdp` is
-refused (ROADMAP A.9, the mesh).
+(`:78-111`).  `--debug_nans` raises on a non-finite loss.
+
+Several GPUs (`core/sharding.py`; JAX `:225-280`): under `torchrun`
+`--batch_size` is the global batch, which the world size must divide;
+each rank takes its slice of the batch and of the step's draws (drawn for
+the global batch), the decoder's BatchNorm normalises over the global
+batch (`efficientnet.global_batch_norm`), PRVL takes the global batch's
+largest box mean (the one loss term that is not a mean over samples: its
+gradient reaches only the rank that holds the maximum), and the
+gradients are averaged before AdamW.  `--fsdp` (a world above 1) shards
+the frozen VAE and LPIPS with FSDP2 and the moments ZeRO-1 style.  Only
+rank 0 prints, logs and writes the sample images and the artifact; a
+checkpoint is a collective written by rank 0.
 """
 
 from __future__ import annotations
@@ -88,8 +99,10 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
+from aqualora_torch.core import sharding as sh
 from aqualora_torch.core.checkpoint import CheckpointManager
 from aqualora_torch.core.config import (EfficientNetConfig, VAEConfig,
                                         WatermarkConfig)
@@ -97,7 +110,7 @@ from aqualora_torch.core.io import assign_state, load_safetensors
 from aqualora_torch.diffusion.pipeline import init_module_weights
 from aqualora_torch.distort.noiser import Noiser, NoiseDraw
 from aqualora_torch.eval.image_io import images_to_uint8, save_png
-from aqualora_torch.models.efficientnet import Masks
+from aqualora_torch.models.efficientnet import Masks, global_batch_norm
 from aqualora_torch.models.lpips import LPIPS
 from aqualora_torch.models.vae import AutoencoderKL
 from aqualora_torch.models.watermark import SecretDecoder, SecretEncoder
@@ -205,6 +218,18 @@ class Draws:
     noise: NoiseDraw
     masks: Masks
 
+    def shard(self, rank: int, n: int) -> "Draws":
+        """Data rank `rank` of `n`'s rows of the global batch's draws (the
+        step's scalars are every rank's)."""
+        if n == 1:
+            return self
+        return dataclasses.replace(
+            self, vae_noise=self.vae_noise[sh.batch_slice(
+                self.msg.shape[0], rank, n)],
+            msg=sh.shard_batch(self.msg, rank, n),
+            noise=self.noise.shard(self.msg.shape[0], rank, n),
+            masks=self.masks.shard(rank, n))
+
     def to(self, device) -> "Draws":
         """The same numbers on `device`."""
         mv = lambda t: t.to(device)
@@ -245,11 +270,34 @@ def _remat(fn, on: bool):
                                  preserve_rng_state=False)
 
 
+def global_max(local: torch.Tensor, group) -> torch.Tensor:
+    """The largest of the ranks' scalars `local`, with the gradient of a
+    max over the global batch under gradient averaging: the value is the
+    global maximum on every rank, and its gradient flows, times the group's
+    size, into the lowest rank that holds it (a max's gradient reaches its
+    argmax alone)."""
+    n = sh.group_size(group)
+    if n == 1:
+        return local
+    best = local.detach().float().clone()
+    dist.all_reduce(best, op=dist.ReduceOp.MAX, group=group)
+    mine = torch.where(local.detach().float() == best,
+                       torch.tensor(float(dist.get_rank(group)),
+                                    device=best.device),
+                       torch.tensor(float(n), device=best.device))
+    dist.all_reduce(mine, op=dist.ReduceOp.MIN, group=group)
+    weight = float(n) if int(mine) == dist.get_rank(group) else 0.0
+    scaled = local * weight
+    return (scaled - scaled.detach() + best).to(local.dtype)
+
+
 def make_loss_fn(models: Stage1Models, remat_vae_decode: bool = False,
-                 remat_lpips: bool = False):
+                 remat_lpips: bool = False, group=None):
     """-> loss_fn(images NCHW, draws, ctl) -> (loss, metrics)
     (`latent_wm_pretrain.py:78-121`); the two remat flags recompute the
-    watermarked decode and the LPIPS call in the backward."""
+    watermarked decode and the LPIPS call in the backward.  Under data
+    parallelism the images are this rank's slice and `group` takes PRVL's
+    maximum over the global batch (`global_max`)."""
     vae = models.vae
     wm_decode = _remat(vae.decode, remat_vae_decode)
     lpips = _remat(models.lpips, remat_lpips)
@@ -267,7 +315,7 @@ def make_loss_fn(models: Stage1Models, remat_vae_decode: bool = False,
             clean = vae.decode(latents)
         wm_img = wm_decode(wm_latents)
         lp = lpips(clean, wm_img).float().mean()
-        pr = prvl_loss(clean, wm_img)
+        pr = global_max(prvl_loss(clean, wm_img), group)
         noised = models.noiser(wm_img, draws.noise)
         with models.autocast():
             logits = models.sec_decoder(noised, train=True,
@@ -288,19 +336,25 @@ def step_lr(steps_per_epoch: int):
     return lambda step: 0.8 ** ((step // steps_per_epoch) // 2)
 
 
-def make_optimizer(models: Stage1Models, lr: float, steps_per_epoch: int):
-    """AdamW(lr, weight decay 1e-4) over the encoder and decoder, StepLR."""
+def make_optimizer(models: Stage1Models, lr: float, steps_per_epoch: int,
+                   zero_group=None):
+    """AdamW(lr, weight decay 1e-4) over the encoder and decoder, StepLR;
+    the moments sharded ZeRO-1 style over `zero_group`."""
     return adamw(trainables(models), lr, step_lr(steps_per_epoch),
-                 weight_decay=1e-4)
+                 weight_decay=1e-4, zero_group=zero_group)
 
 
 def make_train_step(models: Stage1Models, optimizer, scheduler,
                     remat_vae_decode: bool = False,
-                    remat_lpips: bool = False):
+                    remat_lpips: bool = False, group=None):
     """-> train_step(pixels NHWC, draws, ctl) -> metrics: one update of
-    the encoder and decoder (`latent_wm_pretrain.py:123-135`)."""
-    loss_fn = make_loss_fn(models, remat_vae_decode, remat_lpips)
+    the encoder and decoder (`latent_wm_pretrain.py:123-135`).  Under data
+    parallelism the pixels and draws are this rank's slice: `group`
+    normalises the decoder's BatchNorm over the global batch, averages the
+    gradients before the update and the metrics after."""
+    loss_fn = make_loss_fn(models, remat_vae_decode, remat_lpips, group)
     dev = models.vae.quant_conv.weight.device
+    params = [p for g in optimizer.param_groups for p in g["params"]]
 
     def train_step(pixels, draws: Draws, ctl: Control) -> Dict[str, Any]:
         x = torch.as_tensor(pixels, device=dev).permute(0, 3, 1, 2)
@@ -309,11 +363,13 @@ def make_train_step(models: Stage1Models, optimizer, scheduler,
         if ctl.random_aug:
             x = base_augment(x, draws.aug, draws.aug_flip, draws.aug_k)
         optimizer.zero_grad(set_to_none=True)
-        loss, metrics = loss_fn(x, draws, ctl)
+        with global_batch_norm(group):
+            loss, metrics = loss_fn(x, draws, ctl)
         loss.backward()
+        sh.average_gradients(params, group)
         optimizer.step()
         scheduler.step()
-        return metrics
+        return {k: sh.mean_over(v, group) for k, v in metrics.items()}
 
     return train_step
 
@@ -326,7 +382,7 @@ def make_eval_step(models: Stage1Models):
     dev = vae.quant_conv.weight.device
 
     @torch.no_grad()
-    def eval_step(pixels, vae_noise, msg) -> torch.Tensor:
+    def eval_step(pixels, vae_noise, msg, group=None) -> torch.Tensor:
         x = torch.as_tensor(pixels, device=dev).permute(0, 3, 1, 2)
         latents = vae.sample_from_moments(*vae.encode_moments(x), vae_noise)
         with models.autocast():
@@ -334,7 +390,7 @@ def make_eval_step(models: Stage1Models):
         wm_img = vae.decode(latents + wm)
         with models.autocast():
             logits = models.sec_decoder(wm_img)
-        return bit_accuracy(logits, msg)
+        return sh.mean_over(bit_accuracy(logits, msg), group)
 
     return eval_step
 
@@ -365,7 +421,9 @@ def curriculum(rel_epoch: int, warmup: bool, fixinit: bool,
 @dataclasses.dataclass
 class Trainer:
     """What `run` builds: the models, the optimizer and schedule, the
-    step, the data and the step's generator."""
+    step, the data and the step's generator; this process's world, its
+    data-parallel group (None without a process group) and whether
+    `--fsdp` sharded the frozen towers."""
 
     models: Stage1Models
     optimizer: Any
@@ -375,17 +433,23 @@ class Trainer:
     dataset: Any
     generator: torch.Generator
     steps_per_epoch: int
+    world: sh.World = sh.World()
+    group: Any = None
+    fsdp: bool = False
 
-
-def refuse_unported(args: argparse.Namespace) -> None:
-    if args.fsdp:
-        raise NotImplementedError("--fsdp: not ported to aqualora_torch "
-                                  "(ROADMAP A.9, the mesh)")
+    def draw(self, batch: int, res: Tuple[int, int], probs) -> Draws:
+        """The draws of a global batch of `batch` images, this rank's
+        rows."""
+        return draw(self.models, self.generator, (batch, 3, *res),
+                    probs).shard(self.world.rank, self.world.size)
 
 
 def build_trainer(args: argparse.Namespace) -> Trainer:
-    refuse_unported(args)
-    device = torch.device(args.device)
+    """The trainer in this process's world (`sharding.init_distributed`);
+    `--fsdp` takes effect at a world size above 1, as in JAX."""
+    world, group, fsdp = sh.setup_world(args.device, args.batch_size,
+                                        args.fsdp)
+    device = world.device
     torch.manual_seed(args.seed)
     if args.tiny:
         vae_cfg, wm_cfg = VAEConfig.tiny(), WatermarkConfig.tiny()
@@ -399,15 +463,25 @@ def build_trainer(args: argparse.Namespace) -> Trainer:
     init_models(models, args.seed)
     if args.pretrained_model_name_or_path:
         _load_vae_params(args.pretrained_model_name_or_path, models.vae)
+    if fsdp:
+        # JAX `:228-235`: the frozen VAE and LPIPS sharded, the encoder and
+        # decoder whole on every rank
+        mesh = sh.make_mesh()
+        sh.shard_frozen(models.vae, mesh,
+                        [models.vae.encoder, models.vae.decoder], root=False)
+        sh.shard_frozen(models.lpips, mesh)
     dataset = data_lib.make_dataset(args.dataset, resolution)
     steps_per_epoch = max(1, len(dataset) // args.batch_size)
-    optimizer, scheduler = make_optimizer(models, args.lr, steps_per_epoch)
+    optimizer, scheduler = make_optimizer(
+        models, args.lr, steps_per_epoch,
+        sh.world_group() if fsdp else None)
     return Trainer(models, optimizer, scheduler,
                    make_train_step(models, optimizer, scheduler,
-                                   args.remat_vae_decode, args.remat_lpips),
+                                   args.remat_vae_decode, args.remat_lpips,
+                                   group),
                    make_eval_step(models), dataset,
                    torch.Generator(device=device).manual_seed(args.seed + 1),
-                   steps_per_epoch)
+                   steps_per_epoch, world, group, fsdp)
 
 
 def _load_vae_params(path: str, vae: AutoencoderKL) -> None:
@@ -435,7 +509,7 @@ def checkpoint_state(tr: Trainer, epoch: int) -> Dict[str, Any]:
     state."""
     return {"sec_encoder": tr.models.sec_encoder.state_dict(),
             "sec_decoder": tr.models.sec_decoder.state_dict(),
-            "optimizer": tr.optimizer.state_dict(),
+            "optimizer": sh.optimizer_state(tr.optimizer),
             "scheduler": tr.scheduler.state_dict(), "epoch": epoch,
             "generator": tr.generator.get_state()}
 
@@ -472,13 +546,18 @@ def render_sample(tr: Trainer, image) -> torch.Tensor:
 def run(args: argparse.Namespace) -> Dict[str, Any]:
     """Train and write `<output_dir>/pretrained_latentwm.pt`; -> {"history":
     logged metrics, "seconds": each step's wall time (to its message loss
-    read back), "final_acc", "trainer", "start_epoch"}."""
+    read back), "final_acc", "trainer", "start_epoch"}.  In a world of
+    several ranks only rank 0 prints, logs and writes; every rank draws
+    (the draws of the global batch) and renders the epoch's sample, which
+    keeps the ranks' generators together."""
     tr = build_trainer(args)
     models = tr.models
+    main = tr.world.rank == 0
+    n = tr.world.size
     ckpt = CheckpointManager(os.path.join(args.output_dir, "checkpoints"))
     resumed = args.resume_from_ckpt is not None
     start_epoch = resume(tr, ckpt, args.resume_from_ckpt) if resumed else 0
-    tracker = Tracker(args.output_dir, args.report_to)
+    tracker = Tracker(args.output_dir if main else None, args.report_to)
     warmup = bool(args.warmup) and not resumed
     fixinit = bool(args.fixinit) and warmup
     msgloss_buf: list = []
@@ -488,15 +567,15 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
     t0 = time.time()
     for epoch in range(start_epoch, start_epoch + args.epochs):
         batches = data_lib.prefetch(tr.dataset.batches(
-            args.batch_size, seed=args.seed + epoch, epochs=1))
+            args.batch_size, seed=args.seed + epoch, epochs=1,
+            part=(tr.world.rank, n)))
         try:
             t1 = time.perf_counter()
             for images, _ in batches:
                 ctl = curriculum(epoch - start_epoch, warmup, fixinit,
                                  bool(args.random_aug), resumed)
-                d = draw(models, tr.generator, (images.shape[0], 3,
-                                                *images.shape[1:3]),
-                         ctl.distort_probs)
+                d = tr.draw(args.batch_size, images.shape[1:3],
+                            ctl.distort_probs)
                 metrics = tr.train_step(images, d, ctl)
                 ml = float(metrics["msgloss"])
                 if args.debug_nans and not math.isfinite(
@@ -517,10 +596,10 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
                                  "Loss/lpips_loss": m["lpips_loss"],
                                  "Loss/prvl_loss": m["prvl_loss"],
                                  "Loss/msgloss": m["msgloss"]}, step)
-                    print(f"epoch {epoch} step {step}: "
-                          + " ".join(f"{k}={v:.4f}" for k, v in m.items()),
-                          f"({(time.time() - t0) / step:.2f}s/step)",
-                          flush=True)
+                    sh.say(f"epoch {epoch} step {step}: "
+                           + " ".join(f"{k}={v:.4f}" for k, v in m.items()),
+                           f"({(time.time() - t0) / step:.2f}s/step)",
+                           flush=True)
                 if args.max_train_steps and step >= args.max_train_steps:
                     break
                 t1 = time.perf_counter()
@@ -528,20 +607,22 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
             batches.close()             # ends the prefetch thread
         # the epoch's sample image, eval on its last batch with fresh noise
         # and bits, and checkpoint (`latent_wm_pretrain.py:283-331`)
-        img_dir = os.path.join(args.output_dir, "log_images")
-        os.makedirs(img_dir, exist_ok=True)
-        save_png(os.path.join(img_dir, f"watermarked_{epoch}.png"),
-                 images_to_uint8(render_sample(tr, images[:1]))[0])
-        e = draw(models, tr.generator, (images.shape[0], 3,
-                                        *images.shape[1:3]), ctl.distort_probs)
-        acc = float(tr.eval_step(images, e.vae_noise, e.msg))
+        sample = images_to_uint8(render_sample(tr, images[:1]))[0]
+        if main:
+            img_dir = os.path.join(args.output_dir, "log_images")
+            os.makedirs(img_dir, exist_ok=True)
+            save_png(os.path.join(img_dir, f"watermarked_{epoch}.png"),
+                     sample)
+        e = tr.draw(args.batch_size, images.shape[1:3], ctl.distort_probs)
+        acc = float(tr.eval_step(images, e.vae_noise, e.msg, tr.group))
         tracker.log({"Accuracy/train": acc}, epoch)
-        print(f"epoch {epoch}: eval bit acc {acc:.4f}", flush=True)
-        ckpt.save(epoch, checkpoint_state(tr, epoch))
+        sh.say(f"epoch {epoch}: eval bit acc {acc:.4f}", flush=True)
+        sh.save_checkpoint(ckpt, epoch, lambda: checkpoint_state(tr, epoch))
         if args.max_train_steps and step >= args.max_train_steps:
             break
-    save_artifact(models, os.path.join(args.output_dir,
-                                       "pretrained_latentwm.pt"))
+    if main:
+        save_artifact(models, os.path.join(args.output_dir,
+                                           "pretrained_latentwm.pt"))
     tracker.close()
     return {"history": history, "seconds": seconds, "final_acc": acc,
             "trainer": tr, "start_epoch": start_epoch}
@@ -559,7 +640,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--pretrained_model_name_or_path", type=str, default=None,
                    help="the frozen VAE from a local diffusers directory")
     p.add_argument("--epochs", type=int, default=10)
-    p.add_argument("--batch_size", type=int, default=5)
+    p.add_argument("--batch_size", type=int, default=5,
+                   help="the global batch (under torchrun split over the "
+                        "ranks, which must divide it)")
     p.add_argument("--bit_num", type=int, default=48)
     p.add_argument("--resume_from_ckpt", type=str, default=None,
                    help="an epoch saved under <output_dir>/checkpoints, or "
@@ -587,7 +670,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--remat_lpips", action="store_true",
                    help="recompute the LPIPS call in the backward")
     p.add_argument("--fsdp", action="store_true",
-                   help="refused: ROADMAP A.9 (the mesh)")
+                   help="under torchrun (world size above 1): shard the "
+                        "frozen VAE and LPIPS (FSDP2) and the optimizer "
+                        "moments (ZeRO-1) over the ranks")
     p.add_argument("--remat_vae_decode", action="store_true",
                    help="recompute the watermarked VAE decode in the "
                         "backward")

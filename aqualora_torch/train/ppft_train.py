@@ -144,8 +144,27 @@ twin of the U-Net that shares every other tensor with it
 step.  `--int8_gen` is stage 3's (`rob_enhance_finetune.py`); PPFT takes no
 notice of it, as JAX's does not.
 
-Refused by name: `--fsdp` (ROADMAP A.9, the mesh), `--dataset_name` and
-`--dataset_config_name` (the HF datasets path).
+Several GPUs (`core/sharding.py`; JAX `ppft_train.py:445-484`): under
+`torchrun` each process is one rank.  `--train_batch_size` is the global
+batch, which the world size must divide (a ValueError otherwise); each
+rank takes its contiguous slice of every global batch and of the step's
+`Draws` (drawn for the global batch from the one seeded generator, so the
+update does not depend on the world size), runs the objective on it, and
+the trainables' gradients are averaged in one all-reduce before the global
+norm clip; `ppft_loss` and `grad_norm` are the global values.  `--fsdp`
+(at a world size above 1, as in JAX) shards the frozen U-Net base, VAE,
+CLIP, SecretEncoder and `--teacher_int8` twin with FSDP2 (`fsdp_spec`'s
+rule; all-gathered at use) and the optimizer moments ZeRO-1 style; the LoRA
+and mapper stay whole on every rank.  Only rank 0 prints, logs and writes
+the artifacts; a checkpoint is a collective (the moments are consolidated
+on rank 0, which writes), and so are validation and the sanity inference
+under `--fsdp` (the generation all-gathers the weights):
+
+    torchrun --nproc_per_node 2 -m aqualora_torch.train.ppft_train --tiny \\
+        --max_train_steps 2 --train_batch_size 4 --device cpu --fsdp
+
+Refused by name: `--dataset_name` and `--dataset_config_name` (the HF
+datasets path).
 """
 
 from __future__ import annotations
@@ -160,6 +179,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 import torch.nn as nn
 
+from aqualora_torch.core import sharding as sh
 from aqualora_torch.core.checkpoint import CheckpointManager
 from aqualora_torch.core.config import (EfficientNetConfig, LoRAConfig,
                                         PipelineConfig, WatermarkConfig)
@@ -229,13 +249,14 @@ def adamw(groups: Dict[str, List], lr: float,
           factor: Callable[[int], float],
           betas: Tuple[float, float] = (0.9, 0.999), eps: float = 1e-8,
           weight_decay: float = 1e-2, eight_bit: bool = False,
-          lr_weights: Optional[Dict[int, float]] = None):
+          lr_weights: Optional[Dict[int, float]] = None, zero_group=None):
     """`optax.adamw` (`AdamW8bit` with `eight_bit`) over named parameter
     groups with the learning rate lr * factor(update count), as
     (optimizer, scheduler): step the scheduler after the optimizer (see
     the module docstring for why this is optax's algebra).  `lr_weights`
     ({id(parameter): w}, block-wise LR) splits the "lora" group into one
-    group per weight at lr * w."""
+    group per weight at lr * w.  With `zero_group` the moments are sharded
+    over it ZeRO-1 style (`sharding.zero_optimizer`)."""
     param_groups = []
     for name, params in groups.items():
         by_weight: Dict[float, List] = {}
@@ -246,8 +267,13 @@ def adamw(groups: Dict[str, List], lr: float,
         param_groups += [{"params": ps, "name": name, "lr": lr * w}
                          for w, ps in by_weight.items()]
     cls = AdamW8bit if eight_bit else torch.optim.AdamW
-    optimizer = cls(param_groups, lr=lr, betas=betas, eps=eps,
-                    weight_decay=weight_decay)
+    if zero_group is not None:
+        optimizer = sh.zero_optimizer(param_groups, cls, zero_group, lr=lr,
+                                      betas=betas, eps=eps,
+                                      weight_decay=weight_decay)
+    else:
+        optimizer = cls(param_groups, lr=lr, betas=betas, eps=eps,
+                        weight_decay=weight_decay)
     scheduler = torch.optim.lr_scheduler.LambdaLR(optimizer, factor)
     return optimizer, scheduler
 
@@ -257,12 +283,13 @@ def make_optimizer(groups: Dict[str, List], lr: float, warmup: int,
                    betas: Tuple[float, float] = (0.9, 0.999),
                    eps: float = 1e-8, weight_decay: float = 1e-2,
                    eight_bit: bool = False,
-                   lr_weights: Optional[Dict[int, float]] = None):
+                   lr_weights: Optional[Dict[int, float]] = None,
+                   zero_group=None):
     """AdamW (or 8-bit AdamW) over the LoRA and mapper groups with the
     reference's cosine schedule."""
     return adamw(groups, lr,
                  cosine_with_warmup_lr_end(1.0, warmup, total, lr_end),
-                 betas, eps, weight_decay, eight_bit, lr_weights)
+                 betas, eps, weight_decay, eight_bit, lr_weights, zero_group)
 
 
 def _global_norm(params) -> torch.Tensor:
@@ -326,6 +353,20 @@ class Draws:
     unet_sites: Optional[SiteDraws] = None
     te_sites: Optional[SiteDraws] = None
 
+    def shard(self, rank: int, n: int) -> "Draws":
+        """Data rank `rank` of `n`'s rows of the global batch's draws; its
+        dropout masks are drawn for the global batch and sliced alike."""
+        if n == 1:
+            return self
+        total = self.msg.shape[0]
+        rows = sh.batch_slice(total, rank, n)
+        cut = lambda t: None if t is None else t[rows]
+        part = lambda s: None if s is None else dataclasses.replace(
+            s, part=(rows.start, total))
+        return Draws(cut(self.msg), cut(self.vae_noise), cut(self.noise),
+                     cut(self.t), cut(self.rank_mask), part(self.unet_sites),
+                     part(self.te_sites))
+
 
 def draw_sites(lora: Optional[LoRAConfig], n: int,
                generator: torch.Generator) -> Optional[SiteDraws]:
@@ -345,12 +386,15 @@ def draw_sites(lora: Optional[LoRAConfig], n: int,
 
 
 def draw(pipe: StableDiffusionPipeline, generator: torch.Generator,
-         pixels, cached: bool = False, rank_dropout: float = 0.0) -> Draws:
+         pixels, cached: bool = False, rank_dropout: float = 0.0,
+         batch: Optional[int] = None) -> Draws:
     """A step's `Draws` for a batch of NHWC `pixels` (with `cached`, of
     cached moments [B, h, w, 2C]), from `generator` (on the pipeline's
-    device); the dropouts' numbers after the rest, when they are on."""
+    device); the dropouts' numbers after the rest, when they are on.
+    `batch` is the global batch when `pixels` are one rank's slice."""
     cfg, dev = pipe.config, pipe.device
     b, h, w = pixels.shape[:3]
+    b = batch or b
     down = 1 if cached else cfg.vae.downscale
     lat = (b, cfg.vae.latent_channels, h // down, w // down)
     msg = torch.bernoulli(torch.full((b, cfg.watermark.msg_bits), 0.5,
@@ -387,7 +431,9 @@ def make_loss_fn(pipe: StableDiffusionPipeline, sec_encoder: SecretEncoder,
     (`:145-158`); `teacher_skip_lora=False` runs the teacher at a zero
     diagonal (`:171`).  The student's LoRA dropouts act under the draws'
     `unet_sites`; the teacher has none.  `teacher_unet` is the teacher's
-    U-Net when it is not the student's (`--teacher_int8`: the int8 twin)."""
+    U-Net when it is not the student's (`--teacher_int8`: the int8 twin).
+    A SecretEncoder that FSDP shards is gathered for the fused injection,
+    which reads its weights outside its forward."""
     teacher_unet = teacher_unet or pipe.unet
     sched, cfg = pipe.schedule, pipe.config
     v_pred = cfg.unet.prediction_type == "v_prediction"
@@ -407,9 +453,10 @@ def make_loss_fn(pipe: StableDiffusionPipeline, sec_encoder: SecretEncoder,
                 moments = pipe.vae.encode_moments(x)
             latents = pipe.vae.sample_from_moments(*moments, draws.vae_noise)
             if latents.shape[2] == latents.shape[3] == 2 * grid:
-                injected = inject_from_params(
-                    dict(sec_encoder.named_parameters()), latents, draws.msg,
-                    grid)
+                with sh.gathered(sec_encoder):
+                    injected = inject_from_params(
+                        dict(sec_encoder.named_parameters()), latents,
+                        draws.msg, grid)
             else:
                 injected, _ = sec_encoder(latents, draws.msg)
             noisy_clean = sched.add_noise(latents * scaling, draws.noise,
@@ -469,12 +516,14 @@ def make_train_step(pipe: StableDiffusionPipeline, sec_encoder: SecretEncoder,
                     optimizer: torch.optim.Optimizer, scheduler,
                     max_grad_norm: float = 1.0, cache_latents: bool = False,
                     accumulator: Optional[GradientAccumulator] = None,
-                    **loss_options):
+                    group=None, **loss_options):
     """-> train_step(pixels NHWC, input_ids, draws) -> metrics: one
     micro-step, an update of the groups of `optimizer` (see
     `make_optimizer`) unless `accumulator` holds it back.  The LoRA groups
     (U-Net and text encoder) are clipped together, the mapper is not.
-    `loss_options` go to `make_loss_fn`."""
+    Under data parallelism the inputs are this rank's slice, and `group`
+    (the data-parallel group) averages the gradients before the clip and
+    the loss for the metrics.  `loss_options` go to `make_loss_fn`."""
     loss_fn = make_loss_fn(pipe, sec_encoder, cache_latents, **loss_options)
     update = make_update(optimizer, scheduler, max_grad_norm, accumulator)
     params = [p for g in optimizer.param_groups for p in g["params"]]
@@ -483,6 +532,8 @@ def make_train_step(pipe: StableDiffusionPipeline, sec_encoder: SecretEncoder,
         optimizer.zero_grad(set_to_none=True)
         loss, metrics = loss_fn(pixels, input_ids, draws)
         loss.backward()
+        sh.average_gradients(params, group)
+        metrics["ppft_loss"] = sh.mean_over(metrics["ppft_loss"], group)
         with torch.no_grad():
             metrics["grad_norm"] = _global_norm(params)
         update()
@@ -547,8 +598,10 @@ class Trainer:
     outlives `run` for a caller that takes more steps; `close()` ends its
     thread) and the step's generator; `cached` with `--cache_latents`, the
     micro-steps of an epoch, the gradient accumulator with
-    `--gradient_accumulation_steps` above 1, `--rank_dropout` and the
-    seed."""
+    `--gradient_accumulation_steps` above 1, `--rank_dropout`, the seed,
+    and the world: this process's `sharding.World`, the data-parallel
+    group (None in a world of 1), the global batch (the data yield this
+    rank's slice of it) and whether `--fsdp` sharded the frozen towers."""
 
     pipe: StableDiffusionPipeline
     sec_encoder: SecretEncoder
@@ -565,6 +618,16 @@ class Trainer:
     accumulator: Optional[GradientAccumulator] = None
     rank_dropout: float = 0.0
     seed: int = 0
+    world: sh.World = sh.World()
+    group: Any = None
+    global_batch: int = 0
+    fsdp: bool = False
+
+    def draw(self, pixels) -> Draws:
+        """The step's draws for the global batch, this rank's rows."""
+        d = draw(self.pipe, self.generator, pixels, self.cached,
+                 self.rank_dropout, self.global_batch or None)
+        return d.shard(self.world.rank, self.world.size)
 
 
 def _load_sd_checkpoint(path: str, pipe: StableDiffusionPipeline) -> None:
@@ -601,7 +664,6 @@ def load_pretrain(path: str, sec_encoder: SecretEncoder,
 
 
 UNPORTED = {
-    "--fsdp": "ROADMAP A.9, the mesh",
     "--dataset_name": "the HF datasets path: no `datasets` package, no "
                       "download; pass a folder with --train_data_dir",
     "--dataset_config_name": "the HF datasets path: no `datasets` package, "
@@ -627,9 +689,36 @@ def refuse_unported(args: argparse.Namespace) -> None:
             "it); it has no library fallback")
 
 
-def build_trainer(args: argparse.Namespace) -> Trainer:
+def shard_towers(pipe: StableDiffusionPipeline,
+                 sec_encoder: Optional[SecretEncoder],
+                 teacher_unet: Optional[nn.Module], mesh) -> None:
+    """`--fsdp`'s layout (JAX `ppft_train.py:449-460`): the frozen U-Net
+    base (a group a down, mid and up block, the rest the root's), the VAE's
+    encoder and decoder, the CLIP, and the SecretEncoder and the int8
+    teacher twin where given, sharded over the data axis; the LoRA (U-Net
+    and CLIP) stays whole on every rank, with the trainables."""
+    lora = [p for m in (pipe.unet, pipe.clip) for p in split_lora(m)[1].values()]
+    for unet in (pipe.unet, teacher_unet):
+        if unet is not None:
+            sh.shard_frozen(unet, mesh, [*unet.down_blocks, unet.mid_block,
+                                         *unet.up_blocks], keep=lora)
+    sh.shard_frozen(pipe.vae, mesh, [pipe.vae.encoder, pipe.vae.decoder],
+                    root=False)
+    sh.shard_frozen(pipe.clip, mesh, keep=lora)
+    if sec_encoder is not None:
+        sh.shard_frozen(sec_encoder, mesh)
+
+
+def build_trainer(args: argparse.Namespace,
+                  force_fsdp: bool = False) -> Trainer:
+    """The trainer of `args` in this process's world (`sharding.
+    init_distributed`: a `torchrun` rank, or a world of 1).  `--fsdp` takes
+    effect at a world size above 1, as in JAX; `force_fsdp` takes it at any
+    size (a world of 1 then runs the sharded code on one rank)."""
     refuse_unported(args)
-    device = torch.device(args.device)
+    world, group, fsdp = sh.setup_world(args.device, args.train_batch_size,
+                                        args.fsdp, force_fsdp)
+    device = world.device
     seed = args.seed or 0
     torch.manual_seed(seed)
     cfg, backbone, resolution = build_configs(args)
@@ -663,6 +752,8 @@ def build_trainer(args: argparse.Namespace) -> Trainer:
     if args.resume_from_lora:
         pipe.load_watermark_lora(args.resume_from_lora)
     teacher_unet = pipe.int8_twin() if args.teacher_int8 else None
+    if fsdp:
+        shard_towers(pipe, sec_encoder, teacher_unet, sh.make_mesh())
 
     dataset = data_lib.make_dataset(
         args.train_data_dir, resolution, dataset_name=args.dataset_name,
@@ -676,7 +767,7 @@ def build_trainer(args: argparse.Namespace) -> Trainer:
     max_steps = args.max_train_steps or args.num_train_epochs * steps_per_epoch
     k = args.gradient_accumulation_steps
     lr = args.learning_rate
-    if args.scale_lr:               # one process: accumulation x batch
+    if args.scale_lr:               # accumulation x the global batch
         lr *= k * args.train_batch_size
     weights = block_lr.lr_weights(
         split_lora(pipe.unet)[1].items(), args.down_lr_weight,
@@ -684,7 +775,8 @@ def build_trainer(args: argparse.Namespace) -> Trainer:
     optimizer, scheduler = make_optimizer(
         groups, lr, args.lr_warmup_steps, max_steps, args.lr_end,
         (args.adam_beta1, args.adam_beta2), args.adam_epsilon,
-        args.adam_weight_decay, args.use_8bit_adam, weights)
+        args.adam_weight_decay, args.use_8bit_adam, weights,
+        sh.world_group() if fsdp else None)
     accumulator = (GradientAccumulator(
         [p for g in optimizer.param_groups for p in g["params"]], k)
         if k > 1 else None)
@@ -694,15 +786,17 @@ def build_trainer(args: argparse.Namespace) -> Trainer:
                            train_text_encoder=args.train_text_encoder,
                            rank_dropout=args.rank_dropout,
                            teacher_skip_lora=args.teacher_skip_lora != 0,
-                           teacher_unet=teacher_unet)
+                           teacher_unet=teacher_unet, group=group)
     return Trainer(pipe, sec_encoder, msgdecoder, groups, scheduler, step,
-                   data_lib.prefetch(dataset.batches(args.train_batch_size,
-                                                     seed=seed)),
+                   data_lib.prefetch(dataset.batches(
+                       args.train_batch_size, seed=seed,
+                       part=(world.rank, world.size))),
                    load_tokenizer(args.tokenizer_vocab,
                                   vocab_size=cfg.clip.vocab_size),
                    torch.Generator(device=device).manual_seed(seed + 1),
                    max_steps, args.cache_latents, steps_per_epoch,
-                   accumulator, args.rank_dropout, seed)
+                   accumulator, args.rank_dropout, seed, world, group,
+                   args.train_batch_size, fsdp)
 
 
 def build_latent_cache(args: argparse.Namespace,
@@ -815,7 +909,7 @@ def checkpoint_state(tr: Trainer, step: int) -> Dict[str, Any]:
     state = {"lora": {k: p.detach() for k, p in
                       split_lora(tr.pipe.unet)[1].items()},
              "mapper": tr.pipe.mapper.state_dict(),
-             "optimizer": tr.scheduler.optimizer.state_dict(),
+             "optimizer": sh.optimizer_state(tr.scheduler.optimizer),
              "scheduler": tr.scheduler.state_dict(), "step": step,
              "generator": tr.generator.get_state()}
     te = split_lora(tr.pipe.clip)[1]
@@ -844,39 +938,43 @@ def resume(tr: Trainer, ckpt: CheckpointManager, which: str) -> int:
     start = int(state["step"])
     for _ in range(start):
         pixels, _ = next(tr.batches)
-        draw(tr.pipe, tr.generator, pixels, tr.cached, tr.rank_dropout)
+        tr.draw(pixels)
     if not torch.equal(tr.generator.get_state(), state["generator"]):
         raise ValueError(f"checkpoint {start}: its draws are not this run's "
                          "(another --seed, --train_batch_size or --tiny?)")
     return start
 
 
-def run(args: argparse.Namespace) -> Dict[str, Any]:
+def run(args: argparse.Namespace, force_fsdp: bool = False
+        ) -> Dict[str, Any]:
     """Train, then save the artifacts and run the sanity inference when
     asked; -> {"history": logged metrics, "seconds": each step's wall time
     (the loss read back when it is logged; a validation is not in it),
     "validation": [{"step", "accuracy", "seconds"}], "trainer",
     "start_step", and "sanity_bit_accuracy" when the sanity inference
-    ran}."""
+    ran}.  In a world of several ranks only rank 0 prints, logs and writes;
+    `force_fsdp` as `build_trainer`'s."""
     if args.resume_from_checkpoint and not args.output_dir:
         raise ValueError("--resume_from_checkpoint reads "
                          "<output_dir>/checkpoints: pass --output_dir")
-    tr = build_trainer(args)
+    tr = build_trainer(args, force_fsdp)
+    main = tr.world.rank == 0
+    # validation and the sanity inference all-gather FSDP's weights: then
+    # every rank generates, and rank 0 alone reports
+    generates = main or tr.fsdp
     ckpt = (CheckpointManager(os.path.join(args.output_dir, "checkpoints"),
                               max_to_keep=args.checkpoints_total_limit)
             if args.output_dir else None)
     start = (resume(tr, ckpt, args.resume_from_checkpoint)
              if args.resume_from_checkpoint else 0)
-    tracker = Tracker(args.output_dir, args.report_to)
+    tracker = Tracker(args.output_dir if main else None, args.report_to)
     history, seconds, validations = [], [], []
     t0 = time.time()
     for global_step in range(start + 1, tr.max_steps + 1):
         t1 = time.perf_counter()
         pixels, captions = next(tr.batches)
         ids = tr.tokenizer(captions or [""] * len(pixels))
-        draws = draw(tr.pipe, tr.generator, pixels, tr.cached,
-                     tr.rank_dropout)
-        metrics = tr.train_step(pixels, ids, draws)
+        metrics = tr.train_step(pixels, ids, tr.draw(pixels))
         if args.debug_nans and not all(
                 math.isfinite(float(metrics[k]))
                 for k in ("ppft_loss", "grad_norm")):
@@ -888,35 +986,39 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
             history.append(m)
             m["lr"] = tr.scheduler.get_last_lr()[0]     # lr of the next step
             tracker.log(m, global_step)
-            print(f"step {global_step}/{tr.max_steps}: "
-                  + " ".join(f"{k}={v:.6f}" for k, v in m.items())
-                  + f" ({(time.time() - t0) / (global_step - start):.2f}"
-                  "s/step)", flush=True)
+            sh.say(f"step {global_step}/{tr.max_steps}: "
+                   + " ".join(f"{k}={v:.6f}" for k, v in m.items())
+                   + f" ({(time.time() - t0) / (global_step - start):.2f}"
+                   "s/step)", flush=True)
         if ckpt is not None and global_step % args.checkpointing_steps == 0:
-            ckpt.save(global_step, checkpoint_state(tr, global_step))
+            sh.save_checkpoint(ckpt, global_step,
+                               lambda: checkpoint_state(tr, global_step))
         seconds.append(time.perf_counter() - t1)
         # in micro-steps, as the JAX loop (`ppft_train.py:504-519`)
         due_epoch = (args.validation_epochs and global_step % (
             tr.steps_per_epoch * args.validation_epochs) == 0)
         due_step = (args.validation_steps
                     and global_step % args.validation_steps == 0)
-        if due_epoch or due_step:
+        if generates and (due_epoch or due_step):
             t1 = time.perf_counter()
             acc = validate(tr, args, global_step, tracker)
             validations.append({"step": global_step, "accuracy": acc,
                                 "seconds": time.perf_counter() - t1})
             tracker.log({"validation_accuracy": acc}, global_step)
-            print(f"epoch {global_step // tr.steps_per_epoch} step "
-                  f"{global_step}: validation_accuracy {acc:.4f} "
-                  f"({validations[-1]['seconds']:.2f}s)", flush=True)
+            sh.say(f"epoch {global_step // tr.steps_per_epoch} step "
+                   f"{global_step}: validation_accuracy {acc:.4f} "
+                   f"({validations[-1]['seconds']:.2f}s)", flush=True)
     out = {"history": history, "seconds": seconds, "trainer": tr,
            "validation": validations, "start_step": start}
     if args.output_dir:
-        save_artifacts(args.output_dir, tr.pipe, tr.msgdecoder)
-        if args.validation_prompt and args.num_validation_images > 0:
+        if main:
+            save_artifacts(args.output_dir, tr.pipe, tr.msgdecoder)
+        sh.barrier()
+        if generates and args.validation_prompt \
+                and args.num_validation_images > 0:
             acc = final_sanity_inference(tr, args, tr.generator, tracker)
-            print(f"final sanity inference: bit_accuracy {acc:.4f}",
-                  flush=True)
+            sh.say(f"final sanity inference: bit_accuracy {acc:.4f}",
+                   flush=True)
             out["sanity_bit_accuracy"] = acc
     tracker.close()
     return out
@@ -934,7 +1036,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--msg_bits", type=int, default=48)
     p.add_argument("--mapper_std", type=float, default=1.0)
     p.add_argument("--resolution", type=int, default=512)
-    p.add_argument("--train_batch_size", type=int, default=4)
+    p.add_argument("--train_batch_size", type=int, default=4,
+                   help="the global batch (under torchrun split over the "
+                        "ranks, which must divide it)")
     p.add_argument("--train_data_dir", type=str, default=None,
                    help="a folder of JPEG and PNG files (captions from its "
                         "metadata.jsonl); synthetic images without it")
@@ -962,7 +1066,7 @@ def build_argparser() -> argparse.ArgumentParser:
                         "their mean gradient")
     p.add_argument("--learning_rate", type=float, default=5e-4)
     p.add_argument("--scale_lr", action="store_true",
-                   help="lr x accumulation x batch (one process)")
+                   help="lr x accumulation x the global batch")
     p.add_argument("--lr_warmup_steps", type=int, default=500)
     p.add_argument("--lr_end", type=float, default=0.0)
     p.add_argument("--lr_scheduler", type=str, default="constant",
@@ -1029,7 +1133,9 @@ def build_argparser() -> argparse.ArgumentParser:
                         "sites to int8 once after setup, so the no-grad "
                         "generation runs w8a8 (ops/quant.py)")
     p.add_argument("--fsdp", action="store_true",
-                   help="refused: ROADMAP A.9 (the mesh)")
+                   help="under torchrun (world size above 1): shard the "
+                        "frozen towers (FSDP2) and the optimizer moments "
+                        "(ZeRO-1) over the ranks")
     p.add_argument("--local_rank", type=int, default=-1, help="inert")
     p.add_argument("--rank_dropout", type=float, default=0.0,
                    help="kohya rank dropout, folded into the diagonal")

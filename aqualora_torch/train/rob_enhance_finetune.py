@@ -67,8 +67,18 @@ once after setup, from their float32 weights (`ops/quant.py`), so every
 generator runs them in w8a8, with the message LoRA added on top of the
 int8 proj_in / proj_out; `--teacher_int8` is PPFT's and has no effect here,
 as in JAX.  Refused as PPFT refuses them (`ppft_train.refuse_unported`):
-`--fsdp` (ROADMAP A.9); `--dataset_name` and `--dataset_config_name`, the
-HF datasets path (no `datasets` package, no download).
+`--dataset_name` and `--dataset_config_name`, the HF datasets path (no
+`datasets` package, no download).
+
+Several GPUs (`core/sharding.py`; JAX `:120-213`): under `torchrun`
+`--train_batch_size` is the global batch, which the world size must
+divide; each rank generates its slice of the batch from its rows of the
+step's draws (drawn for the global batch), the decoder's BatchNorm
+normalises over the global batch and the gradients are averaged before
+AdamW.  `--fsdp` (a world above 1) shards the frozen U-Net, VAE and CLIP
+with FSDP2 (all-gathered inside the generation loop: JAX `:121-126`) and
+the decoder's moments ZeRO-1 style.  Only rank 0 prints, logs and writes
+`msgdecoder.pt`; a checkpoint is a collective written by rank 0.
 """
 
 from __future__ import annotations
@@ -82,13 +92,14 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
+from aqualora_torch.core import sharding as sh
 from aqualora_torch.core.checkpoint import CheckpointManager
 from aqualora_torch.core.io import assign_state
 from aqualora_torch.core.tokenizer import load_tokenizer
 from aqualora_torch.diffusion.pipeline import (StableDiffusionPipeline,
                                                init_module_weights)
 from aqualora_torch.distort.noiser import NoiseDraw, Stage3Noiser
-from aqualora_torch.models.efficientnet import Masks
+from aqualora_torch.models.efficientnet import Masks, global_batch_norm
 from aqualora_torch.models.watermark import SecretDecoder
 from aqualora_torch.train import data as data_lib
 from aqualora_torch.train import ppft_train
@@ -110,6 +121,15 @@ class Draws:
     msg: torch.Tensor
     noise: NoiseDraw
     masks: Masks
+
+    def shard(self, rank: int, n: int) -> "Draws":
+        """Data rank `rank` of `n`'s rows of the global batch's draws."""
+        if n == 1:
+            return self
+        return Draws(sh.shard_batch(self.z, rank, n),
+                     sh.shard_batch(self.msg, rank, n),
+                     self.noise.shard(self.z.shape[0], rank, n),
+                     self.masks.shard(rank, n))
 
     def to(self, device) -> "Draws":
         """The same numbers on `device`."""
@@ -138,24 +158,32 @@ def draw(pipe: StableDiffusionPipeline, decoder: SecretDecoder,
                  decoder.model.draw_masks(batch, gen))
 
 
-def make_decoder_step(decoder: SecretDecoder, optimizer, scheduler):
+def make_decoder_step(decoder: SecretDecoder, optimizer, scheduler,
+                      group=None):
     """`make_decoder_step` (`rob_enhance_finetune.py:52-76`) ->
     step(images01 NCHW in [0, 1], msg, noise, masks) -> {"acc", "loss"}:
-    one AdamW update of the decoder on the distorted images."""
+    one AdamW update of the decoder on the distorted images.  Under data
+    parallelism the inputs are this rank's slice: `group` normalises the
+    BatchNorm over the global batch, averages the gradients before the
+    update and the metrics after."""
     noiser = Stage3Noiser()
+    params = [p for g in optimizer.param_groups for p in g["params"]]
 
     def step(images01: torch.Tensor, msg: torch.Tensor, noise: NoiseDraw,
              masks: Masks) -> Dict[str, torch.Tensor]:
         optimizer.zero_grad(set_to_none=True)
         noised = noiser(images01, noise)
         # the decoder takes [-1, 1] and resizes to its own resolution
-        logits = decoder(noised * 2.0 - 1.0, train=True, masks=masks)
+        with global_batch_norm(group):
+            logits = decoder(noised * 2.0 - 1.0, train=True, masks=masks)
         loss = message_bce(logits, msg)
         loss.backward()
+        sh.average_gradients(params, group)
         optimizer.step()
         scheduler.step()
-        return {"acc": bit_accuracy(logits.detach(), msg),
-                "loss": loss.detach()}
+        return {"acc": sh.mean_over(bit_accuracy(logits.detach(), msg),
+                                    group),
+                "loss": sh.mean_over(loss.detach(), group)}
 
     return step
 
@@ -181,6 +209,8 @@ class Trainer:
     resolutions: tuple
     batch_size: int
     max_steps: int
+    world: sh.World = sh.World()
+    fsdp: bool = False
 
 
 def _refuse_unported(args: argparse.Namespace) -> None:
@@ -198,8 +228,12 @@ def load_pretrained_decoder(path: str, decoder: SecretDecoder) -> None:
 
 
 def build_trainer(args: argparse.Namespace) -> Trainer:
+    """The trainer in this process's world (`sharding.init_distributed`);
+    `--fsdp` takes effect at a world size above 1, as in JAX."""
     _refuse_unported(args)
-    device = torch.device(args.device)
+    world, group, fsdp = sh.setup_world(args.device, args.train_batch_size,
+                                        args.fsdp)
+    device = world.device
     seed = args.seed or 0
     torch.manual_seed(seed)
     cfg, backbone, base_res = ppft_train.build_configs(args)
@@ -220,6 +254,8 @@ def build_trainer(args: argparse.Namespace) -> Trainer:
     if args.resume_from_lora:
         pipe.load_watermark_lora(args.resume_from_lora)
     pipe.quantize_int8()                     # --int8_gen, else nothing
+    if fsdp:        # the whole frozen SD stack, as JAX's `:121-126`
+        ppft_train.shard_towers(pipe, None, None, sh.make_mesh())
 
     tiny = args.tiny
     resolutions = TINY_RESOLUTIONS if tiny else RESOLUTIONS
@@ -237,32 +273,35 @@ def build_trainer(args: argparse.Namespace) -> Trainer:
         {"decoder": list(decoder.parameters())}, args.learning_rate,
         args.lr_warmup_steps, max_steps, args.lr_end,
         (args.adam_beta1, args.adam_beta2), args.adam_epsilon,
-        args.adam_weight_decay)
+        args.adam_weight_decay, zero_group=sh.world_group() if fsdp else None)
     return Trainer(pipe, generators, decoder, Stage3Noiser(), optimizer,
-                   scheduler, make_decoder_step(decoder, optimizer, scheduler),
-                   data_lib.prefetch(dataset.batches(args.train_batch_size,
-                                                     seed=seed)),
+                   scheduler,
+                   make_decoder_step(decoder, optimizer, scheduler, group),
+                   data_lib.prefetch(dataset.batches(
+                       args.train_batch_size, seed=seed,
+                       part=(world.rank, world.size))),
                    load_tokenizer(args.tokenizer_vocab,
                                   vocab_size=cfg.clip.vocab_size),
                    torch.Generator(device=device).manual_seed(seed + 1),
                    np.random.default_rng(seed), resolutions,
-                   args.train_batch_size, max_steps)
+                   args.train_batch_size, max_steps, world, fsdp)
 
 
 def next_step_inputs(tr: Trainer):
-    """The next step's captions, resolution and draws, in the JAX loop's
-    order (`:203-205`): consumed for a skipped step too."""
+    """The next step's captions, resolution and draws (this rank's rows of
+    the global batch's), in the JAX loop's order (`:203-205`): consumed for
+    a skipped step too."""
     _, captions = next(tr.batches)
     res = int(tr.rng.choice(tr.resolutions))     # the host's bucket pick
-    return captions, res, draw(tr.pipe, tr.decoder, tr.noiser, tr.generator,
-                               tr.batch_size, res)
+    d = draw(tr.pipe, tr.decoder, tr.noiser, tr.generator, tr.batch_size, res)
+    return captions, res, d.shard(tr.world.rank, tr.world.size)
 
 
 def generate_images(tr: Trainer, res: int, captions: List[str],
                     d: Draws) -> torch.Tensor:
     """The step's watermarked images, NCHW in [0, 1]: the message threaded
     as the diagonal mapper(msg) * 1.03 (`:216-220`), no gradient."""
-    b = tr.batch_size
+    b = d.msg.shape[0]
     diag = tr.pipe.message_scale(d.msg)
     images = tr.generators[res](tr.tokenizer(captions or [""] * b),
                                 tr.tokenizer([""] * b), GUIDANCE, diag,
@@ -279,7 +318,7 @@ def train_step(tr: Trainer, res: int, captions: List[str],
 
 def checkpoint_state(tr: Trainer, step: int) -> Dict[str, Any]:
     return {"decoder": tr.decoder.state_dict(),
-            "optimizer": tr.optimizer.state_dict(),
+            "optimizer": sh.optimizer_state(tr.optimizer),
             "scheduler": tr.scheduler.state_dict(), "step": step,
             "generator": tr.generator.get_state()}
 
@@ -303,14 +342,16 @@ def resume(tr: Trainer, ckpt: CheckpointManager, which: str) -> int:
 def run(args: argparse.Namespace) -> Dict[str, Any]:
     """Train and write `<output_dir>/msgdecoder.pt`; -> {"history": logged
     metrics, "decoder", "seconds" and "resolutions" of each step run,
-    "start_step", "trainer"}."""
+    "start_step", "trainer"}.  In a world of several ranks only rank 0
+    prints, logs and writes."""
     tr = build_trainer(args)
+    main = tr.world.rank == 0
     out = args.output_dir
     ckpt = CheckpointManager(os.path.join(out, "checkpoints"),
                              max_to_keep=args.checkpoints_total_limit)
     start = (resume(tr, ckpt, args.resume_from_checkpoint)
              if args.resume_from_checkpoint else 0)
-    tracker = Tracker(out, args.report_to)
+    tracker = Tracker(out if main else None, args.report_to)
     history, seconds, resolutions = [], [], []
     t0 = time.time()
     for step_i in range(start + 1, tr.max_steps + 1):
@@ -321,17 +362,19 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
             m = {k: float(v) for k, v in metrics.items()}
             history.append(m)
             tracker.log(m, step_i)
-            print(f"step {step_i}/{tr.max_steps} res={res}: "
-                  + " ".join(f"{k}={v:.4f}" for k, v in m.items())
-                  + f" ({(time.time() - t0) / (step_i - start):.2f}s/step)",
-                  flush=True)
+            sh.say(f"step {step_i}/{tr.max_steps} res={res}: "
+                   + " ".join(f"{k}={v:.4f}" for k, v in m.items())
+                   + f" ({(time.time() - t0) / (step_i - start):.2f}"
+                   "s/step)", flush=True)
         if step_i % args.checkpointing_steps == 0:
-            ckpt.save(step_i, checkpoint_state(tr, step_i))
+            sh.save_checkpoint(ckpt, step_i,
+                               lambda: checkpoint_state(tr, step_i))
         seconds.append(time.perf_counter() - t1)
         resolutions.append(res)
-    os.makedirs(out, exist_ok=True)
-    torch.save({k: v.cpu() for k, v in tr.decoder.state_dict().items()},
-               os.path.join(out, ppft_train.MSGDECODER_FILE))
+    if main:
+        os.makedirs(out, exist_ok=True)
+        torch.save({k: v.cpu() for k, v in tr.decoder.state_dict().items()},
+                   os.path.join(out, ppft_train.MSGDECODER_FILE))
     tracker.close()
     return {"history": history, "decoder": tr.decoder, "seconds": seconds,
             "resolutions": resolutions, "start_step": start, "trainer": tr}

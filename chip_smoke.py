@@ -23,6 +23,8 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py --phases 25     # the chain, then regional
                                           # generation, the demo and a
                                           # traced regional call
+    python3 chip_smoke.py --phases 26     # several processes: torchrun
+                                          # worlds over NCCL and gloo
 
 Phases (any failure raises, so the exit code is not 0):
   0. torch and CUDA versions, the card's name and power limit (nvidia-smi).
@@ -349,17 +351,41 @@ Phases (any failure raises, so the exit code is not 0):
      `run_demo.process` on phase 15's artifacts at 512^2 DDIM-25: a blank
      secret (B1) and two comma-separated secrets (B2), 801 launches a
      call, the decoded bits (printed: random weights); (f) last of all, one
-     regional call under `utils/profiling.trace`: the Chrome trace holds
+     regional dpms_m-5 call (P25F_STEPS; the timed ones take 25) under
+     `utils/profiling.trace`: the Chrome trace holds
      the forward kernel's events, the device time by kernel read from the
      file, `device_memory_stats()`; then a short session of one forward
      launch, its events counted.
+ 26. Several processes (`aqualora_torch/core/sharding.py`, `parallel/`),
+     last of all, each launch `python -m torch.distributed.run --standalone`
+     of this script's `--p26_worker` (it stops every process it started):
+     (a) a world of 1 over NCCL runs PPFT through `ppft_train.run` (SD-1.5
+     512^2 B8 rank 320 bf16, 3 steps, a stage-1 file of random weights so
+     that the loss is not 0), once data parallel (the gradients through one
+     NCCL all-reduce) and once with `--fsdp` forced to wrap the frozen
+     towers at world size 1 (`run(args, force_fsdp=True)`: FSDP2 and ZeRO-1
+     on one rank); each step's loss must equal the unwrapped trainer's in
+     this process (the first bit for bit, the later to 2e-3: see
+     P26_LATER_RTOL) and so must the first update, weight for weight
+     (Adam's first step, within 0.05 lr on 99% of the elements it moves);
+     each step must launch 65 forward, 32 dQ, 32 dK/dV and 1 injection
+     kernels; samples/s beside the unwrapped step's, peak memory, the
+     all-reduce's bytes and ms a step; (c) in the same process stage 1 (B5 float32) and
+     stage 3 (B4 bf16) through their `run`, 2 steps each, the losses equal
+     to the unwrapped trainers'; (d) `parallel.dryrun.entry()` on the card
+     (32 forward launches, finite float32 eps); (b) two ranks on the one
+     card over gloo (NCCL puts one rank on a card), PPFT data parallel at
+     global B8 (B4 a rank): the first step's loss, averaged gradient and
+     update against the unwrapped B8 step's within bf16's batch-shape
+     tolerance (P26_*), gloo's CUDA all-reduce a step.
 The timed phases run first (0-7, 12, 13, 14, 8, 15, 16, 18b-d, 19d, 22d-e,
 25e, 17, 18a, 19a-c, 19e, 20, 21, 22a-c, 23a-c, 24b, 24a, 24c, 24d, 25a-d)
 and the profiled ones after them, so that the profiler touches no timed
 phase: first the short sessions (6's profile, 9, 10, 12's profile, 18a's,
 19e's, 22a's, 23a's, 24a's), then the profiles of whole steps (8, 14,
-18d's, 20's, 21a's update) and of a generate call (11), then 25f.  After a session of a whole step, short sessions in the same process
-have recorded some device events or none (PERF.md, section 7).  The line
+18d's, 20's, 21a's update) and of a generate call (11), then 25f, then
+26 (in processes of its own).  After a session of a whole step, short
+sessions in the same process have recorded some device events or none (PERF.md, section 7).  The line
 before the last names the card and its power limit; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -375,6 +401,7 @@ import re
 import shutil
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 from pathlib import Path
@@ -1415,8 +1442,9 @@ def phase11(smi: str, run, call_s: float) -> None:
     the busy share of phase 3's median unprofiled call."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # the device's events only: nothing here reads the host's operator
+    # events, and a whole call's cost the most time to collect
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run(3)
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
@@ -2767,8 +2795,9 @@ def phase18_profile(smi: str, kept: list) -> None:
         d = s3.draw(tr.pipe, tr.decoder, tr.noiser, tr.generator,
                     tr.batch_size, res)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        # the device's events only, as phase 11's: a stage-3 step holds a
+        # whole generate call's operators
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             s3.train_step(tr, res, captions, d)
             torch.cuda.synchronize()
@@ -5341,6 +5370,10 @@ REGIONAL_LAUNCHES = REGIONS * (LAUNCHES_PER_GENERATE - 1) + 1    # 1601
 DEMO_PROMPT = "a watercolor of a lighthouse at dusk"
 
 
+# the sampling steps of 25f's traced regional call
+P25F_STEPS = 5
+
+
 class Regional:
     """Phase 25's pipeline, region weights, sub-prompts and masks; call(seed,
     ...) is one regional call from per-image generators."""
@@ -5637,7 +5670,8 @@ def short_session(tag: str, smi: str) -> None:
 
 
 def phase25_profile(smi: str, reg: Regional, call_s: float) -> None:
-    """(f) one regional call under `profiling.trace` into a temporary
+    """(f) one regional call of P25F_STEPS steps, after one unprofiled
+    warm-up of the same length, under `profiling.trace` into a temporary
     directory, after every other profiled phase: the trace file holds the
     forward kernel's events; the device time by kernel from the file, and
     `device_memory_stats()`.  A short session (one forward launch) before
@@ -5646,13 +5680,19 @@ def phase25_profile(smi: str, reg: Regional, call_s: float) -> None:
     from aqualora_torch.utils import profiling
 
     t_profile = time.perf_counter()
+    # a call of P25F_STEPS sampling steps (the timed calls take STEPS): its
+    # trace, written and read back, is a fifth of a whole call's
+    short = reg.pipe.make_regional_generate(P25F_STEPS, "dpms_m", RES, RES)
+    short(reg.weights, reg.masks, reg.ids, reg.neg, 7.5,
+          generator=reg.gens(2550))
     short_session("before the traced call", smi)
     with tempfile.TemporaryDirectory(prefix="aqualora_trace_") as tmp:
         torch.cuda.synchronize()
         reset_counts()
         with profiling.trace(tmp):
             with profiling.annotate("regional_call"):
-                reg.call(2550)
+                short(reg.weights, reg.masks, reg.ids, reg.neg, 7.5,
+                      generator=reg.gens(2550))
                 torch.cuda.synchronize()
         launched = counts()["fwd"]
         files = sorted(Path(tmp).glob("*.json"))
@@ -5670,11 +5710,12 @@ def phase25_profile(smi: str, reg: Regional, call_s: float) -> None:
     for e in kernels:
         by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"] / 1e3
     flash_ms = sum(e["dur"] for e in flash) / 1e3
-    print(f"[25] traced regional call ({mib:.1f} MiB of trace): "
+    print(f"[25] traced regional call, dpms_m-{P25F_STEPS} "
+          f"({mib:.1f} MiB of trace): "
           f"{len(flash)} flash_fwd kernel events of {launched} launches; "
           f"device busy {busy_ms:.1f} ms of the call's {wall_ms:.1f} ms "
           f"traced wall ({100 * busy_ms / wall_ms:.1f}%; the unprofiled "
-          f"median {call_s * 1e3:.1f} ms); the forward kernel "
+          f"dpms_m-{STEPS} median {call_s * 1e3:.1f} ms); the forward kernel "
           f"{flash_ms:.1f} ms ({100 * flash_ms / busy_ms:.1f}% of device "
           f"time) | {smi}", flush=True)
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
@@ -5805,15 +5846,476 @@ def kernels_line(rows, launches, bwd_rows, train_launches, inject_row,
                         for kern in kernels]}
 
 
+# ---------------------------------------------------------------------------
+# phase 26: several processes (core/sharding.py, parallel/)
+# ---------------------------------------------------------------------------
+
+P26_STEPS = 3                  # 1 warm-up + 2 timed
+P26_S_STEPS = 2                # stage 1 and stage 3
+# 26b against the one-process step: two ranks at B4 sum bf16 gradients of
+# other batch shapes than one B8 step.  Phase 21c measured that gap in bf16
+# (the mean of two B4 gradients against the B8 gradient on the same draws):
+# 3.109e-02 of the gradient's norm on an NVIDIA H100 80GB HBM3, 700 W.  The
+# averaged gradient is held to three times that, and Adam's first step
+# (lr * sign(g) where |g| >> eps) to 0.05 lr on 90% of the elements it
+# moves (94.4% in the same bf16 comparison of phase 21c); the step-1 loss,
+# a mean over the same samples in other batch shapes, to 1e-2.
+P26_GLOO_GRAD_GAP = 0.1
+P26_GLOO_AGREE = 0.9
+P26_GLOO_LOSS_RTOL = 1e-2
+# a torchrun world of 1 against the unwrapped trainer in this process: the
+# first step's loss bit for bit (a forward only); the later steps' to
+# 2e-3, about four times the largest gap measured on an NVIDIA H100 80GB
+# HBM3, 700 W: FSDP2's backward hooks change the order in which autograd
+# sums a tensor's gradients over its consumers (the second and third
+# losses 2.7e-4 and 4.7e-4 off; data parallel and the unwrapped trainer
+# run twice 0).  The backward is not bit-reproducible on the card even
+# unwrapped (the nearest upsample's backward sums with atomics).  The
+# first update against the unwrapped trainer's as 26b's, with Adam's
+# first step (lr * sign(g) where |g| >> eps) to 0.05 lr on 99% of the
+# elements it moves: a skipped or mis-scaled update moves none within it
+P26_LATER_RTOL = 2e-3
+P26_A_AGREE = 0.99
+P26_LR = 1e-4
+
+
+def p26_argv(s1_file: str, batch: int = TRAIN_BATCH,
+             steps: int = P26_STEPS) -> list:
+    return ["--rank", "320", "--msg_bits", "48", "--resolution", "512",
+            "--train_batch_size", str(batch), "--mixed_precision", "bf16",
+            "--learning_rate", str(P26_LR), "--lr_warmup_steps", "0",
+            "--max_train_steps", str(steps), "--seed", "0",
+            "--start_from_pretrain", s1_file, "--report_to", "none"]
+
+
+def p26_s1_argv(out: str) -> list:
+    return ["--batch_size", str(S1_BATCH), "--max_train_steps",
+            str(P26_S_STEPS), "--seed", "0", "--output_dir", out]
+
+
+def p26_s3_argv(out: str) -> list:
+    return ["--rank", "320", "--msg_bits", "48", "--train_batch_size", "4",
+            "--mixed_precision", "bf16", "--max_train_steps",
+            str(P26_S_STEPS), "--seed", "0", "--report_to", "none",
+            "--checkpointing_steps", "1000", "--output_dir", out]
+
+
+def p26_trainables(tr) -> dict:
+    return {f"{g}.{i}": p for g, ps in tr.groups.items()
+            for i, p in enumerate(ps)}
+
+
+def p26_host(tensors: dict) -> dict:
+    """Float32 copies on the host (never views of the live tensors)."""
+    return {n: t.detach().to("cpu", torch.float32, copy=True)
+            for n, t in tensors.items()}
+
+
+def p26_fingerprint(tensors: dict) -> dict:
+    """Each tensor's float64 sum and absolute sum: equal starts have equal
+    fingerprints."""
+    return {n: (float(t.double().sum()), float(t.double().abs().sum()))
+            for n, t in tensors.items()}
+
+
+def p26_update_agreement(ref: dict, got: dict, lr: float = P26_LR) -> dict:
+    """An update (`got`, {name: after - before}) against the reference's:
+    of the elements the reference moves by more than 0.5 lr, how many the
+    update moves to within 0.05 lr of it, and the largest difference."""
+    agree, total, worst = 0, 0, 0.0
+    for n, d_ref in ref.items():
+        diff = (d_ref - got[n]).abs()
+        worst = max(worst, float(diff.max()))
+        moved = d_ref.abs() > 0.5 * lr
+        agree += int((diff[moved] <= 0.05 * lr).sum())
+        total += int(moved.sum())
+    return {"agree": agree, "total": total, "worst": worst,
+            "share": agree / max(total, 1)}
+
+
+def p26_watch_first_step(pt, first: dict):
+    """Wrap `pt.build_trainer` so that the trainer `run` builds keeps its
+    trainables before and after its first step in `first` (on the host);
+    -> the original, to put back."""
+    build = pt.build_trainer
+
+    def watched(args, force_fsdp=False):
+        tr = build(args, force_fsdp)
+        # no reference to the trainer itself: it is freed when `run`'s
+        # caller drops it, not at a later garbage collection
+        step, params = tr.train_step, p26_trainables(tr)
+
+        def train_step(*a):
+            if "params0" not in first:
+                first["params0"] = p26_host(params)
+            m = step(*a)
+            if "params1" not in first:
+                first["params1"] = p26_host(params)
+            return m
+        tr.train_step = train_step
+        return tr
+    pt.build_trainer = watched
+    return build
+
+
+def p26_steps(tr, base: int, keep_first: bool = False) -> dict:
+    """P26_STEPS steps of a PPFT trainer, each as `run` takes it; -> the
+    losses, gradient norms, step seconds, launches of each step, the
+    all-reduce's bytes and ms (sharding.comm_stats, timed), the peak
+    memory above `base` (the memory before the trainer was built, as the
+    torchrun legs count it), and with `keep_first` the weights before and
+    after the first step and its gradients (on the host)."""
+    from aqualora_torch.core import sharding as sh
+    sh.comm_stats.reset()
+    sh.comm_stats.timed = True
+    out = {"loss": [], "grad_norm": [], "s": [], "launches": [],
+           "comm": []}
+    if keep_first:
+        out["params0"] = p26_host(p26_trainables(tr))
+    for step in range(P26_STEPS):
+        pixels, captions = next(tr.batches)
+        ids = tr.tokenizer(captions)
+        before, calls, nbytes, ms = (counts(), sh.comm_stats.calls,
+                                     sh.comm_stats.bytes, sh.comm_stats.ms)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = tr.train_step(pixels, ids, tr.draw(pixels))
+        torch.cuda.synchronize()
+        out["s"].append(time.perf_counter() - t0)
+        out["launches"].append({k: v - before[k] for k, v in counts().items()})
+        out["comm"].append((sh.comm_stats.calls - calls,
+                            sh.comm_stats.bytes - nbytes,
+                            sh.comm_stats.ms - ms))
+        out["loss"].append(float(m["ppft_loss"]))
+        out["grad_norm"].append(float(m["grad_norm"]))
+        if keep_first and step == 0:
+            params = p26_trainables(tr)
+            out["grads1"] = p26_host({n: p.grad for n, p in params.items()})
+            out["params1"] = p26_host(params)
+    out["peak_gib"] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    sh.comm_stats.timed = False
+    return out
+
+
+def p26_worker(kind: str, spec_path: str, out_path: str) -> None:
+    """One rank of a `torchrun` launch (phase 26): "a" in a world of 1 over
+    NCCL (PPFT through `ppft_train.run` plain and with `--fsdp` forced,
+    stage 1 and stage 3 through their `run`, `parallel.dryrun.entry`);
+    "b" one of two ranks on the one card over gloo (PPFT, data parallel).
+    Rank 0 saves what it measured to `out_path`."""
+    import torch.distributed as dist
+
+    from aqualora_torch.core import sharding as sh
+    from aqualora_torch.train import ppft_train as pt
+    spec = json.loads(Path(spec_path).read_text())
+    # phase 0's precision, as in the process that holds the references
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    world = sh.init_distributed("cuda", backend="gloo" if kind == "b"
+                                else None)
+    res = {"world": world.size, "backend": dist.get_backend(),
+           "device": torch.cuda.get_device_name(world.device)}
+    if kind == "a":
+        want = torch.load(spec["ref"], weights_only=False)
+        for leg, force in (("dp", False), ("fsdp", True)):
+            args = pt.build_argparser().parse_args(spec["ppft"])
+            reset_counts()
+            sh.comm_stats.reset()
+            sh.comm_stats.timed = True
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            first = {}
+            build = p26_watch_first_step(pt, first)
+            try:
+                out = pt.run(args, force_fsdp=force)
+            finally:
+                pt.build_trainer = build
+            tr = out["trainer"]
+            from torch.distributed.tensor import DTensor
+            frozen = [p for m in (tr.pipe.unet, tr.pipe.vae, tr.pipe.clip,
+                                  tr.sec_encoder) for p in m.parameters()]
+            res[leg] = {
+                "loss": [h["ppft_loss"] for h in out["history"]],
+                "grad_norm": [h["grad_norm"] for h in out["history"]],
+                "s": out["seconds"], "launches": counts(),
+                "comm": (sh.comm_stats.calls, sh.comm_stats.bytes,
+                         sh.comm_stats.ms),
+                "peak_gib": (torch.cuda.max_memory_allocated() - base)
+                / 2 ** 30,
+                "fsdp": tr.fsdp,
+                "dtensors": sum(isinstance(p, DTensor) for p in frozen),
+                "frozen": len(frozen),
+                "same_start": p26_fingerprint(first["params0"])
+                == want["start"],
+                "update": p26_update_agreement(want["update"], {
+                    n: first["params1"][n] - p0
+                    for n, p0 in first["params0"].items()})}
+            sh.comm_stats.timed = False
+            tr.batches.close()
+            del out, tr, frozen, first
+            torch.cuda.empty_cache()
+        from aqualora_torch.train import latent_wm_pretrain as s1
+        from aqualora_torch.train import rob_enhance_finetune as s3
+        for leg, mod, argv in (("stage1", s1, spec["s1"]),
+                               ("stage3", s3, spec["s3"])):
+            out = mod.run(mod.build_argparser().parse_args(argv))
+            res[leg] = {"loss": [h["loss"] for h in out["history"]],
+                        "s": out["seconds"]}
+            del out
+            torch.cuda.empty_cache()
+        from aqualora_torch.parallel.dryrun import entry
+        fn, fargs = entry("cuda")
+        reset_counts()
+        y = fn(*fargs)
+        torch.cuda.synchronize()
+        res["entry"] = {"shape": list(y.shape), "dtype": str(y.dtype),
+                        "finite": bool(torch.isfinite(y).all()),
+                        "launches": counts(),
+                        "ms": time_ms(lambda: fn(*fargs), iters=5)}
+    else:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        tr = pt.build_trainer(pt.build_argparser().parse_args(spec["ppft"]))
+        reset_counts()
+        res["steps"] = p26_steps(tr, base, keep_first=world.rank == 0)
+        tr.batches.close()
+    if world.rank == 0:
+        torch.save(res, out_path)
+    dist.destroy_process_group()
+
+
+def p26_launch(tag: str, kind: str, nproc: int, spec: dict, tmp: str,
+               timeout: float = 600.0) -> dict:
+    """`python -m torch.distributed.run --standalone --nproc_per_node
+    nproc chip_smoke.py --p26_worker kind ...`; -> rank 0's results.  Its
+    output is printed with the tag; a launch that fails or outlives
+    `timeout` raises (its whole process group killed)."""
+    import signal
+    spec_path = Path(tmp) / f"{tag}_spec.json"
+    spec_path.write_text(json.dumps(spec))
+    out_path = Path(tmp) / f"{tag}_out.pt"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(nproc), str(Path(__file__).resolve()),
+           "--p26_worker", kind, str(spec_path), str(out_path)]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        text, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        text, _ = proc.communicate()
+        print(text[-6000:], flush=True)
+        raise AssertionError(f"[{tag}] torchrun launch outlived {timeout} s")
+    wall = time.perf_counter() - t0
+    for line in text.splitlines():
+        if line.startswith("step ") or "Error" in line or "error" in line:
+            print(f"[{tag}]   {line[:200]}", flush=True)
+    if proc.returncode != 0 or not out_path.exists():
+        print(text[-6000:], flush=True)
+        raise AssertionError(f"[{tag}] torchrun exit {proc.returncode}")
+    res = torch.load(out_path, weights_only=False)
+    res["wall_s"] = wall
+    return res
+
+
+def p26_reference(s1_file: str) -> dict:
+    """The unwrapped PPFT trainer in this process (no process group), the
+    steps as `run` takes them, the first step's gradients and weights
+    kept; its peak memory counted from before the trainer was built."""
+    from aqualora_torch.train import ppft_train as pt
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tr = pt.build_trainer(pt.build_argparser().parse_args(
+        p26_argv(s1_file)))
+    if tr.world.size != 1 or tr.group is not None:
+        raise AssertionError("the reference trainer is not unwrapped")
+    reset_counts()
+    res = p26_steps(tr, base, keep_first=True)
+    tr.batches.close()
+    del tr
+    torch.cuda.empty_cache()
+    return res
+
+
+def p26_rate(s: list) -> float:
+    return TRAIN_BATCH / statistics.median(s[1:])
+
+
+def p26_gaps(got: list, want: list) -> list:
+    return [abs(a - b) / max(abs(b), 1e-30) for a, b in zip(got, want)]
+
+
+def p26_check_losses(tag: str, got: list, want: list) -> None:
+    same = [a == b for a, b in zip(got, want)]
+    rel = p26_gaps(got, want)
+    print(f"[{tag}] losses {got} against the unwrapped trainer's {want}: "
+          f"bit for bit {same}, relative gaps "
+          + ", ".join(f"{x:.3e}" for x in rel), flush=True)
+    if len(got) != len(want) or not same[0] or max(rel) > P26_LATER_RTOL \
+            or not all(math.isfinite(x) and x > 0 for x in got):
+        raise AssertionError(f"[{tag}] losses differ from the unwrapped "
+                             "trainer's")
+
+
+def phase26(smi: str, tmp: str) -> None:
+    """Several processes: (a) a torchrun world of 1 over NCCL, PPFT (plain
+    and --fsdp forced), stage 1, stage 3 and `dryrun.entry`, against the
+    unwrapped trainers in this process; (b) two ranks on the one card over
+    gloo, PPFT data parallel at global B8, against the unwrapped step."""
+    from aqualora_torch.train import latent_wm_pretrain as s1
+    from aqualora_torch.train import rob_enhance_finetune as s3
+    t26 = time.perf_counter()
+    torch.cuda.empty_cache()
+    s1_file = p21_pretrain(tmp)
+    ref = p26_reference(s1_file)
+    torch.save({"start": p26_fingerprint(ref["params0"]),
+                "update": {n: ref["params1"][n] - p0
+                           for n, p0 in ref["params0"].items()}},
+               f"{tmp}/26a_ref.pt")
+    per_step = {"fwd": FWD_PER_STEP, "dq": BWD_PER_STEP, "dkv": BWD_PER_STEP,
+                "inject": 1}
+    for i, got in enumerate(ref["launches"]):
+        if got != per_step:
+            raise AssertionError(f"[26] reference step {i} launches {got}")
+    refs = {}
+    for leg, mod, argv in (("stage1", s1, p26_s1_argv(f"{tmp}/s1_ref")),
+                           ("stage3", s3, p26_s3_argv(f"{tmp}/s3_ref"))):
+        out = mod.run(mod.build_argparser().parse_args(argv))
+        refs[leg] = [h["loss"] for h in out["history"]]
+        del out
+        torch.cuda.empty_cache()
+    print(f"[26] unwrapped PPFT SD-1.5 512^2 B{TRAIN_BATCH} rank 320 bf16: "
+          f"{p26_rate(ref['s']):.4f} samples/s (median of "
+          f"{len(ref['s']) - 1}: {', '.join(f'{x:.4f}' for x in ref['s'])} "
+          f"s), peak {ref['peak_gib']:.2f} GiB | {smi}", flush=True)
+    spec = {"ppft": p26_argv(s1_file), "s1": p26_s1_argv(f"{tmp}/s1_a"),
+            "s3": p26_s3_argv(f"{tmp}/s3_a"), "ref": f"{tmp}/26a_ref.pt"}
+    a = p26_launch("26a", "a", 1, spec, tmp)
+    print(f"[26a] torchrun world {a['world']} over {a['backend']} on "
+          f"{a['device']}, {a['wall_s']:.1f} s of wall time", flush=True)
+    if a["world"] != 1 or a["backend"] != "nccl":
+        raise AssertionError("26a is not a world of 1 over NCCL")
+    for leg in ("dp", "fsdp"):
+        r = a[leg]
+        p26_check_losses(f"26a {leg}", r["loss"], ref["loss"])
+        u = r["update"]
+        print(f"[26a] {leg}: the first update against the unwrapped "
+              f"trainer's: {u['agree']} of {u['total']} moved elements "
+              f"({100 * u['share']:.3f}%) within 0.05 lr (tol "
+              f"{100 * P26_A_AGREE:g}%), max |d| {u['worst']:.3e}, the same "
+              f"start {r['same_start']}", flush=True)
+        if not (r["same_start"] and u["total"] > 0
+                and u["share"] >= P26_A_AGREE
+                and u["worst"] <= 2 * P26_LR * 1.01):
+            raise AssertionError(f"[26a] {leg}: the first update differs "
+                                 "from the unwrapped trainer's")
+        want = {k: v * P26_STEPS for k, v in per_step.items()}
+        calls, nbytes, ms = r["comm"]
+        print(f"[26a] {leg}: {p26_rate(r['s']):.4f} samples/s (median of "
+              f"{len(r['s']) - 1}: {', '.join(f'{x:.4f}' for x in r['s'])} s; "
+              f"unwrapped {p26_rate(ref['s']):.4f}), peak {r['peak_gib']:.2f} "
+              f"GiB (unwrapped {ref['peak_gib']:.2f}), launches {r['launches']}"
+              f" over {P26_STEPS} steps, gradient all-reduce "
+              f"{calls / P26_STEPS:g} a step, {nbytes / P26_STEPS / 2 ** 30:.4f}"
+              f" GiB and {ms / P26_STEPS:.2f} ms a step (NCCL, one rank; "
+              f"timed with a synchronize around it), frozen tensors FSDP "
+              f"holds {r['dtensors']} of {r['frozen']} | {smi}", flush=True)
+        if r["launches"] != want:
+            raise AssertionError(f"[26a] {leg} launches {r['launches']}, "
+                                 f"want {want}")
+        if calls != P26_STEPS or nbytes == 0:
+            raise AssertionError(f"[26a] {leg}: no gradient all-reduce")
+        if r["fsdp"] != (leg == "fsdp") or (leg == "fsdp") != (
+                r["dtensors"] > 0):
+            raise AssertionError(f"[26a] {leg}: FSDP wrapped "
+                                 f"{r['dtensors']} tensors")
+    for leg in ("stage1", "stage3"):
+        p26_check_losses(f"26c {leg}", a[leg]["loss"], refs[leg])
+    e = a["entry"]
+    print(f"[26d] dryrun.entry(): SD-1.5 U-Net rank 320 bf16 B2 at 64^2 "
+          f"latents -> {e['shape']} {e['dtype']}, finite {e['finite']}, "
+          f"launches {e['launches']}, {e['ms']:.2f} ms a call | {smi}",
+          flush=True)
+    if not (e["finite"] and e["shape"] == [2, 4, 64, 64]
+            and e["dtype"] == "torch.float32"
+            and e["launches"]["fwd"] == BWD_PER_STEP):
+        raise AssertionError("[26d] entry()")
+    b = p26_launch("26b", "b", 2, {"ppft": p26_argv(s1_file)}, tmp)
+    st = b["steps"]
+    print(f"[26b] torchrun world {b['world']} over {b['backend']} on one "
+          f"card, {b['wall_s']:.1f} s of wall time", flush=True)
+    if b["world"] != 2 or b["backend"] != "gloo":
+        raise AssertionError("26b is not two ranks over gloo")
+    for i, got in enumerate(st["launches"]):
+        if got != per_step:
+            raise AssertionError(f"[26b] rank 0 step {i} launches {got}")
+    loss_rel = abs(st["loss"][0] - ref["loss"][0]) / ref["loss"][0]
+    gap = _rel_gap(st["grads1"], ref["grads1"])
+    for n, p0 in ref["params0"].items():
+        if not torch.equal(st["params0"][n], p0):
+            raise AssertionError(f"[26b] {n}: another start than the "
+                                 "reference's")
+    u = p26_update_agreement(
+        {n: ref["params1"][n] - p0 for n, p0 in ref["params0"].items()},
+        {n: st["params1"][n] - p0 for n, p0 in st["params0"].items()})
+    lr, agree, total, worst, share = (P26_LR, u["agree"], u["total"],
+                                      u["worst"], u["share"])
+    calls, nbytes, ms = (sum(c[i] for c in st["comm"][1:]) / (P26_STEPS - 1)
+                         for i in range(3))
+    print(f"[26b] 2 ranks x B4 (global B{TRAIN_BATCH}) over gloo on one card "
+          f"against one unwrapped B{TRAIN_BATCH} step, bf16: step-1 loss "
+          f"{st['loss'][0]:.6e} against {ref['loss'][0]:.6e} (relative "
+          f"{loss_rel:.3e}, tol {P26_GLOO_LOSS_RTOL:g}); the averaged "
+          f"gradient against the B{TRAIN_BATCH} gradient |d| / |g| "
+          f"{gap:.3e} (tol {P26_GLOO_GRAD_GAP:g}); the first update: "
+          f"{agree} of {total} moved elements ({100 * share:.3f}%) within "
+          f"0.05 lr (tol {100 * P26_GLOO_AGREE:g}%), max |d| {worst:.3e} "
+          f"(bound 2 lr (1 + wd) = {2 * lr * 1.01:.3e}); losses "
+          f"{st['loss']} (unwrapped {ref['loss']}) | {smi}", flush=True)
+    print(f"[26b] {p26_rate(st['s']):.4f} samples/s (global, median of "
+          f"{len(st['s']) - 1}: {', '.join(f'{x:.4f}' for x in st['s'])} s; "
+          f"unwrapped B{TRAIN_BATCH} {p26_rate(ref['s']):.4f}), rank 0 peak "
+          f"{st['peak_gib']:.2f} GiB, gloo's CUDA all-reduce of the "
+          f"gradients {calls:g} a step, {nbytes / 2 ** 30:.4f} GiB, "
+          f"{ms:.2f} ms a step ({100 * ms / 1e3 / statistics.median(st['s'][1:]):.1f}% "
+          f"of the step) | {smi}", flush=True)
+    if not (loss_rel <= P26_GLOO_LOSS_RTOL and gap <= P26_GLOO_GRAD_GAP
+            and share >= P26_GLOO_AGREE and worst <= 2 * lr * 1.01
+            and all(math.isfinite(x) and x > 0 for x in st["loss"])):
+        raise AssertionError("[26b] the 2-rank update differs from the "
+                             "unwrapped step")
+    print(f"[26] phase 26 took {time.perf_counter() - t26:.1f} s | {smi}",
+          flush=True)
+
+
+def lap(t_start: float, what: str) -> None:
+    """The run's elapsed time after a group of phases (where the 1200 s
+    go)."""
+    print(f"[time] {what} done {time.perf_counter() - t_start:.1f} s into "
+          "the run", flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=None,
                     help="comma-separated phase numbers (default: all; "
                          "phase 0 always runs, and the kernels line needs "
                          "all of them)")
+    ap.add_argument("--p26_worker", nargs=3, default=None,
+                    metavar=("KIND", "SPEC", "OUT"),
+                    help="phase 26's torchrun worker (the script starts "
+                         "it itself)")
     args = ap.parse_args(argv)
+    if args.p26_worker:
+        p26_worker(*args.p26_worker)
+        return
     t_start = time.perf_counter()
-    every = set(range(26))
+    every = set(range(27))
     run_ = every if args.phases is None else \
         {0} | {int(x) for x in args.phases.split(",")}
     if 11 in run_:
@@ -5821,15 +6323,19 @@ def main(argv=None):
     if run_ & {16, 18, 19, 22, 25}:
         run_.add(15)         # phases 16, 18, 19, 22, 25 read phase 15's
         #                      artifacts
+    if 26 in run_:
+        run_.add(1)          # phase 26's processes load phase 1's builds
     smi = phase0()
     rows, launches, med_s, serve = {}, {}, 0.0, None
     bwd_rows, inject_row, train_launches, inject_launches = {}, {}, {}, 0
     if 1 in run_:
         phase1()
+        lap(t_start, "1")
     if 2 in run_:
         rows = phase2(smi)
     if 3 in run_:
         launches, med_s, serve = phase3(smi)
+        lap(t_start, "2-3")
     if rows and launches:
         per_call = {key: sum(rows[n][key] * launches[n] for n in launches)
                     for key in ("ms", "library_ms", "bound_ms")}
@@ -5847,6 +6353,7 @@ def main(argv=None):
         inject_row = phase6(smi)
     if 7 in run_:
         phase7()
+        lap(t_start, "4-7")
     s1_rows, s1_launches, s1_kept = {}, {}, {}
     if 12 in run_:
         s1_rows = phase12(smi)
@@ -5854,10 +6361,12 @@ def main(argv=None):
         phase13()
     if 14 in run_:
         s1_launches, s1_kept = phase14(smi)
+        lap(t_start, "12-14")
     step_rate = None
     if 8 in run_:
         train_launches, inject_launches, ppft_kept = phase8(smi)
         step_rate = TRAIN_BATCH / ppft_kept[1]
+        lap(t_start, "8")
     proto_launches, s3_rows, s3_launches, s3_kept = {}, {}, {}, []
     dist_launches, s21_rows, f32_rows = {}, {}, {}
     fid_launches, ds_launches, vit_rows = {}, {}, {}
@@ -5865,44 +6374,56 @@ def main(argv=None):
         with tempfile.TemporaryDirectory(prefix="aqualora_chain_") as tmp:
             out_dir, dpms_s, s1_file, image = phase15(
                 smi, med_s if 3 in run_ else None, tmp)
+            lap(t_start, "15")
             if 16 in run_:
                 proto_launches = phase16(smi, out_dir, tmp, dpms_s)
+                lap(t_start, "16")
             if 18 in run_:
                 phase18b(tmp)
                 s3_launches, s3_tr = phase18c(smi, tmp, s1_file, out_dir,
                                               image)
                 s3_kept = phase18d(smi, s3_tr, s1_file, out_dir, tmp)
                 del s3_tr
+                lap(t_start, "18b-d")
             if 19 in run_:
                 torch.cuda.empty_cache()
                 dist_launches = phase19d(smi, out_dir, tmp)
+                lap(t_start, "19d")
             if 22 in run_:
                 torch.cuda.empty_cache()
                 fid_launches = phase22d(smi, out_dir, tmp)
                 ds_launches = phase22e(smi, out_dir)
+                lap(t_start, "22d-e")
             if 25 in run_:
                 torch.cuda.empty_cache()
                 phase25_demo(smi, out_dir, tmp)
+            lap(t_start, "25e")
     if 17 in run_:
         phase17(smi)
+        lap(t_start, "17")
     if 18 in run_:
         s3_rows = phase18a(smi)
+        lap(t_start, "18a")
     if 19 in run_:
         s21_rows = phase19a(smi)
         phase19b()
         phase19c(smi)
         f32_rows = phase19e(smi)
+        lap(t_start, "19a-c, 19e")
     if 20 in run_:
         p20_tmp = tempfile.TemporaryDirectory(prefix="aqualora_data_")
         p20_kept = phase20(smi, p20_tmp.name, step_rate)
+        lap(t_start, "20")
     if 21 in run_:
         with tempfile.TemporaryDirectory(prefix="aqualora_flags_") as tmp:
             p21_opt = phase21(smi, tmp, step_rate)
+            lap(t_start, "21")
     if 22 in run_:
         vit_rows = phase22a(smi)
         with tempfile.TemporaryDirectory(prefix="aqualora_fid_") as tmp:
             phase22b(smi, tmp)
         phase22c(smi)
+        lap(t_start, "22a-c")
     sd21_768_rows, sd21_768_launches = {}, {}
     if 23 in run_:
         torch.cuda.empty_cache()
@@ -5910,6 +6431,7 @@ def main(argv=None):
         phase23b(smi)
         sd21_768_launches = phase23c(smi)
         torch.cuda.empty_cache()
+        lap(t_start, "23")
     p24_rows, p24_shapes = {}, {}
     if 24 in run_:
         t24 = time.perf_counter()
@@ -5921,10 +6443,12 @@ def main(argv=None):
         torch.cuda.empty_cache()
         print(f"[24] phase 24 (timed part) took "
               f"{time.perf_counter() - t24:.1f} s | {smi}", flush=True)
+        lap(t_start, "24")
     p25, p25_launches, p25_errs = None, {}, {}
     if 25 in run_:
         torch.cuda.empty_cache()
         p25, p25_launches, p25_errs, p25_s = phase25(smi)
+        lap(t_start, "25a-d")
     # the profiled phases: the short sessions first, then the profiles of
     # whole steps and of the generate call (see the docstring)
     if 6 in run_:
@@ -5945,29 +6469,40 @@ def main(argv=None):
         phase23a_profile(smi, sd21_768_rows)
     if 24 in run_:
         phase24a_profile(smi, p24_rows, p24_shapes)
+        lap(t_start, "the short profiled sessions")
     if 8 in run_:
         profile_step(*ppft_kept, smi)
         del ppft_kept
         torch.cuda.empty_cache()
+        lap(t_start, "8's profile")
     if 14 in run_:
         phase14_profile(smi, s1_kept)
+        lap(t_start, "14's profile")
     if 18 in run_:
         phase18_profile(smi, s3_kept)
         del s3_kept
         torch.cuda.empty_cache()
+        lap(t_start, "18's profile")
     if 20 in run_:
         phase20_profile(smi, p20_kept)
         p20_tmp.cleanup()
+        lap(t_start, "20's profile")
     if 21 in run_:
         phase21_profile(smi, p21_opt)
         del p21_opt
         torch.cuda.empty_cache()
+        lap(t_start, "21's profile")
     if 11 in run_:
         phase11(smi, serve, med_s)
+        lap(t_start, "11")
     if 25 in run_:
         phase25_profile(smi, p25, p25_s)
         del p25
         torch.cuda.empty_cache()
+        lap(t_start, "25f")
+    if 26 in run_:
+        with tempfile.TemporaryDirectory(prefix="aqualora_dist_") as tmp:
+            phase26(smi, tmp)
     print(f"[end] phases {sorted(run_)} took "
           f"{time.perf_counter() - t_start:.1f} s of the script's run | "
           f"{smi}", flush=True)

@@ -45,14 +45,14 @@ def _pretrain_file(path):
 def test_every_jax_option_parses_and_only_five_are_refused():
     """Every option string of JAX's PPFT parser parses in the port's, with
     a value of its type; `refuse_unported` then raises NotImplementedError
-    naming the flag for the three flags still refused, --fsdp,
-    --dataset_name and --dataset_config_name, only (--teacher_int8 and
-    --int8_gen pass since the w8a8 port).  `--attention_impl` sdpa and xla are
+    naming the flag for the two flags still refused, --dataset_name and
+    --dataset_config_name, only (--teacher_int8 and --int8_gen pass since
+    the w8a8 port, --fsdp since the parallelism's).  `--attention_impl` sdpa and xla are
     refused as the one attention path's; auto and flash pass."""
     from aqualora_torch.train import ppft_train as pt
     from aqualora_tpu.train import ppft_train as jt
 
-    refused = {"--fsdp", "--dataset_name", "--dataset_config_name"}
+    refused = {"--dataset_name", "--dataset_config_name"}
     port = pt.build_argparser()
     seen = set()
     for action in jt.build_argparser()._actions:
@@ -67,7 +67,7 @@ def test_every_jax_option_parses_and_only_five_are_refused():
                     pt.refuse_unported(args)
             else:
                 pt.refuse_unported(args)
-    assert refused <= seen
+    assert refused <= seen and "--fsdp" in seen
     ours = {o for a in port._actions for o in a.option_strings}
     assert ours - seen == {"-h", "--help", "--device"}
     for impl in ("sdpa", "xla"):
@@ -77,11 +77,15 @@ def test_every_jax_option_parses_and_only_five_are_refused():
 
 
 def test_every_jax_stage1_option_parses_and_only_fsdp_is_refused():
-    """The same for stage 1's parser: only --fsdp is refused."""
+    """The same for stage 1's parser.  --fsdp, the one flag it refused,
+    has been ported with the parallelism: every option parses to JAX's
+    destination and none is refused (`--fsdp` sets `args.fsdp`; its effect
+    under torchrun is tests/test_torch_port_parallel.py's)."""
     from aqualora_torch.train import latent_wm_pretrain as s1
     from aqualora_tpu.train import latent_wm_pretrain as js1
 
     port = s1.build_argparser()
+    assert not hasattr(s1, "refuse_unported")
     seen = set()
     for action in js1.build_argparser()._actions:
         for opt in action.option_strings:
@@ -89,13 +93,10 @@ def test_every_jax_stage1_option_parses_and_only_fsdp_is_refused():
                 continue
             seen.add(opt)
             args = port.parse_args([opt] + _value(action))
-            if opt == "--fsdp":
-                with pytest.raises(NotImplementedError, match="--fsdp"):
-                    s1.refuse_unported(args)
-            else:
-                s1.refuse_unported(args)
+            assert hasattr(args, action.dest), opt
     ours = {o for a in port._actions for o in a.option_strings}
     assert "--fsdp" in seen and ours - seen == {"-h", "--help", "--device"}
+    assert port.parse_args(["--fsdp"]).fsdp is True
 
 
 def _value(action) -> list:

@@ -631,3 +631,51 @@ def test_int8_unet_card_matches_cpu():
         card = unet(x.cuda(), t.cuda(), ctx.cuda()).cpu()
     assert quant.conv_launches.count - before == len(keys)
     assert (card - cpu).abs().max() <= 5e-2 * cpu.abs().max()
+
+
+@pytest.fixture(scope="module")
+def one_rank_nccl_steps():
+    """Two tiny PPFT steps in a process of its own, holding a one-rank NCCL
+    group (file rendezvous): unwrapped (twice), data parallel and under
+    `--fsdp`'s layout (`aqualora_torch.parallel.dryrun.card_step_worker`)."""
+    import os
+    import tempfile
+
+    from aqualora_torch.parallel import dryrun
+    _need_cuda()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "steps.pt")
+        dryrun.spawn(dryrun.card_step_worker, 1, out, timeout=600)
+        return torch.load(out, weights_only=False)
+
+
+def _max_gap(a, b):
+    return max(float((a[n] - p).abs().max()) for n, p in b.items())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["dp", "fsdp"])
+def test_step_in_a_one_rank_nccl_group_matches_the_unwrapped_step(
+        one_rank_nccl_steps, mode):
+    """Data parallelism at world size 1 over NCCL (the gradients
+    all-reduced and divided by 1) and `--fsdp`'s layout (FSDP2 gathers and
+    frees each frozen tower, ZeRO-1 holds the moments) against the
+    unwrapped steps: the first loss bit for bit (a forward, deterministic
+    on the card), then the weights after two updates to float32 noise.
+    Not bit for bit: the unwrapped trainer run twice differs too (the
+    nearest upsample's backward sums with atomics), and FSDP2's backward
+    hooks reorder autograd's sums over a tensor's consumers; PERF.md
+    records the differences the card gave."""
+    r = one_rank_nccl_steps
+    got, ref, again = r[mode], r["unwrapped"], r["again"]
+    assert r["backend"] == "nccl"
+    assert got["loss"][0] == ref["loss"][0] == again["loss"][0]
+    assert ref["loss"][0] > 0
+    assert abs(got["loss"][1] - ref["loss"][1]) <= 1e-5 * ref["loss"][1]
+    print(f"{mode} against unwrapped after two steps: max |d| "
+          f"{_max_gap(got['params'], ref['params']):.3e} (unwrapped twice: "
+          f"{_max_gap(again['params'], ref['params']):.3e}), losses "
+          f"{got['loss']}, {ref['loss']} and {again['loss']}")
+    for name, p in ref["params"].items():
+        torch.testing.assert_close(got["params"][name], p, rtol=1e-5,
+                                   atol=1e-6, msg=name)

@@ -822,8 +822,10 @@ def test_stage1_cli_runs_on_cpu(tmp_path, monkeypatch, capsys):
 
 
 def test_stage1_cli_defaults_and_refusals():
-    """`--device` defaults to cuda; the one flag not ported (`--fsdp`) is
-    refused, never ignored, and the others build a trainer (they are held
+    """`--device` defaults to cuda; `--fsdp` in a world of one process
+    changes nothing, as in JAX (the sharded runs are
+    tests/test_torch_port_parallel.py's), and the other flags build a
+    trainer (they are held
     in tests/test_torch_port_stage1_flags.py); a VAE directory that does
     not exist is refused (the loader is held against JAX's in
     tests/test_torch_port_artifacts.py); a dataset path that is not a directory raises rather than training on
@@ -834,9 +836,9 @@ def test_stage1_cli_defaults_and_refusals():
     args = tt.build_argparser().parse_args([])
     assert args.device == "cuda" and args.batch_size == 5
     assert args.mixed_precision == "no"
-    with pytest.raises(NotImplementedError, match="--fsdp"):
-        tt.build_trainer(tt.build_argparser().parse_args(
-            ["--tiny", "--device", "cpu", "--fsdp"]))
+    tr = tt.build_trainer(tt.build_argparser().parse_args(
+        ["--tiny", "--device", "cpu", "--fsdp"]))
+    assert not tr.fsdp and tr.world.size == 1 and tr.group is None
     for extra in (["--resume_from_ckpt", "x"], ["--remat_lpips"],
                   ["--remat_vae_decode"], ["--report_to", "tensorboard"]):
         tt.build_trainer(tt.build_argparser().parse_args(

@@ -548,9 +548,9 @@ def test_stage3_cli_writes_a_msgdecoder_the_auditor_reads(tmp_path, capsys):
 
 def test_stage3_cli_defaults_and_refusals(tmp_path):
     """The parser has JAX's stage-3 defaults (PPFT's parser, lr 5e-6, 48
-    bits) and PPFT's checkpoint flags with JAX's defaults; `--fsdp` is
-    refused naming its ROADMAP item, and `--dataset_name` and
-    `--dataset_config_name` naming the HF datasets path; a
+    bits) and PPFT's checkpoint flags with JAX's defaults; `--fsdp` in a
+    world of one process changes nothing, as in JAX; `--dataset_name` and
+    `--dataset_config_name` are refused naming the HF datasets path; a
     `--train_data_dir` that is not a directory raises; a run needs
     `--output_dir`.  `--int8_gen` runs: every conv site of the U-Net holds
     int8 codes before the first step, the LoRA sites keep their LoRA."""
@@ -565,8 +565,9 @@ def test_stage3_cli_defaults_and_refusals(tmp_path):
         "cuda", "no", 500)
     assert "--output_dir is required" in s3.build_argparser().format_help()
     base = ["--tiny", "--device", "cpu", "--output_dir", str(tmp_path)]
-    for flag, item in (("--fsdp", "A.9"),
-                       ("--dataset_name=n", "HF datasets"),
+    assert not s3.build_trainer(s3.build_argparser().parse_args(
+        base + ["--fsdp"])).fsdp
+    for flag, item in (("--dataset_name=n", "HF datasets"),
                        ("--dataset_config_name=c", "HF datasets")):
         with pytest.raises(NotImplementedError, match=item):
             s3.run(s3.build_argparser().parse_args(base + [flag]))

@@ -25,13 +25,23 @@
 //   - YCbCr -> RGB (jdcolor.c, `build_ycc_rgb_table`); one component is
 //     grey, replicated to RGB as PIL's convert("RGB") does; three
 //     components are RGB or YCbCr by libjpeg's rule (JFIF, then the Adobe
-//     transform, then the component ids).
+//     transform, then the component ids);
+//   - four components, which the JAX native loader's libjpeg cannot turn
+//     into RGB (the JAX dataset then reads the batch with PIL): CMYK or
+//     YCCK by libjpeg's rule (`default_decompress_parms`: Adobe transform
+//     0 is CMYK, any other YCCK, no Adobe marker CMYK), YCCK -> CMYK as
+//     libjpeg's `ycck_cmyk_convert` (the YCbCr tables, then 255 minus each,
+//     K as stored), then what PIL's `convert("RGB")` makes of it: Pillow
+//     reads a four-component JPEG as "CMYK;I" (every byte inverted, the
+//     Adobe convention) and converts CMYK with `cmyk2rgb` (Convert.c):
+//     with nk = 255 - K, each of R, G, B = nk - (C * nk) / 255 rounded as
+//     its MULDIV255.
 //
 // Refused with the feature's name: arithmetic coding (SOF9-15, DAC),
 // lossless (SOF3), hierarchical (SOF5-7, DHP, EXP), DNL, 12-bit precision,
-// four components (Adobe CMYK and YCCK), two components, sampling factors
-// above 2, and progressive files whose scans leave coefficients
-// unfinished (libjpeg would smooth those blocks).  Where libjpeg only
+// two components, sampling factors above 2, and progressive files whose
+// scans leave coefficients unfinished (libjpeg would smooth those
+// blocks).  Where libjpeg only
 // warns and goes on (a bad Huffman code, data past a segment's end, a
 // missing restart marker, a file cut before EOI), this decoder fails.
 // Every read is bounds-checked; a corrupt file returns an error and never
@@ -294,7 +304,8 @@ struct Component {
   std::vector<int16_t> coef;  // [bh][bw][64], natural order
 };
 
-enum ColorSpace { kGrey = 0, kYCbCr = 1, kRGB = 2 };
+enum ColorSpace { kGrey = 0, kYCbCr = 1, kRGB = 2, kCMYK = 3, kYCCK = 4 };
+constexpr int kMaxComponents = 4;
 
 // The markers of the processes this decoder does not implement.
 void refuse_marker(int m) {
@@ -316,7 +327,7 @@ struct Jpeg {
   bool frame = false, progressive = false, scanned = false;
   int width = 0, height = 0, ncomp = 0, hmax = 1, vmax = 1;
   int mcus_x = 0, mcus_y = 0;
-  Component comp[3];
+  Component comp[kMaxComponents];
   int quant[4][64] = {};
   bool quant_defined[4] = {};
   HuffTable dc[4], ac[4];
@@ -416,8 +427,7 @@ struct Jpeg {
       fail("refused: sample precision " + std::to_string(precision));
     if (height == 0) fail("refused: DNL (the height defined after the scan)");
     if (width == 0) fail("corrupt SOF: width 0");
-    if (ncomp == 4) fail("refused: four components (CMYK or YCCK)");
-    if (ncomp != 1 && ncomp != 3)
+    if (ncomp != 1 && ncomp != 3 && ncomp != 4)
       fail("refused: " + std::to_string(ncomp) + " components");
     if (end - pos != size_t(3 * ncomp)) fail("corrupt SOF length");
     if (int64_t(width) * height > kMaxPixels)
@@ -454,10 +464,13 @@ struct Jpeg {
   }
 
   // default_decompress_parms (jdapimin.c), at the first SOS as libjpeg
-  // decides it: JFIF means YCbCr, else the Adobe transform, else the ids
+  // decides it: JFIF means YCbCr, else the Adobe transform, else the ids;
+  // four components are CMYK or YCCK by the Adobe transform alone
   void decide_color() {
     if (ncomp == 1) {
       color = kGrey;
+    } else if (ncomp == 4) {
+      color = adobe && adobe_transform != 0 ? kYCCK : kCMYK;
     } else if (jfif) {
       color = kYCbCr;
     } else if (adobe) {
@@ -594,7 +607,7 @@ struct Jpeg {
     const int ns = byte();
     if (ns < 1 || ns > ncomp) fail("corrupt SOS: component count");
     if (end - pos != size_t(2 * ns + 3)) fail("corrupt SOS length");
-    int idx[3], td[3], ta[3];
+    int idx[kMaxComponents], td[kMaxComponents], ta[kMaxComponents];
     for (int j = 0; j < ns; ++j) {
       const int id = byte();
       const int t = byte();
@@ -985,7 +998,7 @@ inline uint8_t clamp255(int v) {
 
 void to_rgb(Jpeg& j, Image* out) {
   const int W = j.width, H = j.height;
-  std::vector<uint8_t> planes[3];
+  std::vector<uint8_t> planes[kMaxComponents];
   for (int c = 0; c < j.ncomp; ++c) {
     const std::vector<uint8_t> p = component_plane(j.comp[c]);
     planes[c] = upsample(p, size_t(j.comp[c].bw) * 8, j.comp[c], j.hmax,
@@ -1002,6 +1015,23 @@ void to_rgb(Jpeg& j, Image* out) {
   } else if (j.color == kRGB) {
     for (size_t i = 0; i < n; ++i)
       for (int c = 0; c < 3; ++c) o[3 * i + c] = planes[c][i];
+  } else if (j.color == kCMYK || j.color == kYCCK) {
+    static const YccTables t;
+    for (size_t i = 0; i < n; ++i) {
+      int cmy[3] = {planes[0][i], planes[1][i], planes[2][i]};
+      if (j.color == kYCCK) {  // ycck_cmyk_convert
+        const int y = cmy[0], cb = cmy[1], cr = cmy[2];
+        cmy[0] = clamp255(255 - (y + t.cr_r[cr]));
+        cmy[1] = clamp255(255 - (y + int((t.cb_g[cb] + t.cr_g[cr]) >> 16)));
+        cmy[2] = clamp255(255 - (y + t.cb_b[cb]));
+      }
+      // PIL: "CMYK;I" inverts every byte, then cmyk2rgb with nk = 255 - K'
+      const int nk = planes[3][i];
+      for (int c = 0; c < 3; ++c) {
+        const int tmp = (255 - cmy[c]) * nk + 128;
+        o[3 * i + c] = clamp255(nk - (((tmp >> 8) + tmp) >> 8));
+      }
+    }
   } else {
     static const YccTables t;
     for (size_t i = 0; i < n; ++i) {
@@ -1145,7 +1175,7 @@ int guarded(char* err, int errlen, F body) {
 extern "C" {
 
 // info[0..7]: width, height, components, colour space (0 grey, 1 YCbCr,
-// 2 RGB), progressive, hmax, vmax, 0; then for each component c at 8 + 6c:
+// 2 RGB, 3 CMYK, 4 YCCK), progressive, hmax, vmax, 0; then for each component c at 8 + 6c:
 // h, v, blocks across and down (the MCU grid's), samples across and down.
 int decode_header(const uint8_t* data, size_t len, int32_t* info, char* err,
                   int errlen) {

@@ -354,8 +354,10 @@ def decode_from_coefficients(blocks, quant, sampling, size,
     blocks: per component [blocks down, blocks across, 8, 8] (the MCU
     grid's), natural order; quant: [components, 8, 8], each component's
     table; sampling: per component (h, v), at most 2; size: (width,
-    height); color: "grey", "ycbcr" or "rgb".  Computed on the device of
-    the first block tensor (numpy arrays: the CPU)."""
+    height); color: "grey", "ycbcr", "rgb", "cmyk" or "ycck" (four
+    components, as PIL's `convert("RGB")` gives them: `_pil_cmyk_to_rgb`).
+    Computed on the device of the first block tensor (numpy arrays: the
+    CPU)."""
     width, height = size
     hmax = max(h for h, _ in sampling)
     vmax = max(v for _, v in sampling)
@@ -373,4 +375,21 @@ def decode_from_coefficients(blocks, quant, sampling, size,
             height, width, 3).contiguous()
     if color == "rgb":
         return torch.stack(planes, -1).to(torch.uint8)
+    if color == "cmyk":
+        return _pil_cmyk_to_rgb(255 - torch.stack(planes[:3], -1), planes[3])
+    if color == "ycck":
+        # libjpeg's ycck_cmyk_convert gives 255 minus the YCbCr tables'
+        # clamped RGB, which Pillow's inversion turns back
+        return _pil_cmyk_to_rgb(_ycc_to_rgb(*planes[:3]).to(torch.int64),
+                                planes[3])
     return _ycc_to_rgb(*planes)
+
+
+def _pil_cmyk_to_rgb(inverted: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Pillow's RGB of libjpeg's CMYK output: Pillow reads it as "CMYK;I"
+    (every byte inverted: `inverted` is 255 - C, M, Y, [H, W, 3] int64, and
+    its K is 255 - k), then `cmyk2rgb` (Convert.c): with nk = 255 - its K
+    = k, each channel nk - MULDIV255(channel, nk), clipped."""
+    nk = k[..., None]
+    tmp = inverted * nk + 128
+    return (nk - (((tmp >> 8) + tmp) >> 8)).clamp(0, 255).to(torch.uint8)

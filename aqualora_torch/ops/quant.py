@@ -308,6 +308,59 @@ def int8_dense(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
     return y.reshape(*lead, wq.shape[0])
 
 
+# -- the pieces of int8_dense that tensor parallelism splits -----------------
+# 127^2 * 1024 < 2^24: a sum of 1024 products of two codes is an integer that
+# float32 holds exactly
+ACC_EXACT_K = 1024
+
+
+def quantize_rows_at(x: torch.Tensor, absmax: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [rows, k] (float32 or bfloat16) and a per-row absmax [rows] at
+    least each row's own -> (int8 codes [rows, k], float32 scale [rows]):
+    the codes `int8_dense` gives these features of a wider row whose absmax
+    is `absmax` (a row-parallel site's, whose rows are split across
+    ranks).  The quantizer takes its scale from a row's absmax, so each row
+    is given one more feature holding `absmax` (a value of x's type, since
+    it is one of the wider row's), whose code is dropped after: no code of
+    x changes."""
+    aug = torch.cat([x, absmax.to(x.dtype)[:, None]], dim=1)
+    codes, scale = quantize_activations(aug.reshape(*aug.shape, 1, 1))
+    return codes.reshape(aug.shape)[:, :-1].contiguous(), scale
+
+
+def dense_accumulator(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """int8 codes xq [rows, k] times int8 codes wq [out, k] -> the exact
+    int32 sums [rows, out], before any scale: `int8_dense`'s accumulator,
+    which a row-parallel site sums across ranks.  The convolution at unit
+    scales writes float32, which holds the sum exactly over at most
+    ACC_EXACT_K features: k is taken in such chunks (one launch each on
+    the card), their sums added in int32."""
+    rows, out = xq.shape[0], wq.shape[0]
+    ones_x = torch.ones(rows, device=xq.device)
+    ones_w = torch.ones(out, device=wq.device)
+    acc = None
+    for k0 in range(0, xq.shape[1], ACC_EXACT_K):
+        part = conv_codes(
+            xq[:, k0:k0 + ACC_EXACT_K].contiguous()[:, :, None, None],
+            ones_x,
+            wq[:, k0:k0 + ACC_EXACT_K].contiguous()[:, :, None, None],
+            ones_w, out_dtype=torch.float32)
+        part = part.reshape(rows, out).to(torch.int32)
+        acc = part if acc is None else acc + part
+    return acc
+
+
+def dense_epilogue(acc: torch.Tensor, xs: torch.Tensor, ws: torch.Tensor,
+                   bias: Optional[torch.Tensor],
+                   out_dtype: torch.dtype) -> torch.Tensor:
+    """`int8_dense`'s epilogue on an int32 accumulator [rows, out]:
+    ((float32(acc) * xs) * ws) -> out_dtype, + bias in out_dtype, as the
+    kernel computes it."""
+    return _epilogue(acc[:, :, None, None], xs, ws, bias,
+                     out_dtype).reshape(acc.shape)
+
+
 # -- int8 attention ----------------------------------------------------------
 def _row_codes(x: torch.Tensor, dim: int
                ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -30,6 +30,19 @@ and `RowwiseParallel` do not fit, for three reasons the port handles:
   and its diagonal act on the same elements as in the unsharded step, and
   every replicated tensor (LoRA, mapper, the residual stream) gets its
   whole gradient on every rank: no gradient needs reducing over `model`.
+
+An int8 site (`ops/quant.py`: int8 codes in `weight`, float32
+`weight_scale`) is sharded as JAX shards it, the codes as the weight and
+the scale with them where it is per output (a column site's rows of both)
+and whole where it is not (a row site's).  At a row site the product is
+split along its input features, and `int8_dense` quantizes each row with
+one scale from the absmax of the whole row: the site takes the local
+absmax and max-reduces it over the model group (the reduction GSPMD
+inserts in JAX) before it quantizes its columns at that scale
+(`quant.quantize_rows_at`), sums the exact int32 accumulators over the
+group (`quant.dense_accumulator`), and only then applies the scales and
+the bias (`quant.dense_epilogue`), so each rank's output is the unsharded
+site's bit for bit.  The int8 path is forward-only, as the unsharded one.
 """
 
 from __future__ import annotations
@@ -43,6 +56,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor.parallel import ParallelStyle
 
 from aqualora_torch.core.sharding import MODEL_AXIS
+from aqualora_torch.ops import quant
 
 Spec = Tuple[Optional[str], ...]
 COLUMN: Spec = (MODEL_AXIS, None)
@@ -164,24 +178,35 @@ class _GatherFromModel(torch.autograd.Function):
 # the styles
 # ---------------------------------------------------------------------------
 
+def _int8(m: nn.Module) -> bool:
+    return m.weight.dtype == torch.int8
+
+
+def row_absmax(x: torch.Tensor, group) -> torch.Tensor:
+    """Each row of x [rows, k_local]'s absmax over all the input features:
+    the local absmax, max-reduced over the model group (float32: exact for
+    a float32 or bfloat16 x)."""
+    a = x.detach().abs().amax(dim=-1).float()
+    dist.all_reduce(a, op=dist.ReduceOp.MAX, group=group)
+    return a
+
+
 class _TPSite:
     """What a sharded `LoRALinear` runs instead of its own forward."""
 
     def __init__(self, group, rank: int, tp: int, chunks: int = 1):
         self.group, self.rank, self.tp, self.chunks = group, rank, tp, chunks
 
-    def _check(self, m: nn.Module) -> None:
-        if m.weight.dtype == torch.int8:
-            raise NotImplementedError("tensor parallelism of an int8 site")
-
 
 class _ColumnSite(_TPSite):
     def __call__(self, m, x, scale):
-        self._check(m)
         bias = (None if m.bias is None else
                 _take(m.bias, self.rank, self.tp, self.chunks))
-        y = F.linear(_CopyToModel.apply(x, self.group), m.weight.to(x.dtype),
-                     bias)
+        xin = _CopyToModel.apply(x, self.group)
+        if _int8(m):
+            y = quant.int8_dense(xin, m.weight, m.weight_scale, bias)
+        else:
+            y = F.linear(xin, m.weight.to(x.dtype), bias)
         if m.lora is not None and scale is not None:
             y = y + _ScatterToModel.apply(m._delta(x, scale), self.group,
                                           self.rank, self.tp, self.chunks)
@@ -190,15 +215,27 @@ class _ColumnSite(_TPSite):
 
 class _RowSite(_TPSite):
     def __call__(self, m, x, scale):
-        self._check(m)
-        y = _ReduceFromModel.apply(F.linear(x, m.weight.to(x.dtype)),
-                                   self.group)
-        if m.bias is not None:
-            y = y + m.bias.to(y.dtype)
+        if _int8(m):
+            y = self._int8_product(m, x)
+        else:
+            y = _ReduceFromModel.apply(F.linear(x, m.weight.to(x.dtype)),
+                                       self.group)
+            if m.bias is not None:
+                y = y + m.bias.to(y.dtype)
         if m.lora is not None and scale is not None:
             full = _GatherFromModel.apply(x, self.group, self.rank, self.tp)
             y = y + m._delta(full, scale)
         return y
+
+    @torch.no_grad()
+    def _int8_product(self, m, x):
+        lead, k = x.shape[:-1], x.shape[-1]
+        rows = x.reshape(-1, k)
+        xq, xs = quant.quantize_rows_at(rows, row_absmax(rows, self.group))
+        acc = quant.dense_accumulator(xq, m.weight)
+        dist.all_reduce(acc, group=self.group)        # int32: exact
+        y = quant.dense_epilogue(acc, xs, m.weight_scale, m.bias, x.dtype)
+        return y.reshape(*lead, -1)
 
 
 def _check_site(module: nn.Module) -> None:
@@ -211,8 +248,9 @@ def _check_site(module: nn.Module) -> None:
 
 class LoRAColwiseParallel(ParallelStyle):
     """Column parallelism of a `LoRALinear`: this rank keeps its rows of
-    the weight ([out, in]), of each of `chunks` equal parts (2 for GEGLU's
-    hidden and gate); the LoRA stays whole."""
+    the weight ([out, in]; int8 codes with their `weight_scale`), of each
+    of `chunks` equal parts (2 for GEGLU's hidden and gate); the LoRA stays
+    whole."""
 
     def __init__(self, chunks: int = 1):
         super().__init__()
@@ -227,6 +265,10 @@ class LoRAColwiseParallel(ParallelStyle):
                              f"into {self.chunks} x {tp}")
         local = _take(w.t(), rank, tp, self.chunks).t().contiguous()
         module.weight = nn.Parameter(local, requires_grad=False)
+        if _int8(module):          # the scale is per output: its rows too
+            module.weight_scale = nn.Parameter(_take(
+                module.weight_scale.detach(), rank, tp, self.chunks),
+                requires_grad=False)
         module.tp_site = _ColumnSite(device_mesh.get_group(), rank, tp,
                                      self.chunks)
         return module
@@ -234,7 +276,8 @@ class LoRAColwiseParallel(ParallelStyle):
 
 class LoRARowwiseParallel(ParallelStyle):
     """Row parallelism of a `LoRALinear`: this rank keeps its columns of
-    the weight; the bias and the LoRA stay whole."""
+    the weight (int8 codes too); the bias, an int8 site's `weight_scale`
+    and the LoRA stay whole."""
 
     def _apply(self, module: nn.Module, device_mesh) -> nn.Module:
         _check_site(module)

@@ -17,6 +17,16 @@ that writes PNGs and prints the decoded bits:
 The folder is a PPFT output (`pytorch_lora_weights.safetensors`,
 `mapper.safetensors`, `msgdecoder.pt`).  Runs on the CUDA card unless
 --device says otherwise.
+
+Under `torchrun` (`core/sharding.init_distributed`, as the eval runners)
+each rank generates and decodes its rows of the batch, so the images and
+bits equal one process's at the batch per rank; the world size must divide
+the batch (one image, or one a comma-separated secret) and the decoder's
+16, else a ValueError before any image.  Each rank writes its own rows'
+PNGs; rank 0 prints:
+
+    torchrun --nproc_per_node 2 -m aqualora_torch.run_demo --tiny \\
+        --device cpu --aqualora_folder DIR --secret ,
 """
 
 from __future__ import annotations
@@ -26,7 +36,9 @@ import os
 
 import numpy as np
 
-from aqualora_torch.eval.utils_eval import simple_decode, simple_sample
+from aqualora_torch.core import sharding
+from aqualora_torch.eval.utils_eval import (DECODE_BATCH, simple_decode,
+                                            simple_sample)
 from aqualora_torch.tools.create_wm_lora import create_watermark_lora
 from aqualora_torch.train.ppft_train import MSGDECODER_FILE
 
@@ -36,10 +48,13 @@ def process(src_model: str | None, aqualora_folder: str, secret: str,
             cfg: float = 7.5, seed: int = 0, msg_bits: int = 48,
             msgdecoder_path: str | None = None, resolution: int = 512,
             output_dir: str | None = None, int8=False,
-            config=None, backbone=None, device: str = "cuda"):
+            config=None, backbone=None, device: str = "cuda",
+            batch_size: int | None = None):
     """-> (images as HWC uint8 arrays, the embedded bitstring (a list of
     them for comma-separated secrets), the decoded bitstrings or None when
-    no decoder is found)."""
+    no decoder is found).  The images go through the pipeline in batches of
+    `batch_size`, by default all in one (across the ranks under
+    `torchrun`)."""
     if secret and "," in secret:
         # comma-separated secrets: ONE batch, a distinct watermark per
         # image via the per-sample diag path (simple_sample messages=...).
@@ -55,7 +70,7 @@ def process(src_model: str | None, aqualora_folder: str, secret: str,
                                output_dir=output_dir,
                                num_inference_steps=steps,
                                guidance_scale=cfg,
-                               batch_size=len(bitstring),
+                               batch_size=batch_size or len(bitstring),
                                resolution=resolution,
                                negative_prompt=negative_prompt, int8=int8,
                                config=config, device=device)
@@ -87,7 +102,19 @@ def process(src_model: str | None, aqualora_folder: str, secret: str,
     return images, bitstring, decoded
 
 
+def batch_size(secret: str) -> int:
+    """The demo's batch: one image, or one for each comma-separated
+    secret."""
+    return len(secret.split(",")) if secret and "," in secret else 1
+
+
 def main_cli(args):
+    world = sharding.init_distributed(args.device)
+    args.device = world.device
+    sharding.check_world_divides(batch_size(args.secret), world.size,
+                                 "the demo's batch")
+    sharding.check_world_divides(DECODE_BATCH, world.size,
+                                 "the decoder's batch")
     config = backbone = None
     if getattr(args, "tiny", False):
         # same smoke-scale plumbing as every eval runner: tiny pipeline
@@ -106,13 +133,14 @@ def main_cli(args):
         args.msg_bits, args.msgdecoder_path, args.resolution,
         args.output_dir, int8=args.int8, config=config, backbone=backbone,
         device=args.device)
-    print(f"embedded secret: {bitstring}")
+    sharding.say(f"embedded secret: {bitstring}")
     if decoded:
         for i, d in enumerate(decoded):
             gt = bitstring[i] if isinstance(bitstring, list) else bitstring
             acc = np.mean([a == b for a, b in zip(d, gt)])
-            print(f"image {i}: decoded {d} (bit acc {acc:.3f})")
-    print(f"saved {len(images)} image(s) to {args.output_dir}")
+            sharding.say(f"image {i}: decoded {d} (bit acc {acc:.3f})")
+    sharding.say(f"saved {len(images)} image(s) to {args.output_dir}")
+    return images, bitstring, decoded
 
 
 def main_gradio(args):  # pragma: no cover - requires gradio
@@ -186,9 +214,9 @@ def main(argv=None):
             main_gradio(args)
         except ImportError:
             print("gradio not installed; falling back to CLI")
-            main_cli(args)
+            return main_cli(args)
     else:
-        main_cli(args)
+        return main_cli(args)
 
 
 if __name__ == "__main__":

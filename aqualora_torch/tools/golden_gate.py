@@ -30,6 +30,19 @@ full resolution (`eval/jpeg.py`).
 Generation and decoding run on `--device` (cuda unless asked for the CPU);
 the merge, the conversions and the file I/O run on the host.
 
+Under `torchrun` (`core/sharding.init_distributed`, as the eval runners)
+each rank generates and decodes its rows of every batch
+(`utils_eval.simple_sample`, `simple_decode`), so the results equal one
+process's at the batch per rank.  The world size must divide
+`--batch_size` and the decoder's batch of 16 (a ValueError before any
+image).  Rank 0 alone writes the synthetic release, the ported files, the
+merge workflow's two files, the trained decoder and golden_gate.json, and
+computes the FID smoke's Frechet distance; the ranks meet before any of
+them reads what rank 0 wrote.  Each rank writes the PNGs of its own rows.
+
+    torchrun --nproc_per_node 2 -m aqualora_torch.tools.golden_gate \\
+        --synthetic --tiny --via_merge --device cpu --out /tmp/gate2
+
     python -m aqualora_torch.tools.golden_gate --synthetic --tiny \\
         --via_merge --device cpu --out /tmp/gate
     python -m aqualora_torch.tools.golden_gate --synthetic --tiny \\
@@ -53,6 +66,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from aqualora_torch.core import sharding
 from aqualora_torch.core.config import EfficientNetConfig, PipelineConfig
 from aqualora_torch.core.io import load_safetensors, save_safetensors
 from aqualora_torch.eval import distortions
@@ -150,21 +164,25 @@ def merged_params_via_ldm(params: Params, lora: Dict[str, torch.Tensor],
     by itself.  The text encoder goes in under `text_model.` with the
     port's own names (no `embeddings.` / `encoder.`), as the JAX gate
     writes it (`scripts/golden_gate.py:122-124`)."""
-    unet_t = {k: v for k, v in params["unet"].items() if ".lora." not in k}
-    vae_t = dict(params["vae"])
-    te_t = {f"text_model.{k}": v for k, v in params["text_encoder"].items()}
-
-    # 1: the diffusers LoRA in the webui layout (diffusers_lora_to_webui.py)
-    webui_path = os.path.join(out_dir, "watermark.safetensors")
-    save_safetensors(lora_layouts.diffusers_to_webui(lora), webui_path)
-    # 2: merged into the SD states (merge_lora.py:80-127)
-    merge_lora.merge_lora_into_states(unet_t, te_t,
-                                      load_safetensors(webui_path))
-    # 3: the single-file LDM checkpoint on disk (merge_lora.py:130-179)
     merged_path = os.path.join(out_dir, "watermark_SDmodel.safetensors")
-    save_safetensors(ldm_convert.diffusers_to_ldm(unet_t, vae_t, te_t, v2=v2),
-                     merged_path)
-    del unet_t, vae_t, te_t
+    if sharding.is_main_process():       # rank 0 writes, every rank reads
+        unet_t = {k: v for k, v in params["unet"].items()
+                  if ".lora." not in k}
+        vae_t = dict(params["vae"])
+        te_t = {f"text_model.{k}": v
+                for k, v in params["text_encoder"].items()}
+        # 1: the diffusers LoRA in the webui layout
+        # (diffusers_lora_to_webui.py)
+        webui_path = os.path.join(out_dir, "watermark.safetensors")
+        save_safetensors(lora_layouts.diffusers_to_webui(lora), webui_path)
+        # 2: merged into the SD states (merge_lora.py:80-127)
+        merge_lora.merge_lora_into_states(unet_t, te_t,
+                                          load_safetensors(webui_path))
+        # 3: the single-file LDM checkpoint on disk (merge_lora.py:130-179)
+        save_safetensors(ldm_convert.diffusers_to_ldm(unet_t, vae_t, te_t,
+                                                      v2=v2), merged_path)
+        del unet_t, vae_t, te_t
+    sharding.barrier()
     # the consumer's side: LDM -> diffusers -> the port's modules
     u_new, v_new, t_new = ldm_convert.ldm_to_diffusers(
         load_safetensors(merged_path))
@@ -232,7 +250,8 @@ def train_tiny_decoder(steps: int, out_dir: str) -> tuple:
     """Stage 1 at the tiny config for `steps` steps on the CPU, in a
     subprocess (`latent_wm_pretrain --tiny --warmup 0`, batch 8, epochs
     sized so the steps run) whose torch uses this process's thread count;
-    -> (its SecretDecoder's state-dict file, its final bit accuracy)."""
+    -> (its SecretDecoder's state-dict file, its final bit accuracy).  Rank
+    0 trains; the other ranks read its files after the barrier."""
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, "msgdecoder.pt")
     acc_json = os.path.join(out_dir, "train_result.json")
@@ -253,7 +272,14 @@ def train_tiny_decoder(steps: int, out_dir: str) -> tuple:
         f"{path!r})\n"
         f"json.dump({{'final_acc': res['final_acc']}}, open({acc_json!r}, "
         "'w'))\n")
-    subprocess.run([sys.executable, "-c", script], check=True)
+    if sharding.is_main_process():
+        # a subprocess of its own: no torchrun variables, a world of 1
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK",
+                            "LOCAL_WORLD_SIZE", "MASTER_ADDR",
+                            "MASTER_PORT")}
+        subprocess.run([sys.executable, "-c", script], check=True, env=env)
+    sharding.barrier()
     with open(acc_json) as f:
         return path, float(json.load(f)["final_acc"])
 
@@ -293,14 +319,15 @@ def trained_decoder_leg(args, images, images_q) -> dict:
               "int8_delta_over_jpeg50": float(d_i8 / max(d_50, 1e-12)),
               # recorded, not asserted: a default-setting decision
               "demotion_rule_met": bool(d_i8 > d_50)}
-    print(f"int8[{args.int8}] trained-decoder leg: decoded-bit agreement "
-          f"vs bf16 {report['decode_agreement_vs_bf16']:.4f} over "
-          f"{len(images)} images (JPEG-q50 control "
-          f"{report['jpeg50_control_agreement']:.4f}, q95 "
-          f"{report['jpeg95_control_agreement']:.4f}; stage-1 "
-          f"{args.train_decoder_steps} steps, train acc {final_acc:.3f}); "
-          f"logit deltas int8 {d_i8:.4g}, JPEG-q50 {d_50:.4g}, q95 "
-          f"{d_95:.4g}")
+    sharding.say(f"int8[{args.int8}] trained-decoder leg: decoded-bit "
+                 f"agreement vs bf16 "
+                 f"{report['decode_agreement_vs_bf16']:.4f} over "
+                 f"{len(images)} images (JPEG-q50 control "
+                 f"{report['jpeg50_control_agreement']:.4f}, q95 "
+                 f"{report['jpeg95_control_agreement']:.4f}; stage-1 "
+                 f"{args.train_decoder_steps} steps, train acc "
+                 f"{final_acc:.3f}); logit deltas int8 {d_i8:.4g}, "
+                 f"JPEG-q50 {d_50:.4g}, q95 {d_95:.4g}")
     return report
 
 
@@ -324,13 +351,14 @@ def int8_leg(args, prompts, lora, params, images, decoded, marg_bf16,
               "n_images": len(images), "decode_agreement_vs_bf16": agree,
               "logit_sensitivity": sens}
     ds = sens["mean_delta_over_spread"]
-    print(f"int8[{args.int8}] serving: mean image diff {img_diff:.3f}/255, "
-          f"decoded-bit agreement vs bf16 {agree:.4f} over {len(images)} "
-          f"images, bit accuracy {acc_q:.4f} (bf16 {bit_acc:.4f}); margin "
-          f"delta mean {sens['int8_margin_delta_mean']:.4g} / max "
-          f"{sens['int8_margin_delta_max']:.4g} vs min margin "
-          f"{sens['min_abs_margin']:.4g}, delta/spread "
-          f"{f'{ds:.3f}' if ds is not None else 'n/a (zero spread)'}")
+    sharding.say(f"int8[{args.int8}] serving: mean image diff "
+                 f"{img_diff:.3f}/255, decoded-bit agreement vs bf16 "
+                 f"{agree:.4f} over {len(images)} images, bit accuracy "
+                 f"{acc_q:.4f} (bf16 {bit_acc:.4f}); margin delta mean "
+                 f"{sens['int8_margin_delta_mean']:.4g} / max "
+                 f"{sens['int8_margin_delta_max']:.4g} vs min margin "
+                 f"{sens['min_abs_margin']:.4g}, delta/spread "
+                 f"{f'{ds:.3f}' if ds is not None else 'n/a (zero spread)'}")
     if args.train_decoder_steps:
         report["trained_decoder"] = trained_decoder_leg(args, images,
                                                         images_q)
@@ -363,6 +391,11 @@ def check_int8(args, report: dict) -> None:
 
 
 def run(args) -> dict:
+    world = sharding.init_distributed(args.device)
+    args.device = world.device
+    sharding.check_world_divides(args.batch_size, world.size)
+    sharding.check_world_divides(utils_eval.DECODE_BATCH, world.size,
+                                 "the decoder's batch")
     if args.train_decoder_steps and not args.int8:
         # the trained-decoder leg measures the int8 agreement; without
         # --int8 it would never run
@@ -383,28 +416,32 @@ def run(args) -> dict:
         cfg = dataclasses.replace(cfg, watermark=dataclasses.replace(
             cfg.watermark, msg_bits=args.msg_bits))
 
+    main = sharding.is_main_process()
     os.makedirs(args.out, exist_ok=True)
     if args.synthetic:
         synth_dir = os.path.join(args.out, "reference_release")
-        synthetic_artifacts.synthesize_reference_artifacts(
-            synth_dir, msg_bits=args.msg_bits,
-            rank=cfg.unet.lora.rank if args.tiny else args.rank,
-            unet=cfg.unet, backbone=backbone, seed=args.seed)
+        if main:
+            synthetic_artifacts.synthesize_reference_artifacts(
+                synth_dir, msg_bits=args.msg_bits,
+                rank=cfg.unet.lora.rank if args.tiny else args.rank,
+                unet=cfg.unet, backbone=backbone, seed=args.seed)
+            print(f"synthesized reference-format artifacts in {synth_dir}")
         args.latentwm = os.path.join(synth_dir, "pretrained_latentwm.pth")
         args.train_folder = os.path.join(synth_dir, "ppft_trained")
-        print(f"synthesized reference-format artifacts in {synth_dir}")
 
     ported = os.path.join(args.out, "ported")
-    port_reference_artifacts.port(ported, latentwm=args.latentwm,
-                                  train_folder=args.train_folder,
-                                  backbone=backbone)
+    if main:
+        port_reference_artifacts.port(ported, latentwm=args.latentwm,
+                                      train_folder=args.train_folder,
+                                      backbone=backbone)
+    sharding.barrier()
     msgdecoder = os.path.join(ported, port_reference_artifacts.MSGDECODER_FILE)
 
     # fold the message (the demo's path, run_gradio_demo.py:16-19)
     bitstring, lora = create_wm_lora.create_watermark_lora(
         ported, scale=1.03, msg_bits=args.msg_bits, hidinfo=args.hidinfo,
         save=False, rng=np.random.default_rng(args.seed))
-    print(f"message: {bitstring} ({len(lora)} folded tensors)")
+    sharding.say(f"message: {bitstring} ({len(lora)} folded tensors)")
 
     # one base-weight set shared by the compared paths
     params = (base_params(cfg, args.sd_model, args.device)
@@ -421,10 +458,11 @@ def run(args) -> dict:
         args.sd_model if params is None else None, args.sampler, prompts,
         lora=lora, output_dir=os.path.join(args.out, "images"),
         params=params, **sample_kw)
-    print(f"generated {len(images)} images at {args.resolution}^2")
+    sharding.say(f"generated {len(images)} images at {args.resolution}^2")
     bit_acc, tpr, decoded, marg_bf16 = utils_eval.simple_decode(
         args.msg_bits, msgdecoder, images, return_margins=True, **decode_kw)
-    print(f"bit accuracy: {bit_acc:.4f}  TPR@FPR{args.fpr:g}: {tpr:.4f}")
+    sharding.say(f"bit accuracy: {bit_acc:.4f}  TPR@FPR{args.fpr:g}: "
+                 f"{tpr:.4f}")
 
     merge_img_diff = None
     if args.via_merge:
@@ -447,8 +485,9 @@ def run(args) -> dict:
                 f"diff {merge_img_diff:.2f}/255")
         acc_m, _, _ = utils_eval.simple_decode(args.msg_bits, msgdecoder,
                                                images_m, **decode_kw)
-        print(f"merge workflow: mean image diff {merge_img_diff:.3f}/255, "
-              f"bit accuracy {acc_m:.4f} (fold path {bit_acc:.4f}) OK")
+        sharding.say(f"merge workflow: mean image diff "
+                     f"{merge_img_diff:.3f}/255, bit accuracy {acc_m:.4f} "
+                     f"(fold path {bit_acc:.4f}) OK")
 
     int8_report = None
     if args.int8:
@@ -464,28 +503,31 @@ def run(args) -> dict:
         arr = np.stack([np.asarray(im, np.float32) / 255.0 for im in images])
         feats = fid_mod.InceptionExtractor(device=args.device)(arr)
         mu, sigma = fid_mod.activation_statistics(feats)
-        fid_self = fid_mod.frechet_distance(mu, sigma, mu, sigma)
+        fid_self = sharding.broadcast_value(   # the host's sqrtm, once
+            fid_mod.frechet_distance(mu, sigma, mu, sigma) if main
+            else None)
         if not abs(fid_self) < 1e-3:
             raise AssertionError(f"FID protocol self-distance {fid_self} "
                                  "is not ~0")
-        print(f"FID protocol smoke: self-distance {fid_self:.2e} OK")
+        sharding.say(f"FID protocol smoke: self-distance {fid_self:.2e} OK")
 
     result = {"bit_acc": float(bit_acc), "tpr": float(tpr),
               "message": bitstring, "decoded": decoded,
               "synthetic": bool(args.synthetic),
               "model": "tiny" if args.tiny else args.model,
               "merge_img_diff": merge_img_diff, "int8": int8_report}
-    with open(os.path.join(args.out, "golden_gate.json"), "w") as f:
-        json.dump(result, f, indent=1)
+    if main:
+        with open(os.path.join(args.out, "golden_gate.json"), "w") as f:
+            json.dump(result, f, indent=1)
     check_int8(args, int8_report)
     if not args.synthetic:
         if not bit_acc >= args.min_bit_acc:
             raise AssertionError(f"bit accuracy {bit_acc:.4f} < "
                                  f"{args.min_bit_acc}: parity gate FAILED")
-        print("GOLDEN GATE PASSED")
+        sharding.say("GOLDEN GATE PASSED")
     else:
-        print("plumbing gate passed (synthetic weights: accuracy reported, "
-              "not asserted)")
+        sharding.say("plumbing gate passed (synthetic weights: accuracy "
+                     "reported, not asserted)")
     return result
 
 

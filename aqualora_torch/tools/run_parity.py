@@ -21,6 +21,18 @@ reference's formats (accuracies reported, not asserted; the int8 leg's
 agreement bound off, as in JAX).  Every leg runs on --device (cuda unless
 asked for the CPU).
 
+Under `torchrun` every leg runs across the ranks, as each runner does on
+its own (`core/sharding.init_distributed`): the results equal one
+process's at the batch per rank.  The world size must divide
+`--batch_size`, the decoder's batch of 16 and, with the FID leg, the
+Inception batch of 32 (a ValueError before any leg); rank 0 writes
+PARITY.json.
+
+    torchrun --nproc_per_node 2 -m aqualora_torch.tools.run_parity \\
+        --synthetic --tiny --skip_int8 --device cpu --out /tmp/parity2 \\
+        --gate_num_prompts 2 --batch_size 2 --eval_num_prompts 2 \\
+        --eval_num_seeds 1
+
     python -m aqualora_torch.tools.run_parity --out parity_out \\
         --sd_model SD15_DIR --latentwm pretrained_latentwm.pth \\
         --train_folder ppft_trained [--fid_meta meta_data.json \\
@@ -33,8 +45,10 @@ import argparse
 import json
 import os
 
+from aqualora_torch.core import sharding
 from aqualora_torch.core.config import WatermarkConfig
-from aqualora_torch.eval import run_eval_base, run_fid
+from aqualora_torch.eval import run_eval_base, run_fid, utils_eval
+from aqualora_torch.eval.fid import FEATURE_BATCH
 from aqualora_torch.tools import golden_gate
 from aqualora_torch.tools.port_reference_artifacts import MSGDECODER_FILE
 
@@ -81,6 +95,13 @@ def run(args) -> dict:
         raise SystemExit("--fid_meta and --fid_gt_dir must be given "
                          "together (the FID leg needs captions and the "
                          "ground-truth images or statistics)")
+    world = sharding.init_distributed(args.device)
+    sharding.check_world_divides(args.batch_size, world.size)
+    sharding.check_world_divides(utils_eval.DECODE_BATCH, world.size,
+                                 "the decoder's batch")
+    if args.fid_meta:
+        sharding.check_world_divides(FEATURE_BATCH, world.size,
+                                     "the Inception batch")
     os.makedirs(args.out, exist_ok=True)
     # the tiny bit count from the config, so the gate leg and the eval
     # runners' --tiny configs cannot drift apart
@@ -158,20 +179,22 @@ def run(args) -> dict:
               "gate": gate_result, "eval_base": eval_result,
               "fid": fid_result}
     path = os.path.join(args.out, "PARITY.json")
-    with open(path, "w") as f:
-        json.dump(parity, f, indent=1)
-    print(f"wrote {path}")
+    if sharding.is_main_process():
+        with open(path, "w") as f:
+            json.dump(parity, f, indent=1)
+    sharding.barrier()
+    sharding.say(f"wrote {path}")
     if not args.synthetic:
         acc = eval_result["bit_acc"]
         if not acc >= args.min_bit_acc:
             raise AssertionError(f"run_eval_base bit accuracy {acc:.4f} < "
                                  f"{args.min_bit_acc}: REAL-WEIGHT PARITY "
                                  "FAILED")
-        print(f"REAL-WEIGHT PARITY PASSED (bit_acc={acc:.4f}, "
-              f"tpr={eval_result['tpr']:.4f})")
+        sharding.say(f"REAL-WEIGHT PARITY PASSED (bit_acc={acc:.4f}, "
+                     f"tpr={eval_result['tpr']:.4f})")
     else:
-        print("plumbing parity chain passed (synthetic weights: accuracies "
-              "reported, not asserted)")
+        sharding.say("plumbing parity chain passed (synthetic weights: "
+                     "accuracies reported, not asserted)")
     return parity
 
 

@@ -10,15 +10,21 @@ The port of `aqualora_tpu/train/data.py` (numpy only; no PIL, no jax):
   (`process_index::process_count`), drop-last by default.  Pixels come
   from `train/image_decode.py` (the port's own JPEG and PNG decoders):
   - `center_crop=False`: the JAX native loader's rule, its float32
-    bicubic straight from the decoded pixels (no rounding to uint8), and
-    one `rng.random(n) < 0.5` flip draw per batch;
+    bicubic straight from the decoded pixels (no rounding to uint8);
   - `center_crop=True`: PIL's rule of the JAX package's `_transform_pil`,
     the centred square crop, PIL's bicubic to uint8
-    (`eval/image_io.resize_bicubic_pil`), / 127.5 - 1, and one
-    `rng.random() < 0.5` flip draw per image.
-  The JAX dataset sends a whole batch to PIL when its native loader fails
-  on one file (a CMYK JPEG, say); the port has no second decoder, so such
-  a file raises with its path and the reason.
+    (`eval/image_io.resize_bicubic_pil`), / 127.5 - 1;
+  - a batch that holds a file the JAX native loader refuses and PIL reads
+    (a four-component JPEG, Adobe CMYK or YCCK: libjpeg cannot give it as
+    RGB) takes PIL's rule whole, without the crop unless asked, as the JAX
+    dataset sends the whole batch to PIL (`data.py:108-120`): every image
+    decoded (`image_decode`, PIL's `convert("RGB")` pixels), PIL's bicubic
+    to uint8, / 127.5 - 1.  Under data parallelism the batch is a rank's
+    slice.
+  Either way the flips are one `rng.random() < 0.5` draw per image, in
+  order, drawn for the whole batch.  A file that neither package reads
+  (lossless, 12-bit, arithmetic-coded JPEG) raises with its path and the
+  reason.
 - `SyntheticDataset`: seeded uniform images with captions, the JAX
   dataset's batches for the same arguments.
 - `CachedMomentsDataset` (`--cache_latents`): one pass encodes every
@@ -63,15 +69,16 @@ def _check_shard(n_shard: int, batch_size: int, what: str) -> None:
             "batch; lower the batch size or provide more data")
 
 
-def _transform_pil(img: np.ndarray, resolution: int) -> np.ndarray:
+def _transform_pil(img: np.ndarray, resolution: int,
+                   center_crop: bool = True) -> np.ndarray:
     """HWC uint8 RGB -> [-1, 1] float32 HWC by the JAX package's
-    `_transform_pil` with `center_crop=True`: the centred square crop,
-    PIL's bicubic to resolution^2 in uint8, / 127.5 - 1 (the flip is the
-    caller's)."""
-    h, w = img.shape[:2]
-    s = min(h, w)
-    top, left = (h - s) // 2, (w - s) // 2
-    img = img[top:top + s, left:left + s]
+    `_transform_pil`: the centred square crop when asked, PIL's bicubic to
+    resolution^2 in uint8, / 127.5 - 1 (the flip is the caller's)."""
+    if center_crop:
+        h, w = img.shape[:2]
+        s = min(h, w)
+        top, left = (h - s) // 2, (w - s) // 2
+        img = img[top:top + s, left:left + s]
     img = resize_bicubic_pil(img, (resolution, resolution))
     return img.astype(np.float32) / 127.5 - 1.0
 
@@ -111,12 +118,15 @@ class ImageFolderDataset:
 
     def _load_batch(self, idx, rng: np.random.Generator,
                     rows: slice = slice(None)) -> np.ndarray:
-        """The batch `idx`'s `rows` (a data-parallel rank's), decoded; the
-        flips are drawn for the whole batch, one a sample, so that each
-        sample takes the draw it takes in the whole batch."""
+        """The batch `idx`'s `rows` (a data-parallel rank's), decoded by the
+        native loader's rule or, with `center_crop` or a file only PIL
+        reads in them, by PIL's; the flips are drawn for the whole batch,
+        one a sample, so that each sample takes the draw it takes in the
+        whole batch."""
         flips = rng.random(len(idx)) < 0.5 if self.random_flip else None
         paths = [self.files[j] for j in idx[rows]]
-        if not self.center_crop:
+        if not self.center_crop and not any(
+                image_decode.needs_pil_rule(p) for p in paths):
             imgs = image_decode.decode_batch(paths, self.resolution,
                                              nthreads=self.num_threads)
             if flips is not None:
@@ -127,7 +137,7 @@ class ImageFolderDataset:
         for p, flip in zip(paths, flips[rows] if flips is not None
                            else [False] * len(paths)):
             arr = _transform_pil(image_decode.decode_file(p, pil=True),
-                                self.resolution)
+                                 self.resolution, self.center_crop)
             out.append(arr[:, ::-1] if flip else arr)
         return np.stack(out)
 

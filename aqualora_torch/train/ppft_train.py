@@ -127,10 +127,12 @@ of the JAX package):
   `torch.utils.checkpoint` (`models/layers.py`); the student's 32
   attention forwards run again in the backward;
 - `--scale_lr` (times accumulation x batch; one process), `--debug_nans`
-  (raises on a non-finite loss or gradient norm), `--attention_impl auto`
-  or `flash` (the port's kernels; `sdpa` and `xla` are refused: the port
-  has one attention path); `--mixed_precision fp16` computes in float32,
-  as JAX does;
+  (raises on a non-finite loss or gradient norm), `--attention_impl`
+  (JAX's four: `auto` and `flash` take the port's kernels, `sdpa` torch's
+  `scaled_dot_product_attention`, `xla` the plain attention; the training
+  steps run under it, as JAX's `run` sets `AQUALORA_ATTN_IMPL`, and
+  validation and the sanity inference under `auto`, `ppft_train.py:601,
+  650`); `--mixed_precision fp16` computes in float32, as JAX does;
 - inert, as in JAX: `--lr_scheduler`, `--lr_power`, `--local_rank`,
   `--allow_tf32`, `--enable_xformers_memory_efficient_attention`,
   `--logging_dir`.
@@ -170,6 +172,7 @@ datasets path).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import math
 import os
@@ -193,6 +196,7 @@ from aqualora_torch.diffusion.pipeline import (StableDiffusionPipeline,
 from aqualora_torch.eval.utils_eval import decode_bits
 from aqualora_torch.models.lora import SiteDraws, lora_dropout
 from aqualora_torch.models.watermark import SecretDecoder, SecretEncoder
+from aqualora_torch.ops.attention import attention_impl
 from aqualora_torch.ops.secret_inject import inject_from_params
 from aqualora_torch.train import block_lr
 from aqualora_torch.train import data as data_lib
@@ -416,7 +420,8 @@ def make_loss_fn(pipe: StableDiffusionPipeline, sec_encoder: SecretEncoder,
                  cache_latents: bool = False,
                  train_text_encoder: bool = False, rank_dropout: float = 0.0,
                  teacher_skip_lora: bool = True,
-                 teacher_unet: Optional[nn.Module] = None):
+                 teacher_unet: Optional[nn.Module] = None,
+                 teacher_attn_impl: Optional[str] = None):
     """The PPFT objective (`make_loss_fn`, `ppft_train.py:87-205`) ->
     loss_fn(pixels NHWC, input_ids, draws) -> (loss, metrics).  The draws
     are an argument, so a test can hand it the JAX trainer's.
@@ -432,8 +437,11 @@ def make_loss_fn(pipe: StableDiffusionPipeline, sec_encoder: SecretEncoder,
     diagonal (`:171`).  The student's LoRA dropouts act under the draws'
     `unet_sites`; the teacher has none.  `teacher_unet` is the teacher's
     U-Net when it is not the student's (`--teacher_int8`: the int8 twin).
-    A SecretEncoder that FSDP shards is gathered for the fused injection,
-    which reads its weights outside its forward."""
+    `teacher_attn_impl` runs the teacher's attention under that
+    implementation (`ops/attention.attention_impl`; JAX `:168-174`), e.g.
+    "sdpa" for the teacher, which has no backward, while the student keeps
+    the flash kernels.  A SecretEncoder that FSDP shards is gathered for
+    the fused injection, which reads its weights outside its forward."""
     teacher_unet = teacher_unet or pipe.unet
     sched, cfg = pipe.schedule, pipe.config
     v_pred = cfg.unet.prediction_type == "v_prediction"
@@ -468,7 +476,9 @@ def make_loss_fn(pipe: StableDiffusionPipeline, sec_encoder: SecretEncoder,
         if train_text_encoder:
             with lora_dropout(draws.te_sites):
                 ctx = pipe.clip(pipe._ids(input_ids), 1.0)
-        with torch.no_grad():
+        with torch.no_grad(), (
+                attention_impl(teacher_attn_impl) if teacher_attn_impl
+                else contextlib.nullcontext()):
             # scale=None skips the LoRA branches: exactly the reference's
             # scale=0 teacher without the rank-R products
             teacher = teacher_unet(noisy_clean, draws.t, ctx,
@@ -673,20 +683,13 @@ UNPORTED = {
 
 def refuse_unported(args: argparse.Namespace) -> None:
     """Raise NotImplementedError naming every flag of `UNPORTED` that is
-    set, and ValueError for an attention implementation the port does not
-    have."""
+    set."""
     asked = [f for f in UNPORTED
              if getattr(args, f[2:]) not in (None, False)]
     if asked:
         raise NotImplementedError("; ".join(
             f"{f}: not ported to aqualora_torch ({UNPORTED[f]})"
             for f in asked))
-    if args.attention_impl not in ("auto", "flash"):
-        raise ValueError(
-            f"--attention_impl {args.attention_impl}: the port has one "
-            "attention path, the flash-attention kernels of "
-            "aqualora_torch/ops/flash_attention.py (auto and flash take "
-            "it); it has no library fallback")
 
 
 def shard_towers(pipe: StableDiffusionPipeline,
@@ -852,7 +855,8 @@ def final_sanity_inference(tr: Trainer, args: argparse.Namespace,
     `--output_dir` into the pipeline, generate `--num_validation_images`
     images of `--validation_prompt` with DPM-Solver++(2M) (2 steps at 64 px
     with `--tiny`, else 25 at `--resolution`) with a random message at LoRA
-    multiplier 1, decode them and return the bit accuracy."""
+    multiplier 1, decode them and return the bit accuracy.  It generates
+    under `auto`, serving's attention, whatever `--attention_impl`."""
     pipe = tr.pipe
     pipe.load_watermark_lora(args.output_dir)
     res = 64 if args.tiny else args.resolution
@@ -863,8 +867,9 @@ def final_sanity_inference(tr: Trainer, args: argparse.Namespace,
     msg = torch.bernoulli(torch.full((n, pipe.config.watermark.msg_bits), 0.5,
                                      device=pipe.device), generator=generator)
     diag = pipe.message_scale(msg, multiplier=1.0)
-    images = gen(tr.tokenizer([args.validation_prompt] * n),
-                 tr.tokenizer([""] * n), 7.5, diag, generator=generator)
+    with attention_impl("auto"):
+        images = gen(tr.tokenizer([args.validation_prompt] * n),
+                     tr.tokenizer([""] * n), 7.5, diag, generator=generator)
     if tracker is not None:
         tracker.log_images("test", images.float().cpu().numpy(), 0)
     bits, _ = decode_bits(tr.msgdecoder, images)
@@ -881,7 +886,9 @@ def validate(tr: Trainer, args: argparse.Namespace, step: int,
     `--validation_num_inference_steps` (64 px and 2 steps with `--tiny`,
     else `--resolution` and 25), through the current LoRAs; log the images
     under "validation"; -> the decoded bit accuracy.  Its numbers come
-    from a generator of its own, seeded from the seed and the step."""
+    from a generator of its own, seeded from the seed and the step.  It
+    generates under `auto`, serving's attention, whatever
+    `--attention_impl`."""
     pipe = tr.pipe
     res = args.validation_resolution or (64 if args.tiny else args.resolution)
     steps = args.validation_num_inference_steps or (2 if args.tiny else 25)
@@ -892,10 +899,11 @@ def validate(tr: Trainer, args: argparse.Namespace, step: int,
     n = max(1, args.num_validation_images)
     msg = torch.bernoulli(torch.full((n, pipe.config.watermark.msg_bits), 0.5,
                                      device=pipe.device), generator=gen)
-    images = generate(tr.tokenizer([args.validation_prompt or "a photo"] * n),
-                      tr.tokenizer([""] * n), 7.5,
-                      pipe.message_scale(msg, multiplier=1.0),
-                      generator=gen)
+    with attention_impl("auto"):
+        images = generate(
+            tr.tokenizer([args.validation_prompt or "a photo"] * n),
+            tr.tokenizer([""] * n), 7.5,
+            pipe.message_scale(msg, multiplier=1.0), generator=gen)
     if tracker is not None:
         tracker.log_images("validation", images.float().cpu().numpy(), step)
     bits, _ = decode_bits(tr.msgdecoder, images)
@@ -953,10 +961,19 @@ def run(args: argparse.Namespace, force_fsdp: bool = False
     "validation": [{"step", "accuracy", "seconds"}], "trainer",
     "start_step", and "sanity_bit_accuracy" when the sanity inference
     ran}.  In a world of several ranks only rank 0 prints, logs and writes;
-    `force_fsdp` as `build_trainer`'s."""
+    `force_fsdp` as `build_trainer`'s.  The run is under `--attention_impl`
+    (`ops/attention.attention_impl`, as JAX's `run` sets
+    `AQUALORA_ATTN_IMPL`, `:276-285`, for this process only); `auto`
+    leaves `AQUALORA_ATTN_IMPL` in charge."""
     if args.resume_from_checkpoint and not args.output_dir:
         raise ValueError("--resume_from_checkpoint reads "
                          "<output_dir>/checkpoints: pass --output_dir")
+    with (attention_impl(args.attention_impl)
+          if args.attention_impl != "auto" else contextlib.nullcontext()):
+        return _run(args, force_fsdp)
+
+
+def _run(args: argparse.Namespace, force_fsdp: bool) -> Dict[str, Any]:
     tr = build_trainer(args, force_fsdp)
     main = tr.world.rank == 0
     # validation and the sanity inference all-gather FSDP's weights: then
@@ -1165,8 +1182,9 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="raise on a non-finite loss or gradient norm")
     p.add_argument("--attention_impl", type=str, default="auto",
                    choices=["auto", "flash", "sdpa", "xla"],
-                   help="auto and flash: the port's kernels; sdpa and xla "
-                        "are refused")
+                   help="auto and flash: the port's kernels; sdpa: torch's "
+                        "scaled_dot_product_attention; xla: the plain "
+                        "attention (ops/attention.py)")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (the kernels) or cpu (their plain versions)")
     return p

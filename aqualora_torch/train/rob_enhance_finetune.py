@@ -65,8 +65,10 @@ options only what `ppft_train.build_configs` reads reaches the pipeline.
 `--int8_gen` (JAX `:130-142`): the U-Net's 96 conv sites are quantized
 once after setup, from their float32 weights (`ops/quant.py`), so every
 generator runs them in w8a8, with the message LoRA added on top of the
-int8 proj_in / proj_out; `--teacher_int8` is PPFT's and has no effect here,
-as in JAX.  Refused as PPFT refuses them (`ppft_train.refuse_unported`):
+int8 proj_in / proj_out; `--teacher_int8` and `--attention_impl` are
+PPFT's and have no effect here, as in JAX (its stage 3 never reads the
+shared parser's `--attention_impl`; the generation runs under `auto` or
+`AQUALORA_ATTN_IMPL`).  Refused as PPFT refuses them (`ppft_train.refuse_unported`):
 `--dataset_name` and `--dataset_config_name`, the HF datasets path (no
 `datasets` package, no download).
 

@@ -28,6 +28,10 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py --phases 27     # int8 attention, and the eval
                                           # runner across torchrun ranks
                                           # (runs 3, 15 and 16 too)
+    python3 chip_smoke.py --phases 29     # the dispatcher's other values,
+                                          # PPFT's --attention_impl, the
+                                          # gate across ranks, int8 tensor
+                                          # parallelism (runs 8 too)
     python3 chip_smoke.py --phases 28     # two cards or more: the runner
                                           # across two NCCL ranks, a card
                                           # each (runs 15 and 16 too)
@@ -387,7 +391,8 @@ Phases (any failure raises, so the exit code is not 0):
      card over gloo (NCCL puts one rank on a card), PPFT data parallel at
      global B8 (B4 a rank): the first step's loss, averaged gradient and
      update against the unwrapped B8 step's within bf16's batch-shape
-     tolerance (P26_*), gloo's CUDA all-reduce a step.
+     tolerance (P26_*), gloo's CUDA all-reduce a step.  The launches of
+     (a) and (b) run at once (their seconds are contended).
  27. int8 attention (`ops/quant.int8_attention`, `csrc/int8_attention.cu`)
      and the eval protocol across torchrun ranks (`--phases 27` runs 3, 15
      and 16 too): (a) the int8 attention kernel against
@@ -418,7 +423,33 @@ Phases (any failure raises, so the exit code is not 0):
      cards or more: 27d's launch over NCCL, a card a rank, against the
      same unwrapped calls at the rank batch, bit for bit.  The default run
      needs one card and leaves it out.
-The timed phases run first (0-7, 12, 13, 14, 8, 15, 16, 27c-d, 18b-d,
+ 29. The rest of the JAX dispatcher, PPFT's `--attention_impl`, the gate,
+     run_parity and the demo across ranks, int8 tensor parallelism
+     (`--phases 29` runs 8 too), right after phase 8: (b) phase 8's
+     trainer (SD-1.5 512^2 B8 rank 320 bf16) for P29_STEPS steps under
+     `--attention_impl` flash, xla and sdpa and with the teacher on sdpa
+     (`make_train_step(teacher_attn_impl=...)`): samples/s, peak memory,
+     the launches a step (65/32/32 under flash, 33/32/32 with the sdpa
+     teacher, no flash launch under xla and sdpa, one injection in all);
+     (a) `sdpa`, `bf16_scores`, `identity` and `flash_jax` at phase 2's
+     serving shapes (bf16, B16, the VAE's d = 512 at B8) against the
+     plain attention (identity: a float64 mean of V) within the limits
+     printed, their times, and no flash or int8 attention launch; (c) the
+     golden gate (SD-1.5 512^2, one prompt, dpms_m 10, synthetic release)
+     across two gloo ranks on the card at --batch_size 2 (this script's
+     `--p29_worker`) against one process at --batch_size 1: its result,
+     PNGs and golden_gate.json bit for bit; (e) at once with (c), two gloo
+     ranks on the card: each tensor-parallel int8 site of P29_SITES (column,
+     GEGLU, row) bit for bit the unsharded site, and not without the row
+     sites' absmax all-reduce; the int8 accumulator at the sharded K's
+     (`quant.dense_accumulator`, P29_ACC_K) bit for bit its plain
+     version; the SD-1.5 U-Net with its 160 dense sites in int8 sharded
+     over the two ranks against the unsharded forward (P29_CHAOS), with
+     rank 0's int8_quant and int8_conv launches counted against the
+     sites'; (d) on two cards or more only (as phase 28, the default run
+     has one), the gate, run_parity and the demo across two NCCL ranks, a
+     card each, against one process at the batch per rank, bit for bit.
+The timed phases run first (0-7, 12, 13, 14, 8, 29, 15, 16, 27c-d, 18b-d,
 19d, 22d-e, 25e, 17, 18a, 19a-c, 19e, 20, 21, 22a-c, 23a-c, 24b, 24a, 24c,
 24d, 25a-d, 27a-b) and the profiled ones after them, so that the profiler
 touches no timed phase: first the short sessions (6's profile, 9, 10, 12's
@@ -3653,7 +3684,7 @@ def phase20_profile(smi: str, kept: tuple) -> None:
 # phase 21: the trainers' remaining options at full width
 # ---------------------------------------------------------------------------
 
-P21_STEPS = 3                  # 1 warm-up + 2 timed
+P21_STEPS = 2                  # 1 warm-up + 1 timed
 P21_DROPOUTS = ("--lora_dropout", "0.1", "--module_dropout", "0.1",
                 "--rank_dropout", "0.1")
 P21_S1_FILES = 5               # stage 1's resume folder: one B5 step an epoch
@@ -4752,7 +4783,7 @@ GATE_PROMPTS = {"sd15": 2, "sd21": 1}
 GATE_BATCH = 2
 # 23c's sampling steps (the SD-1.5 gate's are the protocol's 25) and batch:
 # one image, so its FID smoke (23b runs it) is skipped
-GATE_SD21_STEPS, GATE_SD21_BATCH = 10, 1
+GATE_SD21_STEPS, GATE_SD21_BATCH = 5, 1
 GATE_MERGE_TOL = 4.0                 # mean |d| of the uint8 images, /255
 LDM_FILE = "watermark_SDmodel.safetensors"
 DECODER_LOGIT_RTOL = 1e-4
@@ -6211,13 +6242,6 @@ def p26_finish(handle: tuple, timeout: float = 600.0) -> dict:
     return res
 
 
-def p26_launch(tag: str, kind: str, nproc: int, spec: dict, tmp: str,
-               timeout: float = 600.0) -> dict:
-    """One launch of phase 26's worker, waited on (`p26_start`,
-    `p26_finish`)."""
-    return p26_finish(p26_start(tag, kind, nproc, spec, tmp), timeout)
-
-
 def p26_reference(s1_file: str) -> dict:
     """The unwrapped PPFT trainer in this process (no process group), the
     steps as `run` takes them, the first step's gradients and weights
@@ -6291,9 +6315,15 @@ def phase26(smi: str, tmp: str) -> None:
           f"s), peak {ref['peak_gib']:.2f} GiB | {smi}", flush=True)
     spec = {"ppft": p26_argv(s1_file), "s1": p26_s1_argv(f"{tmp}/s1_a"),
             "s3": p26_s3_argv(f"{tmp}/s3_a"), "ref": f"{tmp}/26a_ref.pt"}
-    a = p26_launch("26a", "a", 1, spec, tmp)
+    # 26a and 26b at once (their checks are of losses and updates, which
+    # running beside each other does not change; their seconds are
+    # contended)
+    launches = [p26_start("26a", "a", 1, spec, tmp),
+                p26_start("26b", "b", 2, {"ppft": p26_argv(s1_file)}, tmp)]
+    a, b = (p26_finish(h) for h in launches)
     print(f"[26a] torchrun world {a['world']} over {a['backend']} on "
-          f"{a['device']}, {a['wall_s']:.1f} s of wall time", flush=True)
+          f"{a['device']}, {a['wall_s']:.1f} s of wall time (beside 26b)",
+          flush=True)
     if a["world"] != 1 or a["backend"] != "nccl":
         raise AssertionError("26a is not a world of 1 over NCCL")
     for leg in ("dp", "fsdp"):
@@ -6341,10 +6371,9 @@ def phase26(smi: str, tmp: str) -> None:
             and e["dtype"] == "torch.float32"
             and e["launches"]["fwd"] == BWD_PER_STEP):
         raise AssertionError("[26d] entry()")
-    b = p26_launch("26b", "b", 2, {"ppft": p26_argv(s1_file)}, tmp)
     st = b["steps"]
     print(f"[26b] torchrun world {b['world']} over {b['backend']} on one "
-          f"card, {b['wall_s']:.1f} s of wall time", flush=True)
+          f"card, {b['wall_s']:.1f} s of wall time (beside 26a)", flush=True)
     if b["world"] != 2 or b["backend"] != "gloo":
         raise AssertionError("26b is not two ranks over gloo")
     for i, got in enumerate(st["launches"]):
@@ -6852,6 +6881,509 @@ def phase28(smi: str, p16: dict, tmp: str) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 29: the dispatcher's other values, PPFT under --attention_impl, the
+# gate, run_parity and the demo across ranks, int8 tensor parallelism
+# ---------------------------------------------------------------------------
+
+P29_VALUES = ("sdpa", "bf16_scores", "identity", "flash_jax")
+# 29a's limits against the plain attention on the same bf16 inputs, as a
+# share of a reference magnitude: `sdpa` twice one bf16 rounding of O (its
+# P is rounded to bf16 as the flash kernels' and the plain version's are,
+# at other places); `bf16_scores` rounds each score and P to bf16, at most
+# 2^-9 relative each, which moves each probability by under 2^-6 at these
+# inputs (|scale q.k| < 8), so O, a convex combination of V, moves by under
+# 2^-5 max|V|; `identity` the mean of V rounded once to bf16, against a
+# float64 mean; `flash_jax` is the plain attention, bit for bit
+P29_SDPA_TOL_ULPS = 2
+P29_BF16_SCORES_SHARE = 2.0 ** -5
+P29_IDENTITY_SHARE = 2.0 ** -7
+P29_STEPS = 3                  # a PPFT leg's steps: 1 warm-up + 2 timed
+# 29c-d: the gate (and in 29d run_parity and the demo) at SD-1.5 widths,
+# 512^2, one prompt (one image: the FID smoke needs two, and its host sqrtm
+# is phase 23's), dpms_m at P29_GATE_STEPS; two ranks at --batch_size 2
+# against one process at 1
+P29_GATE_STEPS = 5
+# 29e: the tensor-parallel int8 sites at SD-1.5's dense shapes (B2 under
+# CFG): name, input features, output features, "col" / "geglu" / "row",
+# tokens a sample
+P29_SITES = [("to_q_64", 320, 320, "col", 4096),
+             ("to_out_64", 320, 320, "row", 4096),
+             ("ff_proj_64", 320, 2560, "geglu", 4096),
+             ("ff_out_64", 1280, 320, "row", 4096),
+             ("ff_out_8", 5120, 1280, "row", 64)]
+# the int8 product's exact accumulator at the input features a row site
+# keeps at 2 and 4 ranks (80 is to_out's 320 over 4), against the plain one
+P29_ACC_K = (80, 160, 640, 2560)
+# the U-Net-level check: the sharded forward against the unsharded one
+# within P29_CHAOS times the largest change the unsharded forward makes
+# under a one-ulp (bf16) nudge of its input, as the CPU tests hold an int8
+# network (an activation on a code boundary flips with its last bit)
+P29_CHAOS = 4.0
+
+
+def p29_impl_tols(impl: str, o_ref, v) -> float:
+    if impl == "sdpa":
+        return P29_SDPA_TOL_ULPS * tolerance_o(torch.bfloat16, o_ref)
+    if impl == "bf16_scores":
+        return P29_BF16_SCORES_SHARE * v.float().abs().max().item()
+    if impl == "identity":
+        return P29_IDENTITY_SHARE * o_ref.abs().max().item() + 1e-6
+    return 0.0
+
+
+def phase29a(smi: str) -> dict:
+    """(a) `sdpa`, `bf16_scores`, `identity` and `flash_jax` through
+    `dot_product_attention` at phase 2's serving shapes (the U-Net at B16,
+    the VAE's d = 512 at B8), bf16, each against its plain version with
+    its limit printed: `plain_attention` for sdpa, bf16_scores and
+    flash_jax, a float64 mean of V over the keys for identity; the times
+    beside the plain attention's; no flash-attention launch and no int8
+    attention launch under any of them."""
+    from aqualora_torch.ops import attention as ta
+    from aqualora_torch.ops import quant
+
+    reset_counts()
+    quant.attention_launches.reset()
+    rows = {}
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    for name, h, tq, tk, d, b, _ in SHAPES:
+        q, k, v = (torch.randn(b, h, t, d, generator=gen, device="cuda",
+                               dtype=torch.bfloat16) for t in (tq, tk, tk))
+        scale = d ** -0.5
+        plain = ta.plain_attention(q, k, v, None, scale)
+        refs = {"sdpa": plain, "bf16_scores": plain, "flash_jax": plain,
+                "identity": v.double().mean(2, keepdim=True).expand(
+                    b, h, tq, d)}
+        row = {"plain_ms": time_ms(
+            lambda: ta.plain_attention(q, k, v, None, scale), 5, 1)}
+        for impl in P29_VALUES:
+            with ta.attention_impl(impl):
+                out = ta.dot_product_attention(q, k, v, scale=scale)
+                ms = time_ms(lambda: ta.dot_product_attention(
+                    q, k, v, scale=scale), 5, 1)
+            ref = refs[impl]
+            err = (out.double() - ref.double()).abs().max().item()
+            tol = p29_impl_tols(impl, ref, v)
+            row[impl] = (err, tol, ms)
+            if not (out.shape == ref.shape and out.dtype == torch.bfloat16
+                    and err <= tol):
+                raise AssertionError(f"[29a] {impl} at {name}: max|d| "
+                                     f"{err:.3e} (limit {tol:.3e})")
+        print(f"[29a] {name} (B{b} H{h} Tq{tq} Tk{tk} d{d} bf16) against "
+              f"the plain version: " + "; ".join(
+                  f"{impl} max|d| {row[impl][0]:.3e} (limit "
+                  f"{row[impl][1]:.3e}) {row[impl][2]:.4f} ms"
+                  for impl in P29_VALUES)
+              + f"; plain_attention {row['plain_ms']:.4f} ms | {smi}",
+              flush=True)
+        rows[name] = row
+        del q, k, v, plain, refs, out
+        torch.cuda.empty_cache()
+    launched = counts()
+    print(f"[29a] launches under the four values: {launched}, int8 "
+          f"attention {quant.attention_launches.count} | {smi}", flush=True)
+    if launched["fwd"] or quant.attention_launches.count:
+        raise AssertionError("[29a] a value launched a flash or int8 "
+                             "attention kernel")
+    return rows
+
+
+def phase29b(smi: str, tr) -> dict:
+    """(b) The PPFT step at full width (phase 8's trainer: SD-1.5 512^2 B8
+    rank 320 bf16) under `--attention_impl` flash (phase 8's), xla and sdpa
+    (the context `run` enters), and with the student on flash and the
+    teacher on sdpa (`make_train_step(teacher_attn_impl="sdpa")`): P29_STEPS
+    steps each, samples/s (median of the timed steps), peak memory above
+    what is resident, and the launches a step: 65 forward, 32 dQ, 32 dK/dV
+    under flash, 33 forward with the sdpa teacher, none under sdpa and
+    xla, one injection in all of them."""
+    from aqualora_torch.ops.attention import attention_impl
+    from aqualora_torch.train import ppft_train as pt
+
+    no_flash = {"fwd": 0, "dq": 0, "dkv": 0, "inject": 1}
+    legs = [("flash", "flash", None, {"fwd": FWD_PER_STEP,
+                                      "dq": BWD_PER_STEP,
+                                      "dkv": BWD_PER_STEP, "inject": 1}),
+            ("xla", "xla", None, no_flash),
+            ("sdpa", "sdpa", None, no_flash),
+            ("flash+sdpa_teacher", "flash", "sdpa",
+             {"fwd": BWD_PER_STEP + 1, "dq": BWD_PER_STEP,
+              "dkv": BWD_PER_STEP, "inject": 1})]
+    out = {}
+    for name, impl, teacher, want in legs:
+        step = tr.train_step if teacher is None else pt.make_train_step(
+            tr.pipe, tr.sec_encoder, tr.scheduler.optimizer, tr.scheduler,
+            teacher_attn_impl=teacher)
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        times, losses = [], []
+        with attention_impl(impl):
+            for i in range(P29_STEPS):
+                pixels, captions = next(tr.batches)
+                ids = tr.tokenizer(captions)
+                draws = pt.draw(tr.pipe, tr.generator, pixels)
+                reset_counts()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                metrics = step(pixels, ids, draws)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t1
+                got = counts()
+                if got != want:
+                    raise AssertionError(f"[29b] {name} step {i} launches "
+                                         f"{got}, want {want}")
+                losses.append(float(metrics["ppft_loss"]))
+                if i:
+                    times.append(dt)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        rate = TRAIN_BATCH / statistics.median(times)
+        out[name] = {"rate": rate, "peak_gib": peak, "launches": want}
+        print(f"[29b] PPFT SD-1.5 512^2 B{TRAIN_BATCH} rank 320 bf16, "
+              f"--attention_impl {impl}"
+              + (f", teacher_attn_impl {teacher}" if teacher else "")
+              + f": {rate:.4f} samples/s (median of {len(times)}: "
+              f"{', '.join(f'{x:.4f}' for x in times)} s), peak "
+              f"{peak:.2f} GiB above the resident, launches a step {want}, "
+              f"losses {', '.join(f'{x:.6e}' for x in losses)} | {smi}",
+              flush=True)
+        if not all(math.isfinite(x) and x > 0 for x in losses):
+            raise AssertionError(f"[29b] {name}: loss not finite positive")
+        del step
+    return out
+
+
+def p29_gate_argv(out: str, batch: int) -> list:
+    return ["--synthetic", "--num_prompts", "1", "--batch_size", str(batch),
+            "--num_inference_steps", str(P29_GATE_STEPS), "--out", out]
+
+
+def p29_parity_argv(out: str, batch: int) -> list:
+    return ["--synthetic", "--skip_int8", "--skip_merge",
+            "--gate_num_prompts", "1", "--eval_num_prompts", "2",
+            "--eval_num_seeds", "1", "--batch_size", str(batch), "--out",
+            out]
+
+
+def p29_demo_argv(folder: str, out: str) -> list:
+    return ["--aqualora_folder", folder, "--secret", ",", "--steps",
+            str(P29_GATE_STEPS), "--seed", "5", "--output_dir", out]
+
+
+def p29_files(root: Path) -> dict:
+    """{path under root: bytes} of every PNG and JSON file below it."""
+    return {str(p.relative_to(root)): p.read_bytes()
+            for p in sorted(root.rglob("*"))
+            if p.suffix in (".png", ".json")}
+
+
+def p29_site(cin: int, cout: int, gen):
+    """An int8 `LoRALinear` of SD-1.5's widths, seeded, quantized."""
+    from aqualora_torch.models.lora import LoRALinear
+    from aqualora_torch.ops import quant
+    m = LoRALinear(cin, cout).cuda()
+    with torch.no_grad():
+        m.weight.copy_(torch.randn(cout, cin, generator=gen, device="cuda")
+                       / cin ** 0.5)
+        m.bias.copy_(0.1 * torch.randn(cout, generator=gen, device="cuda"))
+    quant.quantize_layer_(m)
+    return m
+
+
+def p29_tp_sites(mesh) -> list:
+    """Each of P29_SITES sharded over the mesh's model axis against the
+    same site unsharded, on this rank's part, and with the row sites'
+    absmax left unreduced; and the int8 product's accumulator at
+    P29_ACC_K input features against its plain version on the CPU."""
+    import copy
+
+    from torch.distributed.tensor.parallel import parallelize_module
+
+    from aqualora_torch.core.sharding import MODEL_AXIS
+    from aqualora_torch.ops import quant
+    from aqualora_torch.parallel import partition
+
+    sub = mesh[MODEL_AXIS]
+    rank, tp = sub.get_local_rank(), sub.size()
+    rows = []
+    for i, (name, cin, cout, kind, tokens) in enumerate(P29_SITES):
+        # the same weights and inputs on every rank
+        gen = torch.Generator(device="cuda").manual_seed(2900 + i)
+        m = p29_site(cin, cout, gen)
+        x = torch.randn(2, tokens, cin, generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        with torch.no_grad():
+            want = m(x)
+        chunks = 2 if kind == "geglu" else 1
+        errs = []
+        for reduced in (True, False):
+            sharded = copy.deepcopy(m)
+            parallelize_module(sharded, sub, (
+                partition.LoRARowwiseParallel() if kind == "row"
+                else partition.LoRAColwiseParallel(chunks)))
+            real = partition.row_absmax
+            if not reduced:
+                partition.row_absmax = lambda a, group: a.detach().abs(
+                ).amax(dim=-1).float()
+            try:
+                with torch.no_grad():
+                    got = sharded(partition._take(x, rank, tp, 1)
+                                  if kind == "row" else x)
+            finally:
+                partition.row_absmax = real
+            ref = want if kind == "row" else partition._take(want, rank, tp,
+                                                             chunks)
+            errs.append((got.float() - ref.float()).abs().max().item())
+        rows.append((name, kind, cin // tp if kind == "row" else cin, errs))
+    acc = []
+    gen = torch.Generator(device="cuda").manual_seed(2900)
+    for kk in P29_ACC_K:
+        xq = torch.randint(-127, 128, (512, kk), generator=gen,
+                           device="cuda", dtype=torch.int32).to(torch.int8)
+        wq = torch.randint(-127, 128, (320, kk), generator=gen,
+                           device="cuda", dtype=torch.int32).to(torch.int8)
+        got = quant.dense_accumulator(xq, wq).cpu()
+        acc.append((kk, torch.equal(got, quant.dense_accumulator(
+            xq.cpu(), wq.cpu()))))
+    return rows, acc
+
+
+def p29_unet(spec: dict, mesh=None):
+    """SD-1.5's U-Net with its dense sites in int8, seeded (the pipeline's
+    `init_params`), bf16 on the card, sharded over `mesh`'s model axis when
+    given; -> (unet, its inputs)."""
+    from aqualora_torch.core.config import PipelineConfig
+    from aqualora_torch.diffusion.pipeline import StableDiffusionPipeline
+    from aqualora_torch.parallel import partition
+
+    pipe = StableDiffusionPipeline(PipelineConfig.sd15(), device="cuda",
+                                   dtype=torch.bfloat16, int8="dense")
+    pipe.init_params(seed=spec["seed"])
+    pipe.quantize_int8()
+    unet = pipe.unet
+    del pipe
+    gen = torch.Generator(device="cuda").manual_seed(spec["seed"] + 1)
+    x = torch.randn(2, 4, 64, 64, generator=gen, device="cuda").bfloat16()
+    t = torch.tensor([981.0, 21.0], device="cuda")
+    ctx = torch.randn(2, 77, 768, generator=gen, device="cuda").bfloat16()
+    if mesh is not None:
+        partition.shard_params(mesh, unet,
+                               partition.unet_partition_specs(unet))
+    return unet, (x, t, ctx)
+
+
+def p29_expected_int8(unet) -> dict:
+    """The int8 launches of one forward of a sharded U-Net: a quantizer
+    call and a convolution at each column site, a quantizer call and one
+    convolution per ACC_EXACT_K input features at each row site."""
+    from aqualora_torch.ops import quant
+    from aqualora_torch.parallel import partition
+    conv = calls = 0
+    for m in unet.modules():
+        site = getattr(m, "tp_site", None)
+        if site is None or m.weight.dtype != torch.int8:
+            continue
+        calls += 1
+        conv += (-(-m.weight.shape[1] // quant.ACC_EXACT_K)
+                 if isinstance(site, partition._RowSite) else 1)
+    return {"quant": calls, "conv": conv}
+
+
+def p29_worker(kind: str, spec_path: str, out_path: str) -> None:
+    """One rank of a `torchrun` launch of phase 29: "c" two ranks on the
+    one card over gloo, the golden gate; "d" two ranks over NCCL, a card
+    each: the gate, run_parity and the demo; "e" two ranks on the one card
+    over gloo: the tensor-parallel int8 sites and U-Net.  Rank 0 saves the
+    results."""
+    import torch.distributed as dist
+
+    from aqualora_torch import run_demo
+    from aqualora_torch.core import sharding as sh
+    from aqualora_torch.ops import quant
+    from aqualora_torch.parallel import partition
+    from aqualora_torch.tools import golden_gate, run_parity
+    spec = json.loads(Path(spec_path).read_text())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    world = sh.init_distributed("cuda", backend="gloo" if kind in ("c", "e")
+                                else None)
+    res = {"world": world.size, "backend": dist.get_backend()}
+    if kind in ("c", "d"):
+        legs = [("gate", golden_gate.main)]
+        if kind == "d":
+            legs += [("parity", run_parity.main), ("demo", run_demo.main)]
+        for leg, fn in legs:
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            res[leg] = fn(spec[leg])
+            torch.cuda.synchronize()
+            res[f"{leg}_s"] = time.perf_counter() - t0
+            res[f"{leg}_launches"] = counts()
+    else:
+        mesh = sh.make_mesh(1, 2)
+        res["sites"], res["acc"] = p29_tp_sites(mesh)
+        unet, inputs = p29_unet(spec, mesh)
+        quant.conv_launches.reset()
+        quant.quant_launches.reset()
+        with torch.no_grad():
+            res["out"] = unet(*inputs).float().cpu()
+        res["launches"] = {"quant": quant.quant_launches.count,
+                           "conv": quant.conv_launches.count}
+        res["want"] = p29_expected_int8(unet)
+        real = partition.row_absmax
+        partition.row_absmax = lambda a, group: a.detach().abs().amax(
+            dim=-1).float()
+        try:
+            with torch.no_grad():
+                res["out_local"] = unet(*inputs).float().cpu()
+        finally:
+            partition.row_absmax = real
+    if world.rank == 0:
+        torch.save(res, out_path)
+    dist.destroy_process_group()
+
+
+def p29_check_ranks(tag: str, got: dict, leg: str, out: Path, ref_out: Path,
+                    ref: dict) -> None:
+    if leg == "demo":          # (images, secrets, decoded bits)
+        result = (got[leg][1:] == ref[leg][1:]
+                  and len(got[leg][0]) == len(ref[leg][0])
+                  and all((x == y).all() for x, y in zip(got[leg][0],
+                                                         ref[leg][0])))
+    else:
+        result = got[leg] == ref[leg]
+    same = (result, p29_files(out) == p29_files(ref_out))
+    print(f"[{tag}] {leg} across {got['world']} {got['backend']} ranks at "
+          f"--batch_size 2 in {got[f'{leg}_s']:.2f} s of main, rank 0's "
+          f"launches {got[f'{leg}_launches']}; against one process at 1 "
+          f"({ref[f'{leg}_s']:.2f} s): result {same[0]}, files bit for bit "
+          f"{same[1]} ({len(p29_files(ref_out))} PNG and JSON files)",
+          flush=True)
+    if not (all(same) and p29_files(ref_out)):
+        raise AssertionError(f"[{tag}] {leg} across ranks differs from one "
+                             "process at the batch per rank")
+
+
+def p29_reference(leg: str, tmp: str, folder: str | None = None) -> tuple:
+    """`leg` in this process at --batch_size 1 (the demo: `process` at
+    batch 1); -> (its result dict entry, its output folder)."""
+    from aqualora_torch import run_demo
+    from aqualora_torch.tools import golden_gate, run_parity
+    out = Path(tmp) / f"p29_{leg}_one"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if leg == "gate":
+        res = golden_gate.main(p29_gate_argv(str(out), 1))
+    elif leg == "parity":
+        res = run_parity.main(p29_parity_argv(str(out), 1))
+    else:
+        res = run_demo.process(None, folder, ",", "a photo of a cat",
+                               steps=P29_GATE_STEPS, seed=5,
+                               output_dir=str(out), device="cuda",
+                               batch_size=1)
+    torch.cuda.synchronize()
+    return {leg: res, f"{leg}_s": time.perf_counter() - t0}, out
+
+
+def phase29(smi: str, tr, tmp: str) -> tuple:
+    """Phase 29 (see the docstring): 29b on phase 8's trainer, 29a, then
+    29c's and 29e's launches at once while this process computes their
+    references, then 29d on two cards or more."""
+    t29 = time.perf_counter()
+    p29b = phase29b(smi, tr)
+    torch.cuda.empty_cache()
+    p29a = phase29a(smi)
+    tmp = str(Path(tmp))
+    gate_ranks = Path(tmp) / "p29_gate_ranks"
+    launches = [
+        p26_start("29c", "c", 2, {"gate": p29_gate_argv(str(gate_ranks), 2)},
+                  tmp, flag="--p29_worker"),
+        p26_start("29e", "e", 2, {"seed": 29}, tmp, flag="--p29_worker")]
+    try:
+        ref, ref_gate = p29_reference("gate", tmp)
+        unet, inputs = p29_unet({"seed": 29})
+        with torch.no_grad():
+            whole = unet(*inputs).float().cpu()
+            again = unet(*inputs).float().cpu()
+            x = inputs[0]
+            ulp = torch.where(x == 0, torch.zeros_like(x), x * 2.0 ** -7)
+            nudged = [unet(x + s * ulp, *inputs[1:]).float().cpu()
+                      for s in (-1, 1)]
+        del unet
+        torch.cuda.empty_cache()
+    finally:
+        c, e = (p26_finish(h) for h in launches)
+    p29_check_ranks("29c", c, "gate", gate_ranks, ref_gate, ref)
+    if not (c["world"] == 2 and c["backend"] == "gloo"):
+        raise AssertionError("[29c] not two gloo ranks")
+
+    for name, kind, k_local, (err, err_local) in e["sites"]:
+        print(f"[29e] {name} ({kind} site, {k_local} input features a "
+              f"rank) int8 over two gloo ranks on the card against the "
+              f"unsharded site: max|d| {err:.3e} (bit for bit: "
+              f"{err == 0.0}); without the absmax all-reduce "
+              f"{err_local:.3e} | {smi}", flush=True)
+        if err != 0.0 or (kind == "row" and err_local == 0.0):
+            raise AssertionError(f"[29e] {name}: the sharded int8 site "
+                                 "differs from the unsharded one")
+    print(f"[29e] the exact int8 accumulator (quant.dense_accumulator) on "
+          f"the card against its plain version at K "
+          f"{', '.join(f'{k}: {ok}' for k, ok in e['acc'])}", flush=True)
+    if not all(ok for _, ok in e["acc"]):
+        raise AssertionError("[29e] the int8 accumulator differs")
+    own = max((n - whole).abs().max().item() for n in nudged)
+    err = (e["out"] - whole).abs().max().item()
+    err_local = (e["out_local"] - whole).abs().max().item()
+    repeat = torch.equal(whole, again)
+    limit = P29_CHAOS * own
+    print(f"[29e] SD-1.5 U-Net, dense sites int8 (160 sharded: column "
+          f"to_q/k/v and GEGLU's proj, row to_out and ff's net.2), B2 at "
+          f"64^2 bf16, two gloo ranks on the card against the unsharded "
+          f"forward: max|d| {err:.4e} (bit for bit {err == 0.0}; limit "
+          f"{limit:.4e}, {P29_CHAOS:g} x the unsharded forward's change "
+          f"under a one-ulp nudge of its input, {own:.4e}; the unsharded "
+          f"forward twice bit for bit {repeat}); without the row sites' "
+          f"absmax all-reduce {err_local:.4e}; rank 0's int8 launches "
+          f"{e['launches']} (want {e['want']}), finite "
+          f"{bool(torch.isfinite(e['out']).all())} | {smi}", flush=True)
+    if not (err <= limit and e["launches"] == e["want"]
+            and e["launches"]["conv"] > 0
+            and bool(torch.isfinite(e["out"]).all())
+            and err_local > err):
+        raise AssertionError("[29e] the tensor-parallel int8 U-Net differs "
+                             "from the unsharded one")
+
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        folder = str(ref_gate / "ported")
+        out_d = Path(tmp) / "p29_nccl"
+        spec = {"gate": p29_gate_argv(str(out_d / "gate"), 2),
+                "parity": p29_parity_argv(str(out_d / "parity"), 2),
+                "demo": p29_demo_argv(folder, str(out_d / "demo"))}
+        launch = p26_start("29d", "d", 2, spec, tmp, flag="--p29_worker")
+        try:
+            more, ref_parity = p29_reference("parity", tmp)
+            ref.update(more)
+            more, ref_demo = p29_reference("demo", tmp, folder)
+            ref.update(more)
+        finally:
+            dd = p26_finish(launch)
+        if not (dd["world"] == 2 and dd["backend"] == "nccl"):
+            raise AssertionError("[29d] not two NCCL ranks")
+        for leg, ref_out in (("gate", ref_gate), ("parity", ref_parity),
+                             ("demo", ref_demo)):
+            p29_check_ranks("29d", dd, leg, out_d / leg, ref_out, ref)
+    else:
+        print(f"[29d] skipped: {cards} card visible (the gate, run_parity "
+              "and the demo over NCCL need two)", flush=True)
+    print(f"[29] phase 29 took {time.perf_counter() - t29:.1f} s | {smi}",
+          flush=True)
+    return p29a, p29b
+
+
 def lap(t_start: float, what: str) -> None:
     """The run's elapsed time after a group of phases (where the 1200 s
     go)."""
@@ -6865,7 +7397,7 @@ def main(argv=None):
                     help="comma-separated phase numbers (default: all; "
                          "phase 0 always runs, and the kernels line needs "
                          "all of them)")
-    for n in (26, 27):
+    for n in (26, 27, 29):
         ap.add_argument(f"--p{n}_worker", nargs=3, default=None,
                         metavar=("KIND", "SPEC", "OUT"),
                         help=f"phase {n}'s torchrun worker (the script "
@@ -6877,8 +7409,11 @@ def main(argv=None):
     if args.p27_worker:
         p27_worker(*args.p27_worker)
         return
+    if args.p29_worker:
+        p29_worker(*args.p29_worker)
+        return
     t_start = time.perf_counter()
-    every = set(range(28))
+    every = set(range(28)) | {29}
     run_ = every if args.phases is None else \
         {0} | {int(x) for x in args.phases.split(",")}
     if 11 in run_:
@@ -6888,6 +7423,8 @@ def main(argv=None):
         #                      attention and phase 16's runner under torchrun
     if 28 in run_:
         run_.add(16)         # phase 28 runs phase 16's runner on two cards
+    if 29 in run_:
+        run_.add(8)          # 29b takes more steps of phase 8's trainer
     if run_ & {16, 18, 19, 22, 25}:
         run_.add(15)         # phases 16, 18, 19, 22, 25 read phase 15's
         #                      artifacts
@@ -6935,6 +7472,11 @@ def main(argv=None):
         train_launches, inject_launches, ppft_kept = phase8(smi)
         step_rate = TRAIN_BATCH / ppft_kept[1]
         lap(t_start, "8")
+    if 29 in run_:
+        with tempfile.TemporaryDirectory(prefix="aqualora_p29_") as tmp:
+            phase29(smi, ppft_kept[0], tmp)
+        torch.cuda.empty_cache()
+        lap(t_start, "29")
     proto_launches, s3_rows, s3_launches, s3_kept = {}, {}, {}, []
     dist_launches, s21_rows, f32_rows = {}, {}, {}
     fid_launches, ds_launches, vit_rows = {}, {}, {}

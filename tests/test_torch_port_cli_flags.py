@@ -47,8 +47,8 @@ def test_every_jax_option_parses_and_only_five_are_refused():
     a value of its type; `refuse_unported` then raises NotImplementedError
     naming the flag for the two flags still refused, --dataset_name and
     --dataset_config_name, only (--teacher_int8 and --int8_gen pass since
-    the w8a8 port, --fsdp since the parallelism's).  `--attention_impl` sdpa and xla are
-    refused as the one attention path's; auto and flash pass."""
+    the w8a8 port, --fsdp since the parallelism's).  Every
+    `--attention_impl` of JAX's parser (auto, flash, sdpa, xla) passes."""
     from aqualora_torch.train import ppft_train as pt
     from aqualora_tpu.train import ppft_train as jt
 
@@ -70,10 +70,8 @@ def test_every_jax_option_parses_and_only_five_are_refused():
     assert refused <= seen and "--fsdp" in seen
     ours = {o for a in port._actions for o in a.option_strings}
     assert ours - seen == {"-h", "--help", "--device"}
-    for impl in ("sdpa", "xla"):
-        with pytest.raises(ValueError, match="one attention path"):
-            pt.refuse_unported(port.parse_args(["--attention_impl", impl]))
-    pt.refuse_unported(port.parse_args(["--attention_impl", "flash"]))
+    for impl in ("auto", "flash", "sdpa", "xla"):
+        pt.refuse_unported(port.parse_args(["--attention_impl", impl]))
 
 
 def test_every_jax_stage1_option_parses_and_only_fsdp_is_refused():

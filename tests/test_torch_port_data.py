@@ -147,13 +147,14 @@ def test_fixture_matches_committed_pixels(name):
         np.testing.assert_array_equal(got, pil)
 
 
-@pytest.mark.parametrize("name", sorted(JPEG_CASES) + ["sub440"])
+@pytest.mark.parametrize("name", sorted(JPEG_CASES) + ["sub440", "cmyk",
+                                                        "ycck"])
 def test_plain_version_matches_the_decoder(name):
     """`decode_from_coefficients` fed the decoder's coefficients gives the
-    decoder's pixels: every sampling (h2v1, h1v2, h2v2, none), grey, any
-    tables, blocks past the image's edge."""
-    data = (open(os.path.join(SMALL, "sub440.jpg"), "rb").read()
-            if name == "sub440" else _jpeg_case(name))
+    decoder's pixels: every sampling (h2v1, h1v2, h2v2, none), grey, CMYK
+    and YCCK, any tables, blocks past the image's edge."""
+    data = (open(os.path.join(SMALL, name + ".jpg"), "rb").read()
+            if name in ("sub440", "cmyk", "ycck") else _jpeg_case(name))
     head, quant, blocks = image_decode.jpeg_coefficients(data)
     if name == "sub440":
         assert [c[:2] for c in head.components] == [(1, 2), (1, 1), (1, 1)]
@@ -166,11 +167,9 @@ def test_plain_version_matches_the_decoder(name):
 
 @pytest.mark.parametrize("name", REFUSED)
 def test_refused_kinds_name_the_feature_and_the_file(name):
-    """Arithmetic coding, lossless, CMYK and 12-bit files raise
-    `ValueError` with the path and the feature, alone and in a batch.
-    (The JAX native loader fails on CMYK too, and sends its batch to PIL,
-    which the port does not have; libjpeg-turbo reads arithmetic-coded
-    files, which the port does not: ROADMAP A.5.)"""
+    """Arithmetic coding, lossless and 12-bit files raise `ValueError`
+    with the path and the feature, alone and in a batch.  (libjpeg-turbo
+    reads arithmetic-coded files, which the port does not: ROADMAP A.5.)"""
     path = os.path.join(SMALL, name)
     feature = MANIFEST["small"][name]["refused"]
     with pytest.raises(ValueError, match=feature) as e:
@@ -178,9 +177,37 @@ def test_refused_kinds_name_the_feature_and_the_file(name):
     assert str(e.value).startswith(path)
     with pytest.raises(ValueError, match=feature):
         image_decode.decode_batch([path], 8)
-    if name == "cmyk.jpg":
-        from aqualora_tpu.core import native_loader
-        assert native_loader.decode_batch([path], 8) is None
+
+
+@pytest.mark.parametrize("name,color,sampling", [
+    ("cmyk.jpg", "cmyk", [(1, 1)] * 4),
+    ("ycck.jpg", "ycck", [(2, 2), (1, 1), (1, 1), (1, 1)])])
+def test_four_component_jpeg_is_pils_rgb(name, color, sampling):
+    """Adobe CMYK (transform 0) and YCCK (transform 2, Y and K at 2x2)
+    decode bit for bit to PIL's `convert("RGB")` (libjpeg's YCCK -> CMYK,
+    Pillow's inverted CMYK and its cmyk2rgb), alone and through the native
+    rule's batch; the JAX native loader refuses both (its libjpeg gives no
+    RGB for them), which sends the JAX dataset's batch to PIL, and
+    `needs_pil_rule` says so of them alone."""
+    from aqualora_tpu.core import native_loader
+    path = os.path.join(SMALL, name)
+    data = open(path, "rb").read()
+    head = image_decode.jpeg_header(data)
+    assert head.color == color
+    assert [c[:2] for c in head.components] == sampling
+    with Image.open(path) as im:
+        assert im.mode == "CMYK"
+        assert im.info["adobe_transform"] == (0 if color == "cmyk" else 2)
+        want = np.asarray(im.convert("RGB"))
+    got = image_decode.decode_file(path)
+    np.testing.assert_array_equal(got, want)
+    assert len(np.unique(got.reshape(-1, 3), axis=0)) > 50
+    batch = image_decode.decode_batch([path], got.shape[0])
+    assert batch.shape == (1, got.shape[0], got.shape[0], 3)
+    assert native_loader.decode_batch([path], 8) is None
+    assert image_decode.needs_pil_rule(path)
+    assert not image_decode.needs_pil_rule(os.path.join(SMALL, "sub420.jpg"))
+    assert not image_decode.needs_pil_rule(os.path.join(SMALL, "rgba.png"))
 
 
 # ---------------------------------------------------------------------------
@@ -370,13 +397,48 @@ def test_folder_pixels_match_jax(folders, center_crop, random_flip):
 
 
 def test_a_batch_with_a_refused_file_raises(folders, tmp_path):
-    """The JAX dataset sends a batch with a CMYK file to PIL; the port
-    has no second decoder and raises with the file's path."""
+    """A file that neither package reads (lossless JPEG: the JAX loader's
+    libjpeg refuses it and so does PIL) raises with the file's path."""
     shutil.copytree(folders["meta"], tmp_path / "f")
-    shutil.copy(os.path.join(SMALL, "cmyk.jpg"), tmp_path / "f" / "grey.jpg")
+    shutil.copy(os.path.join(SMALL, "lossless.jpg"),
+                tmp_path / "f" / "grey.jpg")
     port = tdata.ImageFolderDataset(str(tmp_path / "f"), resolution=8)
-    with pytest.raises(ValueError, match="grey.jpg: refused: four"):
+    with pytest.raises(ValueError, match="grey.jpg: refused: lossless"):
         list(port.batches(len(port), epochs=1))
+
+
+@pytest.mark.parametrize("name", ["cmyk.jpg", "ycck.jpg"])
+@pytest.mark.parametrize("random_flip", [False, True])
+def test_a_batch_with_a_four_component_file_matches_jax(folders, tmp_path,
+                                                        name, random_flip):
+    """A folder whose `grey.jpg` is a CMYK or YCCK file, batches of 4:
+    the batches that hold it take PIL's rule whole (decode, PIL's bicubic
+    to uint8, no crop) and the others the native loader's, bit for bit as
+    JAX's dataset gives them (its native loader returns None for the
+    batch, which it then reads with PIL), the same flips from the same
+    seed; so do two data ranks' slices of them."""
+    shutil.copytree(folders["meta"], tmp_path / "f")
+    shutil.copy(os.path.join(SMALL, name), tmp_path / "f" / "grey.jpg")
+    port, jax_ds = _both(str(tmp_path / "f"), resolution=16,
+                         random_flip=random_flip)
+    got = _stream(port, 6, batch_size=4, seed=1)
+    want = _stream(jax_ds, 6, batch_size=4, seed=1)
+    pil_rule = 0
+    for (gi, gc), (wi, wc) in zip(got, want):
+        assert gc == wc
+        np.testing.assert_array_equal(gi, wi)
+        # PIL's rule rounds to uint8: every value is k / 127.5 - 1
+        pil_rule += bool(np.all(np.abs((gi + 1) * 127.5 - np.round(
+            (gi + 1) * 127.5)) < 1e-4))
+    assert 0 < pil_rule < len(got)
+    its = f"caption {FOLDER_FILES.index('grey.jpg')}"
+    for rank in range(2):
+        part = _stream(port, 6, batch_size=4, seed=1, part=(rank, 2))
+        for (pi, pc), (wi, wc) in zip(part, want):
+            mine = slice(2 * rank, 2 * rank + 2)
+            assert pc == wc[mine]
+            if its in wc[mine] or its not in wc:
+                np.testing.assert_array_equal(pi, wi[mine])
 
 
 @pytest.mark.parametrize("case", ["dataset_name", "not_a_directory",
@@ -679,8 +741,8 @@ _NO_PIL = textwrap.dedent("""
     from aqualora_torch.train import data, image_decode, ppft_train
     small = sys.argv[1]
     names = sorted(os.listdir(small))
-    ok = [n for n in names if n not in ("cmyk.jpg", "arithmetic.jpg",
-                                        "lossless.jpg", "precision12.jpg")]
+    ok = [n for n in names if n not in ("arithmetic.jpg", "lossless.jpg",
+                                        "precision12.jpg")]
     image_decode.decode_batch([os.path.join(small, n) for n in ok], 16)
     root = tempfile.mkdtemp()
     with open(os.path.join(root, "metadata.jsonl"), "w") as f:

@@ -31,7 +31,7 @@ from aqualora_tpu.ops import attention as ja
 from aqualora_tpu.ops import quant as jq
 
 KEY = jax.random.PRNGKey(0)
-UNPORTED = ("sdpa", "bf16_scores", "identity", "flash_jax")
+OTHER_VALUES = ("sdpa", "bf16_scores", "identity", "flash_jax")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -148,18 +148,29 @@ def test_int8_attention_is_forward_only_in_both_packages(monkeypatch):
         out.sum().backward()
 
 
-@pytest.mark.parametrize("impl", UNPORTED)
+@pytest.mark.parametrize("impl", OTHER_VALUES)
 def test_unported_implementation_raises(impl, monkeypatch):
-    """The JAX package's other values are not ported: the variable raises a
-    ValueError naming it at the call, the context when it is entered."""
+    """The JAX package's other values are taken, by the variable and the
+    context (tests/test_torch_port_attention_impls.py holds each against
+    JAX's); a value the JAX dispatcher does not name raises a ValueError
+    naming it, from the variable at the call and from the context when it
+    is entered."""
     _, (tq_, tk, tv) = _qkv((1, 1, 4, 8), (1, 1, 4, 8), "float32")
-    monkeypatch.setenv("AQUALORA_ATTN_IMPL", impl)
-    with pytest.raises(ValueError, match=repr(impl)):
-        ta.dot_product_attention(tq_, tk, tv)
-    monkeypatch.delenv("AQUALORA_ATTN_IMPL")
-    with pytest.raises(ValueError, match=repr(impl)):
-        with ta.attention_impl(impl):
-            pass
+    unknown = impl + "_v2"
+    for value, ok in ((impl, True), (unknown, False)):
+        monkeypatch.setenv("AQUALORA_ATTN_IMPL", value)
+        if ok:
+            assert ta.current_impl() == impl
+            ta.dot_product_attention(tq_, tk, tv)
+            with ta.attention_impl(impl):
+                assert ta.current_impl() == impl
+            continue
+        with pytest.raises(ValueError, match=repr(value)):
+            ta.dot_product_attention(tq_, tk, tv)
+        monkeypatch.delenv("AQUALORA_ATTN_IMPL")
+        with pytest.raises(ValueError, match=repr(value)):
+            with ta.attention_impl(value):
+                pass
     assert ta.current_impl() == "auto"
 
 

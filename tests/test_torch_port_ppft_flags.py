@@ -21,6 +21,15 @@ KEY = jax.random.PRNGKey(0)
 LR = 1e-4
 
 
+def _torch_grad(g: np.ndarray) -> torch.Tensor:
+    """A gradient for torch from an array that a JAX call was also handed:
+    a copy.  JAX on the CPU takes a numpy argument without copying it and
+    may read it after the call has returned (dispatch is asynchronous),
+    while the port's update scales `.grad` in place (the clip), so a tensor
+    that shared the array's memory could change JAX's input under it."""
+    return torch.from_numpy(g.copy())
+
+
 @pytest.fixture(scope="module", autouse=True)
 def _one_torch_thread():
     """torch's CPU ops on one thread in this module: the tier-1 run puts
@@ -67,7 +76,7 @@ def test_adamw8bit_codes_and_updates_match_jax():
                                     for k, g in grads.items()}, state, jp)
         jp = optax.apply_updates(jp, updates)
         for p, k in zip(tp, sorted(shapes)):
-            p.grad = torch.from_numpy(grads[k])
+            p.grad = _torch_grad(grads[k])
         opt.step()
         sched.step()
         (st,) = opt.state.values()
@@ -163,7 +172,7 @@ def test_block_lr_update_matches_jax():
             for (mk, which), g in zip(keys, grads)})}
         jtrain, jstate = tx_update(jgrads, jstate, jtrain)
         for p, g in zip(named.values(), grads):
-            p.grad = torch.from_numpy(g)
+            p.grad = _torch_grad(g)
         update()
     flat = tu.flatten_dict(jtrain["lora"])
     for ((mk, which), v), (name, p) in zip(zip(keys, init), named.items()):
@@ -173,6 +182,24 @@ def test_block_lr_update_matches_jax():
                                    atol=1e-6, err_msg=name)
         assert np.array_equal(p.detach().numpy(), v) == (
             weights[id(p)] == 0.0), name
+
+
+def test_torch_grads_leave_the_arrays_jax_reads_alone():
+    """Why the block-LR comparison failed under load: JAX on the CPU reads
+    a numpy argument after its call has returned, and `make_update` clips
+    `.grad` in place, so a gradient sharing the array's memory moved JAX's
+    input under it whenever JAX's work ran late.  After a clipped update,
+    the array a gradient came from is as it was."""
+    from aqualora_torch.train import ppft_train as tt
+
+    g = np.full((2, 3), 10.0, np.float32)     # norm 24.5: the clip scales
+    want = g.copy()
+    p = torch.nn.Parameter(torch.zeros(2, 3))
+    opt, sched = tt.make_optimizer({"lora": [p]}, LR, 0, 10)
+    p.grad = _torch_grad(g)
+    tt.make_update(opt, sched, 1.0)()
+    assert p.grad.abs().max() < 1.0           # clipped in place
+    np.testing.assert_array_equal(g, want)
 
 
 def test_rank_dropout_with_jax_mask():
@@ -305,7 +332,7 @@ def test_accumulation_matches_optax_multisteps(k):
         jp, state = step(grads, state, jp)
         before = {n: p.detach().clone() for n, p in tp.items()}
         for n, p in tp.items():
-            p.grad = torch.from_numpy(grads[n])
+            p.grad = _torch_grad(grads[n])
         update()
         for n, p in tp.items():
             np.testing.assert_allclose(p.detach().numpy(), np.asarray(jp[n]),

@@ -8,8 +8,10 @@ writes into this directory:
 - `small/`: one small file of every JPEG and PNG kind the port decodes or
   refuses (`jpeg_kinds`, `png_kinds`).  JPEG files are Pillow's, but for
   the kinds Pillow cannot write: a baseline 4:4:0 file
-  (`encode_baseline`, standard tables) and refused ones patched from a
-  baseline file (arithmetic coding, lossless, 12-bit).  PNG files are
+  (`encode_baseline`, standard tables), a YCCK file (`ycck_jpeg`: Pillow's
+  CMYK file of YCCK samples, its Adobe transform set to 2) and refused
+  ones patched from a baseline file (arithmetic coding, lossless,
+  12-bit).  PNG files are
   written by `write_png` with all five row filters, Adam7 too;
 - `realistic/`: eight smooth seeded images of 512x512 to 1024x768,
   baseline and progressive, 4:2:0 and 4:4:4, the data of the card's
@@ -316,6 +318,33 @@ def write_png(path: str, samples: np.ndarray, depth: int, ctype: int,
         f.write(_chunk(b"IEND", b""))
 
 
+def ycck_jpeg(img: np.ndarray) -> bytes:
+    """A YCCK JPEG (four components, Adobe transform 2, as Photoshop writes
+    CMYK), which Pillow does not write: `img`'s CMY with a varying K, taken
+    to YCCK by libjpeg's forward rule (jccolor.c `cmyk_ycck_convert`: Y, Cb,
+    Cr of (255 - C, 255 - M, 255 - Y) in 16-bit fixed point, K as is),
+    stored by Pillow as a CMYK file (Pillow inverts every byte on the way
+    in, the Adobe convention, so it is handed the inverse), the first
+    component at 2x2 (`subsampling=2`), then the Adobe marker's transform
+    byte set to 2."""
+    rgb = img.astype(np.int64)
+    k = rgb[..., 1] // 3
+    r, g, b = (rgb[..., i] for i in range(3))
+    y = (19595 * r + 38470 * g + 7471 * b + 32768) >> 16
+    cb = (-11059 * r - 21709 * g + 32768 * b + (128 << 16) + 32767) >> 16
+    cr = (32768 * r - 27439 * g - 5329 * b + (128 << 16) + 32767) >> 16
+    stored = np.stack([y, cb, cr, k], -1).astype(np.uint8)
+    h, w = img.shape[:2]
+    buf = io.BytesIO()
+    Image.frombytes("CMYK", (w, h), (255 - stored).tobytes()).save(
+        buf, "JPEG", quality=85, subsampling=2)
+    data = bytearray(buf.getvalue())
+    at = data.index(b"\xff\xee") + 4          # the segment's payload
+    assert data[at:at + 5] == b"Adobe" and data[at + 11] == 0
+    data[at + 11] = 2
+    return bytes(data)
+
+
 # ---------------------------------------------------------------------------
 # the sets
 # ---------------------------------------------------------------------------
@@ -356,9 +385,10 @@ def jpeg_kinds():
         "odd_17x9": pil(smooth_image(17, 9, 2), quality=90),
         "odd_1x1": pil(smooth_image(1, 1, 3), quality=90),
         "odd_9x2_422": pil(smooth_image(9, 2, 4), quality=90, subsampling=1),
+        "cmyk": pil(img, "CMYK", quality=85),
+        "ycck": ycck_jpeg(img),
     }
     refused = {
-        "cmyk": (pil(img, "CMYK", quality=85), "four components"),
         "arithmetic": (patched(base, marker=0xC9), "arithmetic coding"),
         "lossless": (patched(base, marker=0xC3), "lossless"),
         "precision12": (patched(base, precision=12), "12-bit precision"),

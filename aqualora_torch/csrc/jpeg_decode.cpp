@@ -2,26 +2,48 @@
 // libjpeg.
 //
 // The port's counterpart of the JAX package's native loader
-// (aqualora_tpu/native/imageloader.cpp), which reads JPEG with libjpeg
-// (`cinfo.out_color_space = JCS_RGB`, everything else at its defaults) and
-// resizes with its own float32 bicubic.  The card's machine has no libjpeg
-// headers, so the file parser, the Huffman decoder and libjpeg's integer
-// back half are written here, to give libjpeg-turbo's pixels bit for bit:
+// (aqualora_tpu/native/imageloader.cpp), which reads a file with
+// libjpeg-turbo 2.1 through its stdio source (`cinfo.out_color_space =
+// JCS_RGB`, everything else at its defaults) and resizes with its own
+// float32 bicubic.  The card's machine has no libjpeg headers, so the
+// marker reader, both entropy decoders and libjpeg's integer back half are
+// written here, to give libjpeg-turbo 2.1's pixels bit for bit:
 //
-//   - markers SOI, APPn (JFIF and Adobe read, the rest skipped), COM, DQT
-//     (8- and 16-bit tables), DHT, SOF0, SOF1 (extended, 8-bit), SOF2
-//     (progressive), SOS, DRI, RST0-7, EOI;
-//   - baseline Huffman decoding (jdhuff.c), and progressive decoding with
-//     DC first and refine scans, AC first scans with EOB runs and AC
-//     refine scans (jdphuff.c); restart intervals reset the DC predictors
-//     and the EOB run; libjpeg-turbo's default tables (jstdhuff.c) stand in
-//     for tables 0 and 1 when a file defines none;
+//   - the input as libjpeg's stdio source gives it: the file's bytes, then
+//     a fake EOI (0xFF 0xD9) for ever, so that a file cut anywhere after
+//     its first SOS decodes (jdatasrc.c); markers as jdmarker.c reads them:
+//     SOI, APPn (JFIF and Adobe read, the rest skipped), COM, DQT (8- and
+//     16-bit tables), DHT, DAC, SOF0, SOF1, SOF2, SOF9, SOF10, SOS, DRI,
+//     RST0-7, TEM and DNL (skipped), EOI; a segment's fields are read
+//     whatever its length says, and the length is checked after them;
+//   - Huffman decoding, sequential (jdhuff.c) and progressive (jdphuff.c:
+//     DC first and refine, AC first with EOB runs, AC refine);
+//     libjpeg-turbo's default tables (jstdhuff.c) for tables 0 and 1 of a
+//     sequential file that defines none (a progressive file must);
+//   - arithmetic decoding (T.81 Annexes D, F and G, as jdarith.c): the QM
+//     decoder with Table D.2's estimation states (jaricom.c), DC and AC
+//     statistics per table under the conditioning of DAC (L, U, Kx) or its
+//     defaults (0, 1, 5), sequential (SOF9) and progressive (SOF10) scans;
+//   - libjpeg's warnings, on which it goes on: the data of a scan running
+//     out (zero bits, then the MCUs left to the next restart keep their
+//     zeroed blocks), a bad Huffman code (17 bits, decoded as symbol 0), a
+//     bad arithmetic code (the rest of the interval skipped), extraneous
+//     bytes before a marker (skipped), a missing or wrong restart marker
+//     (`jpeg_resync_to_restart`'s rule), sequential scan parameters out of
+//     range; each sets a bit of the result's `warnings`;
+//   - block smoothing of progressive files whose scans leave low
+//     coefficients unfinished (jdcoefct.c, `smoothing_ok` and
+//     `decompress_smooth_data` of libjpeg-turbo 2.1: the first nine AC
+//     coefficients, and the DC when no AC is known, estimated from the
+//     5 x 5 blocks' DC values; each iMCU row after the last one decoded
+//     with data takes the coefficient precision from before its scan);
 //   - the accurate integer inverse DCT with its range limit (jidctint.c,
 //     `jpeg_idct_islow`; jdmaster.c, `prepare_range_limit_table`);
-//   - fancy upsampling of every component whose sampling factors are at
-//     most 2 (jdsample.c: h2v1, h1v2 and h2v2, with plain replication where
-//     libjpeg takes it), its context rows replicated at the image's top and
-//     bottom (jdmainct.c);
+//   - upsampling of every component whose sampling factors divide the
+//     largest (jdsample.c: h2v1, h1v2 and h2v2 fancy, plain replication
+//     where libjpeg takes it, and box replication for other integer
+//     ratios), the context rows replicated at the image's top and bottom
+//     (jdmainct.c);
 //   - YCbCr -> RGB (jdcolor.c, `build_ycc_rgb_table`); one component is
 //     grey, replicated to RGB as PIL's convert("RGB") does; three
 //     components are RGB or YCbCr by libjpeg's rule (JFIF, then the Adobe
@@ -37,17 +59,14 @@
 //     with nk = 255 - K, each of R, G, B = nk - (C * nk) / 255 rounded as
 //     its MULDIV255.
 //
-// Refused with the feature's name: arithmetic coding (SOF9-15, DAC),
-// lossless (SOF3), hierarchical (SOF5-7, DHP, EXP), DNL, 12-bit precision,
-// two components, sampling factors above 2, and progressive files whose
-// scans leave coefficients unfinished (libjpeg would smooth those
-// blocks).  Where libjpeg only
-// warns and goes on (a bad Huffman code, data past a segment's end, a
-// missing restart marker, a file cut before EOI), this decoder fails.
-// Every read is bounds-checked; a corrupt file returns an error and never
-// reads out of range.  Dequantized coefficients are taken at full
-// precision, as libjpeg's C IDCT takes them; every encoder's output fits
-// the 16 bits its SIMD IDCT keeps.
+// Refused with the feature's name, as libjpeg refuses them: lossless
+// (SOF3, SOF11), hierarchical (SOF5-7, SOF13-15, DHP, EXP), the JPG
+// extension (SOF8), 12-bit precision, two components, fractional sampling
+// ratios; and files cut before their first scan (no image).  Every read
+// is bounds-checked; a corrupt file returns an error and never reads out
+// of range.  Dequantized coefficients are taken at full precision, as
+// libjpeg's C IDCT takes them; every encoder's output fits the 16 bits its
+// SIMD IDCT keeps.
 //
 // The resize is the JAX loader's float32 rule, the same operations in the
 // same order (imageloader.cpp:117-190), so it gives the same bits when both
@@ -55,8 +74,9 @@
 //
 // C entry points (ctypes, aqualora_torch/train/image_decode.py):
 //   decode_header        geometry of a JPEG in memory
-//   decode_coefficients  its quantization tables and quantized blocks
-//   decode_rgb           its RGB pixels
+//   decode_coefficients  its quantization tables, quantized blocks and
+//                        progression (coef_bits, smoothing)
+//   decode_rgb           its RGB pixels and warnings
 //   decode_batch         files -> [n, res, res, 3] float32 in [-1, 1], on
 //                        std::threads (0 threads: the hardware's count)
 //   resize_normalize     RGB uint8 -> the same float32 rule
@@ -65,6 +85,7 @@
 // Build: g++ -O3 -shared -fPIC -std=c++17 -pthread -ffp-contract=off
 
 #include <algorithm>
+#include <array>
 #include <atomic>
 #include <cmath>
 #include <cstdint>
@@ -97,63 +118,111 @@ const int kNatural[80] = {
 // Pillow's decompression-bomb limit, 2 * Image.MAX_IMAGE_PIXELS
 constexpr int64_t kMaxPixels = 178956970;
 
+// libjpeg's warnings (jerror.h), one bit each in a decode's `warnings`
+enum Warning : uint32_t {
+  kWarnEof = 1,               // JWRN_JPEG_EOF: the file ends before EOI
+  kWarnHitMarker = 2,         // JWRN_HIT_MARKER: a scan's data ran out
+  kWarnHuffBadCode = 4,       // JWRN_HUFF_BAD_CODE
+  kWarnArithBadCode = 8,      // JWRN_ARITH_BAD_CODE
+  kWarnExtraneous = 16,       // JWRN_EXTRANEOUS_DATA
+  kWarnResync = 32,           // JWRN_MUST_RESYNC
+  kWarnNotSequential = 64,    // JWRN_NOT_SEQUENTIAL
+  kWarnBogusProgression = 128,  // JWRN_BOGUS_PROGRESSION
+  kWarnAdobeTransform = 256,  // JWRN_ADOBE_XFORM
+};
+
+// ---------------------------------------------------------------------------
+// the input: jdatasrc.c's stdio source
+// ---------------------------------------------------------------------------
+
+// The file's bytes, then 0xFF 0xD9 again and again: at the end of its file
+// libjpeg's source warns and inserts a fake EOI at every refill.
+struct Source {
+  const uint8_t* data = nullptr;
+  size_t len = 0, pos = 0;  // pos passes len in the fake EOIs
+  uint32_t warnings = 0;
+
+  int byte() {
+    if (pos < len) return data[pos++];
+    warnings |= kWarnEof;
+    return ((pos++ - len) & 1) ? 0xD9 : 0xFF;
+  }
+
+  int u16() {
+    const int hi = byte();
+    return (hi << 8) | byte();
+  }
+
+  void skip(int64_t n) {
+    if (n <= 0) return;
+    if (pos + size_t(n) > len) warnings |= kWarnEof;
+    pos += size_t(n);
+  }
+};
+
 // ---------------------------------------------------------------------------
 // Huffman tables (jdhuff.c, jpeg_make_d_derived_tbl)
 // ---------------------------------------------------------------------------
 
 constexpr int kLookBits = 9;
 
-struct HuffTable {
+// a DHT's table as the file defines it
+struct HuffSpec {
   bool defined = false;
+  uint8_t bits[17] = {};
+  uint8_t vals[256] = {};
+};
+
+struct HuffTable {
   uint8_t vals[256] = {};
   int32_t maxcode[18] = {};    // the largest code of each length, -1 if none
   int32_t valoffset[18] = {};  // vals index = code + valoffset[length]
   uint16_t lookup[1 << kLookBits] = {};  // (length << 8) | value; 0: longer
 };
 
-void build_table(HuffTable* t, const uint8_t bits[17], const uint8_t* vals,
-                 int nvals, bool dc) {
+void build_table(HuffTable* t, const HuffSpec& s, bool dc) {
   int huffsize[257];
   uint32_t huffcode[257];
   int p = 0;
-  for (int l = 1; l <= 16; ++l)
-    for (int i = 0; i < bits[l]; ++i) huffsize[p++] = l;
+  for (int l = 1; l <= 16; ++l) {
+    if (p + s.bits[l] > 256) fail("corrupt file: bad Huffman table");
+    for (int i = 0; i < s.bits[l]; ++i) huffsize[p++] = l;
+  }
   huffsize[p] = 0;
-  if (p != nvals) fail("bad Huffman table");
+  const int nvals = p;
   uint32_t code = 0;
   int si = huffsize[0];
   p = 0;
   while (huffsize[p]) {
     while (huffsize[p] == si) huffcode[p++] = code++;
-    if (code >= (1u << si)) fail("bad Huffman table (codes overflow)");
+    if (code >= (1u << si)) fail("corrupt file: bad Huffman table");
     code <<= 1;
     ++si;
   }
   p = 0;
   for (int l = 1; l <= 16; ++l) {
-    if (bits[l]) {
+    if (s.bits[l]) {
       t->valoffset[l] = p - int(huffcode[p]);
-      p += bits[l];
+      p += s.bits[l];
       t->maxcode[l] = int32_t(huffcode[p - 1]);
     } else {
       t->maxcode[l] = -1;
     }
   }
-  std::memset(t->vals, 0, sizeof(t->vals));
-  std::memcpy(t->vals, vals, size_t(nvals));
+  t->maxcode[17] = 0xFFFFF;  // the sentinel: at most 17 bits are read
+  std::memcpy(t->vals, s.vals, sizeof(t->vals));
   std::memset(t->lookup, 0, sizeof(t->lookup));
   p = 0;
   for (int l = 1; l <= kLookBits; ++l) {
-    for (int i = 0; i < bits[l]; ++i, ++p) {
+    for (int i = 0; i < s.bits[l]; ++i, ++p) {
       const uint32_t first = huffcode[p] << (kLookBits - l);
       for (uint32_t k = 0; k < (1u << (kLookBits - l)); ++k)
-        t->lookup[first + k] = uint16_t((l << 8) | vals[p]);
+        t->lookup[first + k] = uint16_t((l << 8) | s.vals[p]);
     }
   }
   if (dc)
     for (int i = 0; i < nvals; ++i)
-      if (vals[i] > 15) fail("bad Huffman table (DC symbol above 15)");
-  t->defined = true;
+      if (s.vals[i] > 15) fail("corrupt file: bad Huffman table");
 }
 
 // jstdhuff.c: the tables of Annex K.3, which libjpeg-turbo installs in the
@@ -194,99 +263,68 @@ const uint8_t kAcChromVals[162] = {
     0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4,
     0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
 
-// ---------------------------------------------------------------------------
-// the entropy-coded segment's bits (jdhuff.c, jpeg_fill_bit_buffer)
-// ---------------------------------------------------------------------------
-
-struct BitReader {
-  const uint8_t* data = nullptr;
-  size_t len = 0, pos = 0;
-  uint64_t buf = 0;
-  int count = 0;  // bits in buf
-  int fill = 0;   // of which zeros appended past the segment's end
-  bool ended = false;
-
-  void start(const uint8_t* d, size_t n, size_t p) {
-    data = d;
-    len = n;
-    pos = p;
-    buf = 0;
-    count = fill = 0;
-    ended = false;
-  }
-
-  // Bytes up to the next marker; 0xFF 0x00 is a data 0xFF (padding 0xFFs
-  // before it skipped, as libjpeg skips them).  At a marker or the end of
-  // the file, zeros, with `pos` left on the marker.
-  void refill() {
-    while (count <= 56) {
-      uint32_t b = 0;
-      if (!ended) {
-        if (pos >= len) {
-          ended = true;
-        } else if (data[pos] != 0xFF) {
-          b = data[pos++];
-        } else {
-          size_t q = pos + 1;
-          while (q < len && data[q] == 0xFF) ++q;
-          if (q < len && data[q] == 0x00) {
-            b = 0xFF;
-            pos = q + 1;
-          } else {
-            ended = true;
-          }
-        }
-      }
-      if (ended) fill += 8;
-      buf |= uint64_t(b) << (56 - count);
-      count += 8;
-    }
-  }
-
-  uint32_t peek(int n) {
-    if (count < n) refill();
-    return uint32_t(buf >> (64 - n));
-  }
-
-  void skip(int n) {
-    if (n > count - fill)
-      fail("corrupt data: the entropy-coded data runs past its segment");
-    buf <<= n;
-    count -= n;
-  }
-
-  int get(int n) {
-    if (n == 0) return 0;
-    const uint32_t v = peek(n);
-    skip(n);
-    return int(v);
-  }
-
-  int decode(const HuffTable& t) {
-    const uint32_t look = peek(kLookBits);
-    const uint16_t e = t.lookup[look];
-    if (e) {
-      skip(e >> 8);
-      return e & 0xFF;
-    }
-    const uint32_t bits16 = peek(16);
-    for (int l = kLookBits + 1; l <= 16; ++l) {
-      const int32_t code = int32_t(bits16 >> (16 - l));
-      if (code <= t.maxcode[l]) {
-        skip(l);
-        const int idx = code + t.valoffset[l];
-        if (idx < 0 || idx > 255) fail("corrupt data: bad Huffman code");
-        return t.vals[idx];
-      }
-    }
-    fail("corrupt data: bad Huffman code");
-  }
-};
+void std_spec(HuffSpec* s, const uint8_t bits[17], const uint8_t* vals,
+              int n) {
+  std::memcpy(s->bits, bits, 17);
+  std::memset(s->vals, 0, sizeof(s->vals));
+  std::memcpy(s->vals, vals, size_t(n));
+  s->defined = true;
+}
 
 // HUFF_EXTEND (jdhuff.h)
 inline int extend(int r, int s) {
   return r < (1 << (s - 1)) ? r + int(~0u << s) + 1 : r;
 }
+
+// ---------------------------------------------------------------------------
+// the arithmetic decoder's probability estimation (jaricom.c, Table D.2):
+// (Qe << 16) | (Next_Index_MPS << 8) | (Switch_MPS << 7) | Next_Index_LPS;
+// the last state is the fixed probability 0.5 (T.851)
+// ---------------------------------------------------------------------------
+
+#define V(qe, nl, nm, sw) ((int32_t(qe) << 16) | ((nm) << 8) | ((sw) << 7) | (nl))
+const int32_t kAritab[114] = {
+    V(0x5a1d, 1, 1, 1),     V(0x2586, 14, 2, 0),    V(0x1114, 16, 3, 0),
+    V(0x080b, 18, 4, 0),    V(0x03d8, 20, 5, 0),    V(0x01da, 23, 6, 0),
+    V(0x00e5, 25, 7, 0),    V(0x006f, 28, 8, 0),    V(0x0036, 30, 9, 0),
+    V(0x001a, 33, 10, 0),   V(0x000d, 35, 11, 0),   V(0x0006, 9, 12, 0),
+    V(0x0003, 10, 13, 0),   V(0x0001, 12, 13, 0),   V(0x5a7f, 15, 15, 1),
+    V(0x3f25, 36, 16, 0),   V(0x2cf2, 38, 17, 0),   V(0x207c, 39, 18, 0),
+    V(0x17b9, 40, 19, 0),   V(0x1182, 42, 20, 0),   V(0x0cef, 43, 21, 0),
+    V(0x09a1, 45, 22, 0),   V(0x072f, 46, 23, 0),   V(0x055c, 48, 24, 0),
+    V(0x0406, 49, 25, 0),   V(0x0303, 51, 26, 0),   V(0x0240, 52, 27, 0),
+    V(0x01b1, 54, 28, 0),   V(0x0144, 56, 29, 0),   V(0x00f5, 57, 30, 0),
+    V(0x00b7, 59, 31, 0),   V(0x008a, 60, 32, 0),   V(0x0068, 62, 33, 0),
+    V(0x004e, 63, 34, 0),   V(0x003b, 32, 35, 0),   V(0x002c, 33, 9, 0),
+    V(0x5ae1, 37, 37, 1),   V(0x484c, 64, 38, 0),   V(0x3a0d, 65, 39, 0),
+    V(0x2ef1, 67, 40, 0),   V(0x261f, 68, 41, 0),   V(0x1f33, 69, 42, 0),
+    V(0x19a8, 70, 43, 0),   V(0x1518, 72, 44, 0),   V(0x1177, 73, 45, 0),
+    V(0x0e74, 74, 46, 0),   V(0x0bfb, 75, 47, 0),   V(0x09f8, 77, 48, 0),
+    V(0x0861, 78, 49, 0),   V(0x0706, 79, 50, 0),   V(0x05cd, 48, 51, 0),
+    V(0x04de, 50, 52, 0),   V(0x040f, 50, 53, 0),   V(0x0363, 51, 54, 0),
+    V(0x02d4, 52, 55, 0),   V(0x025c, 53, 56, 0),   V(0x01f8, 54, 57, 0),
+    V(0x01a4, 55, 58, 0),   V(0x0160, 56, 59, 0),   V(0x0125, 57, 60, 0),
+    V(0x00f6, 58, 61, 0),   V(0x00cb, 59, 62, 0),   V(0x00ab, 61, 63, 0),
+    V(0x008f, 61, 32, 0),   V(0x5b12, 65, 65, 1),   V(0x4d04, 80, 66, 0),
+    V(0x412c, 81, 67, 0),   V(0x37d8, 82, 68, 0),   V(0x2fe8, 83, 69, 0),
+    V(0x293c, 84, 70, 0),   V(0x2379, 86, 71, 0),   V(0x1edf, 87, 72, 0),
+    V(0x1aa9, 87, 73, 0),   V(0x174e, 72, 74, 0),   V(0x1424, 72, 75, 0),
+    V(0x119c, 74, 76, 0),   V(0x0f6b, 74, 77, 0),   V(0x0d51, 75, 78, 0),
+    V(0x0bb6, 77, 79, 0),   V(0x0a40, 77, 48, 0),   V(0x5832, 80, 81, 1),
+    V(0x4d1c, 88, 82, 0),   V(0x438e, 89, 83, 0),   V(0x3bdd, 90, 84, 0),
+    V(0x34ee, 91, 85, 0),   V(0x2eae, 92, 86, 0),   V(0x299a, 93, 87, 0),
+    V(0x2516, 86, 71, 0),   V(0x5570, 88, 89, 1),   V(0x4ca9, 95, 90, 0),
+    V(0x44d9, 96, 91, 0),   V(0x3e22, 97, 92, 0),   V(0x3824, 99, 93, 0),
+    V(0x32b4, 99, 94, 0),   V(0x2e17, 93, 86, 0),   V(0x56a8, 95, 96, 1),
+    V(0x4f46, 101, 97, 0),  V(0x47e5, 102, 98, 0),  V(0x41cf, 103, 99, 0),
+    V(0x3c3d, 104, 100, 0), V(0x375e, 99, 93, 0),   V(0x5231, 105, 102, 0),
+    V(0x4c0f, 106, 103, 0), V(0x4639, 107, 104, 0), V(0x415e, 103, 99, 0),
+    V(0x5627, 105, 106, 1), V(0x50e7, 108, 107, 0), V(0x4b85, 109, 103, 0),
+    V(0x5597, 110, 109, 0), V(0x504f, 111, 107, 0), V(0x5a10, 110, 111, 1),
+    V(0x5522, 112, 109, 0), V(0x59eb, 112, 111, 1), V(0x5a1d, 113, 113, 0)};
+#undef V
+
+constexpr int kDcStatBins = 64, kAcStatBins = 256, kArithTables = 16;
 
 // ---------------------------------------------------------------------------
 // the frame
@@ -297,158 +335,236 @@ struct Component {
   int dw = 0, dh = 0;    // samples: ceil(W * h / hmax), ceil(H * v / vmax)
   int cbw = 0, cbh = 0;  // blocks a non-interleaved scan codes
   int bw = 0, bh = 0;    // blocks held: the MCU grid's
-  int dc_pred = 0;
-  bool coded = false;
-  int quant[64] = {};    // natural order, latched at its first scan
-  int coef_bits[64];     // progressive: the lowest bit known, -1 none
+  bool latched = false;  // its quantization table copied at its first scan
+  int quant[64] = {};    // natural order; 0 until latched
   std::vector<int16_t> coef;  // [bh][bw][64], natural order
 };
 
 enum ColorSpace { kGrey = 0, kYCbCr = 1, kRGB = 2, kCMYK = 3, kYCCK = 4 };
 constexpr int kMaxComponents = 4;
+constexpr int kMaxDimension = 65500;  // JPEG_MAX_DIMENSION
 
-// The markers of the processes this decoder does not implement.
-void refuse_marker(int m) {
-  if (m == 0xD8) fail("corrupt file: a second SOI");
-  if (m == 0xC3) fail("refused: lossless JPEG (SOF3)");
-  if (m >= 0xC5 && m <= 0xC7)
-    fail("refused: hierarchical JPEG (SOF" + std::to_string(m - 0xC0) + ")");
-  if ((m >= 0xC9 && m <= 0xCB) || (m >= 0xCD && m <= 0xCF))
-    fail("refused: arithmetic coding (SOF" + std::to_string(m - 0xC0) + ")");
-  if (m == 0xCC) fail("refused: arithmetic coding (DAC)");
-  if (m == 0xDE || m == 0xDF) fail("refused: hierarchical JPEG (DHP/EXP)");
-  if (m == 0xDC) fail("refused: DNL marker");
+std::string hex(int m) {
+  char b[8];
+  std::snprintf(b, sizeof(b), "%02X", m);
+  return b;
 }
 
 struct Jpeg {
-  const uint8_t* data = nullptr;
-  size_t len = 0, pos = 0;
+  Source src;
+  int unread_marker = 0;  // a marker read and not yet processed
 
-  bool frame = false, progressive = false, scanned = false;
+  bool frame = false, progressive = false, arith = false;
+  bool scanned = false, multiple_scans = false;
+  int scans = 0;  // SOS markers read
+  int precision = 8;
   int width = 0, height = 0, ncomp = 0, hmax = 1, vmax = 1;
   int mcus_x = 0, mcus_y = 0;
   Component comp[kMaxComponents];
   int quant[4][64] = {};
   bool quant_defined[4] = {};
-  HuffTable dc[4], ac[4];
+  HuffSpec dc_spec[4], ac_spec[4];
+  uint8_t arith_dc_l[kArithTables], arith_dc_u[kArithTables],
+      arith_ac_k[kArithTables];
   int restart_interval = 0;
   bool jfif = false, adobe = false;
   int adobe_transform = 0;
   int color = kYCbCr;
 
-  // scan state
-  BitReader bits;
+  // progression: coef_bits[c][k] is the lowest bit of coefficient k known
+  // (-1: none), prev_bits the same before the component's latest scan
+  // (libjpeg-turbo's second half of cinfo->coef_bits)
+  int coef_bits[kMaxComponents][64];
+  int prev_bits[kMaxComponents][64];
+  int last_good_row = 0;  // cinfo->master->last_good_iMCU_row
+
+  // ---- the scan ----------------------------------------------------------
+  int ns = 0, scomp[kMaxComponents] = {}, dctbl[kMaxComponents] = {},
+      actbl[kMaxComponents] = {};
+  int ss = 0, se = 0, ah = 0, al = 0;
+  int next_restart = 0, restarts_to_go = 0;
+  int dc_pred[kMaxComponents] = {};
+  // Huffman
+  HuffTable dct[kMaxComponents], act[kMaxComponents];
+  uint64_t buf = 0;
+  int count = 0;  // bits in buf (its low bits)
+  bool insufficient = false;
   int eobrun = 0;
+  // arithmetic: the C and A registers and the bit counter (jdarith.c)
+  int64_t arith_c = 0, arith_a = 0;
+  int arith_ct = 0;
+  int dc_context[kMaxComponents] = {};
+  uint8_t dc_stats[kArithTables][kDcStatBins];
+  uint8_t ac_stats[kArithTables][kAcStatBins];
+  uint8_t fixed_bin[4] = {113, 0, 0, 0};
 
-  uint8_t byte() {
-    if (pos >= len) fail("truncated file: a marker segment runs past the end");
-    return data[pos++];
+  Jpeg() {
+    for (int t = 0; t < kArithTables; ++t) {
+      arith_dc_l[t] = 0;
+      arith_dc_u[t] = 1;
+      arith_ac_k[t] = 5;
+    }
+    for (int c = 0; c < kMaxComponents; ++c)
+      for (int k = 0; k < 64; ++k) {
+        coef_bits[c][k] = -1;
+        prev_bits[c][k] = 0;
+      }
   }
 
-  int u16() {
-    const int hi = byte();
-    return (hi << 8) | byte();
+  void start(const uint8_t* d, size_t n) {
+    src.data = d;
+    src.len = n;
+    src.pos = 0;
+    const int c = src.byte(), c2 = src.byte();
+    if (c != 0xFF || c2 != 0xD8) fail("not a JPEG file (no SOI)");
   }
 
-  // the next marker's code: non-0xFF bytes and 0xFF 0x00 pairs skipped, as
-  // libjpeg's next_marker skips them
+  // libjpeg's next_marker: non-0xFF bytes and 0xFF 0x00 pairs skipped
+  // (warned), padding 0xFFs swallowed; the fake EOI ends every search
   int next_marker() {
+    bool discarded = false;
     for (;;) {
-      while (pos < len && data[pos] != 0xFF) ++pos;
-      if (pos >= len) fail("truncated file: no EOI marker");
-      while (pos < len && data[pos] == 0xFF) ++pos;
-      if (pos >= len) fail("truncated file: no EOI marker");
-      const int c = data[pos++];
-      if (c != 0) return c;
+      int c = src.byte();
+      while (c != 0xFF) {
+        discarded = true;
+        c = src.byte();
+      }
+      do c = src.byte();
+      while (c == 0xFF);
+      if (c != 0) {
+        if (discarded) src.warnings |= kWarnExtraneous;
+        return c;
+      }
+      discarded = true;
     }
   }
 
-  // a segment's payload [pos, end)
-  size_t segment() {
-    const int n = u16();
-    if (n < 2) fail("corrupt marker segment length");
-    if (pos + size_t(n - 2) > len)
-      fail("truncated file: a marker segment runs past the end");
-    return pos + size_t(n - 2);
-  }
+  // ---- marker segments (jdmarker.c) --------------------------------------
 
-  void read_app(int marker, size_t end) {
-    const size_t n = end - pos;
-    const uint8_t* d = data + pos;
-    if (marker == 0xE0 && n >= 14 && !std::memcmp(d, "JFIF\0", 5))
+  void get_app(int marker) {
+    int64_t length = src.u16() - 2;
+    uint8_t b[14];
+    const int numtoread = int(length >= 14 ? 14 : length > 0 ? length : 0);
+    for (int i = 0; i < numtoread; ++i) b[i] = uint8_t(src.byte());
+    length -= numtoread;
+    if (marker == 0xE0 && numtoread >= 14 && !std::memcmp(b, "JFIF\0", 5))
       jfif = true;
-    if (marker == 0xEE && n >= 12 && !std::memcmp(d, "Adobe", 5)) {
+    if (marker == 0xEE && numtoread >= 12 && !std::memcmp(b, "Adobe", 5)) {
       adobe = true;
-      adobe_transform = d[11];
+      adobe_transform = b[11];
     }
-    pos = end;
+    src.skip(length);
   }
 
-  void read_dqt(size_t end) {
-    while (pos < end) {
-      const int pt = byte();
-      const int pq = pt >> 4, tq = pt & 15;
-      if (pq > 1) fail("corrupt DQT: precision " + std::to_string(pq));
-      if (tq > 3) fail("corrupt DQT: table " + std::to_string(tq));
-      if (pos + size_t(64 * (pq + 1)) > end) fail("corrupt DQT length");
+  void skip_variable() { src.skip(int64_t(src.u16()) - 2); }
+
+  void get_dqt() {
+    int64_t length = src.u16() - 2;
+    while (length > 0) {
+      const int n = src.byte();
+      const int prec = n >> 4, t = n & 15;
+      if (t > 3) fail("corrupt DQT: table " + std::to_string(t));
       for (int i = 0; i < 64; ++i)
-        quant[tq][kNatural[i]] = pq ? u16() : byte();
-      quant_defined[tq] = true;
+        quant[t][kNatural[i]] = prec ? src.u16() : src.byte();
+      quant_defined[t] = true;
+      length -= prec ? 129 : 65;
     }
-    if (pos != end) fail("corrupt DQT length");
+    if (length != 0) fail("corrupt DQT length");
   }
 
-  void read_dht(size_t end) {
-    while (pos < end) {
-      const int tc_th = byte();
-      const int tc = tc_th >> 4, th = tc_th & 15;
-      if (tc > 1 || th > 3) fail("corrupt DHT: table class or index");
-      if (pos + 16 > end) fail("corrupt DHT length");
-      uint8_t counts[17] = {0};
-      int total = 0;
-      for (int l = 1; l <= 16; ++l) total += counts[l] = byte();
-      if (total > 256 || pos + size_t(total) > end)
-        fail("corrupt DHT length");
-      build_table(tc ? &ac[th] : &dc[th], counts, data + pos, total, tc == 0);
-      pos += size_t(total);
+  void get_dht() {
+    int64_t length = src.u16() - 2;
+    while (length > 16) {
+      int index = src.byte();
+      uint8_t bits[17] = {0};
+      int count = 0;
+      for (int l = 1; l <= 16; ++l) count += bits[l] = uint8_t(src.byte());
+      length -= 17;
+      if (count > 256 || count > length) fail("corrupt file: bad Huffman table");
+      uint8_t vals[256] = {0};
+      for (int i = 0; i < count; ++i) vals[i] = uint8_t(src.byte());
+      length -= count;
+      const bool ac = index & 0x10;
+      if (ac) index -= 0x10;
+      if (index < 0 || index > 3) fail("corrupt DHT: table index");
+      HuffSpec& s = ac ? ac_spec[index] : dc_spec[index];
+      std::memcpy(s.bits, bits, sizeof(bits));
+      std::memcpy(s.vals, vals, sizeof(vals));
+      s.defined = true;
     }
+    if (length != 0) fail("corrupt DHT length");
   }
 
-  void read_sof(int marker, size_t end) {
+  void get_dac() {
+    int64_t length = src.u16() - 2;
+    while (length > 0) {
+      const int index = src.byte(), val = src.byte();
+      length -= 2;
+      if (index >= 2 * kArithTables) fail("corrupt DAC: table index");
+      if (index >= kArithTables) {
+        arith_ac_k[index - kArithTables] = uint8_t(val);
+      } else {
+        arith_dc_l[index] = uint8_t(val & 15);
+        arith_dc_u[index] = uint8_t(val >> 4);
+        if (arith_dc_l[index] > arith_dc_u[index])
+          fail("corrupt DAC: L above U");
+      }
+    }
+    if (length != 0) fail("corrupt DAC length");
+  }
+
+  void get_dri() {
+    if (src.u16() != 4) fail("corrupt DRI length");
+    restart_interval = src.u16();
+  }
+
+  void get_sof(bool prog, bool arithmetic) {
+    progressive = prog;
+    arith = arithmetic;
+    int64_t length = src.u16();
+    precision = src.byte();
+    height = src.u16();
+    width = src.u16();
+    ncomp = src.byte();
+    length -= 8;
     if (frame) fail("more than one frame (SOF marker)");
+    if (height == 0) fail("refused: DNL (the height defined after the scan)");
+    if (width == 0 || ncomp == 0) fail("corrupt SOF: an empty image");
+    if (length != 3 * ncomp) fail("corrupt SOF length");
+    if (ncomp != 1 && ncomp != 3 && ncomp != 4)
+      fail("refused: " + std::to_string(ncomp) + " components");
+    for (int c = 0; c < ncomp; ++c) {
+      Component& k = comp[c];
+      k.id = src.byte();
+      const int hv = src.byte();
+      k.h = hv >> 4;
+      k.v = hv & 15;
+      k.tq = src.byte();
+    }
     frame = true;
-    progressive = marker == 0xC2;
-    const int precision = byte();
-    height = u16();
-    width = u16();
-    ncomp = byte();
+  }
+
+  // jdinput.c, initial_setup: at the first SOS
+  void initial_setup() {
+    if (width > kMaxDimension || height > kMaxDimension)
+      fail("refused: an image side above 65500");
     if (precision == 12) fail("refused: 12-bit precision");
     if (precision != 8)
       fail("refused: sample precision " + std::to_string(precision));
-    if (height == 0) fail("refused: DNL (the height defined after the scan)");
-    if (width == 0) fail("corrupt SOF: width 0");
-    if (ncomp != 1 && ncomp != 3 && ncomp != 4)
-      fail("refused: " + std::to_string(ncomp) + " components");
-    if (end - pos != size_t(3 * ncomp)) fail("corrupt SOF length");
     if (int64_t(width) * height > kMaxPixels)
       fail("refused: " + std::to_string(width) + "x" + std::to_string(height) +
            " pixels exceed the decompression-bomb limit");
+    hmax = vmax = 1;
     for (int c = 0; c < ncomp; ++c) {
-      Component& k = comp[c];
-      k.id = byte();
-      const int hv = byte();
-      k.h = hv >> 4;
-      k.v = hv & 15;
-      k.tq = byte();
+      const Component& k = comp[c];
       if (k.h < 1 || k.h > 4 || k.v < 1 || k.v > 4)
         fail("corrupt SOF: sampling factors");
-      if (k.h > 2 || k.v > 2) fail("refused: a sampling factor above 2");
-      if (k.tq > 3) fail("corrupt SOF: quantization table index");
-      for (int j = 0; j < c; ++j)
-        if (comp[j].id == k.id) fail("corrupt SOF: duplicate component id");
       hmax = std::max(hmax, k.h);
       vmax = std::max(vmax, k.v);
     }
+    for (int c = 0; c < ncomp; ++c)  // jdsample.c's ratios
+      if (hmax % comp[c].h || vmax % comp[c].v)
+        fail("refused: fractional sampling ratios");
     mcus_x = (width + 8 * hmax - 1) / (8 * hmax);
     mcus_y = (height + 8 * vmax - 1) / (8 * vmax);
     for (int c = 0; c < ncomp; ++c) {
@@ -459,8 +575,8 @@ struct Jpeg {
       k.cbh = (k.dh + 7) / 8;
       k.bw = mcus_x * k.h;
       k.bh = mcus_y * k.v;
-      std::fill(k.coef_bits, k.coef_bits + 64, -1);
     }
+    decide_color();
   }
 
   // default_decompress_parms (jdapimin.c), at the first SOS as libjpeg
@@ -474,6 +590,7 @@ struct Jpeg {
     } else if (jfif) {
       color = kYCbCr;
     } else if (adobe) {
+      if (adobe_transform > 1) src.warnings |= kWarnAdobeTransform;
       color = adobe_transform == 0 ? kRGB : kYCbCr;
     } else if (comp[0].id == 82 && comp[1].id == 71 && comp[2].id == 66) {
       color = kRGB;
@@ -482,39 +599,180 @@ struct Jpeg {
     }
   }
 
-  void allocate() {
-    for (int c = 0; c < ncomp; ++c)
-      comp[c].coef.assign(size_t(comp[c].bw) * comp[c].bh * 64, 0);
+  // get_sos: the scan's header
+  void get_sos() {
+    if (!frame) fail("corrupt file: SOS before SOF");
+    const int length = src.u16();
+    ns = src.byte();
+    if (length != 2 * ns + 6 || ns < 1 || ns > 4)
+      fail("corrupt SOS length");
+    bool used[kMaxComponents] = {};
+    for (int j = 0; j < ns; ++j) {
+      const int id = src.byte();
+      const int t = src.byte();
+      scomp[j] = -1;
+      for (int c = 0; c < ncomp; ++c)
+        if (comp[c].id == id && !used[c]) {
+          scomp[j] = c;
+          break;
+        }
+      if (scomp[j] < 0) fail("corrupt SOS: unknown component");
+      used[scomp[j]] = true;
+      dctbl[j] = t >> 4;
+      actbl[j] = t & 15;
+    }
+    ss = src.byte();
+    se = src.byte();
+    const int a = src.byte();
+    ah = a >> 4;
+    al = a & 15;
+    next_restart = 0;
+    ++scans;
   }
 
-  // ---- the scans ----------------------------------------------------------
+  // ---- the bits of a Huffman scan (jpeg_fill_bit_buffer) -----------------
 
-  void restart(int n) {
-    // the rest of the byte is padding; libjpeg skips anything before the
-    // marker
-    pos = bits.pos;
-    const int m = next_marker();
-    if (m != 0xD0 + n)
-      fail("corrupt data: missing restart marker RST" + std::to_string(n));
-    bits.start(data, len, pos);
-    for (int c = 0; c < ncomp; ++c) comp[c].dc_pred = 0;
-    eobrun = 0;
+  // Load buf to at least 57 bits, stopping at a marker; past the marker,
+  // a request for more bits than are left is served zeros and marks the
+  // segment's data as run out.
+  void fill(int nbits) {
+    if (unread_marker == 0) {
+      while (count < 57) {
+        int c = src.byte();
+        if (c == 0xFF) {
+          do c = src.byte();
+          while (c == 0xFF);
+          if (c == 0) {
+            c = 0xFF;
+          } else {
+            unread_marker = c;
+            break;
+          }
+        }
+        buf = (buf << 8) | uint64_t(c);
+        count += 8;
+      }
+      if (unread_marker == 0) return;
+    }
+    if (nbits > count) {
+      if (!insufficient) src.warnings |= kWarnHitMarker;
+      insufficient = true;
+      buf <<= 57 - count;
+      count = 57;
+    }
   }
 
-  void block_baseline(Component& k, int16_t* blk, const HuffTable& dct,
-                      const HuffTable& act) {
-    int s = bits.decode(dct);
-    if (s) s = extend(bits.get(s), s);
-    s = int(unsigned(s) + unsigned(k.dc_pred));
-    k.dc_pred = s;
+  int get(int n) {
+    if (n == 0) return 0;
+    if (count < n) fill(n);
+    count -= n;
+    return int((buf >> count) & ((uint64_t(1) << n) - 1));
+  }
+
+  // HUFF_DECODE and jpeg_huff_decode
+  int decode(const HuffTable& t) {
+    int l = 1;
+    int32_t code;
+    if (count < kLookBits) fill(0);
+    if (count >= kLookBits) {
+      const uint16_t e =
+          t.lookup[(buf >> (count - kLookBits)) & ((1u << kLookBits) - 1)];
+      if (e) {
+        count -= e >> 8;
+        return e & 0xFF;
+      }
+      l = kLookBits;
+    }
+    code = get(l);
+    while (code > t.maxcode[l]) {
+      code = (code << 1) | get(1);
+      ++l;
+    }
+    if (l > 16) {
+      src.warnings |= kWarnHuffBadCode;
+      return 0;  // libjpeg fakes a zero
+    }
+    return t.vals[(code + t.valoffset[l]) & 0xFF];
+  }
+
+  // ---- restart markers (jdmarker.c, read_restart_marker) -----------------
+
+  void read_restart_marker() {
+    if (unread_marker == 0) unread_marker = next_marker();
+    if (unread_marker == 0xD0 + next_restart)
+      unread_marker = 0;
+    else
+      resync_to_restart(next_restart);
+    next_restart = (next_restart + 1) & 7;
+  }
+
+  // jpeg_resync_to_restart: a marker below SOF0 or a restart before the
+  // wanted one is skipped to the next marker; another marker, or one of
+  // the two restarts after the wanted one, stays (the interval is then
+  // empty); the wanted one, or one too far away, is taken as it.
+  void resync_to_restart(int desired) {
+    src.warnings |= kWarnResync;
+    int marker = unread_marker;
+    for (;;) {
+      int action = 1;
+      if (marker < 0xC0) {
+        action = 2;
+      } else if (marker < 0xD0 || marker > 0xD7) {
+        action = 3;
+      } else if (marker == 0xD0 + ((desired + 1) & 7) ||
+                 marker == 0xD0 + ((desired + 2) & 7)) {
+        action = 3;
+      } else if (marker == 0xD0 + ((desired - 1) & 7) ||
+                 marker == 0xD0 + ((desired - 2) & 7)) {
+        action = 2;
+      }
+      if (action == 1) {
+        unread_marker = 0;
+        return;
+      }
+      if (action == 3) return;
+      marker = unread_marker = next_marker();
+    }
+  }
+
+  void process_restart() {
+    read_restart_marker();
+    for (int j = 0; j < ns; ++j) dc_pred[j] = 0;
+    restarts_to_go = restart_interval;
+    if (arith) {
+      for (int j = 0; j < ns; ++j) {
+        if (!progressive || (ss == 0 && ah == 0)) {
+          std::memset(dc_stats[dctbl[j]], 0, kDcStatBins);
+          dc_context[j] = 0;
+        }
+        if (!progressive || ss)
+          std::memset(ac_stats[actbl[j]], 0, kAcStatBins);
+      }
+      arith_c = arith_a = 0;
+      arith_ct = -16;
+    } else {
+      buf = 0;
+      count = 0;
+      eobrun = 0;
+      if (unread_marker == 0) insufficient = false;
+    }
+  }
+
+  // ---- Huffman blocks (jdhuff.c, jdphuff.c) ------------------------------
+
+  void block_baseline(int j, int16_t* blk) {
+    int s = decode(dct[j]);
+    if (s) s = extend(get(s), s);
+    s = int(unsigned(s) + unsigned(dc_pred[j]));
+    dc_pred[j] = s;
     blk[0] = int16_t(s);
     for (int i = 1; i < 64; ++i) {
-      const int rs = bits.decode(act);
+      const int rs = decode(act[j]);
       const int r = rs >> 4;
       s = rs & 15;
       if (s) {
         i += r;
-        blk[kNatural[i]] = int16_t(extend(bits.get(s), s));
+        blk[kNatural[i]] = int16_t(extend(get(s), s));
       } else {
         if (r != 15) break;
         i += 15;
@@ -522,67 +780,61 @@ struct Jpeg {
     }
   }
 
-  void block_dc_first(Component& k, int16_t* blk, const HuffTable& dct,
-                      int al) {
-    int s = bits.decode(dct);
-    if (s) s = extend(bits.get(s), s);
-    s = int(unsigned(s) + unsigned(k.dc_pred));
-    k.dc_pred = s;
+  void block_dc_first(int j, int16_t* blk) {
+    int s = decode(dct[j]);
+    if (s) s = extend(get(s), s);
+    s = int(unsigned(s) + unsigned(dc_pred[j]));
+    dc_pred[j] = s;
     blk[0] = int16_t(int(unsigned(s) << al));
   }
 
-  void block_dc_refine(int16_t* blk, int al) {
-    if (bits.get(1)) blk[0] = int16_t(blk[0] | (1 << al));
+  void block_dc_refine(int16_t* blk) {
+    if (get(1)) blk[0] = int16_t(blk[0] | (1 << al));
   }
 
-  void block_ac_first(int16_t* blk, const HuffTable& act, int ss, int se,
-                      int al) {
+  void block_ac_first(int16_t* blk) {
     if (eobrun > 0) {
       --eobrun;
       return;
     }
     for (int i = ss; i <= se; ++i) {
-      const int rs = bits.decode(act);
-      int r = rs >> 4;
+      const int rs = decode(act[0]);
+      const int r = rs >> 4;
       const int s = rs & 15;
       if (s) {
         i += r;
-        blk[kNatural[i]] =
-            int16_t(int(unsigned(extend(bits.get(s), s)) << al));
+        blk[kNatural[i]] = int16_t(int(unsigned(extend(get(s), s)) << al));
+      } else if (r == 15) {
+        i += 15;
       } else {
-        if (r == 15) {
-          i += 15;
-        } else {
-          eobrun = 1 << r;
-          if (r) eobrun += bits.get(r);
-          --eobrun;
-          break;
-        }
+        eobrun = 1 << r;
+        if (r) eobrun += get(r);
+        --eobrun;
+        break;
       }
     }
   }
 
   // decode_mcu_AC_refine (jdphuff.c)
-  void block_ac_refine(int16_t* blk, const HuffTable& act, int ss, int se,
-                       int al) {
+  void block_ac_refine(int16_t* blk) {
     const int p1 = 1 << al, m1 = -1 * (1 << al);
     int i = ss;
     if (eobrun == 0) {
       for (; i <= se; ++i) {
-        const int rs = bits.decode(act);
+        const int rs = decode(act[0]);
         int r = rs >> 4;
         int s = rs & 15;
         if (s) {
-          s = bits.get(1) ? p1 : m1;
+          s = get(1) ? p1 : m1;
         } else if (r != 15) {
           eobrun = 1 << r;
-          if (r) eobrun += bits.get(r);
+          if (r) eobrun += get(r);
           break;
         }
         do {
           int16_t* c = blk + kNatural[i];
           if (*c != 0) {
-            if (bits.get(1) && (*c & p1) == 0)
+            if (get(1) && (*c & p1) == 0)
               *c = int16_t(*c >= 0 ? *c + p1 : *c + m1);
           } else if (--r < 0) {
             break;
@@ -595,194 +847,637 @@ struct Jpeg {
     if (eobrun > 0) {
       for (; i <= se; ++i) {
         int16_t* c = blk + kNatural[i];
-        if (*c != 0 && bits.get(1) && (*c & p1) == 0)
+        if (*c != 0 && get(1) && (*c & p1) == 0)
           *c = int16_t(*c >= 0 ? *c + p1 : *c + m1);
       }
       --eobrun;
     }
   }
 
-  void read_sos(size_t end) {
-    if (!frame) fail("corrupt file: SOS before SOF");
-    const int ns = byte();
-    if (ns < 1 || ns > ncomp) fail("corrupt SOS: component count");
-    if (end - pos != size_t(2 * ns + 3)) fail("corrupt SOS length");
-    int idx[kMaxComponents], td[kMaxComponents], ta[kMaxComponents];
-    for (int j = 0; j < ns; ++j) {
-      const int id = byte();
-      const int t = byte();
-      idx[j] = -1;
-      for (int c = 0; c < ncomp; ++c)
-        if (comp[c].id == id) idx[j] = c;
-      if (idx[j] < 0) fail("corrupt SOS: unknown component");
-      for (int i = 0; i < j; ++i)
-        if (idx[i] == idx[j]) fail("corrupt SOS: a component twice");
-      td[j] = t >> 4;
-      ta[j] = t & 15;
-      if (td[j] > 3 || ta[j] > 3) fail("corrupt SOS: table index");
+  // ---- arithmetic blocks (jdarith.c) -------------------------------------
+
+  // arith_decode: renormalization and data input (D.2.6), then the
+  // decision and the estimation (D.2.4, D.2.5); a marker in the data
+  // supplies zeros from there on
+  int arith_decode(uint8_t* st) {
+    while (arith_a < 0x8000) {
+      if (--arith_ct < 0) {
+        int data = 0;
+        if (unread_marker == 0) {
+          data = src.byte();
+          if (data == 0xFF) {
+            do data = src.byte();
+            while (data == 0xFF);
+            if (data == 0) {
+              data = 0xFF;
+            } else {
+              unread_marker = data;
+              data = 0;
+            }
+          }
+        }
+        arith_c = (arith_c << 8) | data;
+        if ((arith_ct += 8) < 0)
+          if (++arith_ct == 0) arith_a = 0x8000;  // two initial bytes read
+      }
+      arith_a <<= 1;
     }
-    const int ss = byte(), se = byte(), a = byte();
-    const int ah = a >> 4, al = a & 15;
+    int sv = *st;
+    int64_t qe = kAritab[sv & 0x7F];
+    const int nl = int(qe & 0xFF);
+    qe >>= 8;
+    const int nm = int(qe & 0xFF);
+    qe >>= 8;
+    int64_t temp = arith_a - qe;
+    arith_a = temp;
+    temp <<= arith_ct;
+    if (arith_c >= temp) {
+      arith_c -= temp;
+      if (arith_a < qe) {
+        arith_a = qe;
+        *st = uint8_t((sv & 0x80) ^ nm);
+      } else {
+        arith_a = qe;
+        *st = uint8_t((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (arith_a < 0x8000) {
+      if (arith_a < qe) {
+        *st = uint8_t((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = uint8_t((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+
+  void arith_bad() {
+    src.warnings |= kWarnArithBadCode;
+    arith_ct = -1;  // the rest of the interval is skipped
+  }
+
+  // Figures F.19 and F.21-F.24: a DC difference into dc_pred[j]; false on
+  // a bad code
+  bool arith_dc(int j) {
+    const int tbl = dctbl[j];
+    uint8_t* st = dc_stats[tbl] + dc_context[j];
+    if (arith_decode(st) == 0) {
+      dc_context[j] = 0;
+      return true;
+    }
+    const int sign = arith_decode(st + 1);
+    st += 2 + sign;
+    int m = arith_decode(st);
+    if (m != 0) {
+      st = dc_stats[tbl] + 20;
+      while (arith_decode(st)) {
+        if ((m <<= 1) == 0x8000) {
+          arith_bad();
+          return false;
+        }
+        ++st;
+      }
+    }
+    if (m < int((1L << arith_dc_l[tbl]) >> 1))
+      dc_context[j] = 0;
+    else if (m > int((1L << arith_dc_u[tbl]) >> 1))
+      dc_context[j] = 12 + sign * 4;
+    else
+      dc_context[j] = 4 + sign * 4;
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (arith_decode(st)) v |= m;
+    v += 1;
+    if (sign) v = -v;
+    dc_pred[j] = (dc_pred[j] + v) & 0xFFFF;
+    return true;
+  }
+
+  // Figure F.20: the AC coefficients k0..k1 of one block, shifted by `shift`;
+  // false on a bad code
+  bool arith_ac(int tbl, int16_t* blk, int k0, int k1, int shift) {
+    for (int k = k0; k <= k1; ++k) {
+      uint8_t* st = ac_stats[tbl] + 3 * (k - 1);
+      if (arith_decode(st)) break;  // EOB
+      while (arith_decode(st + 1) == 0) {
+        st += 3;
+        if (++k > k1) {
+          arith_bad();  // spectral overflow
+          return false;
+        }
+      }
+      const int sign = arith_decode(fixed_bin);
+      st += 2;
+      int m = arith_decode(st);
+      if (m != 0 && arith_decode(st)) {
+        m <<= 1;
+        st = ac_stats[tbl] + (k <= arith_ac_k[tbl] ? 189 : 217);
+        while (arith_decode(st)) {
+          if ((m <<= 1) == 0x8000) {
+            arith_bad();  // magnitude overflow
+            return false;
+          }
+          ++st;
+        }
+      }
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (arith_decode(st)) v |= m;
+      v += 1;
+      if (sign) v = -v;
+      blk[kNatural[k]] = int16_t(int(unsigned(v) << shift));
+    }
+    return true;
+  }
+
+  void arith_ac_refine(int16_t* blk) {
+    const int tbl = actbl[0];
+    const int p1 = 1 << al, m1 = -1 * (1 << al);
+    int kex = se;
+    for (; kex > 0; --kex)
+      if (blk[kNatural[kex]]) break;
+    for (int k = ss; k <= se; ++k) {
+      uint8_t* st = ac_stats[tbl] + 3 * (k - 1);
+      if (k > kex && arith_decode(st)) break;  // EOB
+      for (;;) {
+        int16_t* c = blk + kNatural[k];
+        if (*c) {
+          if (arith_decode(st + 2))
+            *c = int16_t(*c < 0 ? *c + m1 : *c + p1);
+          break;
+        }
+        if (arith_decode(st + 1)) {
+          *c = int16_t(arith_decode(fixed_bin) ? m1 : p1);
+          break;
+        }
+        st += 3;
+        if (++k > se) {
+          arith_bad();  // spectral overflow
+          return;
+        }
+      }
+    }
+  }
+
+  // ---- a scan ------------------------------------------------------------
+
+  void read_scan() {
+    if (!scanned) {
+      initial_setup();
+      // jdinput.c: a file whose first scan holds every component and
+      // which is not progressive has one scan
+      multiple_scans = ns < ncomp || progressive;
+      scanned = true;
+      for (int c = 0; c < ncomp; ++c)
+        comp[c].coef.assign(size_t(comp[c].bw) * comp[c].bh * 64, 0);
+    } else if (!multiple_scans) {
+      fail("corrupt file: a second scan where EOI was expected");
+    }
+    int blocks_in_mcu = 0;
+    for (int j = 0; j < ns; ++j) {
+      Component& k = comp[scomp[j]];
+      blocks_in_mcu += ns > 1 ? k.h * k.v : 1;
+      if (blocks_in_mcu > 10)
+        fail("refused: sampling factors too large for an interleaved scan");
+    }
+    for (int j = 0; j < ns; ++j) {  // latch_quant_tables
+      Component& k = comp[scomp[j]];
+      if (k.latched) continue;
+      if (k.tq > 3 || !quant_defined[k.tq])
+        fail("corrupt file: a component uses an undefined quantization "
+             "table");
+      std::memcpy(k.quant, quant[k.tq], sizeof(k.quant));
+      k.latched = true;
+    }
     if (progressive) {
       bool bad = ss == 0 ? se != 0 : (ss > se || se > 63 || ns != 1);
       if (ah != 0 && al != ah - 1) bad = true;
       if (al > 13) bad = true;
       if (bad) fail("corrupt progressive scan parameters");
-    } else if (ss != 0 || se != 63 || a != 0) {
-      fail("corrupt sequential scan parameters");
-    }
-    if (!scanned) {
-      decide_color();
-      // libjpeg-turbo's default tables where a file defines none
-      if (!dc[0].defined) build_table(&dc[0], kDcLumBits, kDcVals, 12, true);
-      if (!dc[1].defined) build_table(&dc[1], kDcChromBits, kDcVals, 12, true);
-      if (!ac[0].defined) build_table(&ac[0], kAcLumBits, kAcLumVals, 162, false);
-      if (!ac[1].defined) build_table(&ac[1], kAcChromBits, kAcChromVals, 162, false);
-      allocate();
-      scanned = true;
+      for (int j = 0; j < ns; ++j) {
+        const int c = scomp[j];
+        if (ss && coef_bits[c][0] < 0) src.warnings |= kWarnBogusProgression;
+        for (int k = std::min(ss, 1); k <= std::max(se, 9); ++k)
+          prev_bits[c][k] = scans > 1 ? coef_bits[c][k] : 0;
+        for (int k = ss; k <= se; ++k) {
+          if (ah != std::max(coef_bits[c][k], 0))
+            src.warnings |= kWarnBogusProgression;
+          coef_bits[c][k] = al;
+        }
+      }
+    } else if (ss != 0 || ah != 0 || al != 0 || (se != 63 && (!arith || se < 64))) {
+      src.warnings |= kWarnNotSequential;  // a warning, as in libjpeg
     }
     const bool dc_scan = !progressive || ss == 0;
     const bool ac_scan = !progressive || ss > 0;
-    int blocks_in_mcu = 0;
-    for (int j = 0; j < ns; ++j) {
-      Component& k = comp[idx[j]];
-      if (dc_scan && (!progressive || ah == 0) && !dc[td[j]].defined)
-        fail("corrupt file: a scan uses an undefined DC table");
-      if (ac_scan && !ac[ta[j]].defined)
-        fail("corrupt file: a scan uses an undefined AC table");
-      if (!k.coded) {
-        if (!quant_defined[k.tq])
-          fail("corrupt file: a component uses an undefined quantization "
-               "table");
-        std::memcpy(k.quant, quant[k.tq], sizeof(k.quant));
-        k.coded = true;
+    for (int j = 0; j < ns; ++j) {  // the tables
+      if (arith) {
+        if (dc_scan && (!progressive || ah == 0)) {
+          std::memset(dc_stats[dctbl[j]], 0, kDcStatBins);
+          dc_context[j] = 0;
+        }
+        if (ac_scan) std::memset(ac_stats[actbl[j]], 0, kAcStatBins);
+        continue;
       }
-      k.dc_pred = 0;
-      if (progressive)
-        for (int i = ss; i <= se; ++i) k.coef_bits[i] = al;
-      blocks_in_mcu += k.h * k.v;
+      if (dc_scan && (!progressive || ah == 0)) {
+        if (dctbl[j] > 3) fail("corrupt file: a scan uses an undefined DC table");
+        HuffSpec& s = dc_spec[dctbl[j]];
+        if (!s.defined && dctbl[j] < 2 && !progressive)
+          std_spec(&s, dctbl[j] ? kDcChromBits : kDcLumBits, kDcVals, 12);
+        if (!s.defined) fail("corrupt file: a scan uses an undefined DC table");
+        build_table(&dct[j], s, true);
+      }
+      if (ac_scan) {
+        if (actbl[j] > 3) fail("corrupt file: a scan uses an undefined AC table");
+        HuffSpec& s = ac_spec[actbl[j]];
+        if (!s.defined && actbl[j] == 0 && !progressive)
+          std_spec(&s, kAcLumBits, kAcLumVals, 162);
+        if (!s.defined && actbl[j] == 1 && !progressive)
+          std_spec(&s, kAcChromBits, kAcChromVals, 162);
+        if (!s.defined) fail("corrupt file: a scan uses an undefined AC table");
+        build_table(&act[j], s, false);
+      }
     }
-    if (ns > 1 && blocks_in_mcu > 10)
-      fail("refused: sampling factors too large for an interleaved scan");
-    pos = end;
-    bits.start(data, len, pos);
+    for (int j = 0; j < ns; ++j) dc_pred[j] = 0;
+    buf = 0;
+    count = 0;
+    insufficient = false;
     eobrun = 0;
-
-    auto one_block = [&](Component& k, int j, int bx, int by) {
-      int16_t* blk = k.coef.data() + (size_t(by) * k.bw + bx) * 64;
-      if (!progressive)
-        block_baseline(k, blk, dc[td[j]], ac[ta[j]]);
-      else if (ss == 0 && ah == 0)
-        block_dc_first(k, blk, dc[td[j]], al);
-      else if (ss == 0)
-        block_dc_refine(blk, al);
-      else if (ah == 0)
-        block_ac_first(blk, ac[ta[j]], ss, se, al);
-      else
-        block_ac_refine(blk, ac[ta[j]], ss, se, al);
-    };
+    arith_c = arith_a = 0;
+    arith_ct = -16;
+    restarts_to_go = restart_interval;
 
     const bool single = ns == 1;
-    const int64_t mcus = single
-        ? int64_t(comp[idx[0]].cbw) * comp[idx[0]].cbh
-        : int64_t(mcus_x) * mcus_y;
-    int restarts_to_go = restart_interval, next_rst = 0;
+    const Component& k0 = comp[scomp[0]];
+    const int64_t mcus = single ? int64_t(k0.cbw) * k0.cbh
+                                : int64_t(mcus_x) * mcus_y;
+    const int per_row = single ? k0.cbw : mcus_x;
     for (int64_t m = 0; m < mcus; ++m) {
-      if (restart_interval) {
-        if (restarts_to_go == 0) {
-          restart(next_rst);
-          next_rst = (next_rst + 1) & 7;
-          restarts_to_go = restart_interval;
-        }
-        --restarts_to_go;
-      }
-      if (single) {
-        Component& k = comp[idx[0]];
-        one_block(k, 0, int(m % k.cbw), int(m / k.cbw));
-      } else {
-        const int mx = int(m % mcus_x), my = int(m / mcus_x);
-        for (int j = 0; j < ns; ++j) {
-          Component& k = comp[idx[j]];
-          for (int y = 0; y < k.v; ++y)
-            for (int x = 0; x < k.h; ++x)
-              one_block(k, j, mx * k.h + x, my * k.v + y);
+      const int mx = int(m % per_row), my = int(m / per_row);
+      // jdcoefct.c: the iMCU row of every MCU begun with data
+      if (!insufficient) last_good_row = single ? my / k0.v : my;
+      if (restart_interval && restarts_to_go == 0) process_restart();
+      // an MCU begun after the data ran out (or, arithmetic, after a bad
+      // code) keeps what its blocks hold, to the next restart
+      if (!(arith ? arith_ct == -1 : insufficient)) {
+        if (single) {
+          one_block(0, mx, my);
+        } else {
+          for (int j = 0; j < ns; ++j) {
+            const Component& k = comp[scomp[j]];
+            for (int y = 0; y < k.v; ++y)
+              for (int x = 0; x < k.h; ++x)
+                one_block(j, mx * k.h + x, my * k.v + y);
+          }
         }
       }
+      if (restart_interval) --restarts_to_go;
     }
-    pos = bits.pos;
   }
 
-  // Everything up to EOI: the coefficients of every component.
-  void parse(const uint8_t* d, size_t n) {
-    data = d;
-    len = n;
-    pos = 0;
-    if (n < 2 || d[0] != 0xFF || d[1] != 0xD8) fail("not a JPEG file (no SOI)");
-    pos = 2;
-    for (;;) {
-      const int m = next_marker();
-      if (m == 0xD9) break;                         // EOI
-      if (m >= 0xD0 && m <= 0xD7) continue;         // a stray RSTn
-      if (m == 0x01) continue;                      // TEM
-      refuse_marker(m);
-      const size_t end = segment();
-      if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
-        read_sof(m, end);
-      } else if (m == 0xC4) {
-        read_dht(end);
-      } else if (m == 0xDB) {
-        read_dqt(end);
-      } else if (m == 0xDD) {
-        if (end - pos != 2) fail("corrupt DRI length");
-        restart_interval = u16();
-      } else if (m == 0xDA) {
-        read_sos(end);
-      } else if ((m >= 0xE0 && m <= 0xEF) || m == 0xFE) {
-        read_app(m, end);
+  // one block of the scan's component j at block (bx, by)
+  void one_block(int j, int bx, int by) {
+    Component& k = comp[scomp[j]];
+    int16_t* blk = k.coef.data() + (size_t(by) * k.bw + bx) * 64;
+    if (arith) {
+      if (arith_ct == -1) return;  // a bad code ends the MCU
+      if (!progressive) {
+        if (!arith_dc(j)) return;
+        blk[0] = int16_t(dc_pred[j]);
+        arith_ac(actbl[j], blk, 1, 63, 0);
+      } else if (ss == 0 && ah == 0) {
+        if (arith_dc(j)) blk[0] = int16_t(int(unsigned(dc_pred[j]) << al));
+      } else if (ss == 0) {
+        if (arith_decode(fixed_bin)) blk[0] = int16_t(blk[0] | (1 << al));
+      } else if (ah == 0) {
+        arith_ac(actbl[0], blk, ss, se, al);
       } else {
-        fail("corrupt file: unknown marker 0x" + [m] {
-          char b[8];
-          std::snprintf(b, sizeof(b), "%02X", m);
-          return std::string(b);
-        }());
+        arith_ac_refine(blk);
       }
-    }
-    if (!frame) fail("corrupt file: no frame (SOF)");
-    for (int c = 0; c < ncomp; ++c) {
-      if (!comp[c].coded) fail("corrupt file: a component has no scan");
-      if (progressive)
-        for (int i = 0; i < 64; ++i)
-          if (comp[c].coef_bits[i] != 0)
-            fail("refused: progressive scans leave coefficients unfinished "
-                 "(libjpeg would smooth the blocks)");
+    } else if (!progressive) {
+      block_baseline(j, blk);
+    } else if (ss == 0 && ah == 0) {
+      block_dc_first(j, blk);
+    } else if (ss == 0) {
+      block_dc_refine(blk);
+    } else if (ah == 0) {
+      block_ac_first(blk);
+    } else {
+      block_ac_refine(blk);
     }
   }
 };
 
-// Geometry without decoding: the markers up to the first SOS.
-void parse_header(Jpeg* j, const uint8_t* d, size_t n) {
-  j->data = d;
-  j->len = n;
-  if (n < 2 || d[0] != 0xFF || d[1] != 0xD8) fail("not a JPEG file (no SOI)");
-  j->pos = 2;
+// The marker that read_markers (jdmarker.c) would process next: 0 when a
+// segment was read whole, else the one an entropy decoder stopped at.
+// Returns true at the first SOS, with the scan's header read.
+bool read_markers(Jpeg& j) {
   for (;;) {
-    const int m = j->next_marker();
-    if (m == 0xD9) fail("corrupt file: EOI before a scan");
-    if ((m >= 0xD0 && m <= 0xD7) || m == 0x01) continue;
-    refuse_marker(m);
-    const size_t end = j->segment();
-    if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
-      j->read_sof(m, end);
-    } else if ((m >= 0xE0 && m <= 0xEF) || m == 0xFE) {
-      j->read_app(m, end);
-    } else if (m == 0xDA) {
-      if (!j->frame) fail("corrupt file: SOS before SOF");
-      j->decide_color();
-      return;
-    } else {
-      j->pos = end;
+    if (j.unread_marker == 0) j.unread_marker = j.next_marker();
+    const int m = j.unread_marker;
+    j.unread_marker = 0;
+    switch (m) {
+      case 0xD8:
+        fail("corrupt file: a second SOI");
+      case 0xC0:
+      case 0xC1:
+        j.get_sof(false, false);
+        break;
+      case 0xC2:
+        j.get_sof(true, false);
+        break;
+      case 0xC9:
+        j.get_sof(false, true);
+        break;
+      case 0xCA:
+        j.get_sof(true, true);
+        break;
+      case 0xC3:
+        fail("refused: lossless JPEG (SOF3)");
+      case 0xCB:
+        fail("refused: lossless JPEG (SOF11, arithmetic)");
+      case 0xC5:
+      case 0xC6:
+      case 0xC7:
+      case 0xCD:
+      case 0xCE:
+      case 0xCF:
+        fail("refused: hierarchical JPEG (SOF" + std::to_string(m - 0xC0) +
+             ")");
+      case 0xC8:
+        fail("refused: the JPG extension (SOF8)");
+      case 0xDA:
+        j.get_sos();
+        return true;
+      case 0xD9:
+        return false;
+      case 0xCC:
+        j.get_dac();
+        break;
+      case 0xC4:
+        j.get_dht();
+        break;
+      case 0xDB:
+        j.get_dqt();
+        break;
+      case 0xDD:
+        j.get_dri();
+        break;
+      case 0xE0:
+      case 0xEE:
+        j.get_app(m);
+        break;
+      case 0xDC:  // DNL: skipped, as libjpeg skips it
+        j.skip_variable();
+        break;
+      case 0x01:  // TEM and a stray RSTn: no segment
+      case 0xD0: case 0xD1: case 0xD2: case 0xD3:
+      case 0xD4: case 0xD5: case 0xD6: case 0xD7:
+        break;
+      case 0xDE:
+      case 0xDF:
+        fail("refused: hierarchical JPEG (DHP/EXP)");
+      default:
+        if ((m >= 0xE1 && m <= 0xEF) || m == 0xFE) {  // APPn, COM
+          j.skip_variable();
+          break;
+        }
+        fail("corrupt file: unknown marker 0x" + hex(m));
     }
   }
+}
+
+// Everything up to EOI, the fake one included: every component's
+// coefficients.
+void parse(Jpeg& j, const uint8_t* d, size_t n) {
+  j.start(d, n);
+  if (!read_markers(j)) fail("corrupt file: no image (EOI before a scan)");
+  do j.read_scan();
+  while (read_markers(j));
+}
+
+// Geometry without decoding: the markers up to the first SOS.
+void parse_header(Jpeg& j, const uint8_t* d, size_t n) {
+  j.start(d, n);
+  if (!read_markers(j)) fail("corrupt file: no image (EOI before a scan)");
+  j.initial_setup();
+}
+
+// ---------------------------------------------------------------------------
+// block smoothing (jdcoefct.c, libjpeg-turbo 2.1)
+// ---------------------------------------------------------------------------
+
+constexpr int kSavedCoefs = 10;
+// natural-order positions of zigzag coefficients 1..9
+const int kSmoothPos[kSavedCoefs] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+
+// smoothing_ok: a progressive file whose every component has its table
+// (no zero among the ten divisors) and DC bits, and some component an
+// unfinished coefficient among the first nine AC ones
+bool smoothing_ok(const Jpeg& j) {
+  if (!j.progressive) return false;
+  bool useful = false;
+  for (int c = 0; c < j.ncomp; ++c) {
+    const Component& k = j.comp[c];
+    if (!k.latched) return false;
+    for (int i = 0; i < kSavedCoefs; ++i)
+      if (k.quant[kSmoothPos[i]] == 0) return false;
+    if (j.coef_bits[c][0] < 0) return false;
+    for (int i = 1; i < kSavedCoefs; ++i)
+      if (j.coef_bits[c][i] != 0) useful = true;
+  }
+  return useful;
+}
+
+// smoothing_ok's latch of the bits before a component's latest scan: none
+// known (-1) when the file has had one scan
+void latched_prev(const Jpeg& j, int c, int* out) {
+  for (int k = 0; k < 64; ++k) out[k] = j.scans > 1 ? j.prev_bits[c][k] : -1;
+}
+
+// The estimate of one coefficient, `num` / (q << 8) rounded, within the
+// bits still unknown (al > 0)
+inline int16_t predict(int64_t num, int64_t q, int al) {
+  int64_t pred;
+  if (num >= 0) {
+    pred = ((q << 7) + num) / (q << 8);
+    if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+  } else {
+    pred = ((q << 7) - num) / (q << 8);
+    if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+    pred = -pred;
+  }
+  return int16_t(pred);
+}
+
+// The rows of the 5 x 5 window (two above, this, two below) of every
+// block row, as decompress_smooth_data picks them: a row above or below is
+// taken while its block row lies within the iMCU row, or while the iMCU
+// row has one (two for the second row) before or after it, else the nearer
+// one repeats; within the last iMCU row only cbh % v (or v) rows count.
+void smooth_rows(const Component& k, int total_rows,
+                 std::vector<std::array<int, 5>>* out) {
+  out->assign(size_t(k.cbh), {});
+  const int last = total_rows - 1;
+  for (int row = 0; row < total_rows; ++row) {
+    int block_rows = k.v;
+    if (row == last) {
+      block_rows = k.cbh % k.v;
+      if (block_rows == 0) block_rows = k.v;
+    }
+    for (int br = 0; br < block_rows; ++br) {
+      const int a = row * k.v + br;
+      if (a >= k.cbh) continue;
+      const int prev = br > 0 || row > 0 ? a - 1 : a;
+      const int prev2 = br > 1 || row > 1 ? a - 2 : prev;
+      const int next = br < block_rows - 1 || row < last ? a + 1 : a;
+      const int next2 = br < block_rows - 2 || row + 1 < last ? a + 2 : next;
+      (*out)[size_t(a)] = {prev2, prev, a, next, next2};
+    }
+  }
+}
+
+// The columns of the window of every block column: the sliding registers
+// DC01..DC25 start at column 0 and take column c + 2 while c + 1 is below
+// the last column (so that a two-block-wide component reads its first
+// column two to its right).
+void smooth_cols(int cbw, std::vector<std::array<int, 5>>* out) {
+  out->assign(size_t(cbw), {});
+  std::array<int, 5> reg = {0, 0, 0, 0, 0};
+  const int last = cbw - 1;
+  for (int b = 0; b < cbw; ++b) {
+    if (b == 0 && b < last) reg[3] = 1;
+    if (b + 1 < last) reg[4] = b + 2;
+    (*out)[size_t(b)] = reg;
+    reg = {reg[1], reg[2], reg[3], reg[4], reg[4]};
+  }
+}
+
+// decompress_smooth_data on every real block of component c: the
+// estimates go into a copy of its coefficients
+std::vector<int16_t> smooth_component(const Jpeg& j, int c) {
+  const Component& k = j.comp[c];
+  std::vector<int16_t> out = k.coef;
+  int prev[64];
+  latched_prev(j, c, prev);
+  std::vector<std::array<int, 5>> rows, cols;
+  smooth_rows(k, j.mcus_y, &rows);
+  smooth_cols(k.cbw, &cols);
+  const int64_t q00 = k.quant[0], q01 = k.quant[1], q10 = k.quant[8],
+                q20 = k.quant[16], q11 = k.quant[9], q02 = k.quant[2],
+                q03 = k.quant[3], q12 = k.quant[10], q21 = k.quant[17],
+                q30 = k.quant[24];
+  for (int by = 0; by < k.cbh; ++by) {
+    // rows after the last one decoded with data: the bits before the scan
+    const int* bits = by / k.v > j.last_good_row ? prev : j.coef_bits[c];
+    bool change_dc = true;
+    for (int i = 1; i < kSavedCoefs; ++i)
+      if (bits[i] != -1) change_dc = false;
+    for (int bx = 0; bx < k.cbw; ++bx) {
+      int64_t dc[26];
+      for (int r = 0; r < 5; ++r)
+        for (int s = 0; s < 5; ++s)
+          dc[1 + 5 * r + s] = k.coef[(size_t(rows[size_t(by)][size_t(r)]) *
+                                          k.bw +
+                                      size_t(cols[size_t(bx)][size_t(s)])) *
+                                     64];
+      const int16_t* src = k.coef.data() + (size_t(by) * k.bw + bx) * 64;
+      int16_t* w = out.data() + (size_t(by) * k.bw + bx) * 64;
+      int al;
+      if ((al = bits[1]) != 0 && src[1] == 0) {
+        const int64_t num =
+            q00 * (change_dc
+                       ? (-dc[1] - dc[2] + dc[4] + dc[5] - 3 * dc[6] +
+                          13 * dc[7] - 13 * dc[9] + 3 * dc[10] - 3 * dc[11] +
+                          38 * dc[12] - 38 * dc[14] + 3 * dc[15] -
+                          3 * dc[16] + 13 * dc[17] - 13 * dc[19] +
+                          3 * dc[20] - dc[21] - dc[22] + dc[24] + dc[25])
+                       : (-7 * dc[11] + 50 * dc[12] - 50 * dc[14] +
+                          7 * dc[15]));
+        w[1] = predict(num, q01, al);
+      }
+      if ((al = bits[2]) != 0 && src[8] == 0) {
+        const int64_t num =
+            q00 * (change_dc
+                       ? (-dc[1] - 3 * dc[2] - 3 * dc[3] - 3 * dc[4] - dc[5] -
+                          dc[6] + 13 * dc[7] + 38 * dc[8] + 13 * dc[9] -
+                          dc[10] + dc[16] - 13 * dc[17] - 38 * dc[18] -
+                          13 * dc[19] + dc[20] + dc[21] + 3 * dc[22] +
+                          3 * dc[23] + 3 * dc[24] + dc[25])
+                       : (-7 * dc[3] + 50 * dc[8] - 50 * dc[18] +
+                          7 * dc[23]));
+        w[8] = predict(num, q10, al);
+      }
+      if ((al = bits[3]) != 0 && src[16] == 0) {
+        const int64_t num =
+            q00 * (change_dc
+                       ? (dc[3] + 2 * dc[7] + 7 * dc[8] + 2 * dc[9] -
+                          5 * dc[12] - 14 * dc[13] - 5 * dc[14] + 2 * dc[17] +
+                          7 * dc[18] + 2 * dc[19] + dc[23])
+                       : (-dc[3] + 13 * dc[8] - 24 * dc[13] + 13 * dc[18] -
+                          dc[23]));
+        w[16] = predict(num, q20, al);
+      }
+      if ((al = bits[4]) != 0 && src[9] == 0) {
+        const int64_t num =
+            q00 * (change_dc
+                       ? (-dc[1] + dc[5] + 9 * dc[7] - 9 * dc[9] -
+                          9 * dc[17] + 9 * dc[19] + dc[21] - dc[25])
+                       : (dc[10] + dc[16] - 10 * dc[17] + 10 * dc[19] -
+                          dc[2] - dc[20] + dc[22] - dc[24] + dc[4] - dc[6] +
+                          10 * dc[7] - 10 * dc[9]));
+        w[9] = predict(num, q11, al);
+      }
+      if ((al = bits[5]) != 0 && src[2] == 0) {
+        const int64_t num =
+            q00 * (change_dc
+                       ? (2 * dc[7] - 5 * dc[8] + 2 * dc[9] + dc[11] +
+                          7 * dc[12] - 14 * dc[13] + 7 * dc[14] + dc[15] +
+                          2 * dc[17] - 5 * dc[18] + 2 * dc[19])
+                       : (-dc[11] + 13 * dc[12] - 24 * dc[13] + 13 * dc[14] -
+                          dc[15]));
+        w[2] = predict(num, q02, al);
+      }
+      if (change_dc) {
+        if ((al = bits[6]) != 0 && src[3] == 0)
+          w[3] = predict(q00 * (dc[7] - dc[9] + 2 * dc[12] - 2 * dc[14] +
+                                dc[17] - dc[19]),
+                         q03, al);
+        if ((al = bits[7]) != 0 && src[10] == 0)
+          w[10] = predict(q00 * (dc[7] - 3 * dc[8] + dc[9] - dc[17] +
+                                 3 * dc[18] - dc[19]),
+                          q12, al);
+        if ((al = bits[8]) != 0 && src[17] == 0)
+          w[17] = predict(q00 * (dc[7] - dc[9] - 3 * dc[12] + 3 * dc[14] +
+                                 dc[17] - dc[19]),
+                          q21, al);
+        if ((al = bits[9]) != 0 && src[24] == 0)
+          w[24] = predict(q00 * (dc[7] + 2 * dc[8] + dc[9] - dc[17] -
+                                 2 * dc[18] - dc[19]),
+                          q30, al);
+        const int64_t num =
+            q00 * (-2 * dc[1] - 6 * dc[2] - 8 * dc[3] - 6 * dc[4] -
+                   2 * dc[5] - 6 * dc[6] + 6 * dc[7] + 42 * dc[8] +
+                   6 * dc[9] - 6 * dc[10] - 8 * dc[11] + 42 * dc[12] +
+                   152 * dc[13] + 42 * dc[14] - 8 * dc[15] - 6 * dc[16] +
+                   6 * dc[17] + 42 * dc[18] + 6 * dc[19] - 6 * dc[20] -
+                   2 * dc[21] - 6 * dc[22] - 8 * dc[23] - 6 * dc[24] -
+                   2 * dc[25]);
+        w[0] = predict(num, q00, 0);
+      }
+    }
+  }
+  return out;
+}
+
+void smooth(Jpeg& j) {
+  if (!smoothing_ok(j)) return;
+  std::vector<int16_t> smoothed[kMaxComponents];
+  for (int c = 0; c < j.ncomp; ++c) smoothed[c] = smooth_component(j, c);
+  for (int c = 0; c < j.ncomp; ++c) j.comp[c].coef.swap(smoothed[c]);
 }
 
 // ---------------------------------------------------------------------------
@@ -795,101 +1490,89 @@ constexpr int64_t F_0_298 = 2446, F_0_390 = 3196, F_0_541 = 4433,
                   F_1_501 = 12299, F_1_847 = 15137, F_1_961 = 16069,
                   F_2_053 = 16819, F_2_562 = 20995, F_3_072 = 25172;
 
-inline int64_t descale(int64_t x, int n) {
-  return (x + (int64_t(1) << (n - 1))) >> n;
+inline int32_t wrap16(int32_t x) { return int16_t(uint16_t(x)); }
+
+inline int32_t sat16(int32_t x) {
+  return x < -32768 ? -32768 : x > 32767 ? 32767 : x;
 }
 
-// prepare_range_limit_table, the part the IDCT reads: (x & 1023) -> sample
-struct RangeLimit {
-  uint8_t t[1024];
-  RangeLimit() {
-    for (int v = 0; v < 1024; ++v)
-      t[v] = uint8_t(v < 128 ? v + 128 : v < 512 ? 255 : v < 896 ? 0 : v - 896);
-  }
-};
-
-const RangeLimit& range_limit() {
-  static const RangeLimit r;
-  return r;
+// One pass of jpeg_idct_islow over 8 values as libjpeg-turbo's SIMD code
+// computes it (jidctint-sse2.asm, jidctint-avx2.asm): the sums x0 + x4,
+// x0 - x4, x7 + x3 and x5 + x1 wrap at 16 bits; every other value is the
+// exact one, which for 16-bit inputs fits 32 bits (where the SIMD code
+// keeps it), so the C code's formulas are computed modulo 2^32 (unsigned)
+// and give it.  o[k] are the 8 results before their descale.
+inline void idct_pass(const int32_t* x, int32_t* o) {
+  using U = uint32_t;
+  const U z2 = U(x[2]), z3 = U(x[6]);
+  const U z1 = (z2 + z3) * U(F_0_541);
+  const U tmp2 = z1 - z3 * U(F_1_847), tmp3 = z1 + z2 * U(F_0_765);
+  const U tmp0 = U(wrap16(x[0] + x[4])) << kConstBits;
+  const U tmp1 = U(wrap16(x[0] - x[4])) << kConstBits;
+  const U tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
+  const U tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+  U t0 = U(x[7]), t1 = U(x[5]), t2 = U(x[3]), t3 = U(x[1]);
+  U a1 = t0 + t3, a2 = t1 + t2;
+  U a3 = U(wrap16(x[7] + x[3])), a4 = U(wrap16(x[5] + x[1]));
+  const U z5 = (a3 + a4) * U(F_1_175);
+  t0 *= U(F_0_298);
+  t1 *= U(F_2_053);
+  t2 *= U(F_3_072);
+  t3 *= U(F_1_501);
+  a1 *= U(-F_0_899);
+  a2 *= U(-F_2_562);
+  a3 = a3 * U(-F_1_961) + z5;
+  a4 = a4 * U(-F_0_390) + z5;
+  t0 += a1 + a3;
+  t1 += a2 + a4;
+  t2 += a2 + a3;
+  t3 += a1 + a4;
+  o[0] = int32_t(tmp10 + t3);
+  o[7] = int32_t(tmp10 - t3);
+  o[1] = int32_t(tmp11 + t2);
+  o[6] = int32_t(tmp11 - t2);
+  o[2] = int32_t(tmp12 + t1);
+  o[5] = int32_t(tmp12 - t1);
+  o[3] = int32_t(tmp13 + t0);
+  o[4] = int32_t(tmp13 - t0);
 }
 
-// jpeg_idct_islow on one block -> 8x8 samples at out (row stride `stride`)
+inline uint8_t sample(int32_t x) {
+  return uint8_t((x < -128 ? -128 : x > 127 ? 127 : x) + 128);
+}
+
+// jpeg_idct_islow on one block -> 8x8 samples at out (row stride
+// `stride`), as libjpeg-turbo's SIMD code gives it on any coefficients:
+// dequantized at 16 bits (pmullw), a block whose rows 1-7 are zero taking
+// row 0 << PASS1_BITS at 16 bits, the first pass saturated to 16 bits,
+// the output clamped to the sample range (jdmaster.c's range-limit table
+// gives the same wherever its 10-bit index does not wrap).
 void idct_islow(const int16_t* coef, const int* q, uint8_t* out,
                 size_t stride) {
-  const uint8_t* lim = range_limit().t;
-  int ws[64];
-  for (int c = 0; c < 8; ++c) {  // columns
-    int64_t z[8];
-    for (int r = 0; r < 8; ++r)
-      z[r] = int64_t(coef[r * 8 + c]) * q[r * 8 + c];
-    int64_t z1 = (z[2] + z[6]) * F_0_541;
-    const int64_t tmp2 = z1 - z[6] * F_1_847;
-    const int64_t tmp3 = z1 + z[2] * F_0_765;
-    const int64_t tmp0 = (z[0] + z[4]) * (int64_t(1) << kConstBits);
-    const int64_t tmp1 = (z[0] - z[4]) * (int64_t(1) << kConstBits);
-    const int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
-    const int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    int64_t t0 = z[7], t1 = z[5], t2 = z[3], t3 = z[1];
-    z1 = t0 + t3;
-    int64_t z2 = t1 + t2, z3 = t0 + t2, z4 = t1 + t3;
-    const int64_t z5 = (z3 + z4) * F_1_175;
-    t0 *= F_0_298;
-    t1 *= F_2_053;
-    t2 *= F_3_072;
-    t3 *= F_1_501;
-    z1 *= -F_0_899;
-    z2 *= -F_2_562;
-    z3 = z3 * -F_1_961 + z5;
-    z4 = z4 * -F_0_390 + z5;
-    t0 += z1 + z3;
-    t1 += z2 + z4;
-    t2 += z2 + z3;
-    t3 += z1 + z4;
-    const int n = kConstBits - kPass1Bits;
-    ws[0 * 8 + c] = int(descale(tmp10 + t3, n));
-    ws[7 * 8 + c] = int(descale(tmp10 - t3, n));
-    ws[1 * 8 + c] = int(descale(tmp11 + t2, n));
-    ws[6 * 8 + c] = int(descale(tmp11 - t2, n));
-    ws[2 * 8 + c] = int(descale(tmp12 + t1, n));
-    ws[5 * 8 + c] = int(descale(tmp12 - t1, n));
-    ws[3 * 8 + c] = int(descale(tmp13 + t0, n));
-    ws[4 * 8 + c] = int(descale(tmp13 - t0, n));
+  int32_t ws[64], in[8], o[8];
+  bool ac_zero = true;
+  for (int i = 8; i < 64; ++i) ac_zero &= coef[i] == 0;
+  if (ac_zero) {
+    for (int c = 0; c < 8; ++c) {
+      const int32_t dc =
+          wrap16(wrap16(int32_t(coef[c]) * q[c]) * (1 << kPass1Bits));
+      for (int r = 0; r < 8; ++r) ws[r * 8 + c] = dc;
+    }
+  } else {
+    constexpr int n = kConstBits - kPass1Bits;
+    for (int c = 0; c < 8; ++c) {  // columns
+      for (int r = 0; r < 8; ++r)
+        in[r] = wrap16(int32_t(coef[r * 8 + c]) * q[r * 8 + c]);
+      idct_pass(in, o);
+      for (int r = 0; r < 8; ++r)
+        ws[r * 8 + c] = sat16((o[r] + (1 << (n - 1))) >> n);
+    }
   }
+  constexpr int n = kConstBits + kPass1Bits + 3;
   for (int r = 0; r < 8; ++r) {  // rows
-    const int* w = ws + r * 8;
-    int64_t z1 = (int64_t(w[2]) + w[6]) * F_0_541;
-    const int64_t tmp2 = z1 - int64_t(w[6]) * F_1_847;
-    const int64_t tmp3 = z1 + int64_t(w[2]) * F_0_765;
-    const int64_t tmp0 = (int64_t(w[0]) + w[4]) * (int64_t(1) << kConstBits);
-    const int64_t tmp1 = (int64_t(w[0]) - w[4]) * (int64_t(1) << kConstBits);
-    const int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
-    const int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    int64_t t0 = w[7], t1 = w[5], t2 = w[3], t3 = w[1];
-    z1 = t0 + t3;
-    int64_t z2 = t1 + t2, z3 = t0 + t2, z4 = t1 + t3;
-    const int64_t z5 = (z3 + z4) * F_1_175;
-    t0 *= F_0_298;
-    t1 *= F_2_053;
-    t2 *= F_3_072;
-    t3 *= F_1_501;
-    z1 *= -F_0_899;
-    z2 *= -F_2_562;
-    z3 = z3 * -F_1_961 + z5;
-    z4 = z4 * -F_0_390 + z5;
-    t0 += z1 + z3;
-    t1 += z2 + z4;
-    t2 += z2 + z3;
-    t3 += z1 + z4;
-    const int n = kConstBits + kPass1Bits + 3;
-    uint8_t* o = out + r * stride;
-    o[0] = lim[int(descale(tmp10 + t3, n)) & 1023];
-    o[7] = lim[int(descale(tmp10 - t3, n)) & 1023];
-    o[1] = lim[int(descale(tmp11 + t2, n)) & 1023];
-    o[6] = lim[int(descale(tmp11 - t2, n)) & 1023];
-    o[2] = lim[int(descale(tmp12 + t1, n)) & 1023];
-    o[5] = lim[int(descale(tmp12 - t1, n)) & 1023];
-    o[3] = lim[int(descale(tmp13 + t0, n)) & 1023];
-    o[4] = lim[int(descale(tmp13 - t0, n)) & 1023];
+    idct_pass(ws + r * 8, o);
+    uint8_t* p = out + r * stride;
+    for (int c = 0; c < 8; ++c) p[c] = sample((o[c] + (1 << (n - 1))) >> n);
   }
 }
 
@@ -910,8 +1593,8 @@ std::vector<uint8_t> component_plane(const Component& k) {
   return plane;
 }
 
-// The component at full size [H][W]: jdsample.c's method for its ratio,
-// over its dw x dh real samples.  Rows above the first and below the last
+// The component at full size [H][W]: jdsample.c's method for its ratio
+// (fancy at 2, boxes at any other ratio), over its dw x dh real samples.  Rows above the first and below the last
 // are the first and the last (jdmainct.c's context rows).
 std::vector<uint8_t> upsample(const std::vector<uint8_t>& plane,
                               size_t stride, const Component& k, int hmax,
@@ -922,6 +1605,13 @@ std::vector<uint8_t> upsample(const std::vector<uint8_t>& plane,
   auto in = [&](int y) { return plane.data() + size_t(y) * stride; };
   if (rh == 1 && rv == 1) {
     for (int y = 0; y < H; ++y) std::memcpy(&out[size_t(y) * W], in(y), W);
+    return out;
+  }
+  if (rh > 2 || rv > 2) {  // int_upsample: rh x rv boxes
+    for (int y = 0; y < H; ++y) {
+      const uint8_t* a = in(y / rv);
+      for (int x = 0; x < W; ++x) out[size_t(y) * W + x] = a[x / rh];
+    }
     return out;
   }
   // one output row pair of columns from a row of column values `cs`
@@ -997,6 +1687,7 @@ inline uint8_t clamp255(int v) {
 }
 
 void to_rgb(Jpeg& j, Image* out) {
+  smooth(j);
   const int W = j.width, H = j.height;
   std::vector<uint8_t> planes[kMaxComponents];
   for (int c = 0; c < j.ncomp; ++c) {
@@ -1043,10 +1734,11 @@ void to_rgb(Jpeg& j, Image* out) {
   }
 }
 
-void decode_jpeg(const uint8_t* d, size_t n, Image* out) {
+uint32_t decode_jpeg(const uint8_t* d, size_t n, Image* out) {
   Jpeg j;
-  j.parse(d, n);
+  parse(j, d, n);
   to_rgb(j, out);
+  return j.src.warnings;
 }
 
 bool read_file(const char* path, std::vector<uint8_t>* buf, std::string* why) {
@@ -1175,15 +1867,16 @@ int guarded(char* err, int errlen, F body) {
 extern "C" {
 
 // info[0..7]: width, height, components, colour space (0 grey, 1 YCbCr,
-// 2 RGB, 3 CMYK, 4 YCCK), progressive, hmax, vmax, 0; then for each component c at 8 + 6c:
-// h, v, blocks across and down (the MCU grid's), samples across and down.
+// 2 RGB, 3 CMYK, 4 YCCK), progressive, hmax, vmax, arithmetic; then for
+// each component c at 8 + 6c: h, v, blocks across and down (the MCU
+// grid's), samples across and down.
 int decode_header(const uint8_t* data, size_t len, int32_t* info, char* err,
                   int errlen) {
   return guarded(err, errlen, [&] {
     Jpeg j;
-    parse_header(&j, data, len);
+    parse_header(j, data, len);
     const int32_t head[8] = {j.width, j.height, j.ncomp, j.color,
-                             j.progressive, j.hmax, j.vmax, 0};
+                             j.progressive, j.hmax, j.vmax, j.arith};
     std::memcpy(info, head, sizeof(head));
     for (int c = 0; c < j.ncomp; ++c) {
       const Component& k = j.comp[c];
@@ -1193,13 +1886,20 @@ int decode_header(const uint8_t* data, size_t len, int32_t* info, char* err,
   });
 }
 
-// quant: [components][64] natural order; coef: every component's blocks
-// [bh][bw][64] in turn, natural order (`cap` int16 values at most).
+// quant: [components][64] natural order (0 where a component had no scan);
+// coef: every component's blocks [bh][bw][64] in turn, natural order
+// (`cap` int16 values at most); progress: [components][2][64], each
+// component's coef_bits (the lowest bit of each coefficient known, -1
+// none) and the same before its latest scan as smoothing takes it (-1
+// after a single scan; zigzag order), then three values: the last iMCU
+// row begun with data in the last scan, whether libjpeg smooths the
+// blocks, the warnings.
 int decode_coefficients(const uint8_t* data, size_t len, int32_t* quant,
-                        int16_t* coef, size_t cap, char* err, int errlen) {
+                        int16_t* coef, size_t cap, int32_t* progress,
+                        char* err, int errlen) {
   return guarded(err, errlen, [&] {
     Jpeg j;
-    j.parse(data, len);
+    parse(j, data, len);
     size_t total = 0;
     for (int c = 0; c < j.ncomp; ++c) total += j.comp[c].coef.size();
     if (total > cap) fail("coefficient buffer too small");
@@ -1208,16 +1908,23 @@ int decode_coefficients(const uint8_t* data, size_t len, int32_t* quant,
       std::memcpy(coef, j.comp[c].coef.data(),
                   j.comp[c].coef.size() * sizeof(int16_t));
       coef += j.comp[c].coef.size();
+      std::memcpy(progress + 128 * c, j.coef_bits[c], 64 * sizeof(int32_t));
+      latched_prev(j, c, progress + 128 * c + 64);
     }
+    int32_t* tail = progress + 128 * j.ncomp;
+    tail[0] = j.last_good_row;
+    tail[1] = smoothing_ok(j);
+    tail[2] = int32_t(j.src.warnings);
   });
 }
 
-// out: [height][width][3] uint8 RGB (`cap` bytes at most).
+// out: [height][width][3] uint8 RGB (`cap` bytes at most); warnings: the
+// bits of libjpeg's warnings the decode met.
 int decode_rgb(const uint8_t* data, size_t len, uint8_t* out, size_t cap,
-               char* err, int errlen) {
+               uint32_t* warnings, char* err, int errlen) {
   return guarded(err, errlen, [&] {
     Image img;
-    decode_jpeg(data, len, &img);
+    *warnings = decode_jpeg(data, len, &img);
     if (img.data.size() > cap) fail("pixel buffer too small");
     std::memcpy(out, img.data.data(), img.data.size());
   });

@@ -18,8 +18,9 @@ Every stage is libjpeg's integer arithmetic, file by file:
   - the forward DCT (`jfdctint.c`) and the rounding division by the
     quantization table times 8 (`jcdctmgr.c`); the tables of Annex K
     scaled by `jpeg_quality_scaling` and clamped to 1..255 (`jcparam.c`);
-  - dequantization and the inverse DCT (`jidctint.c`), its output through
-    the range-limit table (`jdmaster.c`, `prepare_range_limit_table`);
+  - dequantization and the inverse DCT (`jidctint.c`) as libjpeg-turbo's
+    SIMD code computes them (16-bit lanes: on an encoder's coefficients
+    the C code's numbers), the output clamped to the sample range;
   - the triangle filter of `h2v2_fancy_upsample` (`jdsample.c`), its
     context rows replicated at the top and bottom (`jdmainct.c`);
   - YCbCr -> RGB (`jdcolor.c`, `build_ycc_rgb_table`).
@@ -28,17 +29,18 @@ Integers only, on the images' device, so the CPU and the card give the same
 bits.  `tests/test_torch_port_distortion.py` holds it to Pillow bit for bit.
 
 `decode_from_coefficients` is the decoder's half on its own, from a file's
-quantized blocks: any quantization tables, grey or three components (YCbCr
-or RGB), and every component at sampling factors up to 2, upsampled by
+quantized blocks: any quantization tables, grey, three or four components,
+every component at sampling factors that divide the largest, upsampled by
 `h2v1_fancy_upsample`, `h1v2_fancy_upsample` or `h2v2_fancy_upsample`
-(`jdsample.c`; plain replication where libjpeg takes it).  It is the plain
-version of `csrc/jpeg_decode.cpp`, the training data's JPEG decoder, which
-`tests/test_torch_port_data.py` and `chip_smoke.py` hold to it.
+(`jdsample.c`; plain replication where libjpeg takes it, boxes at other
+ratios), after `smooth_coefficients`, libjpeg-turbo 2.1's block smoothing
+of a progressive file's unfinished coefficients, where libjpeg applies it.
+It is the plain version of `csrc/jpeg_decode.cpp`, the training data's
+JPEG decoder, which `tests/test_torch_port_data.py`,
+`tests/test_torch_port_jpeg_kinds.py` and `chip_smoke.py` hold to it.
 """
 
 from __future__ import annotations
-
-import functools
 
 import numpy as np
 import torch
@@ -100,16 +102,6 @@ def quant_tables(quality: int) -> tuple:
                  for t in (STD_LUMINANCE, STD_CHROMINANCE))
 
 
-@functools.lru_cache()
-def _range_limit_np() -> np.ndarray:
-    """The post-IDCT view of `sample_range_limit`, indexed by
-    (x & 1023) for a centred IDCT output x: x + 128 for x in [-128, 127],
-    255 above, 0 below, wrapping beyond +-512 as libjpeg's table does."""
-    v = np.arange(1024)
-    return np.where(v < 128, v + 128, np.where(
-        v < 512, 255, np.where(v < 896, 0, v - 896))).astype(np.int64)
-
-
 def _descale(x: torch.Tensor, n: int) -> torch.Tensor:
     return (x + (1 << (n - 1))) >> n
 
@@ -154,20 +146,27 @@ def _fdct_1d(d, first: bool):
     return out
 
 
+def _wrap16(x: torch.Tensor) -> torch.Tensor:
+    """x modulo 2^16 as a signed 16-bit value (a SIMD lane's wrap)."""
+    return ((x + 32768) & 0xFFFF) - 32768
+
+
 def _idct_1d(z, n: int):
     """One pass of `jpeg_idct_islow` over the 8 dequantized tensors `z`,
-    descaled by `n` bits.  (libjpeg's shortcut for an all-zero AC part
-    gives the same numbers as the general formula.)"""
+    descaled by `n` bits, as libjpeg-turbo's SIMD code computes it
+    (jidctint-sse2.asm, jidctint-avx2.asm): the sums z0 + z4, z0 - z4,
+    z7 + z3 and z5 + z1 wrap at 16 bits, every product is exact.  On an
+    encoder's coefficients nothing wraps and this is the C code's pass."""
     z1 = (z[2] + z[6]) * F_0_541
     tmp2 = z1 - z[6] * F_1_847
     tmp3 = z1 + z[2] * F_0_765
-    tmp0 = (z[0] + z[4]) << CONST_BITS
-    tmp1 = (z[0] - z[4]) << CONST_BITS
+    tmp0 = _wrap16(z[0] + z[4]) << CONST_BITS
+    tmp1 = _wrap16(z[0] - z[4]) << CONST_BITS
     tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
     tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
     t0, t1, t2, t3 = z[7], z[5], z[3], z[1]
     z1, z2 = t0 + t3, t1 + t2
-    z3, z4 = t0 + t2, t1 + t3
+    z3, z4 = _wrap16(t0 + t2), _wrap16(t1 + t3)
     z5 = (z3 + z4) * F_1_175
     t0, t1 = t0 * F_0_298, t1 * F_2_053
     t2, t3 = t2 * F_3_072, t3 * F_1_501
@@ -209,13 +208,19 @@ def _code_plane(plane: torch.Tensor, table: np.ndarray) -> torch.Tensor:
 
 def _idct_blocks(coef: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """Quantized blocks [..., 8, 8] (int64) and their table [8, 8] ->
-    samples [..., 8, 8]: dequantize, inverse DCT on the columns, then the
-    rows, then the range limit."""
-    z = coef * q
-    z = torch.stack(_idct_1d(z.unbind(-2), CONST_BITS - PASS1_BITS), -2)
+    samples [..., 8, 8] as libjpeg-turbo's SIMD `jpeg_idct_islow` gives
+    them: dequantized at 16 bits, the columns (a block whose rows 1-7 are
+    zero taking row 0 << PASS1_BITS at 16 bits), saturated to 16 bits, the
+    rows, then the output clamped to the sample range (jdmaster.c's
+    range-limit table gives the same wherever its 10-bit index does not
+    wrap)."""
+    z = _wrap16(coef * q)
+    cols = torch.stack(_idct_1d(z.unbind(-2), CONST_BITS - PASS1_BITS), -2)
+    flat = _wrap16(z[..., :1, :] << PASS1_BITS).expand_as(cols)
+    ac_zero = (coef[..., 1:, :] == 0).flatten(-2).all(-1)[..., None, None]
+    z = torch.where(ac_zero, flat, cols.clamp(-32768, 32767))
     z = torch.stack(_idct_1d(z.unbind(-1), CONST_BITS + PASS1_BITS + 3), -1)
-    limit = torch.from_numpy(_range_limit_np()).to(coef.device)
-    return limit[z & 1023]
+    return z.clamp(-128, 127) + 128
 
 
 def _pad_to(plane: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
@@ -329,14 +334,15 @@ def upsample_component(c: torch.Tensor, rh: int, rv: int) -> torch.Tensor:
     """One component's real samples [h, w] (int64) -> [h * rv, w * rh] by
     libjpeg's method for the ratio: `h2v1_fancy_upsample` (3 x the nearer
     column + the farther, + 1 or + 2, / 4), `h1v2_fancy_upsample` (the
-    same down the rows), `h2v2_fancy_upsample` (`_fancy_upsample`), and
-    plain replication across where a row has 2 samples or fewer
-    (`jinit_upsampler`)."""
+    same down the rows), `h2v2_fancy_upsample` (`_fancy_upsample`), plain
+    replication across where a row has 2 samples or fewer
+    (`jinit_upsampler`), and boxes at any other integer ratio
+    (`int_upsample`)."""
     if (rh, rv) == (1, 1):
         return c
     w = c.shape[1]
-    if rh == 2 and w <= 2:                   # h2v1_upsample, h2v2_upsample
-        return c.repeat_interleave(2, 1).repeat_interleave(rv, 0)
+    if rh > 2 or rv > 2 or (rh == 2 and w <= 2):
+        return c.repeat_interleave(rh, 1).repeat_interleave(rv, 0)
     if (rh, rv) == (2, 2):
         return _fancy_upsample(c[None])[0]
     dim = 1 if rh == 2 else 0
@@ -345,22 +351,196 @@ def upsample_component(c: torch.Tensor, rh: int, rv: int) -> torch.Tensor:
                        dim)
 
 
+# ---------------------------------------------------------------------------
+# block smoothing of unfinished progressive coefficients (jdcoefct.c,
+# libjpeg-turbo 2.1: `smoothing_ok`, `decompress_smooth_data`)
+# ---------------------------------------------------------------------------
+
+def _kernel(*cells) -> np.ndarray:
+    """A 5 x 5 weight table over the window's DC values (rows two above
+    to two below, columns two left to two right) from (row, col, weight)
+    triples."""
+    k = np.zeros((5, 5), np.int64)
+    for r, c, w in cells:
+        k[r, c] = w
+    return k
+
+
+def _rows(*rows) -> np.ndarray:
+    return np.array(rows, np.int64)
+
+
+# (natural position, weights when no AC coefficient is known (the DC too
+# is estimated then), weights otherwise (None: not estimated)), zigzag 1-9
+_SMOOTH = [
+    (1, _rows([-1, -1, 0, 1, 1], [-3, 13, 0, -13, 3], [-3, 38, 0, -38, 3],
+              [-3, 13, 0, -13, 3], [-1, -1, 0, 1, 1]),
+     _kernel((2, 0, -7), (2, 1, 50), (2, 3, -50), (2, 4, 7))),
+    (8, _rows([-1, -3, -3, -3, -1], [-1, 13, 38, 13, -1], [0] * 5,
+              [1, -13, -38, -13, 1], [1, 3, 3, 3, 1]),
+     _kernel((0, 2, -7), (1, 2, 50), (3, 2, -50), (4, 2, 7))),
+    (16, _rows([0, 0, 1, 0, 0], [0, 2, 7, 2, 0], [0, -5, -14, -5, 0],
+               [0, 2, 7, 2, 0], [0, 0, 1, 0, 0]),
+     _kernel((0, 2, -1), (1, 2, 13), (2, 2, -24), (3, 2, 13), (4, 2, -1))),
+    (9, _kernel((0, 0, -1), (0, 4, 1), (1, 1, 9), (1, 3, -9), (3, 1, -9),
+                (3, 3, 9), (4, 0, 1), (4, 4, -1)),
+     _kernel((1, 4, 1), (3, 0, 1), (3, 1, -10), (3, 3, 10), (0, 1, -1),
+             (3, 4, -1), (4, 1, 1), (4, 3, -1), (0, 3, 1), (1, 0, -1),
+             (1, 1, 10), (1, 3, -10))),
+    (2, _rows([0] * 5, [0, 2, -5, 2, 0], [1, 7, -14, 7, 1],
+              [0, 2, -5, 2, 0], [0] * 5),
+     _kernel((2, 0, -1), (2, 1, 13), (2, 2, -24), (2, 3, 13), (2, 4, -1))),
+    (3, _kernel((1, 1, 1), (1, 3, -1), (2, 1, 2), (2, 3, -2), (3, 1, 1),
+                (3, 3, -1)), None),
+    (10, _kernel((1, 1, 1), (1, 2, -3), (1, 3, 1), (3, 1, -1), (3, 2, 3),
+                 (3, 3, -1)), None),
+    (17, _kernel((1, 1, 1), (1, 3, -1), (2, 1, -3), (2, 3, 3), (3, 1, 1),
+                 (3, 3, -1)), None),
+    (24, _kernel((1, 1, 1), (1, 2, 2), (1, 3, 1), (3, 1, -1), (3, 2, -2),
+                 (3, 3, -1)), None),
+]
+_SMOOTH_DC = _rows([-2, -6, -8, -6, -2], [-6, 6, 42, 6, -6],
+                   [-8, 42, 152, 42, -8], [-6, 6, 42, 6, -6],
+                   [-2, -6, -8, -6, -2])
+
+
+def _window_rows(v: int, cbh: int, total_rows: int) -> np.ndarray:
+    """[cbh, 5] the block rows of each row's window as
+    `decompress_smooth_data` picks them: a row above or below is taken
+    while its block row lies within the iMCU row, or while the iMCU row
+    has one (two for the second row) before it or after it, else the
+    nearer one repeats; within the last iMCU row only `cbh % v` (or v)
+    rows count."""
+    out = np.zeros((cbh, 5), np.int64)
+    last = total_rows - 1
+    for row in range(total_rows):
+        block_rows = v if row < last else (cbh % v or v)
+        for br in range(block_rows):
+            a = row * v + br
+            if a >= cbh:
+                continue
+            prev = a - 1 if br > 0 or row > 0 else a
+            nxt = a + 1 if br < block_rows - 1 or row < last else a
+            out[a] = (a - 2 if br > 1 or row > 1 else prev, prev, a, nxt,
+                      a + 2 if br < block_rows - 2 or row + 1 < last
+                      else nxt)
+    return out
+
+
+def _window_cols(cbw: int) -> np.ndarray:
+    """[cbw, 5] the block columns of each column's window: the sliding
+    registers start at column 0 and take column c + 2 while c + 1 is below
+    the last column."""
+    out = np.zeros((cbw, 5), np.int64)
+    reg = [0] * 5
+    for b in range(cbw):
+        if b == 0 and cbw > 1:
+            reg[3] = 1
+        if b + 1 < cbw - 1:
+            reg[4] = b + 2
+        out[b] = reg
+        reg = reg[1:] + reg[-1:]
+    return out
+
+
+def _estimate(num: torch.Tensor, q: int, al) -> torch.Tensor:
+    """(q << 7 + |num|) // (q << 8) with num's sign, kept below 1 << al
+    where al > 0, wrapped to int16 as libjpeg's JCOEF."""
+    pred = ((q << 7) + num.abs()) // (q << 8)
+    if al is not None:
+        cap = torch.where(al > 0, (1 << al.clamp(min=0)) - 1, pred)
+        pred = torch.minimum(pred, cap)
+    pred = torch.where(num < 0, -pred, pred)
+    return ((pred + 32768) & 0xFFFF) - 32768
+
+
+def smooth_coefficients(blocks, quant, sampling, size, coef_bits,
+                        prev_bits, last_row: int) -> list:
+    """libjpeg-turbo 2.1's block smoothing of a progressive file's
+    quantized blocks: in every real block, each of the first nine AC
+    coefficients that is 0 and not known to full precision is estimated
+    from the DC values of the 5 x 5 blocks around it (the window's edges
+    as libjpeg picks them: `_window_rows`, `_window_cols`); where no AC
+    coefficient of the first nine is known at all, the DC too, by a
+    Gaussian-like kernel.  An estimate divides by its quantizer with
+    rounding, kept within the bits still unknown.  The rows after
+    `last_row` (the last iMCU row of the last scan begun with data) take
+    the precision from before the component's latest scan.
+
+    blocks, quant, sampling, size: as `decode_from_coefficients`;
+    coef_bits, prev_bits: [components, >= 10] libjpeg's coef_bits (zigzag
+    order), now and before the latest scan.  -> the blocks, int64, on
+    their device."""
+    width, height = size
+    hmax = max(h for h, _ in sampling)
+    vmax = max(v for _, v in sampling)
+    coef_bits = np.asarray(coef_bits)[:, :10]
+    prev_bits = np.asarray(prev_bits)[:, :10]
+    total_rows = blocks[0].shape[0] // sampling[0][1]      # iMCU rows
+    out = []
+    for ci, (coef, q, (h, v)) in enumerate(zip(blocks, quant, sampling)):
+        coef = torch.as_tensor(coef).to(torch.int64)
+        dev = coef.device
+        q = np.asarray(torch.as_tensor(q).cpu()).reshape(64).astype(np.int64)
+        dw, dh = -(-width * h // hmax), -(-height * v // vmax)
+        cbw, cbh = -(-dw // 8), -(-dh // 8)          # the real blocks
+        rows = torch.from_numpy(_window_rows(v, cbh, total_rows)).to(dev)
+        cols = torch.from_numpy(_window_cols(cbw)).to(dev)
+        dc = coef[..., 0, 0]
+        win = dc[rows][:, :, cols].permute(0, 2, 1, 3)  # [cbh, cbw, 5, 5]
+        late = torch.arange(cbh, device=dev) // v > last_row
+        bits = torch.where(late[:, None],
+                           torch.from_numpy(prev_bits[ci]).to(dev),
+                           torch.from_numpy(coef_bits[ci]).to(dev))
+        change_dc = (bits[:, 1:] == -1).all(1)[:, None]      # [cbh, 1]
+        real = coef[:cbh, :cbw].reshape(cbh, cbw, 64)
+        new = real.clone()
+
+        def weigh(kernel):
+            k = torch.from_numpy(kernel).to(dev)
+            return q[0] * (win * k).sum((-2, -1))
+
+        for zz, (pos, k_dc, k_ac) in enumerate(_SMOOTH, 1):
+            al = bits[:, zz][:, None]
+            num = weigh(k_dc)
+            ok = change_dc
+            if k_ac is not None:
+                num = torch.where(change_dc, num, weigh(k_ac))
+                ok = torch.ones_like(change_dc)
+            est = _estimate(num, int(q[pos]), al)
+            take = ok & (al != 0) & (real[..., pos] == 0)
+            new[..., pos] = torch.where(take, est, real[..., pos])
+        est = _estimate(weigh(_SMOOTH_DC), int(q[0]), None)
+        new[..., 0] = torch.where(change_dc, est, real[..., 0])
+        full = coef.clone()
+        full[:cbh, :cbw] = new.reshape(cbh, cbw, 8, 8)
+        out.append(full)
+    return out
+
+
 def decode_from_coefficients(blocks, quant, sampling, size,
-                             color: str = "ycbcr") -> torch.Tensor:
+                             color: str = "ycbcr",
+                             progress=None) -> torch.Tensor:
     """A JPEG's quantized blocks -> [H, W, 3] uint8 RGB, libjpeg-turbo's
     default decode (JDCT_ISLOW, fancy upsampling, JCS_RGB; grey
     replicated).
 
     blocks: per component [blocks down, blocks across, 8, 8] (the MCU
     grid's), natural order; quant: [components, 8, 8], each component's
-    table; sampling: per component (h, v), at most 2; size: (width,
-    height); color: "grey", "ycbcr", "rgb", "cmyk" or "ycck" (four
-    components, as PIL's `convert("RGB")` gives them: `_pil_cmyk_to_rgb`).
-    Computed on the device of the first block tensor (numpy arrays: the
-    CPU)."""
+    table; sampling: per component (h, v), dividing the largest; size:
+    (width, height); color: "grey", "ycbcr", "rgb", "cmyk" or "ycck" (four
+    components, as PIL's `convert("RGB")` gives them: `_pil_cmyk_to_rgb`);
+    progress: `image_decode.JpegProgress` of a progressive file, whose
+    unfinished coefficients are then smoothed first (`smooth_coefficients`)
+    where libjpeg smooths them.  Computed on the device of the first block
+    tensor (numpy arrays: the CPU)."""
     width, height = size
     hmax = max(h for h, _ in sampling)
     vmax = max(v for _, v in sampling)
+    if progress is not None and progress.smooth:
+        blocks = smooth_coefficients(blocks, quant, sampling, size,
+                                     progress.coef_bits, progress.prev_bits,
+                                     progress.last_row)
     planes = []
     for coef, q, (h, v) in zip(blocks, quant, sampling):
         coef = torch.as_tensor(coef).to(torch.int64)

@@ -22,9 +22,11 @@ The port of `aqualora_tpu/train/data.py` (numpy only; no PIL, no jax):
     to uint8, / 127.5 - 1.  Under data parallelism the batch is a rank's
     slice.
   Either way the flips are one `rng.random() < 0.5` draw per image, in
-  order, drawn for the whole batch.  A file that neither package reads
-  (lossless, 12-bit, arithmetic-coded JPEG) raises with its path and the
-  reason.
+  order, drawn for the whole batch.  The native rule reads a JPEG file cut
+  short as the loader's libjpeg does (its data to the cut, then what
+  libjpeg makes of the rest); PIL's rule refuses it, as PIL does, with its
+  path.  A file that neither package reads (lossless, hierarchical,
+  12-bit JPEG) raises with its path and the reason.
 - `SyntheticDataset`: seeded uniform images with captions, the JAX
   dataset's batches for the same arguments.
 - `CachedMomentsDataset` (`--cache_latents`): one pass encodes every

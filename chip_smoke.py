@@ -221,11 +221,18 @@ Phases (any failure raises, so the exit code is not 0):
  20. Training on real images: the data path of `train/data.py` on the
      committed fixtures of tests/torch_port_images (the card's machine has
      no PIL): (a) on the host, every small fixture decodes to its committed
-     Pillow (JPEG) or libpng (PNG) pixels bit for bit, every JPEG also
-     through `decode_from_coefficients` on the card fed the decoder's
-     coefficients, a truncated copy of each raises, each refused kind
-     raises naming its feature, each realistic file (512x512 to 1024x768)
-     decodes to the SHA-256 of Pillow's pixels; then `decode_batch` alone
+     pixels bit for bit (Pillow's, the JAX native loader's libjpeg-turbo
+     2.1 for arithmetic coding, unfinished progressive scans and files cut
+     short, libpng's for PNG), every JPEG also through
+     `decode_from_coefficients` on the card fed the decoder's coefficients
+     and progression (the block smoothing on the card), a copy of each cut
+     in half decodes with libjpeg's premature-end warning and is refused by
+     PIL's rule (a PNG copy, or one cut before its first scan, raises),
+     each refused kind raises naming its feature, each realistic file
+     (512x512 to 1024x768, arithmetic progressive, one cut short) decodes
+     to the SHA-256 of the native loader's pixels; `decode_batch` to 512^2
+     of the two new realistic kinds beside a baseline file of each image,
+     on one thread and on the host's; then `decode_batch` alone
      at 512^2 on the realistic set copied under 64 names, with the host's
      thread count and with one (images/s, the host's CPU count), and the
      PNG path on the same images; (b) two steps of stage 1 from a folder
@@ -291,7 +298,7 @@ Phases (any failure raises, so the exit code is not 0):
      sessions); (b) InceptionV3 at full width on the card against the CPU
      on 8 images (1e-4 of the largest feature + 1e-5) with TF32 allowed
      around the call (the extractor turns it off for itself and gives the
-     flags back), the 8 realistic JPEGs of tests/torch_port_images (mixed
+     flags back), the realistic JPEGs of tests/torch_port_images (mixed
      sizes) through `fid.py --save-stats` against the CPU's statistics, the
      extractor's images/s at 299^2 B32 over 512 images; (c) the DreamSim
      ensemble on the card against the CPU on 4 pairs (distances within
@@ -365,7 +372,7 @@ Phases (any failure raises, so the exit code is not 0):
      `run_demo.process` on phase 15's artifacts at 512^2 DDIM-25: a blank
      secret (B1) and two comma-separated secrets (B2), 801 launches a
      call, the decoded bits (printed: random weights); (f) last of all, one
-     regional dpms_m-5 call (P25F_STEPS; the timed ones take 25) under
+     regional dpms_m-2 call (P25F_STEPS; the timed ones take 25) under
      `utils/profiling.trace`: the Chrome trace holds
      the forward kernel's events, the device time by kernel read from the
      file, `device_memory_stats()`; then a short session of one forward
@@ -464,6 +471,7 @@ before the last names the card and its power limit; the last line is
 from __future__ import annotations
 
 import argparse
+import collections
 import hashlib
 import json
 import math
@@ -3311,17 +3319,17 @@ P20_STEPS = 4                  # 1 warm-up + 3 timed, per PPFT run
 
 def p20_decoder(smi: str, folder: str) -> None:
     """(a) The decoders on the host against the committed pixels, the plain
-    version on the card, the refusals, and decode_batch's rate."""
+    version (smoothing too) on the card, copies cut short, the refusals,
+    and decode_batch's rate."""
     import numpy as np
 
-    from aqualora_torch.eval import image_io
     from aqualora_torch.eval.jpeg import decode_from_coefficients
     from aqualora_torch.train import image_decode
 
     manifest = json.loads((FIXTURES / "manifest.json").read_text())
     pixels = np.load(FIXTURES / "pixels.npz")
     small = FIXTURES / "small"
-    checked = {"pixels": 0, "plain": 0, "truncated": 0, "refused": 0}
+    checked = collections.Counter()
     for name, meta in sorted(manifest["small"].items()):
         path = str(small / name)
         if meta["refused"]:
@@ -3337,28 +3345,45 @@ def p20_decoder(smi: str, folder: str) -> None:
         if not np.array_equal(got, pixels[name.split(".")[0]]):
             raise AssertionError(f"{name}: pixels differ from the committed "
                                  "reference")
-        checked["pixels"] += 1
+        checked[meta["pixels"]] += 1
         data = Path(path).read_bytes()
         if name.endswith(".jpg"):
-            head, quant, blocks = image_decode.jpeg_coefficients(data, path)
+            head, quant, blocks, progress = image_decode.jpeg_coefficients(
+                data, path)
             plain = decode_from_coefficients(
                 [torch.from_numpy(b).cuda() for b in blocks],
                 torch.from_numpy(quant).cuda(),
                 [c[:2] for c in head.components], (head.width, head.height),
-                head.color)
+                head.color, progress)
             if not (plain.is_cuda and np.array_equal(plain.cpu().numpy(),
                                                      got)):
                 raise AssertionError(f"{name}: the plain version on the card "
                                      "differs from the decoder")
             checked["plain"] += 1
+            checked["smoothed"] += progress.smooth
+            checked["arithmetic"] += head.arithmetic
+        # a copy cut in half: a JPEG file decodes as libjpeg reads it on
+        # (PIL's rule refuses it) or, cut before its first scan or inside
+        # a marker segment, raises as libjpeg fails; a PNG file raises
         cut = Path(folder) / ("cut_" + name)
         cut.write_bytes(data[:len(data) // 2])
+        warned = []
         try:
-            image_decode.decode_file(str(cut))
+            if name.endswith(".jpg"):
+                image_decode.decode_jpeg(cut.read_bytes(), str(cut), warned)
+            else:
+                image_decode.decode_file(str(cut))
         except ValueError:
-            checked["truncated"] += 1
+            checked["cut raised"] += 1
         else:
-            raise AssertionError(f"{name}: a truncated copy decoded")
+            if image_decode.TRUNCATED not in warned:
+                raise AssertionError(f"{name} cut: no warning {warned}")
+            try:
+                image_decode.decode_file(str(cut), pil=True)
+            except ValueError:
+                checked["cut decoded"] += 1
+            else:
+                raise AssertionError(f"{name} cut: PIL's rule read it")
         cut.unlink()
     for row in manifest["realistic"]:
         img = image_decode.decode_file(str(FIXTURES / "realistic" /
@@ -3366,17 +3391,82 @@ def p20_decoder(smi: str, folder: str) -> None:
         if (img.shape != (row["height"], row["width"], 3) or
                 hashlib.sha256(img.tobytes()).hexdigest()
                 != row["pixels_sha256"]):
-            raise AssertionError(f"{row['file']}: pixels differ from "
-                                 "Pillow's")
-        checked["pixels"] += 1
-    print(f"[20] decoder on the host: {checked['pixels']} files equal their "
-          f"committed pixels (Pillow's JPEG, libpng's PNG; 8 realistic ones "
-          f"by SHA-256), {checked['plain']} JPEG files equal "
-          f"decode_from_coefficients on the card fed the decoder's "
-          f"coefficients, {checked['truncated']} truncated copies raised, "
+            raise AssertionError(f"{row['file']}: pixels differ from the "
+                                 "native loader's")
+        checked["realistic"] += 1
+    print(f"[20] decoder on the host: {checked['pillow']} JPEG files equal "
+          f"Pillow's committed pixels, {checked['native_loader']} the JAX "
+          f"native loader's (libjpeg-turbo 2.1: arithmetic, unfinished "
+          f"progressive scans, cut short), {checked['libpng']} PNG files "
+          f"libpng's, {checked['realistic']} realistic ones by SHA-256; "
+          f"{checked['plain']} JPEG files equal decode_from_coefficients on "
+          f"the card fed the decoder's coefficients ({checked['arithmetic']}"
+          f" arithmetic, {checked['smoothed']} smoothed on the card); copies "
+          f"cut in half: {checked['cut decoded']} decoded with libjpeg's "
+          f"premature-end warning and refused by PIL's rule, "
+          f"{checked['cut raised']} raised (PNG, or a JPEG cut before its "
+          f"first scan or inside a marker segment); "
           f"{checked['refused']} refused kinds named their feature",
           flush=True)
+    if not (checked["smoothed"] >= 3 and checked["arithmetic"] >= 8
+            and checked["cut decoded"] > 0):
+        raise AssertionError(f"the new JPEG kinds were not all seen: "
+                             f"{dict(checked)}")
+    p20_kind_rates(smi, manifest, folder)
 
+
+P20_RATE_COPIES = 8
+# the new realistic kinds, each beside the baseline file of its image
+P20_KIND_PAIRS = [("photo8.jpg", "photo9.jpg"),
+                  ("truncated/photo10.jpg", "photo11.jpg")]
+
+
+def p20_kind_rates(smi: str, manifest: dict, folder: str) -> None:
+    """decode_batch to 512^2 of P20_RATE_COPIES copies of each new
+    realistic kind (arithmetic progressive 1024x768; progressive 768x768
+    cut after its first AC scans, smoothed) and of the baseline file of
+    the same image, on one thread and on the host's: images/s, the median
+    of 3 calls."""
+    from aqualora_torch.train import image_decode
+    rows = {r["file"]: r for r in manifest["realistic"]}
+    rates = {}
+    for pair in P20_KIND_PAIRS:
+        for name in pair:
+            copies = []
+            for i in range(P20_RATE_COPIES):
+                copies.append(str(Path(folder) / f"rate{i}.jpg"))
+                shutil.copy(FIXTURES / "realistic" / name, copies[-1])
+            image_decode.decode_batch(copies[:2], FOLDER_RES)     # warm
+            for threads in (1, 0):
+                ts = []
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    image_decode.decode_batch(copies, FOLDER_RES, threads)
+                    ts.append(time.perf_counter() - t0)
+                rates[name, threads] = len(copies) / statistics.median(ts)
+            for c in copies:
+                os.unlink(c)
+    parts = []
+    for name in (n for pair in P20_KIND_PAIRS for n in pair):
+        r = rows[name]
+        parts.append(f"{name} ({r['width']}x{r['height']} {r['coding']}, "
+                     f"{(FIXTURES / 'realistic' / name).stat().st_size / 1e3:.1f}"
+                     f" kB) {rates[name, 1]:.2f} on 1 thread, "
+                     f"{rates[name, 0]:.2f} on the host's")
+    print(f"[20] decode_batch -> {FOLDER_RES}^2 float32, images/s (median "
+          f"of 3 calls of {P20_RATE_COPIES} copies): " + "; ".join(parts)
+          + f"; host: {os.cpu_count()} CPUs, "
+          f"{len(os.sched_getaffinity(0))} usable | {smi}", flush=True)
+
+
+def p20_rates(smi: str, folder: str) -> None:
+    """decode_batch's rate on the folder, and the PNG path's."""
+    import numpy as np
+
+    from aqualora_torch.eval import image_io
+    from aqualora_torch.train import image_decode
+
+    manifest = json.loads((FIXTURES / "manifest.json").read_text())
     paths = sorted(str(p) for p in Path(folder).glob("img*.jpg"))
     cpus = os.cpu_count()
     usable = len(os.sched_getaffinity(0))
@@ -3401,10 +3491,11 @@ def p20_decoder(smi: str, folder: str) -> None:
           f"kB): {rates[0]:.1f} images/s with the host's threads, "
           f"{rates[1]:.1f} with one; host: {cpus} CPUs, {usable} usable",
           flush=True)
-    # PNG: the same images written by the port's writer (filter None on
-    # every row, the vectorised path), then rows of Paeth (byte by byte)
+    # PNG: eight of the same images written by the port's writer (filter
+    # None on every row, the vectorised path), then rows of Paeth (byte by
+    # byte)
     pngs = []
-    for i, row in enumerate(manifest["realistic"]):
+    for i, row in enumerate(manifest["realistic"][:8]):
         img = image_decode.decode_file(str(FIXTURES / "realistic" /
                                            row["file"]))
         pngs.append(str(Path(folder) / f"p{i}.png"))
@@ -3538,6 +3629,7 @@ def phase20(smi: str, tmp: str, step_rate: float | None) -> tuple:
     t_phase = time.perf_counter()
     folder, captions = p20_folder(tmp)
     p20_decoder(smi, folder)
+    p20_rates(smi, folder)
 
     out = Path(tmp) / "s1"
     reset_counts()
@@ -4469,7 +4561,7 @@ def phase22a_profile(smi: str, rows: dict) -> None:
 
 def phase22b(smi: str, tmp: str) -> None:
     """InceptionV3 on the card: seeded random weights, full width; 8
-    images card vs CPU with TF32 allowed around the call; the 8 realistic
+    images card vs CPU with TF32 allowed around the call; the realistic
     JPEGs (mixed sizes) through `fid.py --save-stats` card vs CPU; the
     extractor's images/s at 299^2, B32."""
     import numpy as np
@@ -4511,7 +4603,8 @@ def phase22b(smi: str, tmp: str) -> None:
     with np.load(npz) as f:
         saved_ok = (np.array_equal(f["mu"], mu)
                     and np.array_equal(f["sigma"], sigma))
-    print(f"[22] fid.py --save-stats on the 8 realistic JPEGs ({len(sizes)} "
+    print(f"[22] fid.py --save-stats on the {len(f_ref)} realistic JPEGs "
+          f"({len(sizes)} "
           f"sizes, {sizes[0]} to {sizes[-1]}) on the card in {stats_s:.4f} "
           f"s: mu vs CPU max|d| {err_mu:.3e} (tol {tol_f:.3e}), sigma "
           f"max|d| {err_s:.3e} (tol {tol_s:.3e}); the .npz as returned: "
@@ -5464,7 +5557,7 @@ DEMO_PROMPT = "a watercolor of a lighthouse at dusk"
 
 
 # the sampling steps of 25f's traced regional call
-P25F_STEPS = 5
+P25F_STEPS = 2
 
 
 class Regional:
@@ -5774,7 +5867,7 @@ def phase25_profile(smi: str, reg: Regional, call_s: float) -> None:
 
     t_profile = time.perf_counter()
     # a call of P25F_STEPS sampling steps (the timed calls take STEPS): its
-    # trace, written and read back, is a fifth of a whole call's
+    # trace, written and read back, is a twelfth of a whole call's
     short = reg.pipe.make_regional_generate(P25F_STEPS, "dpms_m", RES, RES)
     short(reg.weights, reg.masks, reg.ids, reg.neg, 7.5,
           generator=reg.gens(2550))

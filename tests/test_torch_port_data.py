@@ -131,19 +131,33 @@ def test_jpeg_decoder_matches_pillow(name):
 
 @pytest.mark.parametrize("name", DECODABLE)
 def test_fixture_matches_committed_pixels(name):
-    """The committed fixtures (4:4:0 too, which Pillow cannot write, and
-    every PNG kind) decode to the committed pixels, which Pillow still
+    """The committed fixtures (4:4:0 too, which Pillow cannot write, the
+    files libjpeg's own encoder writes, the ones cut short, and every PNG
+    kind) decode to the committed pixels: Pillow's, which Pillow still
     gives for every file but 16-bit grey PNG (libpng's high byte; PIL
-    clips, the rule of `pil=True`)."""
+    clips, the rule of `pil=True`); or the JAX native loader's, which
+    Pillow gives too but for a file cut short, which PIL refuses and so
+    does `pil=True`, and for unfinished progressive coefficients, which
+    Pillow's libjpeg-turbo smooths otherwise
+    (tests/test_torch_port_jpeg_kinds.py holds those)."""
     path = os.path.join(SMALL, name)
+    meta = MANIFEST["small"][name]
     want = np.load(os.path.join(FIXTURES, "pixels.npz"))[name.split(".")[0]]
     got = image_decode.decode_file(path)
     np.testing.assert_array_equal(got, want)
+    if meta.get("pillow") == "raises":
+        with pytest.raises(OSError):     # truncated, or a broken stream
+            with Image.open(path) as im:
+                im.convert("RGB")
+        with pytest.raises(ValueError, match="truncated") as e:
+            image_decode.decode_file(path, pil=True)
+        assert str(e.value).startswith(path)
+        return
     with Image.open(path) as im:
         pil = np.asarray(im.convert("RGB"))
     np.testing.assert_array_equal(image_decode.decode_file(path, pil=True),
-                                  pil)
-    if name != "grey16.png":
+                                  got if meta.get("pillow") else pil)
+    if name != "grey16.png" and not meta.get("pillow"):
         np.testing.assert_array_equal(got, pil)
 
 
@@ -155,21 +169,23 @@ def test_plain_version_matches_the_decoder(name):
     and YCCK, any tables, blocks past the image's edge."""
     data = (open(os.path.join(SMALL, name + ".jpg"), "rb").read()
             if name in ("sub440", "cmyk", "ycck") else _jpeg_case(name))
-    head, quant, blocks = image_decode.jpeg_coefficients(data)
+    head, quant, blocks, progress = image_decode.jpeg_coefficients(data)
     if name == "sub440":
         assert [c[:2] for c in head.components] == [(1, 2), (1, 1), (1, 1)]
+    assert not progress.smooth
     got = decode_from_coefficients(blocks, quant,
                                    [c[:2] for c in head.components],
-                                   (head.width, head.height), head.color)
+                                   (head.width, head.height), head.color,
+                                   progress)
     assert got.dtype == torch.uint8
     np.testing.assert_array_equal(got.numpy(), image_decode.decode_jpeg(data))
 
 
 @pytest.mark.parametrize("name", REFUSED)
 def test_refused_kinds_name_the_feature_and_the_file(name):
-    """Arithmetic coding, lossless and 12-bit files raise `ValueError`
-    with the path and the feature, alone and in a batch.  (libjpeg-turbo
-    reads arithmetic-coded files, which the port does not: ROADMAP A.5.)"""
+    """Lossless (SOF3, SOF11), hierarchical and 12-bit files, which the JAX
+    native loader's libjpeg refuses too, raise `ValueError` with the path
+    and the feature, alone and in a batch."""
     path = os.path.join(SMALL, name)
     feature = MANIFEST["small"][name]["refused"]
     with pytest.raises(ValueError, match=feature) as e:
@@ -217,16 +233,40 @@ def test_four_component_jpeg_is_pils_rgb(name, color, sampling):
 CORRUPT_KINDS = ["baseline_q75.jpg", "sub444.jpg", "sub422.jpg", "sub440.jpg",
                  "progressive.jpg", "progressive444.jpg",
                  "restart_blocks.jpg", "restart_progressive.jpg", "grey.jpg",
-                 "sof1_qtables.jpg", "palette_trns.png", "rgb_adam7.png"]
+                 "sof1_qtables.jpg", "palette_trns.png", "rgb_adam7.png",
+                 "arithmetic.jpg", "arith420.jpg", "arith444.jpg",
+                 "arith_grey.jpg", "arith_progressive_restart.jpg",
+                 "arith_dac.jpg", "arith_no_dac.jpg", "arith_unfinished.jpg",
+                 "unfinished.jpg", "dc_only.jpg"]
+CORRUPT_RES = 48
 _CORRUPT = textwrap.dedent("""
-    import os, sys, tempfile
+    import os, sys
     import numpy as np
     from aqualora_torch.train import image_decode
-    small, kinds = sys.argv[1], sys.argv[2:]
+    folder, out = sys.argv[1], sys.argv[2]
+    got = {}
+    for name in sorted(os.listdir(folder)):
+        path = os.path.join(folder, name)
+        outcome = "decoded"
+        try:
+            image_decode.decode_file(path)
+            got[name] = image_decode.decode_batch([path], %d, nthreads=2)
+        except ValueError:
+            outcome = "raised"
+        print(name, outcome, flush=True)
+    np.savez(out, **got)
+""" % CORRUPT_RES)
+
+
+@pytest.fixture(scope="module")
+def corrupt_run(tmp_path_factory):
+    """Seeded truncations (cut anywhere past SOI) and 1-3 changed bytes of
+    each kind, 5 cases a kind, decoded by the port in a subprocess (a crash
+    fails the tests, not the worker) and by the JAX native loader here."""
+    folder = tmp_path_factory.mktemp("corrupt")
     rng = np.random.default_rng(13)
-    tmp = tempfile.mkdtemp()
-    for kind in kinds:
-        blob = open(os.path.join(small, kind), "rb").read()
+    for kind in CORRUPT_KINDS:
+        blob = open(os.path.join(SMALL, kind), "rb").read()
         for case in range(5):
             b = bytearray(blob)
             if case < 2:                       # cut anywhere past SOI
@@ -234,38 +274,41 @@ _CORRUPT = textwrap.dedent("""
             else:                              # 1-3 bytes changed
                 for _ in range(case - 1):
                     b[int(rng.integers(2, len(b)))] = int(rng.integers(256))
-            path = os.path.join(tmp, f"c{case}" + os.path.splitext(kind)[1])
-            open(path, "wb").write(bytes(b))
-            outcome = "decoded"
-            try:
-                image_decode.decode_file(path)
-                if kind.endswith(".jpg"):
-                    image_decode.decode_batch([path], 16, nthreads=2)
-            except ValueError:
-                outcome = "raised"
-            print(kind, case, outcome, flush=True)
-""")
-
-
-@pytest.fixture(scope="module")
-def corrupt_run():
+            (folder / f"{kind}.{case}").write_bytes(bytes(b))
+    out = str(folder / "port.npz")
     proc = subprocess.run(
-        [sys.executable, "-c", _CORRUPT, SMALL] + CORRUPT_KINDS, cwd=REPO,
+        [sys.executable, "-c", _CORRUPT, str(folder), out], cwd=REPO,
         capture_output=True, text=True, timeout=240)
-    return proc
+    port = dict(np.load(out)) if proc.returncode == 0 else {}
+    return proc, port, str(folder)
 
 
 @pytest.mark.parametrize("kind", CORRUPT_KINDS)
 def test_corrupt_input_raises_or_decodes(corrupt_run, kind):
-    """Seeded truncations and byte changes of each kind (60 cases): each
-    decodes or raises `ValueError`; none ends the process (the decoder
-    bounds-checks every read); every truncation raises."""
-    lines = [ln.split() for ln in corrupt_run.stdout.splitlines()]
-    mine = [ln for ln in lines if ln[0] == kind]
-    assert len(mine) == 5, (corrupt_run.returncode,
-                            corrupt_run.stderr[-3000:])
-    assert all(ln[2] == "raised" for ln in mine if int(ln[1]) < 2), mine
-    assert corrupt_run.returncode == 0, corrupt_run.stderr[-3000:]
+    """Seeded truncations and byte changes of each kind (110 cases): none
+    ends the process (the decoder bounds-checks every read); each JPEG case
+    decodes where the JAX native loader's libjpeg decodes it (a file cut
+    anywhere after its first scan, a bad Huffman or arithmetic code, bytes
+    before a marker, a lost restart marker), bit for bit its batch, and
+    raises where it fails; a PNG case decodes or raises, every truncation
+    raising as libpng does."""
+    from aqualora_tpu.core import native_loader
+    proc, port, folder = corrupt_run
+    lines = [ln.split() for ln in proc.stdout.splitlines()]
+    mine = {ln[0]: ln[1] for ln in lines if ln[0].rsplit(".", 1)[0] == kind}
+    assert len(mine) == 5, (proc.returncode, proc.stderr[-3000:])
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    for name, outcome in sorted(mine.items()):
+        case = int(name.rsplit(".", 1)[1])
+        want = native_loader.decode_batch([os.path.join(folder, name)],
+                                          CORRUPT_RES)
+        if kind.endswith(".png"):
+            if case < 2:
+                assert outcome == "raised" and want is None, name
+            continue
+        assert (outcome == "decoded") == (want is not None), (name, outcome)
+        if want is not None:
+            np.testing.assert_array_equal(port[name], want, err_msg=name)
 
 
 # ---------------------------------------------------------------------------
@@ -667,7 +710,8 @@ def test_cache_latents_sample_in_the_pipelines_type(folders, monkeypatch):
 def jpeg_folder(tmp_path_factory):
     """Eight small JPEG files of several kinds with captions."""
     root = tmp_path_factory.mktemp("jpegs")
-    names = [n for n in DECODABLE if n.endswith(".jpg")][:8]
+    names = [n for n in DECODABLE if n.endswith(".jpg")
+             and MANIFEST["small"][n]["pixels"] == "pillow"][:8]
     with open(root / "metadata.jsonl", "w") as f:
         for i, name in enumerate(names):
             shutil.copy(os.path.join(SMALL, name), root / name)
@@ -740,13 +784,13 @@ _NO_PIL = textwrap.dedent("""
         importlib.import_module(m.name)
     from aqualora_torch.train import data, image_decode, ppft_train
     small = sys.argv[1]
-    names = sorted(os.listdir(small))
-    ok = [n for n in names if n not in ("arithmetic.jpg", "lossless.jpg",
-                                        "precision12.jpg")]
+    manifest = json.load(open(os.path.join(small, "..", "manifest.json")))
+    ok = sorted(n for n, m in manifest["small"].items() if not m["refused"])
     image_decode.decode_batch([os.path.join(small, n) for n in ok], 16)
     root = tempfile.mkdtemp()
     with open(os.path.join(root, "metadata.jsonl"), "w") as f:
-        for n in ok[:6]:
+        for n in ["baseline_q50.jpg", "baseline_q75.jpg", "arith420.jpg",
+                  "cmyk.jpg", "unfinished.jpg", "palette_trns.png"]:
             shutil.copy(os.path.join(small, n), root)
             f.write(json.dumps({"file_name": n, "text": n}) + "\\n")
     for crop in (False, True):

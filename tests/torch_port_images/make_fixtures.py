@@ -2,28 +2,40 @@
 
     python tests/torch_port_images/make_fixtures.py
 
-needs Pillow and the JAX package's native loader (libjpeg, libpng), and
-writes into this directory:
+needs Pillow, a C compiler with the system libjpeg's headers and the JAX
+package's native loader (libjpeg, libpng), and writes into this
+directory:
 
 - `small/`: one small file of every JPEG and PNG kind the port decodes or
-  refuses (`jpeg_kinds`, `png_kinds`).  JPEG files are Pillow's, but for
-  the kinds Pillow cannot write: a baseline 4:4:0 file
+  refuses (`jpeg_kinds`, `libjpeg_kinds`, `png_kinds`).  JPEG files are
+  Pillow's, but for the kinds Pillow cannot write: a baseline 4:4:0 file
   (`encode_baseline`, standard tables), a YCCK file (`ycck_jpeg`: Pillow's
-  CMYK file of YCCK samples, its Adobe transform set to 2) and refused
-  ones patched from a baseline file (arithmetic coding, lossless,
-  12-bit).  PNG files are
+  CMYK file of YCCK samples, its Adobe transform set to 2), the files
+  libjpeg's own encoder writes (`libjpeg_writer.c`, built with `cc
+  -ljpeg` against the library the native loader links: arithmetic
+  coding, sequential and progressive, with restart intervals, with
+  conditioning values other than the defaults and with no DAC at all;
+  progressive scans that leave coefficients unfinished, a DC scan alone),
+  files cut short, and refused ones patched from a baseline file
+  (lossless, hierarchical, lossless arithmetic, 12-bit).  PNG files are
   written by `write_png` with all five row filters, Adam7 too;
-- `realistic/`: eight smooth seeded images of 512x512 to 1024x768,
-  baseline and progressive, 4:2:0 and 4:4:4, the data of the card's
-  folder-fed training run;
+- `realistic/`: smooth seeded images of 512x512 to 1024x768, baseline
+  and progressive, 4:2:0 and 4:4:4, arithmetic progressive, and (in
+  `realistic/truncated/`, out of the folder's own listing, which PIL's
+  rule reads whole) a progressive file cut after its first AC scans: the
+  data of the card's folder-fed training run;
 - `pixels.npz`: every decodable small file's reference pixels, HWC uint8
-  RGB: Pillow's decode of the JPEG files; for PNG, libpng's under the
-  native loader's transforms (Pillow's too, but for 16-bit grey, which
-  PIL clips to 255), read back through the native loader at the file's
-  own size, where its resize is the identity;
-- `manifest.json`: each small file's kind and, for a refused one, the
-  feature its error names; each realistic file's shape, Pillow pixels'
-  SHA-256 and a caption.
+  RGB: Pillow's decode of the JPEG files it writes; the JAX native
+  loader's (libjpeg-turbo 2.1) of the ones libjpeg writes and the cut
+  ones (square, read back at the file's own size, where its resize is
+  the identity); for PNG, libpng's under the native loader's transforms
+  (Pillow's too, but for 16-bit grey, which PIL clips to 255);
+- `manifest.json`: each small file's kind, which library's pixels it
+  carries (`pixels`: pillow, native_loader or libpng), how Pillow reads
+  it where that differs (`pillow`: raises, a file cut short; smoothing,
+  libjpeg-turbo 3's block smoothing within 2 levels) and, for a refused
+  one, the feature its error names; each realistic file's shape, coding,
+  the native loader's pixels' SHA-256 and a caption.
 
 The card's machine has no PIL: `chip_smoke.py` holds the port's decoders
 to these files.
@@ -31,12 +43,15 @@ to these files.
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import io
 import json
 import os
 import struct
+import subprocess
 import sys
+import tempfile
 import zlib
 
 import numpy as np
@@ -237,6 +252,76 @@ def patched(data: bytes, marker: int = None, precision: int = None) -> bytes:
     return bytes(b)
 
 
+def strip_segments(data: bytes, marker: int) -> bytes:
+    """A copy of a file without its `marker` segments (before the first
+    SOS, and between scans)."""
+    out, pos = bytearray(data[:2]), 2
+    while pos < len(data):
+        m = data[pos + 1]
+        if m == 0xD9:
+            return bytes(out + data[pos:])
+        n = struct.unpack(">H", data[pos + 2:pos + 4])[0]
+        end = pos + 2 + n
+        if m == 0xDA:              # the scan's data runs to the next marker
+            while True:
+                end = data.index(b"\xff", end)
+                if data[end + 1] not in (0x00, *range(0xD0, 0xD8)):
+                    break
+                end += 2
+        if m != marker:
+            out += data[pos:end]
+        pos = end
+    return bytes(out)
+
+
+# ---------------------------------------------------------------------------
+# libjpeg's own encoder and decoder (libjpeg_writer.c)
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache()
+def _writer() -> str:
+    """libjpeg_writer.c built against the system libjpeg, the native
+    loader's library, into a temporary directory."""
+    exe = os.path.join(tempfile.mkdtemp(), "libjpeg_writer")
+    subprocess.run(["cc", "-O2", os.path.join(HERE, "libjpeg_writer.c"),
+                    "-o", exe, "-ljpeg"], check=True)
+    return exe
+
+
+def libjpeg_jpeg(img: np.ndarray, quality: int, *options: str) -> bytes:
+    """`img` (HWC RGB, or HW grey) through libjpeg's encoder with
+    jpeg_set_quality(quality) and the writer's `options`."""
+    h, w = img.shape[:2]
+    comps = 1 if img.ndim == 2 else 3
+    with tempfile.TemporaryDirectory() as tmp:
+        raw, out = os.path.join(tmp, "in.raw"), os.path.join(tmp, "out.jpg")
+        np.ascontiguousarray(img, np.uint8).tofile(raw)
+        subprocess.run([_writer(), raw, out, str(w), str(h), str(comps),
+                        str(quality), *options], check=True)
+        with open(out, "rb") as f:
+            return f.read()
+
+
+def libjpeg_pixels(path: str) -> np.ndarray:
+    """The native loader's decode (libjpeg, JCS_RGB, its defaults) of a
+    JPEG file of any shape, as HWC uint8 RGB."""
+    with tempfile.TemporaryDirectory() as tmp:
+        raw = os.path.join(tmp, "out.raw")
+        res = subprocess.run([_writer(), "-decode", path, raw], check=True,
+                             capture_output=True, text=True)
+        w, h = (int(x) for x in res.stdout.split())
+        return np.fromfile(raw, np.uint8).reshape(h, w, 3)
+
+
+def native_pixels(path: str, size: int) -> np.ndarray:
+    """The JAX native loader's pixels of a square file, read back at its
+    own size, where the loader's resize is the identity."""
+    from aqualora_tpu.core import native_loader
+    got = native_loader.decode_batch([path], size)
+    assert got is not None, path
+    return np.round((got[0] + 1) * 127.5).astype(np.uint8)
+
+
 # ---------------------------------------------------------------------------
 # PNG, every kind libpng reads
 # ---------------------------------------------------------------------------
@@ -389,11 +474,59 @@ def jpeg_kinds():
         "ycck": ycck_jpeg(img),
     }
     refused = {
-        "arithmetic": (patched(base, marker=0xC9), "arithmetic coding"),
         "lossless": (patched(base, marker=0xC3), "lossless"),
+        "lossless_arithmetic": (patched(base, marker=0xCB), "lossless"),
+        "hierarchical": (patched(base, marker=0xC5), "hierarchical"),
         "precision12": (patched(base, precision=12), "12-bit precision"),
     }
     return kinds, refused
+
+
+# progressive scans that leave AC 1-5 one bit short in every component
+UNFINISHED = "0,1,2:0-0:0,0;0:1-5:0,1;1:1-5:0,1;2:1-5:0,1"
+
+
+def _cut(data: bytes) -> bytes:
+    return data[:len(data) * 2 // 3]
+
+
+def libjpeg_kinds():
+    """name -> (bytes, how Pillow reads the file where it differs from the
+    native loader: None, "raises" or "smoothing"), all square (40 x 40,
+    37 x 37, 64 x 64), so that the native loader at the file's size reads
+    them back exactly."""
+    img = smooth_image(40, 40, 21)
+    wide = smooth_image(64, 64, 9)     # where Pillow's smoothing differs
+
+    def pil(**kw):
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, "JPEG", **kw)
+        return buf.getvalue()
+
+    return {
+        "arithmetic": (libjpeg_jpeg(smooth_image(37, 37, 1), 85, "-arith"),
+                       None),
+        "arith420": (libjpeg_jpeg(img, 80, "-arith"), None),
+        "arith444": (libjpeg_jpeg(img, 80, "-arith", "-sample",
+                                  "1,1;1,1;1,1"), None),
+        "arith_grey": (libjpeg_jpeg(img[..., 1], 80, "-arith"), None),
+        "arith_progressive_restart": (libjpeg_jpeg(
+            img, 80, "-arith", "-progressive", "-restart", "3"), None),
+        "arith_dac": (libjpeg_jpeg(img, 80, "-arith", "-dac", "2,5,20"),
+                      None),
+        "arith_no_dac": (strip_segments(libjpeg_jpeg(
+            img, 80, "-arith", "-progressive", "-restart", "4"), 0xCC), None),
+        "unfinished": (libjpeg_jpeg(wide, 80, "-scans", UNFINISHED),
+                       "smoothing"),
+        "arith_unfinished": (libjpeg_jpeg(wide, 80, "-arith", "-scans",
+                                          UNFINISHED), "smoothing"),
+        "dc_only": (libjpeg_jpeg(img, 80, "-scans", "0,1,2:0-0:0,0"),
+                    "smoothing"),
+        "truncated_baseline": (_cut(pil(quality=85)), "raises"),
+        "truncated_progressive": (_cut(pil(quality=85, progressive=True)),
+                                  "raises"),
+        "truncated_arith": (_cut(libjpeg_jpeg(img, 80, "-arith")), "raises"),
+    }
 
 
 def png_kinds():
@@ -430,7 +563,7 @@ def png_kinds():
     }
 
 
-# (height, width, seed, progressive, subsampling, caption)
+# (height, width, seed, progressive, subsampling, caption): Pillow's
 REALISTIC = [
     (512, 512, 11, False, 2, "a sunlit valley under a clear sky"),
     (768, 1024, 12, True, 2, "a harbour at dusk with small boats"),
@@ -441,14 +574,44 @@ REALISTIC = [
     (640, 512, 17, False, 2, "a portrait of a cat by a window"),
     (768, 768, 18, True, 0, "snowy mountains at sunrise"),
 ]
+# (file, height, width, seed, coding, caption): libjpeg's 4:2:0 at q85,
+# an arithmetic progressive file and a Huffman progressive file cut after
+# its first AC scans (before the fifth SOS), each beside a baseline file
+# of the same image
+LIBJPEG_REALISTIC = [
+    ("photo8.jpg", 768, 1024, 19, "arithmetic progressive",
+     "a canal between old houses"),
+    ("photo9.jpg", 768, 1024, 19, "baseline", "a canal between old houses"),
+    ("truncated/photo10.jpg", 768, 768, 20,
+     "progressive, cut after its first AC scans", "a field of sunflowers"),
+    ("photo11.jpg", 768, 768, 20, "baseline", "a field of sunflowers"),
+]
+
+
+def _cut_before_scan(data: bytes, n: int) -> bytes:
+    """`data` up to its n-th SOS marker (counted from 1)."""
+    at = -1
+    for _ in range(n):
+        at = data.index(b"\xff\xda", at + 1)
+    return data[:at]
+
+
+def _libjpeg_realistic(h: int, w: int, seed: int, coding: str) -> bytes:
+    img = smooth_image(h, w, seed, noise=6.0)
+    if coding == "baseline":
+        return libjpeg_jpeg(img, 85)
+    if coding.startswith("arithmetic"):
+        return libjpeg_jpeg(img, 85, "-arith", "-progressive")
+    return _cut_before_scan(libjpeg_jpeg(img, 85, "-progressive"), 5)
 
 
 def main():
     from aqualora_tpu.core import native_loader
+    from aqualora_torch.train.image_decode import resize_normalize
     small = os.path.join(HERE, "small")
     real = os.path.join(HERE, "realistic")
     os.makedirs(small, exist_ok=True)
-    os.makedirs(real, exist_ok=True)
+    os.makedirs(os.path.join(real, "truncated"), exist_ok=True)
     pixels, manifest = {}, {"small": {}, "realistic": []}
     kinds, refused = jpeg_kinds()
     for name, data in kinds.items():
@@ -456,7 +619,18 @@ def main():
         with open(path, "wb") as f:
             f.write(data)
         pixels[name] = np.asarray(Image.open(path).convert("RGB"))
-        manifest["small"][name + ".jpg"] = {"kind": "jpeg", "refused": None}
+        manifest["small"][name + ".jpg"] = {"kind": "jpeg", "refused": None,
+                                            "pixels": "pillow"}
+    for name, (data, pillow) in libjpeg_kinds().items():
+        path = os.path.join(small, name + ".jpg")
+        with open(path, "wb") as f:
+            f.write(data)
+        pixels[name] = native_pixels(path, Image.open(path).size[0])
+        assert np.array_equal(pixels[name], libjpeg_pixels(path)), name
+        entry = {"kind": "jpeg", "refused": None, "pixels": "native_loader"}
+        if pillow:
+            entry["pillow"] = pillow
+        manifest["small"][name + ".jpg"] = entry
     for name, (data, feature) in refused.items():
         with open(os.path.join(small, name + ".jpg"), "wb") as f:
             f.write(data)
@@ -466,24 +640,36 @@ def main():
         path = os.path.join(small, name + ".png")
         write_png(path, samples, depth, ctype, pal, trns, inter)
         n = samples.shape[0]
-        native = native_loader.decode_batch([path], n)
-        assert native is not None, path
-        ref = np.round((native[0] + 1) * 127.5).astype(np.uint8)
+        ref = native_pixels(path, n)
         if name != "grey16":
             assert np.array_equal(
                 ref, np.asarray(Image.open(path).convert("RGB"))), name
         pixels[name] = ref
-        manifest["small"][name + ".png"] = {"kind": "png", "refused": None}
+        manifest["small"][name + ".png"] = {"kind": "png", "refused": None,
+                                            "pixels": "libpng"}
+    rows = [(f"photo{i}.jpg", h, w, "progressive" if prog else "baseline",
+             ["4:4:4", "4:2:2", "4:2:0"][sub], caption)
+            for i, (h, w, seed, prog, sub, caption) in enumerate(REALISTIC)]
     for i, (h, w, seed, prog, sub, caption) in enumerate(REALISTIC):
-        name = f"photo{i}.jpg"
-        path = os.path.join(real, name)
         Image.fromarray(smooth_image(h, w, seed, noise=6.0)).save(
-            path, "JPEG", quality=85, progressive=prog, subsampling=sub)
-        ref = np.ascontiguousarray(np.asarray(Image.open(path).convert("RGB")))
+            os.path.join(real, rows[i][0]), "JPEG", quality=85,
+            progressive=prog, subsampling=sub)
+    for name, h, w, seed, coding, caption in LIBJPEG_REALISTIC:
+        with open(os.path.join(real, name), "wb") as f:
+            f.write(_libjpeg_realistic(h, w, seed, coding))
+        rows.append((name, h, w, coding, "4:2:0", caption))
+    for name, h, w, coding, sampling, caption in rows:
+        path = os.path.join(real, name)
+        ref = np.ascontiguousarray(libjpeg_pixels(path))
+        assert ref.shape == (h, w, 3), name
+        # the native loader's own batch, against these pixels through
+        # the same float32 resize
+        assert np.array_equal(native_loader.decode_batch([path], 512)[0],
+                              resize_normalize(ref, 512)), name
         manifest["realistic"].append({
-            "file": name, "height": h, "width": w, "progressive": prog,
-            "subsampling": ["4:4:4", "4:2:2", "4:2:0"][sub],
-            "caption": caption,
+            "file": name, "height": h, "width": w, "coding": coding,
+            "progressive": coding != "baseline", "subsampling": sampling,
+            "caption": caption, "pixels": "native_loader",
             "pixels_sha256": hashlib.sha256(ref.tobytes()).hexdigest()})
     np.savez_compressed(os.path.join(HERE, "pixels.npz"), **pixels)
     with open(os.path.join(HERE, "manifest.json"), "w") as f:
